@@ -1,0 +1,51 @@
+"""Carry model state from the JAX package into the port.
+
+Both functions read the fields of a speechrecognition_tpu object as numpy
+arrays (``np.asarray`` accepts JAX arrays without this module importing
+jax) and build the port's object, so that both packages score with the same
+tables.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .models.gmm import MixtureModel, ScorePack, VarianceModel
+
+_MODEL_ARRAYS = ("means", "mean_acc", "mean_weights", "mean_weights_log",
+                 "mean_weight_acc", "mean_refs", "vars", "vars_inv", "var_acc",
+                 "var_weight_acc", "var_refs", "norm")
+
+
+def mixture_model_from_jax(m) -> MixtureModel:
+    """A port MixtureModel with the same float64 host state as the JAX
+    package's MixtureModel ``m``."""
+    model = MixtureModel.__new__(MixtureModel)
+    model.dim = int(m.dim)
+    model.num_mixtures = int(m.num_mixtures)
+    model.var_model = VarianceModel(m.var_model.value)
+    model.max_approx = bool(m.max_approx)
+    for name in _MODEL_ARRAYS:
+        setattr(model, name, np.array(getattr(m, name)))
+    model.mixtures = [[(int(mi), int(vi)) for (mi, vi) in mix]
+                      for mix in m.mixtures]
+    return model
+
+
+def _tensor(x, device, dtype=None):
+    # np.array copies: a JAX array's numpy view is read-only
+    return None if x is None else torch.as_tensor(np.array(x), dtype=dtype,
+                                                  device=device)
+
+
+def score_pack_from_jax(pack, device="cpu") -> ScorePack:
+    """A port ScorePack on ``device`` holding the JAX ScorePack's tables."""
+    dtype = getattr(torch, np.dtype(pack.dtype).name)
+    return ScorePack(P=_tensor(pack.P, device, dtype),
+                     active=_tensor(pack.active, device, torch.bool),
+                     num_mixtures=int(pack.num_mixtures),
+                     density_cap=int(pack.density_cap), dim=int(pack.dim),
+                     max_approx=bool(pack.max_approx), dtype=dtype,
+                     method=str(pack.method), mu=_tensor(pack.mu, device),
+                     a=_tensor(pack.a, device), c=_tensor(pack.c, device))

@@ -1,0 +1,122 @@
+"""Builder and loader for the hand-written CUDA kernels in ``csrc/``.
+
+At first use, every ``csrc/*.cu`` source is compiled by ``nvcc`` for Hopper
+(``sm_90a``) into one shared library with a plain C interface under
+``build/kernels/`` at the repository root, and loaded with ``ctypes``. The
+library's file name carries a hash of the sources and flags, so an edited
+source is rebuilt and a stale library is never loaded. Only the sources in
+this package are compiled; nothing is fetched or taken from another package.
+
+Every C entry point launches on the stream it is given and returns
+``cudaGetLastError()`` right after the launch; :func:`check` turns a
+non-zero code into an exception (a refused launch never runs, and a later
+synchronise would not report it).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+#: -Xptxas -v only reports each kernel's registers, shared memory and spills
+#: (kept in build_log); it does not change the code.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+#: C signatures of the entry points: (argument types, result type). The
+#: kernel entry points return an int cudaError_t.
+SIGNATURES = {
+    # x, mu, a, c, out, N, J, dim, device, stream
+    "sr_mahalanobis_scores": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
+    # am, feat_len, state_table, last_pos, word_len, tdp_within, entry_pen,
+    # exit_pen (or NULL), hyp_in, bkp_in, book_in, hyp_out, bkp_out,
+    # book_out, score, word, bkp, B, T, S, W, P, t0, am_threshold, prune,
+    # device, stream
+    "sr_decode_scan": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I,
+                        _P), _I),
+    "sr_error_string": ((_I,), ctypes.c_char_p),
+}
+
+_lock = threading.Lock()
+_lib = None
+#: seconds the last call to load() spent compiling (0.0 when cached), and
+#: what nvcc printed then
+build_seconds = 0.0
+build_log = ""
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME or put nvcc on PATH)")
+    return path
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libsr_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _build(out: Path) -> None:
+    global build_seconds, build_log
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)      # atomic: a concurrent loader never sees half a file
+    build_seconds = time.perf_counter() - t0
+    build_log = proc.stdout + proc.stderr
+
+
+def load() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library; idempotent."""
+    global _lib, build_seconds
+    with _lock:
+        if _lib is None:
+            out = library_path()
+            build_seconds = 0.0
+            if not out.exists():
+                _build(out)
+            lib = ctypes.CDLL(str(out))
+            for name, (argtypes, restype) in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = restype
+            _lib = lib
+        return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        msg = load().sr_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg}) at launch")

@@ -1,0 +1,549 @@
+"""Time-synchronous word-loop Viterbi decoder over a dense (word, position)
+lattice — counterpart of speechrecognition_tpu/search/decoder.py.
+
+The reference decoder (src/sietill/Recognizer.cpp:103-232) walks per-frame
+hypothesis arrays indexed (word, in-word position) with threshold pruning,
+word-entry expansion from the best word-end of the previous frame, and a
+per-frame traceback of the best ending word. Because pruning is
+threshold-only, a *dense masked lattice* reproduces it exactly:
+
+    hyp[b, w, s]  — best path score ending at frame t in position s of word w
+    book[t, b]    — best word-END at frame t (score, word, start frame)
+
+One time chunk of that recursion is ``decode_scan``: on CUDA tensors it
+launches the hand-written kernel ``csrc/decode_scan.cu`` (kernel B), on CPU
+tensors it runs the plain PyTorch version ``decode_scan_reference``. Both
+follow the reference's ``_decode_scan`` step for step, including its
+tie-breaking (larger jumps win within-word ties, entries win ties against
+within-word hypotheses, word ends resolve to the smallest word index) and
+its entry emission rule: an entry into position 0 or 1 is charged the
+acoustic score of the ENTERED position's state.
+
+The unpruned variant (Recognizer.cpp:234-328) differs in two ways — no
+pruning, and a word's last position may loop within the word — exposed via
+``prune``/``exclude_last_pred``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import (Configuration, Parameter, ParameterBool, ParameterFloat,
+                      ParameterInt)
+from ..lexicon import Lexicon
+from ..tdp import TdpModel
+from ..models import gmm as gmm_mod
+from ..ops import _native
+
+BIG = np.float64(1e30)
+
+#: kernel B runs one thread per (word, position) slot in one block
+MAX_SLOTS = 1024
+
+
+@dataclass
+class DecoderTables:
+    """Static lexicon/TDP tables for the dense (word, position) lattice."""
+
+    state_table: np.ndarray   # int32 [W, P] global state per slot
+    word_len: np.ndarray      # int32 [W]
+    last_pos: np.ndarray      # int32 [W]
+    first_state: np.ndarray   # int32 [W]
+    tdp_within: np.ndarray    # f64 [W, P, 3] penalty into slot s via jump j (BIG=invalid)
+    entry_pen: np.ndarray     # f64 [W, 2] word-penalty + entry TDP (BIG=invalid)
+    num_words: int
+    max_pos: int
+    #: f64 [W] penalty charged when *leaving* a word's last state (Sprint's
+    #: per-state-type exit TDP, Am/TransitionModel.hh:64-76). None for the
+    #: SieTill semantics where the word penalty is charged at entry instead.
+    exit_pen: Optional[np.ndarray] = None
+
+    @staticmethod
+    def build(lexicon: Lexicon, tdp: TdpModel, word_penalty,
+              exclude_last_pred: bool = True) -> "DecoderTables":
+        """word_penalty: scalar (silence exempt, reference semantics) or a
+        per-word array [W] (e.g. Sprint exit penalties per state type)."""
+        W, P = lexicon.num_words, lexicon.max_positions
+        state_table = lexicon.state_table()
+        word_len = lexicon.word_lengths()
+        last_pos = word_len - 1
+        first_state = state_table[:, 0].copy()
+
+        tdp_target = tdp.table_for_states(state_table)  # [W, P, 3]
+        tdp_within = np.full((W, P, 3), float(BIG))
+        s = np.arange(P)[None, :]
+        for j in range(3):
+            p = s - j
+            valid = (p >= 0) & (s < word_len[:, None])
+            if exclude_last_pred:
+                valid &= (p != last_pos[:, None])
+            tdp_within[:, :, j] = np.where(valid, tdp_target[:, :, j], float(BIG))
+
+        if np.isscalar(word_penalty):
+            wp_vec = np.where(np.arange(W) == lexicon.silence_idx,
+                              0.0, float(word_penalty))
+        else:
+            wp_vec = np.asarray(word_penalty, dtype=np.float64)
+        entry_pen = np.full((W, 2), float(BIG))
+        for w in range(W):
+            for init_state in range(2):
+                if init_state < word_len[w]:
+                    entry_pen[w, init_state] = wp_vec[w] + tdp.score(
+                        int(first_state[w]), init_state + 1)
+        return DecoderTables(state_table=state_table, word_len=word_len,
+                             last_pos=last_pos, first_state=first_state,
+                             tdp_within=tdp_within, entry_pen=entry_pen,
+                             num_words=W, max_pos=P)
+
+
+Carry = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _init_carry(B: int, W: int, P: int, dtype: torch.dtype, device) -> Carry:
+    return (torch.full((B, W, P), float(BIG), dtype=dtype, device=device),
+            torch.zeros((B, W, P), dtype=torch.int32, device=device),
+            torch.zeros((B,), dtype=dtype, device=device))
+
+
+def decode_scan_reference(am: torch.Tensor, feat_len: torch.Tensor,
+                          state_table: torch.Tensor, last_pos: torch.Tensor,
+                          word_len: torch.Tensor, first_state: torch.Tensor,
+                          tdp_within: torch.Tensor, entry_pen: torch.Tensor,
+                          am_threshold, prune: bool = True,
+                          carry_in: Optional[Carry] = None, t0: int = 0,
+                          exit_pen: Optional[torch.Tensor] = None,
+                          ) -> Tuple[Carry, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """Plain PyTorch version of ``decode_scan``, one frame per loop step
+    (any float dtype, any device). Same contract as ``decode_scan``."""
+    B, T, S = am.shape
+    dtype, device = am.dtype, am.device
+    W, P = state_table.shape
+    big = torch.tensor(float(BIG), dtype=dtype, device=device)
+    half_big = big * 0.5
+
+    st = state_table.to(device=device, dtype=torch.long)
+    lp = last_pos.to(device=device, dtype=torch.long)
+    tdpw = tdp_within.to(device=device, dtype=dtype)       # [W, P, 3]
+    entp = entry_pen.to(device=device, dtype=dtype)        # [W, 2]
+    xpen = None if exit_pen is None else exit_pen.to(device=device, dtype=dtype)
+    thr = torch.tensor(float(am_threshold), dtype=dtype, device=device)
+    lens = feat_len.to(device)
+    slot_valid = (torch.arange(P, device=device)[None, :]
+                  < word_len.to(device)[:, None])          # [W, P]
+    words_idx = torch.arange(W, device=device)
+
+    hyp, bkp, book = (carry_in if carry_in is not None
+                      else _init_carry(B, W, P, dtype, device))
+    big_col = big.expand(B, W, 1)
+    big_tail = big.expand(B, W, P - 2)
+    zero_bkp = torch.zeros((B, W, 2), dtype=torch.int32, device=device)
+
+    scores, words, bkps = [], [], []
+    for i in range(T):
+        t = t0 + i + 1                                     # 1-based frame
+        ams = am[:, i][:, st]                              # [B, W, P]
+        # within-word 0-1-2 recursion (shift along the position axis)
+        c0 = hyp + tdpw[None, :, :, 0]
+        c1 = torch.cat([big_col, hyp[:, :, :-1] + tdpw[None, :, 1:, 1]], dim=2)
+        c2 = torch.cat([big_col, big_col, hyp[:, :, :-2] + tdpw[None, :, 2:, 2]], dim=2)
+        b0 = torch.cat([zero_bkp[:, :, :1], bkp[:, :, :-1]], dim=2)
+        b00 = torch.cat([zero_bkp, bkp[:, :, :-2]], dim=2)
+        # larger jumps win ties (first writer in ascending predecessor scan)
+        within, wbkp = c2, b00
+        for c, b in ((c1, b0), (c0, bkp)):
+            take = c < within
+            within = torch.where(take, c, within)
+            wbkp = torch.where(take, b, wbkp)
+        within = within + ams
+
+        # word entry into positions {0, 1}, charged the entered state's score
+        entry = (book[:, None, None] + entp[None, :, :]) + ams[:, :, :2]
+        entry = torch.cat([entry, big_tail], dim=2)
+
+        take_entry = entry <= within                       # entries win ties
+        new = torch.where(take_entry, entry, within)
+        new_bkp = torch.where(take_entry, torch.tensor(t - 1, dtype=torch.int32,
+                                                       device=device), wbkp)
+        new = torch.where(slot_valid[None, :, :], new, big)
+        new = torch.minimum(new, big)
+
+        # renormalize by the per-frame best (a shared offset: decisions are
+        # invariant, and the f32 carry stays O(threshold))
+        best = new.amin(dim=(1, 2), keepdim=True)
+        best = torch.where(best >= half_big, torch.zeros_like(best), best)
+        new = torch.where(new >= half_big, big, new - best)
+        if prune:
+            new = torch.where(new > thr, big, new)
+
+        # traceback: best word end, the smallest word index winning ties
+        end_scores = new[:, words_idx, lp]                 # [B, W]
+        if xpen is not None:
+            end_scores = end_scores + xpen[None, :]
+        end_bkp = new_bkp[:, words_idx, lp]
+        is_min = end_scores == end_scores.amin(dim=1, keepdim=True)
+        book_word = torch.where(is_min, words_idx, W).amin(dim=1)
+        book_score = end_scores.gather(1, book_word[:, None])[:, 0]
+        book_bkp = end_bkp.gather(1, book_word[:, None])[:, 0]
+        book_score = torch.where(book_score >= half_big, big, book_score)
+
+        # freeze utterances that already ended
+        alive = t <= lens                                  # [B]
+        hyp = torch.where(alive[:, None, None], new, hyp)
+        bkp = torch.where(alive[:, None, None], new_bkp, bkp)
+        book = torch.where(alive, book_score, book)
+        scores.append(book_score)
+        words.append(book_word.to(torch.int32))
+        bkps.append(book_bkp)
+    return (hyp, bkp, book), (torch.stack(scores), torch.stack(words),
+                              torch.stack(bkps))
+
+
+def decode_scan(am: torch.Tensor, feat_len: torch.Tensor,
+                state_table: torch.Tensor, last_pos: torch.Tensor,
+                word_len: torch.Tensor, first_state: torch.Tensor,
+                tdp_within: torch.Tensor, entry_pen: torch.Tensor,
+                am_threshold, prune: bool = True,
+                carry_in: Optional[Carry] = None, t0: int = 0,
+                exit_pen: Optional[torch.Tensor] = None,
+                ) -> Tuple[Carry, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """One time chunk of the word-loop Viterbi.
+
+    am [B, T, S]; feat_len int32 [B]; tables as in DecoderTables (as
+    tensors). Returns (carry_out, (score [T, B], word [T, B], bkp [T, B]))
+    covering frames t0+1..t0+T (output index i ↔ frame t0+i+1); the carry
+    (hyp [B, W, P], bkp int32 [B, W, P], book [B]) streams long utterances
+    through fixed-length chunks.
+
+    CPU tensors take the plain version; CUDA tensors launch kernel B
+    (float32 only; counted in ``decode_scan.LAUNCHES``)."""
+    if am.device.type == "cpu":
+        return decode_scan_reference(am, feat_len, state_table, last_pos,
+                                     word_len, first_state, tdp_within,
+                                     entry_pen, am_threshold, prune=prune,
+                                     carry_in=carry_in, t0=t0, exit_pen=exit_pen)
+    if am.device.type != "cuda":
+        raise ValueError(f"decode_scan: unsupported device {am.device}")
+    if am.dtype != torch.float32:
+        raise TypeError(f"decode_scan: the CUDA kernel runs float32 only, got {am.dtype}")
+    if am.dim() != 3 or not am.is_contiguous():
+        raise ValueError("decode_scan: am must be a contiguous [B, T, S] tensor")
+    B, T, S = am.shape
+    W, P = state_table.shape
+    if W * P > MAX_SLOTS:
+        raise ValueError(f"decode_scan: {W}x{P} lattice slots exceed {MAX_SLOTS} "
+                         f"threads of one block")
+    device = am.device
+    tables = {"feat_len": feat_len, "state_table": state_table,
+              "last_pos": last_pos, "word_len": word_len,
+              "tdp_within": tdp_within, "entry_pen": entry_pen}
+    if exit_pen is not None:
+        tables["exit_pen"] = exit_pen
+    for name, t in tables.items():
+        if t.device != device:
+            raise ValueError(f"decode_scan: {name} on {t.device}, am on {device}")
+    # the kernel indexes am and its shared word-end table with these
+    if bool((state_table.min() < 0) | (state_table.max() >= S)
+            | (last_pos.min() < 0) | (last_pos.max() >= P)):
+        raise ValueError(f"decode_scan: state_table outside [0, {S}) or "
+                         f"last_pos outside [0, {P})")
+    # the tables in the kernel's types (the reference casts them the same way)
+    i32 = {k: tables[k].to(torch.int32).contiguous()
+           for k in ("feat_len", "state_table", "last_pos", "word_len")}
+    tdpw = tdp_within.to(torch.float32).contiguous()
+    entp = entry_pen.to(torch.float32).contiguous()
+    xpen = None if exit_pen is None else exit_pen.to(torch.float32).contiguous()
+    for name, t, shape in (("feat_len", i32["feat_len"], (B,)),
+                           ("last_pos", i32["last_pos"], (W,)),
+                           ("word_len", i32["word_len"], (W,)),
+                           ("tdp_within", tdpw, (W, P, 3)),
+                           ("entry_pen", entp, (W, 2))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"decode_scan: {name} has shape {tuple(t.shape)}, expected {shape}")
+    if xpen is not None and tuple(xpen.shape) != (W,):
+        raise ValueError(f"decode_scan: exit_pen has shape {tuple(xpen.shape)}, expected {(W,)}")
+
+    hyp, bkp, book = (carry_in if carry_in is not None
+                      else _init_carry(B, W, P, torch.float32, device))
+    for name, t, shape, dt in (("hyp", hyp, (B, W, P), torch.float32),
+                               ("bkp", bkp, (B, W, P), torch.int32),
+                               ("book", book, (B,), torch.float32)):
+        if t.device != device or t.dtype != dt or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(f"decode_scan: carry {name} must be a contiguous "
+                             f"{dt} {shape} tensor on {device}")
+
+    hyp_out = torch.empty_like(hyp)
+    bkp_out = torch.empty_like(bkp)
+    book_out = torch.empty_like(book)
+    score = torch.empty((T, B), dtype=torch.float32, device=device)
+    word = torch.empty((T, B), dtype=torch.int32, device=device)
+    wbkp = torch.empty((T, B), dtype=torch.int32, device=device)
+    thr = float(torch.tensor(float(am_threshold), dtype=torch.float32))
+    lib = _native.load()
+    err = lib.sr_decode_scan(
+        am.data_ptr(), i32["feat_len"].data_ptr(), i32["state_table"].data_ptr(),
+        i32["last_pos"].data_ptr(), i32["word_len"].data_ptr(), tdpw.data_ptr(),
+        entp.data_ptr(), None if xpen is None else xpen.data_ptr(),
+        hyp.data_ptr(), bkp.data_ptr(), book.data_ptr(), hyp_out.data_ptr(),
+        bkp_out.data_ptr(), book_out.data_ptr(), score.data_ptr(),
+        word.data_ptr(), wbkp.data_ptr(), B, T, S, W, P, int(t0), thr,
+        int(bool(prune)), device.index,
+        torch.cuda.current_stream(device).cuda_stream)
+    _native.check(err, "decode_scan")
+    decode_scan.LAUNCHES += 1
+    return (hyp_out, bkp_out, book_out), (score, word, wbkp)
+
+
+decode_scan.LAUNCHES = 0
+
+#: time-chunk length: one (B, CHUNK) scan shape serves utterances of any
+#: length by streaming chunks through the carried lattice state
+DECODE_CHUNK = 320
+
+
+def _traceback_host(words_np: np.ndarray, bkps_np: np.ndarray,
+                    feat_len: np.ndarray, silence_idx: int,
+                    ) -> List[List[int]]:
+    """Host-side traceback over [T, B] (word, bkp) tables, skipping
+    silence in the output (Recognizer.cpp:222-231)."""
+    out: List[List[int]] = []
+    for b in range(words_np.shape[1]):
+        t = int(feat_len[b])
+        seq: List[int] = []
+        while t > 0:
+            w = int(words_np[t - 1, b])
+            if w != silence_idx:
+                seq.append(w)
+            t = int(bkps_np[t - 1, b])
+        seq.reverse()
+        out.append(seq)
+    return out
+
+
+def decode_batch(pack: gmm_mod.ScorePack, feats, feat_len: np.ndarray,
+                 tables: DecoderTables, am_threshold: float, silence_idx: int,
+                 prune: bool = True, dtype: torch.dtype = torch.float32,
+                 am: Optional[torch.Tensor] = None,
+                 chunk: int = DECODE_CHUNK) -> List[List[int]]:
+    """Decode a padded batch → word sequences (silence removed).
+
+    feats f32 [B, T, dim] (numpy, or a tensor on the pack's device);
+    feat_len int [B]. ``am`` may be passed to reuse precomputed [B, T, S]
+    acoustic scores. Everything runs on the pack's device; acoustic scoring
+    and the scan go chunk by chunk, and the traceback tables come to the
+    host once, at the end."""
+    device = pack.device
+    B, T, dim = feats.shape
+    n_chunks = -(-T // chunk)
+    Tp = n_chunks * chunk
+    if am is not None:
+        am = am.to(device=device, dtype=dtype)
+        if T < Tp:
+            am = torch.nn.functional.pad(am, (0, 0, 0, Tp - T))
+    else:
+        feats = torch.as_tensor(feats, dtype=torch.float32, device=device)
+        if T < Tp:
+            feats = torch.nn.functional.pad(feats, (0, 0, 0, Tp - T))
+
+    lens = torch.as_tensor(np.asarray(feat_len), dtype=torch.int32, device=device)
+    args = tuple(torch.as_tensor(a, device=device) for a in (
+        tables.state_table, tables.last_pos, tables.word_len,
+        tables.first_state, tables.tdp_within, tables.entry_pen))
+    exit_pen = (None if tables.exit_pen is None
+                else torch.as_tensor(tables.exit_pen, device=device))
+    W, P = tables.state_table.shape
+    carry = _init_carry(B, W, P, dtype, device)
+    words, bkps = [], []
+    for ci in range(n_chunks):
+        if am is not None:
+            am_c = am[:, ci * chunk:(ci + 1) * chunk].contiguous()
+        else:
+            fl = feats[:, ci * chunk:(ci + 1) * chunk].reshape(B * chunk, dim)
+            am_c = gmm_mod.am_scores(pack, fl).reshape(
+                B, chunk, pack.num_mixtures).to(dtype)
+        carry, (_s, w, b) = decode_scan(
+            am_c, lens, *args, am_threshold, prune=prune,
+            carry_in=carry, t0=ci * chunk, exit_pen=exit_pen)
+        words.append(w)
+        bkps.append(b)
+    words_np = torch.cat(words).cpu().numpy()
+    bkps_np = torch.cat(bkps).cpu().numpy()
+    return _traceback_host(words_np, bkps_np, np.asarray(feat_len), silence_idx)
+
+
+class DeviceCorpus:
+    """Device-resident corpus features: the flat [total_frames, dim] array
+    and the segment offsets go to the device once; each batch is then one
+    gather on the device (zero-padded tails, as Corpus.padded_batch)."""
+
+    def __init__(self, corpus, device):
+        self.flat = torch.as_tensor(corpus.features, device=device)
+        self.offsets = torch.as_tensor(
+            np.asarray(corpus.feature_offsets), dtype=torch.long, device=device)
+
+    def batch(self, seg_ids, T: int) -> torch.Tensor:
+        ids = torch.as_tensor(np.asarray(seg_ids), dtype=torch.long,
+                              device=self.flat.device)
+        o = self.offsets[ids]
+        l = self.offsets[ids + 1] - o
+        pos = torch.arange(T, device=self.flat.device)[None, :]
+        idx = o[:, None] + torch.minimum(pos, (l - 1)[:, None])
+        feats = self.flat[idx]
+        return torch.where((pos < l[:, None])[:, :, None], feats,
+                           torch.zeros((), dtype=feats.dtype, device=feats.device))
+
+
+class Recognizer:
+    """Corpus-level recognition driver with WER/SER/RTF reporting
+    (reference: Recognizer.cpp:38-92). Runs on the pack's device."""
+
+    def __init__(self, config: Configuration, lexicon: Lexicon,
+                 tdp: TdpModel, pack: gmm_mod.ScorePack,
+                 dtype: torch.dtype = torch.float32):
+        if dtype == "df32":
+            raise NotImplementedError(
+                "df32 decoding is not ported yet (ROADMAP Queue 1: the df32 slice)")
+        self.lexicon = lexicon
+        self.pack = pack
+        self.dtype = dtype
+        self.am_threshold = ParameterFloat("am-threshold", 20.0)(config)
+        self.word_penalty = ParameterFloat("word-penalty", 10.0)(config)
+        self.pruned_search = ParameterBool("pruned-search", True)(config)
+        self.max_runs = ParameterInt("max-recognition-runs", 1000)(config)
+        self.search_type = Parameter("search-type", "word-loop", str)(config)
+        if self.search_type == "tree":
+            raise NotImplementedError(
+                "search-type=tree is not ported yet (ROADMAP Queue 1: LVCSR tier)")
+        self.tables = DecoderTables.build(
+            lexicon, tdp, self.word_penalty,
+            exclude_last_pred=self.pruned_search)
+        #: hybrid MLP scorer slot, as in the reference; not ported yet
+        self.nn_scorer = None
+        self._device_corpus = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.pack.device
+
+    def _decode(self, feats, lens: np.ndarray) -> List[List[int]]:
+        if self.nn_scorer is not None:
+            raise NotImplementedError(
+                "the NN hybrid scorer is not ported yet (ROADMAP Queue 1: NN hybrid)")
+        return decode_batch(self.pack, feats, lens, self.tables,
+                            self.am_threshold, self.lexicon.silence_idx,
+                            prune=self.pruned_search, dtype=self.dtype)
+
+    #: padding buckets (multiples of DECODE_CHUNK) — instances may override
+    buckets = (320, 640, 960, 1280, 1600)
+
+    def _bucket(self, length: int) -> int:
+        """Pad sequence lengths to a small fixed set of batch shapes."""
+        for b in self.buckets:
+            if length <= b:
+                return b
+        return -(-length // self.buckets[-1]) * self.buckets[-1]
+
+    def warmup(self, corpus, batch_size: int = 512) -> None:
+        """Build the kernels (on a CUDA pack) and decode one dummy batch."""
+        if self.device.type == "cuda":
+            _native.load()
+        T = self.buckets[0]
+        feats = np.zeros((batch_size, T, self.pack.dim), np.float32)
+        lens = np.full(batch_size, T, np.int32)
+        self._decode(feats, lens)
+
+    def recognize_corpus(self, corpus, batch_size: int = 128,
+                         max_segments: Optional[int] = None,
+                         deadline_s: Optional[float] = None,
+                         log=None) -> dict:
+        """Decode the corpus (longest-first batches) and score WER/SER/RTF.
+
+        ``deadline_s``: optional wall-clock budget for the decode loop — if
+        the projected time of the next batch would cross it, stop and score
+        the utterances decoded so far (the result carries ``coverage`` <
+        1.0). RTF is throughput-defined (decode seconds / decoded audio
+        seconds), so partial coverage measures the same quantity."""
+        from .edit_distance import EDAccumulator, edit_distance
+        import time
+
+        n = min(corpus.num_segments, max_segments or self.max_runs)
+        acc = EDAccumulator()
+        ref_total = 0
+        sentence_errors = 0
+        hyps: dict = {}
+        device_corpus = self._device_corpus
+        if device_corpus is None or device_corpus.flat.shape[0] != \
+                corpus.features.shape[0]:
+            device_corpus = DeviceCorpus(corpus, self.device)
+            self._device_corpus = device_corpus
+        t0 = time.perf_counter()
+        order = np.argsort(corpus.lengths[:n], kind="stable")
+        last_batch = 0.0
+        batch_stats: list = []  # (seconds, audio seconds) per decoded batch
+        # batches stay length-sorted internally (tight padding), but are
+        # visited in golden-ratio-strided order so a deadline-truncated
+        # prefix samples all utterance lengths ~uniformly
+        starts = list(range(0, n, batch_size))
+        starts.sort(key=lambda s: ((s // batch_size) * 0.6180339887498949) % 1.0)
+        for i in starts:
+            if deadline_s is not None:
+                elapsed = time.perf_counter() - t0
+                if elapsed + 1.2 * last_batch > deadline_s and hyps:
+                    if log:
+                        log(f"deadline: stopping after {len(hyps)}/{n} "
+                            f"utterances ({elapsed:.1f}s elapsed)")
+                    break
+            tb = time.perf_counter()
+            ids = order[i: i + batch_size].tolist()
+            n_real = len(ids)
+            while len(ids) < batch_size:     # keep shapes static across batches
+                ids.append(ids[-1])
+            T = self._bucket(max(corpus.seq_length(s) for s in ids))
+            feats = device_corpus.batch(ids, T)
+            lens = np.asarray([corpus.seq_length(s) for s in ids], np.int32)
+            # padded duplicate slots are masked out (feat_len 0 freezes
+            # their lattice immediately)
+            lens[n_real:] = 0
+            results = self._decode(feats, lens)
+            for b, s in enumerate(ids[:n_real]):
+                hyps[s] = results[b]
+            last_batch = time.perf_counter() - tb
+            batch_stats.append(
+                (last_batch,
+                 float(corpus.lengths[ids[:n_real]].sum())
+                 * corpus.frame_duration))
+        elapsed = time.perf_counter() - t0
+
+        decoded = sorted(hyps)
+        for s in decoded:
+            ed = edit_distance(corpus.orths[s], hyps[s])
+            acc += ed
+            ref_total += len(corpus.orths[s])
+            if ed.total_count > 0:
+                sentence_errors += 1
+
+        audio_seconds = float(
+            corpus.lengths[decoded].sum()) * corpus.frame_duration
+        # steady-state RTF: the median per-batch rate filters batches hit
+        # by transient host stalls
+        rates = sorted(a / t for t, a in batch_stats if t > 0 and a > 0)
+        rtf_steady = (1.0 / rates[len(rates) // 2] if rates
+                      else elapsed / max(audio_seconds, 1e-9))
+        return {
+            "coverage": len(decoded) / n,
+            "num_decoded": len(decoded),
+            "wer": 100.0 * acc.total_count / ref_total,
+            "ser": 100.0 * sentence_errors / len(decoded),
+            "substitutions": acc.substitute_count,
+            "insertions": acc.insert_count,
+            "deletions": acc.delete_count,
+            "time": elapsed,
+            "rtf": elapsed / audio_seconds,
+            "rtf_steady": rtf_steady,
+            "audio_seconds": audio_seconds,
+            "hyps": hyps,
+        }

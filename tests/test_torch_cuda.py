@@ -1,0 +1,175 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: each test skips when no CUDA device is present. This file
+imports no jax, so it also runs where the JAX package is not installed:
+
+    python -m pytest tests/test_torch_cuda.py -q --noconftest
+
+(--noconftest because tests/conftest.py configures jax). Criteria as in
+chip_smoke.py: kernel A within 1e-6 relative of its plain version over
+active slots (FMA contraction and operation order); kernel B bit-equal.
+"""
+
+import json
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from speechrecognition_torch.config import Configuration
+from speechrecognition_torch.corpus import Corpus, CorpusDescription
+from speechrecognition_torch.features.frontend import SignalAnalysisConfig
+from speechrecognition_torch.io import read_mixture_set
+from speechrecognition_torch.lexicon import Lexicon, build_sietill_lexicon
+from speechrecognition_torch.models import gmm
+from speechrecognition_torch.ops import mahalanobis as maha
+from speechrecognition_torch.search import decoder as dec
+from speechrecognition_torch.tdp import TdpModel
+
+pytestmark = pytest.mark.cuda
+
+FIX = Path(__file__).resolve().parent / "fixtures"
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def rel_err(got, ref):
+    got, ref = got.double(), ref.double()
+    return ((got - ref).abs() / (1.0 + ref.abs())).max().item()
+
+
+@pytest.mark.parametrize("n,j,dim", [(777, 300, 25), (64, 64, 25), (1, 1, 13), (4100, 130, 64)])
+def test_kernel_a_matches_plain(dev, n, j, dim):
+    rng = np.random.default_rng(n + j + dim)
+    x = torch.as_tensor(rng.normal(size=(n, dim)).astype(np.float32), device=dev)
+    mu = torch.as_tensor(rng.normal(size=(j, dim)).astype(np.float32), device=dev)
+    a = torch.as_tensor(rng.uniform(0.1, 2.0, size=(j, dim)).astype(np.float32), device=dev)
+    c = torch.as_tensor(rng.uniform(10.0, 40.0, size=j).astype(np.float32), device=dev)
+    before = maha.mahalanobis_scores.LAUNCHES
+    got = maha.mahalanobis_scores(x, mu, a, c)
+    torch.cuda.synchronize()
+    assert maha.mahalanobis_scores.LAUNCHES == before + 1
+    assert got.shape == (n, j) and got.dtype == torch.float32
+    assert rel_err(got, maha.mahalanobis_scores_reference(x, mu, a, c)) <= 1e-6
+
+
+def test_kernel_a_demo_model(dev):
+    model = gmm.MixtureModel.from_raw(read_mixture_set(str(FIX / "iter-2.mix"), 25),
+                                      gmm.VarianceModel.MIXTURE_POOLING, max_approx=True)
+    pack = model.pack(method="pallas", device=dev)
+    active = pack.active.reshape(-1)
+    x = torch.as_tensor(np.random.default_rng(0).normal(size=(1000, 25)).astype(np.float32),
+                        device=dev)
+    got = maha.mahalanobis_scores(x, pack.mu, pack.a, pack.c)
+    ref = maha.mahalanobis_scores_reference(x, pack.mu, pack.a, pack.c)
+    assert rel_err(got[:, active], ref[:, active]) <= 1e-6
+    assert torch.equal(got[:, ~active], ref[:, ~active])
+
+
+def test_kernel_a_checks_inputs(dev):
+    x = torch.zeros((8, 25), device=dev)
+    mu = torch.zeros((4, 25), device=dev)
+    c = torch.zeros(4, device=dev)
+    with pytest.raises(TypeError):
+        maha.mahalanobis_scores(x.double(), mu, mu, c)
+    with pytest.raises(ValueError, match="contiguous"):
+        maha.mahalanobis_scores(torch.zeros((25, 8), device=dev).t(), mu, mu, c)
+    with pytest.raises(ValueError, match="on"):
+        maha.mahalanobis_scores(x, mu.cpu(), mu, c)
+
+
+def sietill_tables(prune=True, flat=False):
+    """SieTill tables; ``flat`` zeroes every TDP and the word penalty, so
+    that integer acoustic scores tie across words and jumps."""
+    lex = build_sietill_lexicon()
+    pen = (0.0, 0.0, 0.0, 0.0) if flat else (3.0, 0.0, 30.0, 80.0)
+    tdp = TdpModel(silence_state=lex.silence_state, loop=pen[0], forward=pen[1], skip=pen[2])
+    return (dec.DecoderTables.build(lex, tdp, pen[3], exclude_last_pred=prune),
+            lex.num_states)
+
+
+def repetition1_tables():
+    rng = np.random.default_rng(11)
+    lex = Lexicon()
+    lex.add_word("[silence]", 1, 1, silence=True)
+    for w in range(7):
+        lex.add_word(f"w{w}", int(rng.integers(2, 13)), 1)
+    tdp = TdpModel(silence_state=lex.silence_state, loop=2.0, forward=0.5, skip=9.0)
+    return dec.DecoderTables.build(lex, tdp, 15.0), lex.num_states
+
+
+def scan_both(dev, tables, am, lens, thr, prune, chunks, exit_pen=None):
+    targs = tuple(torch.as_tensor(a, device=dev) for a in (
+        tables.state_table, tables.last_pos, tables.word_len, tables.first_state,
+        tables.tdp_within, tables.entry_pen))
+    xp = None if exit_pen is None else torch.as_tensor(exit_pen, device=dev)
+    lens = torch.as_tensor(lens, device=dev)
+    results = []
+    for fn in (dec.decode_scan, dec.decode_scan_reference):
+        carry, outs, t0 = None, [], 0
+        for n in chunks:
+            am_c = torch.as_tensor(am[:, t0:t0 + n], dtype=torch.float32, device=dev)
+            carry, out = fn(am_c.contiguous(), lens, *targs, thr, prune=prune,
+                            carry_in=carry, t0=t0, exit_pen=xp)
+            outs.append(out)
+            t0 += n
+        results.append(list(carry) + [torch.cat([o[k] for o in outs]) for k in range(3)])
+    torch.cuda.synchronize()
+    return results
+
+
+@pytest.mark.parametrize("case", ["pruned", "unpruned", "two-chunks", "exit-pen",
+                                  "ties", "repetition-1"])
+def test_kernel_b_bit_equal(dev, case):
+    B, T = 5, 60
+    lens = np.array([60, 41, 13, 0, 59], np.int32)
+    tables, S = (repetition1_tables() if case == "repetition-1"
+                 else sietill_tables(prune=case != "unpruned", flat=case == "ties"))
+    rng = np.random.default_rng(len(case))
+    am = (rng.integers(0, 3, size=(B, T, S)).astype(np.float64) if case == "ties"
+          else rng.uniform(0.0, 40.0, size=(B, T, S)))
+    exit_pen = (rng.uniform(0.0, 20.0, size=tables.num_words)
+                if case == "exit-pen" else None)
+    chunks = (25, 35) if case == "two-chunks" else (T,)
+    thr = 4.0 if case == "ties" else 60.0
+    before = dec.decode_scan.LAUNCHES
+    kern, plain = scan_both(dev, tables, am, lens, thr, case != "unpruned", chunks, exit_pen)
+    assert dec.decode_scan.LAUNCHES == before + len(chunks)
+    for name, k, p in zip(("hyp", "bkp", "book", "score", "word", "bkp_t"), kern, plain):
+        assert k.dtype == p.dtype and torch.equal(k, p), name
+
+
+def test_kernel_b_refuses_float64(dev):
+    tables, S = sietill_tables()
+    targs = tuple(torch.as_tensor(a, device=dev) for a in (
+        tables.state_table, tables.last_pos, tables.word_len, tables.first_state,
+        tables.tdp_within, tables.entry_pen))
+    with pytest.raises(TypeError, match="float32"):
+        dec.decode_scan(torch.zeros((2, 4, S), dtype=torch.float64, device=dev),
+                        torch.ones(2, dtype=torch.int32, device=dev), *targs, 60.0)
+
+
+def test_recognizer_golden_on_card(dev):
+    lex = build_sietill_lexicon()
+    desc = CorpusDescription.read(str(FIX / "demo_corpus.json"), lex)
+    corpus = Corpus.read(desc, str(FIX / "demo_features") + "/", SignalAnalysisConfig(),
+                         normalization_path=str(FIX / "normalization-demo.bin"))
+    model = gmm.MixtureModel.from_raw(read_mixture_set(str(FIX / "iter-2.mix"), 25),
+                                      gmm.VarianceModel.MIXTURE_POOLING, max_approx=True)
+    tdp = TdpModel(silence_state=lex.silence_state, loop=3.0, forward=0.0, skip=30.0)
+    config = Configuration({"am-threshold": 200.0, "word-penalty": 80.0,
+                            "pruned-search": True, "max-recognition-runs": 10000})
+    rec = dec.Recognizer(config, lex, tdp, model.pack(method="pallas", device=dev))
+    a0, b0 = maha.mahalanobis_scores.LAUNCHES, dec.decode_scan.LAUNCHES
+    res = rec.recognize_corpus(corpus, batch_size=35)
+    assert maha.mahalanobis_scores.LAUNCHES > a0 and dec.decode_scan.LAUNCHES > b0
+    with open(FIX / "demo_recognition.json") as f:
+        golden = json.load(f)
+    assert all(res["hyps"][u["idx"]] == u["hyp"] for u in golden["utts"])
+    assert [res["substitutions"], res["insertions"], res["deletions"]] == golden["corpus"]["sid"]
