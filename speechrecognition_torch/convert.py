@@ -1,6 +1,6 @@
 """Carry model state from the JAX package into the port.
 
-Both functions read the fields of a speechrecognition_tpu object as numpy
+Each function reads the fields of a speechrecognition_tpu object as numpy
 arrays (``np.asarray`` accepts JAX arrays without this module importing
 jax) and build the port's object, so that both packages score with the same
 tables.
@@ -11,7 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .models.gmm import MixtureModel, ScorePack, VarianceModel
+from .models.gmm import MixtureModel, ScorePack, ScorePackDF, VarianceModel
+from .ops import doublefloat as dfm
 
 _MODEL_ARRAYS = ("means", "mean_acc", "mean_weights", "mean_weights_log",
                  "mean_weight_acc", "mean_refs", "vars", "vars_inv", "var_acc",
@@ -49,3 +50,17 @@ def score_pack_from_jax(pack, device="cpu") -> ScorePack:
                      max_approx=bool(pack.max_approx), dtype=dtype,
                      method=str(pack.method), mu=_tensor(pack.mu, device),
                      a=_tensor(pack.a, device), c=_tensor(pack.c, device))
+
+
+def score_pack_df_from_jax(packdf, device="cpu") -> ScorePackDF:
+    """A port ScorePackDF on ``device`` holding the hi and lo words of the
+    JAX ScorePackDF's tables."""
+    def pair(x):
+        return dfm.DF(_tensor(x.hi, device, torch.float32), _tensor(x.lo, device, torch.float32))
+
+    return ScorePackDF(mu=pair(packdf.mu), iv=pair(packdf.iv), norm=pair(packdf.norm),
+                       logw=pair(packdf.logw),
+                       active=_tensor(packdf.active, device, torch.bool),
+                       num_mixtures=int(packdf.num_mixtures),
+                       density_cap=int(packdf.density_cap), dim=int(packdf.dim),
+                       max_approx=bool(packdf.max_approx))

@@ -12,6 +12,11 @@ The names follow the reference package: "mxu" is the quadratic expansion as
 a plain matrix product, "pallas" the centered form that
 ops/mahalanobis.py computes with a hand-written CUDA kernel.
 
+The production decode scores in double-float instead (``pack_df`` →
+``am_scores_df``): the centered sum in (hi, lo) float32 pairs, in the
+reference's operation order, which kernel C (``csrc/am_scores_df.cu``)
+computes on the card.
+
 Score semantics match Mixtures.cpp:590-744: score = norm + ½·Mahalanobis
 − log w; mixture score is the min over densities clipped at 1e10
 (max-approx, ::696-713) or −log Σ exp(−score) (sum, ::719-728).
@@ -28,6 +33,8 @@ import numpy as np
 import torch
 
 from ..io import RawMixtureSet
+from ..ops import _native
+from ..ops import doublefloat as dfm
 
 MIN_SCORE_INIT = 1e10      # Mixtures.cpp:699
 INACTIVE_SCORE = 5e17      # sentinel for padded density slots (f32-safe, < inf)
@@ -79,6 +86,32 @@ class ScorePack:
         """[N, dim] → [N, 2·dim+1] = [x², x, 1]."""
         ones = torch.ones((*x.shape[:-1], 1), dtype=x.dtype, device=x.device)
         return torch.cat([x * x, x, ones], dim=-1)
+
+
+@dataclass
+class ScorePackDF:
+    """Double-float (two-f32) scoring tables: exact float32-pair splits of
+    the host float64 tables, the stand-in for the reference's float64
+    accumulation (Mixtures.cpp:590-628) with float32 arithmetic only.
+
+    Fields are DF pairs (ops/doublefloat.py); ``mu``/``iv`` are the raw
+    means and inverse variances (not pre-halved: the reference multiplies by
+    vars_inv_ and halves the final sum, density_score_sse Mixtures.cpp:645-690
+    — the same operation order is kept)."""
+
+    mu: dfm.DF                # [S·D, dim]
+    iv: dfm.DF                # [S·D, dim]
+    norm: dfm.DF              # [S·D]
+    logw: dfm.DF              # [S·D]
+    active: torch.Tensor      # bool [S, D]
+    num_mixtures: int
+    density_cap: int
+    dim: int
+    max_approx: bool
+
+    @property
+    def device(self) -> torch.device:
+        return self.mu.hi.device
 
 
 class MixtureModel:
@@ -282,6 +315,40 @@ class MixtureModel:
                          max_approx=self.max_approx, dtype=dtype,
                          method=method, mu=mu, a=a, c=c)
 
+    def pack_df(self, density_cap: Optional[int] = None,
+                device="cpu") -> ScorePackDF:
+        """Double-float scoring pack on ``device``: exact f32-pair splits of
+        the host float64 tables (see am_scores_df). ``density_cap`` pads the
+        density slots to a fixed capacity."""
+        S = self.num_mixtures
+        D = density_cap or self.max_densities_per_mixture
+        dim = self.dim
+        mu = np.zeros((S * D, dim))
+        iv = np.zeros((S * D, dim))
+        norm = np.full(S * D, float(INACTIVE_SCORE))
+        logw = np.zeros(S * D)
+        active = np.zeros((S, D), bool)
+        for s in range(S):
+            for d, (mean_idx, var_idx) in enumerate(self.mixtures[s]):
+                m_vec = self.means[mean_idx]
+                iv_vec = self.vars_inv[var_idx]
+                nrm = self.norm[var_idx]
+                lw = self.mean_weights_log[mean_idx]
+                if not (np.isfinite(m_vec).all() and np.isfinite(iv_vec).all()
+                        and np.isfinite(nrm) and np.isfinite(lw)):
+                    continue
+                j = s * D + d
+                mu[j] = m_vec
+                iv[j] = iv_vec
+                norm[j] = nrm
+                logw[j] = lw
+                active[s, d] = True
+        return ScorePackDF(
+            mu=dfm.from_f64(mu, device), iv=dfm.from_f64(iv, device),
+            norm=dfm.from_f64(norm, device), logw=dfm.from_f64(logw, device),
+            active=torch.as_tensor(active, device=device), num_mixtures=S,
+            density_cap=D, dim=dim, max_approx=self.max_approx)
+
 
 # -- device-side scoring -------------------------------------------------------
 
@@ -330,3 +397,102 @@ def am_scores(pack: ScorePack, feats: torch.Tensor) -> torch.Tensor:
     return torch.cat([
         mixture_scores_from_density(pack, density_scores(pack, feats[s:s + AM_CHUNK]))
         for s in range(0, N, AM_CHUNK)])
+
+
+AM_CHUNK_DF = 1 << 12  # df scoring holds several [chunk, S·D] f32 pairs
+
+
+def density_scores_df_reference(packdf: ScorePackDF, x: torch.Tensor) -> dfm.DF:
+    """x [n, dim] → DF [n, S·D] density scores, reference op order:
+    d = Σᵢ (x−μ)²·iv  (double in C++, DF here);  score = norm + d/2 − logw.
+    Plain PyTorch, on the inputs' device."""
+    mu, iv = packdf.mu, packdf.iv
+    dfm.require_f32("density_scores_df", mu.hi, mu.lo, iv.hi, iv.lo,
+                    packdf.norm.hi, packdf.norm.lo, packdf.logw.hi, packdf.logw.lo)
+    n = x.shape[0]
+    J = mu.hi.shape[0]
+    x = x.to(torch.float32)
+    # [dim, J] rows: column i of the tables as one contiguous row
+    mu_t = dfm.DF(mu.hi.t().contiguous(), mu.lo.t().contiguous())
+    iv_t = dfm.DF(iv.hi.t().contiguous(), iv.lo.t().contiguous())
+    zeros = torch.zeros((n, J), dtype=torch.float32, device=x.device)
+    acc = dfm.DF(zeros, zeros)
+    for i in range(packdf.dim):
+        mu_i = dfm.DF(mu_t.hi[i][None, :], mu_t.lo[i][None, :])
+        iv_i = dfm.DF(iv_t.hi[i][None, :], iv_t.lo[i][None, :])
+        diff = dfm.add_f(dfm.neg(mu_i), x[:, i, None])          # [n, J]
+        acc = dfm.add(acc, dfm.mul(dfm.mul(diff, diff), iv_i))
+    half = dfm.DF(acc.hi * 0.5, acc.lo * 0.5)                   # exact ×2⁻¹
+    score = dfm.add(dfm.DF(packdf.norm.hi[None, :], packdf.norm.lo[None, :]), half)
+    return dfm.add(score, dfm.neg(dfm.DF(packdf.logw.hi[None, :],
+                                         packdf.logw.lo[None, :])))
+
+
+def _am_chunk_df_reference(packdf: ScorePackDF, x: torch.Tensor) -> dfm.DF:
+    sc = density_scores_df_reference(packdf, x)
+    S, D = packdf.num_mixtures, packdf.density_cap
+    m = dfm.min_axis(dfm.DF(sc.hi.reshape(-1, S, D), sc.lo.reshape(-1, S, D)), -1)
+    cap = dfm.df(MIN_SCORE_INIT, device=x.device)
+    return dfm.minimum(m, dfm.DF(cap.hi.expand(m.hi.shape), cap.lo.expand(m.lo.shape)))
+
+
+def am_scores_df_reference(packdf: ScorePackDF, feats: torch.Tensor) -> dfm.DF:
+    """Plain PyTorch version of ``am_scores_df`` (any device): chunks of
+    AM_CHUNK_DF frames bound the [chunk, S·D] intermediates."""
+    if not packdf.max_approx:
+        raise NotImplementedError("df32 path covers max-approx scoring only")
+    N = feats.shape[0]
+    if N <= AM_CHUNK_DF:
+        return _am_chunk_df_reference(packdf, feats)
+    parts = [_am_chunk_df_reference(packdf, feats[s:s + AM_CHUNK_DF])
+             for s in range(0, N, AM_CHUNK_DF)]
+    return dfm.DF(torch.cat([p.hi for p in parts]), torch.cat([p.lo for p in parts]))
+
+
+def am_scores_df(packdf: ScorePackDF, feats: torch.Tensor) -> dfm.DF:
+    """[N, dim] → DF [N, S] state-level scores in double-float: the min over
+    each mixture's densities, capped at MIN_SCORE_INIT.
+
+    CPU tensors take the plain version; CUDA tensors launch kernel C
+    (``csrc/am_scores_df.cu``, counted in ``am_scores_df.LAUNCHES``), which
+    never writes the [N, S·D] density scores to memory."""
+    if not packdf.max_approx:
+        raise NotImplementedError("df32 path covers max-approx scoring only")
+    if feats.device.type == "cpu":
+        return am_scores_df_reference(packdf, feats)
+    if feats.device.type != "cuda":
+        raise ValueError(f"am_scores_df: unsupported device {feats.device}")
+    x = feats.to(torch.float32).contiguous()
+    if x.dim() != 2 or x.shape[1] != packdf.dim:
+        raise ValueError(f"am_scores_df: feats has shape {tuple(x.shape)}, "
+                         f"expected [N, {packdf.dim}]")
+    N, dim = x.shape
+    S, D = packdf.num_mixtures, packdf.density_cap
+    J = S * D
+    tables = {"mu": (packdf.mu, (J, dim)), "iv": (packdf.iv, (J, dim)),
+              "norm": (packdf.norm, (J,)), "logw": (packdf.logw, (J,))}
+    words = []
+    for name, (pair, shape) in tables.items():
+        for t in pair:
+            if t.device != x.device:
+                raise ValueError(f"am_scores_df: {name} on {t.device}, feats on {x.device}")
+            if tuple(t.shape) != shape:
+                raise ValueError(f"am_scores_df: {name} has shape {tuple(t.shape)}, "
+                                 f"expected {shape}")
+            if not t.is_contiguous():
+                raise ValueError(f"am_scores_df: {name} is not contiguous")
+            words.append(t)
+    dfm.require_f32("am_scores_df", *words)
+    lib = _native.load()
+    out_hi = torch.empty((N, S), dtype=torch.float32, device=x.device)
+    out_lo = torch.empty((N, S), dtype=torch.float32, device=x.device)
+    err = lib.sr_am_scores_df(
+        x.data_ptr(), *(t.data_ptr() for t in words), out_hi.data_ptr(),
+        out_lo.data_ptr(), N, S, D, dim, x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _native.check(err, "am_scores_df")
+    am_scores_df.LAUNCHES += 1
+    return dfm.DF(out_hi, out_lo)
+
+
+am_scores_df.LAUNCHES = 0

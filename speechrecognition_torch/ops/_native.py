@@ -1,11 +1,13 @@
 """Builder and loader for the hand-written CUDA kernels in ``csrc/``.
 
 At first use, every ``csrc/*.cu`` source is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface under
-``build/kernels/`` at the repository root, and loaded with ``ctypes``. The
-library's file name carries a hash of the sources and flags, so an edited
-source is rebuilt and a stale library is never loaded. Only the sources in
-this package are compiled; nothing is fetched or taken from another package.
+(``sm_90a``), one ``nvcc`` process per source, all started together, and the
+objects are linked into one shared library with a plain C interface under
+``build/kernels/`` at the repository root, which is loaded with ``ctypes``.
+The library's file name carries a hash of the sources (headers included) and
+flags, so an edited source is rebuilt and a stale library is never loaded.
+Only the sources in this package are compiled; nothing is fetched or taken
+from another package.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()`` right after the launch; :func:`check` turns a
@@ -29,11 +31,12 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 #: -Xptxas -v only reports each kernel's registers, shared memory and spills
 #: (kept in build_log); it does not change the code.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 #: C signatures of the entry points: (argument types, result type). The
 #: kernel entry points return an int cudaError_t.
 SIGNATURES = {
@@ -46,6 +49,21 @@ SIGNATURES = {
     "sr_decode_scan": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I,
                         _P), _I),
+    # the same, in float64 (score arrays and am_threshold)
+    "sr_decode_scan_f64": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _D, _I, _I,
+                            _P), _I),
+    # x, mu_hi, mu_lo, iv_hi, iv_lo, norm_hi, norm_lo, logw_hi, logw_lo,
+    # out_hi, out_lo, N, S, D, dim, device, stream
+    "sr_am_scores_df": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                         _I, _I, _I, _P), _I),
+    # am_hi, am_lo, feat_len, state_table, last_pos, word_len, first_state,
+    # tdp_hi, tdp_lo, ent_hi, ent_lo, hyp_hi_in, hyp_lo_in, bkp_in,
+    # book_hi_in, book_lo_in, hyp_hi_out, hyp_lo_out, bkp_out, book_hi_out,
+    # book_lo_out, score, word, bkp, B, T, S, W, P, t0, am_threshold, prune,
+    # device, stream
+    "sr_decode_scan_df": ((_P,) * 24 + (_I, _I, _I, _I, _I, _I, _F, _I, _I,
+                                        _P), _I),
     "sr_error_string": ((_I,), ctypes.c_char_p),
 }
 
@@ -82,19 +100,42 @@ def library_path() -> Path:
     return BUILD_DIR / f"libsr_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds):
+    """Run the commands at once; return their (returncode, output) in order."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    return [(p.returncode, o) for p, o in zip(procs, outs)]
+
+
 def _build(out: Path) -> None:
     global build_seconds, build_log
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in sources]
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    logs = []
+    try:
+        results = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                            for s, o in zip(sources, objs)])
+        for s, (rc, text) in zip(sources, results):
+            logs.append(text)
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed on {s.name} ({rc}):\n{text}")
+        (rc, text), = _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                                 *map(str, objs)]])
+        logs.append(text)
+        if rc != 0:
+            raise RuntimeError(f"nvcc link failed ({rc}):\n{text}")
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, out)      # atomic: a concurrent loader never sees half a file
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
+    build_log = "".join(logs)
 
 
 def load() -> ctypes.CDLL:

@@ -7,7 +7,9 @@ imports no jax, so it also runs where the JAX package is not installed:
 
 (--noconftest because tests/conftest.py configures jax). Criteria as in
 chip_smoke.py: kernel A within 1e-6 relative of its plain version over
-active slots (FMA contraction and operation order); kernel B bit-equal.
+active slots (FMA contraction and operation order); kernel B (float32 and
+float64), kernel C (double-float scores) and kernel D (double-float scan)
+bit-equal, hi and lo.
 """
 
 import json
@@ -23,6 +25,7 @@ from speechrecognition_torch.features.frontend import SignalAnalysisConfig
 from speechrecognition_torch.io import read_mixture_set
 from speechrecognition_torch.lexicon import Lexicon, build_sietill_lexicon
 from speechrecognition_torch.models import gmm
+from speechrecognition_torch.ops import doublefloat as dfm
 from speechrecognition_torch.ops import mahalanobis as maha
 from speechrecognition_torch.search import decoder as dec
 from speechrecognition_torch.tdp import TdpModel
@@ -104,7 +107,8 @@ def repetition1_tables():
     return dec.DecoderTables.build(lex, tdp, 15.0), lex.num_states
 
 
-def scan_both(dev, tables, am, lens, thr, prune, chunks, exit_pen=None):
+def scan_both(dev, tables, am, lens, thr, prune, chunks, exit_pen=None,
+              dtype=torch.float32):
     targs = tuple(torch.as_tensor(a, device=dev) for a in (
         tables.state_table, tables.last_pos, tables.word_len, tables.first_state,
         tables.tdp_within, tables.entry_pen))
@@ -114,7 +118,7 @@ def scan_both(dev, tables, am, lens, thr, prune, chunks, exit_pen=None):
     for fn in (dec.decode_scan, dec.decode_scan_reference):
         carry, outs, t0 = None, [], 0
         for n in chunks:
-            am_c = torch.as_tensor(am[:, t0:t0 + n], dtype=torch.float32, device=dev)
+            am_c = torch.as_tensor(am[:, t0:t0 + n], dtype=dtype, device=dev)
             carry, out = fn(am_c.contiguous(), lens, *targs, thr, prune=prune,
                             carry_in=carry, t0=t0, exit_pen=xp)
             outs.append(out)
@@ -145,17 +149,115 @@ def test_kernel_b_bit_equal(dev, case):
         assert k.dtype == p.dtype and torch.equal(k, p), name
 
 
-def test_kernel_b_refuses_float64(dev):
-    tables, S = sietill_tables()
-    targs = tuple(torch.as_tensor(a, device=dev) for a in (
-        tables.state_table, tables.last_pos, tables.word_len, tables.first_state,
-        tables.tdp_within, tables.entry_pen))
-    with pytest.raises(TypeError, match="float32"):
-        dec.decode_scan(torch.zeros((2, 4, S), dtype=torch.float64, device=dev),
-                        torch.ones(2, dtype=torch.int32, device=dev), *targs, 60.0)
+@pytest.mark.parametrize("case", ["pruned", "unpruned", "two-chunks", "exit-pen"])
+def test_kernel_b_float64_bit_equal(dev, case):
+    B, T = 5, 60
+    lens = np.array([60, 41, 13, 0, 59], np.int32)
+    tables, S = sietill_tables(prune=case != "unpruned")
+    rng = np.random.default_rng(20 + len(case))
+    am = rng.uniform(0.0, 40.0, size=(B, T, S))
+    exit_pen = (rng.uniform(0.0, 20.0, size=tables.num_words)
+                if case == "exit-pen" else None)
+    chunks = (25, 35) if case == "two-chunks" else (T,)
+    before = dec.decode_scan.LAUNCHES
+    kern, plain = scan_both(dev, tables, am, lens, 60.0, case != "unpruned", chunks,
+                            exit_pen, dtype=torch.float64)
+    assert dec.decode_scan.LAUNCHES == before + len(chunks)
+    for name, k, p in zip(("hyp", "bkp", "book", "score", "word", "bkp_t"), kern, plain):
+        assert k.dtype == p.dtype and torch.equal(k, p), name
+    assert kern[0].dtype == torch.float64
 
 
-def test_recognizer_golden_on_card(dev):
+def random_pack_df(dev, S, D, dim, seed, inactive=()):
+    """A ScorePackDF of random float64 tables split on the host; the slots
+    in ``inactive`` carry the padding values (norm INACTIVE_SCORE, rest 0)."""
+    rng = np.random.default_rng(seed)
+    J = S * D
+    mu = rng.normal(size=(J, dim))
+    iv = rng.uniform(0.2, 3.0, size=(J, dim))
+    norm = rng.uniform(10.0, 40.0, size=J)
+    logw = np.log(rng.uniform(0.05, 1.0, size=J))
+    active = np.ones((S, D), bool)
+    for j in inactive:
+        mu[j] = iv[j] = logw[j] = 0.0
+        norm[j] = gmm.INACTIVE_SCORE
+        active.reshape(-1)[j] = False
+    return gmm.ScorePackDF(mu=dfm.from_f64(mu, dev), iv=dfm.from_f64(iv, dev),
+                           norm=dfm.from_f64(norm, dev), logw=dfm.from_f64(logw, dev),
+                           active=torch.as_tensor(active, device=dev), num_mixtures=S,
+                           density_cap=D, dim=dim, max_approx=True)
+
+
+@pytest.mark.parametrize("n,s,d,dim", [(777, 9, 3, 25), (64, 4, 1, 25), (1, 1, 1, 13),
+                                       (300, 7, 16, 25), (130, 3, 40, 64)])
+def test_kernel_c_bit_equal(dev, n, s, d, dim):
+    inactive = (0, s * d - 1) if s * d > 2 else ()
+    pack = random_pack_df(dev, s, d, dim, seed=n + s + d + dim, inactive=inactive)
+    x = torch.as_tensor(np.random.default_rng(n).normal(size=(n, dim)).astype(np.float32),
+                        device=dev)
+    before = gmm.am_scores_df.LAUNCHES
+    got = gmm.am_scores_df(pack, x)
+    ref = gmm.am_scores_df_reference(pack, x)
+    torch.cuda.synchronize()
+    assert gmm.am_scores_df.LAUNCHES == before + 1
+    assert got.hi.shape == (n, s) and got.hi.dtype == got.lo.dtype == torch.float32
+    assert torch.equal(got.hi, ref.hi) and torch.equal(got.lo, ref.lo)
+
+
+def test_kernel_c_demo_model(dev):
+    model = gmm.MixtureModel.from_raw(read_mixture_set(str(FIX / "iter-2.mix"), 25),
+                                      gmm.VarianceModel.MIXTURE_POOLING, max_approx=True)
+    pack = model.pack_df(device=dev)
+    assert not bool(pack.active.all())        # the model pads some mixtures
+    x = torch.as_tensor(np.random.default_rng(0).normal(size=(4133, 25)).astype(np.float32),
+                        device=dev)
+    got = gmm.am_scores_df(pack, x)
+    ref = gmm.am_scores_df_reference(pack, x)
+    assert torch.equal(got.hi, ref.hi) and torch.equal(got.lo, ref.lo)
+
+
+def scan_df_both(dev, tables, am64, lens, thr, prune, chunks):
+    am = dfm.from_f64(am64, dev)
+    targs = (*(torch.as_tensor(a, device=dev) for a in (
+        tables.state_table, tables.last_pos, tables.word_len, tables.first_state)),
+        dfm.from_f64(tables.tdp_within, dev), dfm.from_f64(tables.entry_pen, dev))
+    lens = torch.as_tensor(lens, device=dev)
+    results = []
+    for fn in (dec.decode_scan_df, dec.decode_scan_df_reference):
+        carry, outs, t0 = None, [], 0
+        for n in chunks:
+            am_c = dfm.DF(am.hi[:, t0:t0 + n].contiguous(), am.lo[:, t0:t0 + n].contiguous())
+            carry, out = fn(am_c, lens, *targs, thr, prune=prune, carry_in=carry, t0=t0)
+            outs.append(out)
+            t0 += n
+        hyp, bkp, book = carry
+        results.append([hyp.hi, hyp.lo, bkp, book.hi, book.lo]
+                       + [torch.cat([o[k] for o in outs]) for k in range(3)])
+    torch.cuda.synchronize()
+    return results
+
+
+@pytest.mark.parametrize("case", ["pruned", "unpruned", "two-chunks", "ties", "repetition-1"])
+def test_kernel_d_bit_equal(dev, case):
+    B, T = 5, 60
+    lens = np.array([60, 41, 13, 0, 59], np.int32)
+    tables, S = (repetition1_tables() if case == "repetition-1"
+                 else sietill_tables(prune=case != "unpruned", flat=case == "ties"))
+    rng = np.random.default_rng(30 + len(case))
+    am = (rng.integers(0, 3, size=(B, T, S)).astype(np.float64) if case == "ties"
+          else rng.uniform(0.0, 40.0, size=(B, T, S)))
+    chunks = (25, 35) if case in ("two-chunks", "repetition-1") else (T,)
+    thr = 4.0 if case == "ties" else 60.0
+    before = dec.decode_scan_df.LAUNCHES
+    kern, plain = scan_df_both(dev, tables, am, lens, thr, case != "unpruned", chunks)
+    assert dec.decode_scan_df.LAUNCHES == before + len(chunks)
+    for name, k, p in zip(("hyp.hi", "hyp.lo", "bkp", "book.hi", "book.lo", "score",
+                           "word", "bkp_t"), kern, plain):
+        assert k.dtype == p.dtype and torch.equal(k, p), name
+
+
+@pytest.mark.parametrize("kind", ["pallas", "df32", "f64"])
+def test_recognizer_golden_on_card(dev, kind):
     lex = build_sietill_lexicon()
     desc = CorpusDescription.read(str(FIX / "demo_corpus.json"), lex)
     corpus = Corpus.read(desc, str(FIX / "demo_features") + "/", SignalAnalysisConfig(),
@@ -165,10 +267,19 @@ def test_recognizer_golden_on_card(dev):
     tdp = TdpModel(silence_state=lex.silence_state, loop=3.0, forward=0.0, skip=30.0)
     config = Configuration({"am-threshold": 200.0, "word-penalty": 80.0,
                             "pruned-search": True, "max-recognition-runs": 10000})
-    rec = dec.Recognizer(config, lex, tdp, model.pack(method="pallas", device=dev))
-    a0, b0 = maha.mahalanobis_scores.LAUNCHES, dec.decode_scan.LAUNCHES
+    if kind == "pallas":
+        rec = dec.Recognizer(config, lex, tdp, model.pack(method="pallas", device=dev))
+        counters = (maha.mahalanobis_scores, dec.decode_scan)
+    elif kind == "df32":
+        rec = dec.Recognizer(config, lex, tdp, model.pack_df(device=dev), dtype="df32")
+        counters = (gmm.am_scores_df, dec.decode_scan_df)
+    else:
+        rec = dec.Recognizer(config, lex, tdp, model.pack(dtype=torch.float64, device=dev),
+                             dtype=torch.float64)
+        counters = (dec.decode_scan,)
+    before = [c.LAUNCHES for c in counters]
     res = rec.recognize_corpus(corpus, batch_size=35)
-    assert maha.mahalanobis_scores.LAUNCHES > a0 and dec.decode_scan.LAUNCHES > b0
+    assert all(c.LAUNCHES > b for c, b in zip(counters, before))
     with open(FIX / "demo_recognition.json") as f:
         golden = json.load(f)
     assert all(res["hyps"][u["idx"]] == u["hyp"] for u in golden["utts"])

@@ -133,12 +133,15 @@ def test_warmup_runs(port):
     rec.warmup(corpus, batch_size=2)
 
 
-@pytest.mark.parametrize("what", ["df32", "tree", "nn"])
-def test_unported_paths_raise(port, what):
+@pytest.mark.parametrize("what", ["train", "tree", "nn"])
+def test_unported_paths_raise(port, what, tmp_path):
     lex, corpus = port
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if what == "df32":
-            port_recognizer(lex, "iter-2", dtype="df32")
+        if what == "train":
+            from speechrecognition_torch.cli import main
+            cfg = tmp_path / "train.json"
+            cfg.write_text(json.dumps({"corpus": str(FIX / "demo_corpus.json")}))
+            main([str(cfg), "train", "--device", "cpu"])
         elif what == "tree":
             port_recognizer(lex, "iter-2", settings={**SETTINGS, "search-type": "tree"})
         else:
