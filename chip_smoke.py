@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's recognition path on one CUDA card.
+"""Smoke run of the PyTorch port's recognition and training paths on one
+CUDA card.
 
     python3 chip_smoke.py
 
 Drives speechrecognition_torch's recognizers on the card — the f32 "pallas"
 path (Corpus.read → MixtureModel.from_raw → pack(method="pallas") →
 Recognizer.recognize_corpus) and the production double-float path
-(pack_df() → Recognizer(dtype="df32")), each at full width — and holds each
-hand-written kernel against its plain PyTorch version on the same tensors:
+(pack_df() → Recognizer(dtype="df32")), each at full width — and its EM
+trainer (Trainer(..., dtype="df32").train), and holds each hand-written
+kernel against its plain PyTorch version on the same tensors:
 
   1. the card's name and power limit (nvidia-smi);
   2. build of the CUDA kernels from speechrecognition_torch/csrc;
@@ -37,7 +39,27 @@ hand-written kernel against its plain PyTorch version on the same tensors:
      and through the plain versions: equal transcripts, each equal to the
      35-utterance df32 run; the count that differ from the f64 decode;
  12. the CLI's recognize on a temporary demo config with --device cuda:
-     exit 0 and the golden WER line.
+     exit 0 and the golden WER line;
+ 13. kernels E (alignment DP chunk, f32 and f64), F (its double-float twin)
+     and G (backtrack) at B=256, C=320, A=70 on real bench/model.mix
+     scores, three chunks with carry: bit-equal to their plain versions,
+     times in turns;
+ 14. kernel H (double-float E-step) over the 1024-utterance corpus's sorted
+     blocks: counts bit-equal, sums within 1e-12 relative, two launches
+     bit-identical, times in turns;
+ 15. the golden demo trainer (the C++ trainer's recipe) in df32 and f64 on
+     the card: its ten AM-score lines within 1e-4, alignment-2-0.dump and
+     iter-2.mix as the fixtures; the f32 trainer through the kernels and
+     through the plain versions: equal alignments;
+ 16. full width, df32 (the training main path; launch counts are read from
+     this run): the 1024-utterance corpus with the full-corpus recipe cut
+     to 4 splits, 1 alignment, 2 estimates; phase seconds, seconds per
+     second of audio, peak memory, one torch.profiler run (device busy
+     share, top device operations); the plain run (cut to PLAIN_TRAIN_CUT
+     utterances past PLAIN_TRAIN_BUDGET_S): equal stats lines, final
+     alignment and density counts; the f64 trainer's differing frames;
+ 17. the CLI's train on a temporary demo config with train-dtype df32 and
+     --device cuda: exit 0 and the oracle's iter-2.mix.
 
 Every check that fails raises, so the script exits non-zero. It exits
 non-zero without a result when no CUDA device is present. The last line of
@@ -71,6 +93,15 @@ C_F64_ABS = 2.0 ** -30
 #: is cut to the first PLAIN_CUT utterances
 PLAIN_BUDGET_S = 240.0
 PLAIN_CUT = 128
+#: the trainer's alignment batch (train-batch-size)
+TRAIN_BATCH = 256
+#: projected seconds of the plain full-width df32 trainer past which its
+#: comparison is cut to the first PLAIN_TRAIN_CUT utterances
+PLAIN_TRAIN_BUDGET_S = 300.0
+PLAIN_TRAIN_CUT = 256
+#: the C++ trainer's AM-score trajectory on the demo corpus (tests/test_em_demo.py)
+ORACLE_AM_SCORES = [32.9885, 32.5804, 32.1673, 31.9418, 31.9074, 31.8869, 31.4152, 31.3187,
+                    31.2697, 31.2383]
 
 
 def check(cond, msg):
@@ -520,6 +551,9 @@ def main():
     check(cli.returncode == 0, f"CLI recognize failed:\n{cli.stderr[-2000:]}")
     check("WER: 19.587629% (S/I/D) 4/14/1" in cli_lines, "CLI recognize golden WER line")
 
+    check("jax" not in sys.modules, "the port imported jax")
+    train = train_phases(dev, card, lex, corpus, big, bench, packdf_bench, c_plain_ms)
+
     kernels = [
         {"name": "mahalanobis_scores", "route": "cuda",
          "source": "speechrecognition_torch/csrc/mahalanobis.cu",
@@ -546,11 +580,388 @@ def main():
          "replaces": "speechrecognition_tpu/search/decoder.py:220",
          "launches": launches["decode_scan_df"], "max_abs_err": d_abs,
          "ms": d_ms, "plain_ms": d_plain_ms},
+        *train,
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def plain_kernels(stack, gmm, vit, em):
+    """Route every kernel wrapper of the training path to its plain version
+    (the trainer imports em_pass_sorted by name, so it is patched there)."""
+    for mod, name, fn in ((gmm, "am_scores_df", gmm.am_scores_df_reference),
+                          (vit, "align_fwd_chunk", vit.align_fwd_chunk_reference),
+                          (vit, "align_fwd_chunk_df", vit.align_fwd_chunk_df_reference),
+                          (vit, "align_backtrack", vit.align_backtrack_reference),
+                          (em, "em_pass_sorted", gmm.em_pass_sorted_reference)):
+        stack.enter_context(mock.patch.object(mod, name, fn))
+
+
+def train_phases(dev, card, lex, corpus, big, bench, packdf_bench, c_plain_ms):
+    """Phases 13-17: the trainer's kernels E-H against their plain versions,
+    the golden demo trainer, the full-width df32 trainer (the training main
+    path) and the CLI's train. Returns the kernels' JSON entries."""
+    import contextlib
+    from speechrecognition_torch.align import viterbi as vit
+    from speechrecognition_torch.io import read_alignment, read_mixture_set
+    from speechrecognition_torch.lexicon import build_segment_automaton
+    from speechrecognition_torch.models import gmm
+    from speechrecognition_torch.ops import doublefloat as dfm
+    from speechrecognition_torch.search import decoder as dec
+    from speechrecognition_torch.tdp import TdpModel
+    from speechrecognition_torch.train import em
+    from speechrecognition_torch.train.em import Trainer, TrainerConfig
+
+    counters = {"am_scores_df": gmm.am_scores_df, "align_fwd": vit.align_fwd_chunk,
+                "align_fwd_df": vit.align_fwd_chunk_df,
+                "align_backtrack": vit.align_backtrack, "em_pass_df": gmm.em_pass_sorted}
+
+    def zero():
+        for fn in counters.values():
+            fn.LAUNCHES = 0
+
+    def counts():
+        return {k: fn.LAUNCHES for k, fn in counters.items()}
+
+    # -- 13. kernels E (f32, f64), F and G against their plain versions -------------
+    t_phase = time.perf_counter()
+    C = vit.ALIGN_CHUNK
+    ids = list(range(TRAIN_BATCH))
+    T_al = 3 * C
+    check(int(big.lengths[:TRAIN_BATCH].max()) <= T_al, "the align batch fits three chunks")
+    feats = dec.DeviceCorpus(big, dev).batch(ids, T_al)
+    lens = torch.as_tensor(big.lengths[:TRAIN_BATCH], dtype=torch.int32, device=dev)
+    tdp_full = TdpModel(silence_state=lex.silence_state, loop=3.0, forward=0.0, skip=30.0)
+    tables = vit.AlignerTables.build([build_segment_automaton(lex, big.orths[s]) for s in ids],
+                                     tdp_full)
+    A = tables.states.shape[1]
+    st_tbl = torch.as_tensor(tables.states, device=dev)
+    aut = torch.as_tensor(tables.lengths, device=dev)
+    valid = torch.arange(A, device=dev)[None, :] < aut[:, None]
+    idx = st_tbl.long()[:, None, :].expand(TRAIN_BATCH, C, A)
+    flat_chunks = [feats[:, c * C:(c + 1) * C].reshape(-1, 25) for c in range(3)]
+
+    def run_fwd(fn, ams, prev, tdp, thr):
+        jumps = []
+        for c in range(3):
+            prev, j = fn(prev, ams[c], tdp, valid, lens, thr, c * C)
+            jumps.append(j)
+        return prev, torch.cat(jumps)
+
+    res = {}
+    for label, dt in (("align_fwd", torch.float32), ("align_fwd[f64]", torch.float64)):
+        pack = bench.pack(dtype=dt, device=dev)
+        ams = [gmm.am_scores(pack, x).reshape(TRAIN_BATCH, C, -1).to(dt).gather(2, idx)
+               .contiguous() for x in flat_chunks]
+        tdp = torch.as_tensor(tables.tdp, dtype=dt, device=dev)
+        big0 = torch.full((TRAIN_BATCH, A), 1e30, dtype=dt, device=dev)
+        k_prev, k_j = run_fwd(vit.align_fwd_chunk, ams, big0, tdp, 200.0)
+        p_prev, p_j = run_fwd(vit.align_fwd_chunk_reference, ams, big0, tdp, 200.0)
+        torch.cuda.synchronize()
+        equal = torch.equal(k_prev, p_prev) and torch.equal(k_j, p_j)
+        err = (k_prev - p_prev).abs().max().item()
+        live = (k_prev < 1e29).double().mean().item()
+        ms, plain_ms, all_ = in_turns(
+            lambda: vit.align_fwd_chunk_reference(big0, ams[0], tdp, valid, lens, 200.0, 0),
+            lambda: vit.align_fwd_chunk(big0, ams[0], tdp, valid, lens, 200.0, 0), 1, 10)
+        log(f"[13] kernel E {dt} B={TRAIN_BATCH} C={C} A={A} on bench/model.mix scores, "
+            f"3 chunks with carry: carry and jumps bit-equal {equal}, max abs {err:.3e}, "
+            f"live positions after the chunks {live:.3f}; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms per chunk (plain, kernel, kernel, plain: "
+            f"{', '.join(f'{v:.4f}' for v in all_)}) on {card}")
+        check(equal, f"kernel E ({dt}) is not bit-equal to its plain version")
+        res[label] = (err, ms, plain_ms)
+
+    am_df = [gmm.am_scores_df(packdf_bench, x) for x in flat_chunks]
+    ams_df = [dfm.DF(a.hi.reshape(TRAIN_BATCH, C, -1).gather(2, idx).contiguous(),
+                     a.lo.reshape(TRAIN_BATCH, C, -1).gather(2, idx).contiguous())
+              for a in am_df]
+    tdp_df = dfm.from_f64(tables.tdp, dev)
+    thr_df = dfm.from_f64(np.float64(200.0), dev)
+    big_df = dfm.DF(torch.full((TRAIN_BATCH, A), 1e30, device=dev),
+                    torch.zeros((TRAIN_BATCH, A), device=dev))
+    k_prev, k_j = run_fwd(vit.align_fwd_chunk_df, ams_df, big_df, tdp_df, thr_df)
+    p_prev, p_j = run_fwd(vit.align_fwd_chunk_df_reference, ams_df, big_df, tdp_df, thr_df)
+    torch.cuda.synchronize()
+    equal = (torch.equal(k_prev.hi, p_prev.hi) and torch.equal(k_prev.lo, p_prev.lo)
+             and torch.equal(k_j, p_j))
+    err = ((k_prev.hi.double() + k_prev.lo.double())
+           - (p_prev.hi.double() + p_prev.lo.double())).abs().max().item()
+    ms, plain_ms, all_ = in_turns(
+        lambda: vit.align_fwd_chunk_df_reference(big_df, ams_df[0], tdp_df, valid, lens,
+                                                 thr_df, 0),
+        lambda: vit.align_fwd_chunk_df(big_df, ams_df[0], tdp_df, valid, lens, thr_df, 0),
+        1, 10)
+    log(f"[13] kernel F B={TRAIN_BATCH} C={C} A={A} on df32 scores, 3 chunks with carry: "
+        f"hi, lo and jumps bit-equal {equal}, max abs {err:.3e}; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms per chunk (plain, kernel, kernel, plain: "
+        f"{', '.join(f'{v:.4f}' for v in all_)}) on {card}")
+    check(equal, "kernel F is not bit-equal to its plain version")
+    res["align_fwd_df"] = (err, ms, plain_ms)
+
+    g_args = (k_prev.hi.contiguous(), aut, k_j, lens, st_tbl, int(big.lengths[:TRAIN_BATCH].max()))
+    k_states, k_fp = vit.align_backtrack(*g_args)
+    p_states, p_fp = vit.align_backtrack_reference(*g_args)
+    torch.cuda.synchronize()
+    equal = torch.equal(k_states, p_states) and torch.equal(k_fp, p_fp)
+    ms, plain_ms, all_ = in_turns(lambda: vit.align_backtrack_reference(*g_args),
+                                  lambda: vit.align_backtrack(*g_args), 1, 10)
+    log(f"[13] kernel G B={TRAIN_BATCH} Tp={T_al} A={A}: states and final positions "
+        f"bit-equal {equal}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (plain, kernel, "
+        f"kernel, plain: {', '.join(f'{v:.4f}' for v in all_)}) on {card}")
+    check(equal, "kernel G is not bit-equal to its plain version")
+    res["align_backtrack"] = (0.0, ms, plain_ms)
+    f_plain_ms, g_plain_ms = res["align_fwd_df"][2], plain_ms
+    del feats, flat_chunks, am_df, ams_df, ams, k_prev, p_prev, k_j, p_j
+    log(f"[13] phase seconds {time.perf_counter() - t_phase:.1f}")
+
+    # -- 14. kernel H against its plain version --------------------------------------
+    t_phase = time.perf_counter()
+    demo_align, _w, _m = read_alignment(str(FIX / "demo_alignments" / "alignment-2-0.dump"))
+    align_big = np.concatenate([
+        demo_align[corpus.feature_offsets[s % 35]:corpus.feature_offsets[s % 35 + 1]]
+        for s in range(big.num_segments)])
+    frame_idx, block_state, nb = gmm.sorted_blocks(align_big, 106)
+    frames = torch.as_tensor(big.features, device=dev)[
+        torch.as_tensor(np.maximum(frame_idx, 0), device=dev)]
+    mask = torch.as_tensor((frame_idx >= 0).astype(np.float32), device=dev)
+    bs = torch.as_tensor(block_state, device=dev)
+    got = gmm.em_pass_sorted(packdf_bench, frames, mask, bs)
+    again = gmm.em_pass_sorted(packdf_bench, frames, mask, bs)
+    ref = gmm.em_pass_sorted_reference(packdf_bench, frames, mask, bs)
+    torch.cuda.synchronize()
+    ident = all(torch.equal(a, b) for a, b in zip(got, again))
+    w_equal = torch.equal(got[1], ref[1])
+    rel = max(((g - r).abs().max() / r.abs().max()).item()
+              for g, r in ((got[0], ref[0]), (got[2], ref[2]), (got[3], ref[3])))
+    h_err = max((g - r).abs().max().item() for g, r in zip(got, ref))
+    ms, plain_ms, all_ = in_turns(
+        lambda: gmm.em_pass_sorted_reference(packdf_bench, frames, mask, bs),
+        lambda: gmm.em_pass_sorted(packdf_bench, frames, mask, bs), 1, 10)
+    log(f"[14] kernel H NB={frame_idx.shape[0]} ({nb} used) x {frame_idx.shape[1]} rows, "
+        f"{align_big.shape[0]} frames, S=106 D=16 dim=25: w bit-equal {w_equal}, "
+        f"total/xs/x2s max rel {rel:.3e} (max abs {h_err:.3e}), two launches bit-identical "
+        f"{ident}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (plain, kernel, kernel, "
+        f"plain: {', '.join(f'{v:.4f}' for v in all_)}) on {card}")
+    check(w_equal, "kernel H counts differ from its plain version")
+    check(rel <= 1e-12, f"kernel H sums differ from plain by {rel} > 1e-12 relative")
+    check(ident, "kernel H is not deterministic")
+    res["em_pass_df"] = (h_err, ms, plain_ms)
+    h_plain_ms = plain_ms
+    del frames, mask, got, again, ref
+    torch.cuda.empty_cache()
+    log(f"[14] phase seconds {time.perf_counter() - t_phase:.1f}")
+
+    # -- 15. golden demo trainer on the card ------------------------------------------
+    t_phase = time.perf_counter()
+    tdp_oracle = TdpModel(silence_state=lex.silence_state, loop=20.0, forward=0.0, skip=20.0)
+    ref_align, _w, _m = read_alignment(str(FIX / "demo_alignments" / "alignment-2-0.dump"))
+    ref_mix = read_mixture_set(str(FIX / "iter-2.mix"), 25)
+
+    def oracle_run(dtype, out, plain=False):
+        cfg = TrainerConfig(min_obs=1, num_splits=2, num_aligns=1, num_estimates=3,
+                            pruning_threshold=120.0, mixture_path=out + "/iter-",
+                            alignment_path=out + "/alignment-")
+        model = gmm.MixtureModel(25, lex.num_states, gmm.VarianceModel.MIXTURE_POOLING)
+        trainer = Trainer(cfg, lex, model, tdp_oracle, dtype=dtype, device=dev,
+                          log=lambda *a: None)
+        with contextlib.ExitStack() as stack:
+            if plain:
+                plain_kernels(stack, gmm, vit, em)
+            alignment = trainer.train(corpus)
+        return trainer, alignment
+
+    golden_counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for kind, dtype in (("df32", "df32"), ("f64", torch.float64)):
+            out = os.path.join(tmp, kind)
+            os.makedirs(out)
+            zero()
+            t0 = time.perf_counter()
+            trainer, _ = oracle_run(dtype, out)
+            golden_counts[kind] = counts()
+            scores = [float(ln.split()[3]) for ln in trainer.stats_lines]
+            worst = max(abs(g - o) for g, o in zip(scores, ORACLE_AM_SCORES))
+            mine, _w, _m = read_alignment(os.path.join(out, "alignment-2-0.dump"))
+            mix = read_mixture_set(os.path.join(out, "iter-2.mix"), 25)
+            mix_ok = ([len(m) for m in mix.mixtures] == [len(m) for m in ref_mix.mixtures]
+                      and np.array_equal(mix.mean_weight, ref_mix.mean_weight)
+                      and np.allclose(mix.mean_acc, ref_mix.mean_acc, rtol=1e-9, atol=1e-7))
+            log(f"[15] golden trainer {kind} on the card: {time.perf_counter() - t0:.2f} s, "
+                f"AM scores {' '.join(ln.split()[3] for ln in trainer.stats_lines)} (worst "
+                f"|diff| to the oracle {worst:.2e}); alignment-2-0 frames differing from the "
+                f"C++ trainer's {int((mine != ref_align).sum())}; iter-2.mix within rtol 1e-9 "
+                f"{mix_ok}; launches {golden_counts[kind]}")
+            check(len(scores) == 10 and worst < 1e-4, f"{kind} golden trajectory")
+            check(np.array_equal(mine, ref_align), f"{kind} golden alignment")
+            check(mix_ok, f"{kind} golden iter-2.mix")
+        check(all(golden_counts["df32"][k] > 0 for k in ("am_scores_df", "align_fwd_df",
+                                                        "align_backtrack", "em_pass_df")),
+              f"the df32 golden trainer skipped a kernel: {golden_counts['df32']}")
+        check(golden_counts["f64"]["align_fwd"] > 0 and golden_counts["f64"]["align_backtrack"] > 0,
+              f"the f64 golden trainer skipped a kernel: {golden_counts['f64']}")
+
+        os.makedirs(os.path.join(tmp, "f32"))
+        os.makedirs(os.path.join(tmp, "f32-plain"))
+        zero()
+        tr32, al32 = oracle_run(torch.float32, os.path.join(tmp, "f32"))
+        f32_counts = counts()
+        tr32p, al32p = oracle_run(torch.float32, os.path.join(tmp, "f32-plain"), plain=True)
+        check(counts() == f32_counts, "the plain f32 trainer launched a kernel")
+        dumps_equal = all(
+            np.array_equal(read_alignment(os.path.join(tmp, "f32", n))[0],
+                           read_alignment(os.path.join(tmp, "f32-plain", n))[0])
+            for n in ("alignment-0-0.dump", "alignment-1-0.dump", "alignment-2-0.dump"))
+        log(f"[15] f32 trainer on the card, kernels vs plain: alignments equal "
+            f"{dumps_equal and np.array_equal(al32, al32p)}, stats lines equal "
+            f"{tr32.stats_lines == tr32p.stats_lines}, frames differing from the C++ trainer "
+            f"{int((al32 != ref_align).sum())}; launches {f32_counts}")
+        check(dumps_equal and np.array_equal(al32, al32p), "f32 kernel and plain alignments")
+        check(f32_counts["align_fwd"] > 0, "the f32 trainer skipped kernel E")
+    log(f"[15] phase seconds {time.perf_counter() - t_phase:.1f}")
+
+    # -- 16. full width: the training main path -----------------------------------------
+    t_phase = time.perf_counter()
+    cfg_full = TrainerConfig(min_obs=1, num_splits=4, num_aligns=1, num_estimates=2,
+                             pruning_threshold=200.0, approx_linear_segmentation=False,
+                             batch_size=TRAIN_BATCH)
+
+    def full_run(dtype, corp, plain=False):
+        model = gmm.MixtureModel(25, lex.num_states, gmm.VarianceModel.NO_POOLING)
+        trainer = Trainer(cfg_full, lex, model, tdp_full, dtype=dtype, device=dev,
+                          log=lambda *a: None)
+        with contextlib.ExitStack() as stack:
+            if plain:
+                plain_kernels(stack, gmm, vit, em)
+            t0 = time.perf_counter()
+            alignment = trainer.train(corp)
+            torch.cuda.synchronize()
+        return trainer, alignment, time.perf_counter() - t0
+
+    audio = big.total_audio_seconds
+    full_run("df32", repeat_corpus(corpus, 35, type(corpus)))       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero()
+    tr_df, al_df, secs = full_run("df32", big)
+    main_counts = counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"[16] full-width df32 trainer, {big.num_segments} utterances, {big.total_frames} "
+        f"frames ({audio:.1f} s audio): {secs:.4f} s, {secs / audio:.3e} s per second of "
+        f"audio; phases {tr_df.phase_seconds}; peak device memory {peak / 2 ** 20:.1f} MiB; "
+        f"densities {tr_df.model.num_densities()} (max {tr_df.model.max_densities_per_mixture} "
+        f"per mixture); AM scores {' '.join(ln.split()[3] for ln in tr_df.stats_lines)}; "
+        f"launches {main_counts}; on {card}")
+    check(all(main_counts[k] > 0 for k in ("am_scores_df", "align_fwd_df", "align_backtrack",
+                                           "em_pass_df")),
+          f"the df32 main path skipped a kernel: {main_counts}")
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        tr_prof, _al, secs_prof = full_run("df32", big)
+    dev_events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    busy_us = sum(dev_us(e) for e in dev_events)
+    top = sorted(dev_events, key=dev_us, reverse=True)[:8]
+    busy = (f"{busy_us / 1e6 / secs_prof:.4f} ({busy_us / 1e3:.1f} ms of device time in "
+            f"{secs_prof:.4f} s)" if busy_us > 0 else "not measured (no device time recorded)")
+    log(f"[16] profiled run: device busy share {busy}; stats lines equal to the unprofiled "
+        f"run {tr_prof.stats_lines == tr_df.stats_lines}")
+    for e in top:
+        log(f"[16]   {dev_us(e) / 1e3:10.3f} ms  {e.count:6d}x  {e.key[:90]}")
+    del tr_prof, prof
+
+    # the plain run's projected seconds from phases 9, 13 and 14: the scoring
+    # and forward chunks and backtracks of five realignments, 28 E-step passes
+    n_batches = -(-big.num_segments // TRAIN_BATCH)
+    projected = (5 * (n_batches * 3 * (TRAIN_BATCH * C / gmm.AM_CHUNK * c_plain_ms + f_plain_ms)
+                      + n_batches * g_plain_ms) + 28 * h_plain_ms) / 1e3
+    if projected <= PLAIN_TRAIN_BUDGET_S:
+        sub, tr_k, al_k = big, tr_df, al_df
+    else:
+        sub = repeat_corpus(corpus, PLAIN_TRAIN_CUT, type(corpus))
+        tr_k, al_k, _s = full_run("df32", sub)
+    before = counts()
+    tr_p, al_p, secs_p = full_run("df32", sub, plain=True)
+    check(counts() == before, "the plain trainer launched a kernel")
+    n_diff = int((al_k != al_p).sum())
+    dens_equal = ([len(m) for m in tr_k.model.mixtures] == [len(m) for m in tr_p.model.mixtures]
+                  and np.array_equal(tr_k.model.mean_weight_acc, tr_p.model.mean_weight_acc))
+    cut = ("" if sub is big else f" (cut to {sub.num_segments} utterances: the full plain run "
+           f"projects to {projected:.0f} s)")
+    log(f"[16] plain df32 trainer on {sub.num_segments} utterances{cut}: {secs_p:.4f} s "
+        f"(projected for all {projected:.1f} s); stats lines equal "
+        f"{tr_k.stats_lines == tr_p.stats_lines}, frames of the final alignment that differ "
+        f"{n_diff}, density counts equal {dens_equal}")
+    check(tr_k.stats_lines == tr_p.stats_lines, "kernel and plain stats lines differ")
+    check(n_diff == 0, f"{n_diff} frames differ between the kernel and plain alignments")
+    check(dens_equal, "kernel and plain density counts differ")
+    del tr_p, al_p
+
+    zero()
+    tr64, al64, secs64 = full_run(torch.float64, big)
+    f64_counts = counts()
+    log(f"[16] f64 trainer on the same corpus: {secs64:.4f} s; phases {tr64.phase_seconds}; "
+        f"frames whose final alignment differs from df32 {int((al64 != al_df).sum())} of "
+        f"{al_df.shape[0]}; AM scores {' '.join(ln.split()[3] for ln in tr64.stats_lines)}; "
+        f"launches {f64_counts}")
+    check(f64_counts["align_fwd"] > 0, "the f64 trainer skipped kernel E")
+    del tr64, al64, tr_df
+    torch.cuda.empty_cache()
+    check("jax" not in sys.modules, "the training path imported jax")
+    log(f"[16] phase seconds {time.perf_counter() - t_phase:.1f}")
+
+    # -- 17. the CLI's train on the card ---------------------------------------------------
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_path = os.path.join(tmp, "train.json")
+        with open(cfg_path, "w") as f:
+            json.dump({"corpus": str(FIX / "demo_corpus.json"),
+                       "feature-path": str(FIX / "demo_features") + "/",
+                       "normalization-path": str(FIX / "normalization-demo.bin"),
+                       "pooling": "mixture", "train-dtype": "df32", "tdp-loop": 20.0,
+                       "tdp-forward": 0.0, "tdp-skip": 20.0, "min-obs": 1, "num-splits": 2,
+                       "num-aligns": 1, "num-estimates": 3, "pruning-threshold": 120.0,
+                       "mixture-path": tmp + "/iter-", "alignment-path": tmp + "/alignment-"},
+                      f)
+        cli = subprocess.run([sys.executable, "-m", "speechrecognition_torch.cli", cfg_path,
+                              "train", "--device", "cuda"], cwd=REPO, capture_output=True,
+                             text=True, timeout=300)
+        mix_ok = False
+        if cli.returncode == 0:
+            mix = read_mixture_set(os.path.join(tmp, "iter-2.mix"), 25)
+            mix_ok = ([len(m) for m in mix.mixtures] == [len(m) for m in ref_mix.mixtures]
+                      and np.array_equal(mix.mean_weight, ref_mix.mean_weight)
+                      and np.allclose(mix.mean_acc, ref_mix.mean_acc, rtol=1e-9, atol=1e-7))
+    log(f"[17] CLI train --device cuda (train-dtype df32): exit {cli.returncode}; "
+        + " | ".join(ln for ln in cli.stderr.splitlines() if "took" in ln)
+        + f"; iter-2.mix within the oracle tolerance {mix_ok}; "
+        f"phase seconds {time.perf_counter() - t_phase:.1f}")
+    check(cli.returncode == 0, f"CLI train failed:\n{cli.stderr[-2000:]}")
+    check(mix_ok, "CLI train iter-2.mix")
+
+    sources = {"align_fwd": ("align_scan.cu", "speechrecognition_tpu/align/viterbi.py:314",
+                             f32_counts["align_fwd"]),
+               "align_fwd[f64]": ("align_scan.cu", "speechrecognition_tpu/align/viterbi.py:314",
+                                  f64_counts["align_fwd"]),
+               "align_fwd_df": ("align_scan_df.cu", "speechrecognition_tpu/align/viterbi.py:367",
+                                main_counts["align_fwd_df"]),
+               "align_backtrack": ("align_backtrack.cu",
+                                   "speechrecognition_tpu/align/viterbi.py:581",
+                                   main_counts["align_backtrack"]),
+               "em_pass_df": ("em_pass_df.cu", "speechrecognition_tpu/models/gmm.py:996",
+                              main_counts["em_pass_df"])}
+    return [{"name": name, "route": "cuda",
+             "source": f"speechrecognition_torch/csrc/{src}", "replaces": replaces,
+             "launches": n, "max_abs_err": res[name][0], "ms": res[name][1],
+             "plain_ms": res[name][2]}
+            for name, (src, replaces, n) in sources.items()]
 
 
 def repeat_corpus(corpus, n, corpus_cls):

@@ -4,9 +4,11 @@ counterpart of speechrecognition_tpu/cli.py.
 Usage: python -m speechrecognition_torch.cli <config.json> [action] [--device cpu|cuda]
 
 Actions (src/sietill/SieTill.cpp:54-243):
-  extract-features | recognize | corpus-statistics
-are ported; train, train-nn, compute-prior, plot-activations and the NN
-feature scorer raise NotImplementedError naming their ROADMAP item.
+  extract-features | train | recognize | corpus-statistics
+are ported; train-nn, compute-prior, plot-activations and the NN feature
+scorer raise NotImplementedError naming their ROADMAP item. ``train`` runs
+the EM trainer in the precision ``train-dtype`` names: f32 (default), f64
+or df32 (double-float, the reference's float64 decisions).
 
 The device is explicit and defaults to ``cuda``. When CUDA is asked for and
 no card is present the command fails; it never carries on on the CPU.
@@ -32,7 +34,6 @@ from .tdp import TdpModel
 
 #: actions of the reference package not ported yet, and their ROADMAP item
 UNPORTED = {
-    "train": "ROADMAP Queue 1 #8: the training slice",
     "train-nn": "ROADMAP Queue 1 #9: the NN hybrid",
     "compute-prior": "ROADMAP Queue 1 #9: the NN hybrid",
     "plot-activations": "ROADMAP Queue 1 #9: the NN hybrid",
@@ -80,6 +81,22 @@ def main(argv=None) -> int:
         if normalization_path:
             mean, std = compute_normalization_stats(np.concatenate(all_rows, axis=0))
             write_normalization(normalization_path, mean, std)
+        return 0
+
+    if action == "train":
+        from .train.em import Trainer, TrainerConfig
+        pooling = VarianceModel.from_string(ParameterString("pooling", "")(config))
+        corpus = Corpus.read(description, feature_path, sig_cfg,
+                             normalization_path=normalization_path or None)
+        tdp = TdpModel.from_config(config, lexicon.silence_state)
+        model = MixtureModel(dim=sig_cfg.n_features_total, num_mixtures=lexicon.num_states,
+                             var_model=pooling, max_approx=max_approx)
+        dtype_name = ParameterString("train-dtype", "f32")(config)
+        dtype = {"f64": torch.float64, "df32": "df32"}.get(dtype_name, torch.float32)
+        trainer = Trainer(TrainerConfig.from_config(config), lexicon, model, tdp,
+                          max_approx=max_approx, dtype=dtype, device=device,
+                          log=lambda *a: print(*a, file=sys.stderr))
+        trainer.train(corpus)
         return 0
 
     if action == "recognize":

@@ -1,9 +1,10 @@
 """Diagonal-covariance GMM acoustic model: host state and device scoring.
 
-Counterpart of speechrecognition_tpu/models/gmm.py, scoring half. The
-bookkeeping (density lists, finalization) lives on the host in float64 numpy
-and mirrors the reference exactly (src/sietill/Mixtures.cpp). Scoring runs on
-the pack's device, by one of two methods:
+Counterpart of speechrecognition_tpu/models/gmm.py. The EM bookkeeping
+(density lists, split/eliminate, finalization, the .mix accumulators) lives
+on the host in float64 numpy and mirrors the reference exactly
+(src/sietill/Mixtures.cpp). Scoring and the E-step passes run on the pack's
+device; scoring by one of two methods:
 
     "mxu":    score[t, (s,d)] = [x², x, 1]ₜ · P[:, (s,d)]      (one matmul)
     "pallas": score[t, (s,d)] = Σᵢ (xᵢ−μᵢ)²·aᵢ + c            (kernel A)
@@ -15,7 +16,8 @@ ops/mahalanobis.py computes with a hand-written CUDA kernel.
 The production decode scores in double-float instead (``pack_df`` →
 ``am_scores_df``): the centered sum in (hi, lo) float32 pairs, in the
 reference's operation order, which kernel C (``csrc/am_scores_df.cu``)
-computes on the card.
+computes on the card. The trainer's double-float E-step (``em_pass_sorted``)
+is kernel H (``csrc/em_pass_df.cu``).
 
 Score semantics match Mixtures.cpp:590-744: score = norm + ½·Mahalanobis
 − log w; mixture score is the min over densities clipped at 1e10
@@ -24,6 +26,7 @@ Score semantics match Mixtures.cpp:590-744: score = norm + ½·Mahalanobis
 
 from __future__ import annotations
 
+import contextlib
 import enum
 import math
 from dataclasses import dataclass
@@ -39,6 +42,7 @@ from ..ops import doublefloat as dfm
 MIN_SCORE_INIT = 1e10      # Mixtures.cpp:699
 INACTIVE_SCORE = 5e17      # sentinel for padded density slots (f32-safe, < inf)
 MIN_VARIANCE = 1e-4        # Mixtures.cpp:167 (var accumulator floor)
+MEMBERSHIP_EPS = 1e-8      # Mixtures.cpp:336
 
 
 class VarianceModel(enum.Enum):
@@ -177,6 +181,12 @@ class MixtureModel:
 
     # -- EM bookkeeping ------------------------------------------------------
 
+    def reset_accumulators(self) -> None:
+        self.mean_acc[:] = 0.0
+        self.mean_weight_acc[:] = 0.0
+        self.var_acc[:] = MIN_VARIANCE
+        self.var_weight_acc[:] = 0.0
+
     def _calculate_variance(self, var_idx: int, mean_vec: np.ndarray) -> None:
         """E[X²]−E[X]² + norm term (Mixtures.cpp:251-275). Degenerate
         inputs flow through as nan/inf, like the C++ double math."""
@@ -223,9 +233,150 @@ class MixtureModel:
                 global_mean /= total_observations
                 self._calculate_variance(0, global_mean)
 
+    def sync_accumulators_to_parameters(self) -> None:
+        """Rewrite the sufficient-statistic accumulators so finalize()
+        reproduces the CURRENT parameters exactly.
+
+        The .mix checkpoint stores accumulators only and re-finalizes on load
+        (Mixtures.cpp:748-830 / from_raw), so a direct parameter update would
+        revert on a save/load round trip unless the accumulators are
+        re-derived: means·weights back into mean_acc, E[X²]-form variances
+        back into var_acc, per-mixture mass preserved."""
+        with np.errstate(divide="ignore", invalid="ignore"):
+            for m in range(self.num_mixtures):
+                total_mix = sum(self.mean_weight_acc[mi]
+                                for (mi, _vi) in self.mixtures[m])
+                if not np.isfinite(total_mix) or total_mix <= 0:
+                    continue
+                for (mi, vi) in self.mixtures[m]:
+                    if not (np.all(np.isfinite(self.means[mi]))
+                            and np.isfinite(self.mean_weights[mi])):
+                        continue
+                    self.mean_weight_acc[mi] = (self.mean_weights[mi]
+                                                * total_mix)
+                    self.mean_acc[mi] = (self.means[mi]
+                                         * self.mean_weight_acc[mi])
+                    if self.var_model == VarianceModel.NO_POOLING:
+                        self.var_weight_acc[vi] = self.mean_weight_acc[mi]
+                        self.var_acc[vi] = ((self.vars[vi]
+                                             + self.means[mi] ** 2)
+                                            * self.var_weight_acc[vi])
+                if (self.var_model == VarianceModel.MIXTURE_POOLING
+                        and self.mixtures[m]):
+                    vi0 = self.mixtures[m][0][1]
+                    mixture_mean = np.zeros(self.dim)
+                    for (mi, _v) in self.mixtures[m]:
+                        mixture_mean += self.mean_acc[mi]
+                    mixture_mean /= total_mix
+                    self.var_weight_acc[vi0] = total_mix
+                    self.var_acc[vi0] = ((self.vars[vi0]
+                                          + mixture_mean ** 2) * total_mix)
+            if self.var_model == VarianceModel.GLOBAL_POOLING:
+                total_obs = 0.0
+                global_mean = np.zeros(self.dim)
+                for m in range(self.num_mixtures):
+                    for (mi, _v) in self.mixtures[m]:
+                        if np.isfinite(self.mean_weight_acc[mi]):
+                            total_obs += self.mean_weight_acc[mi]
+                            global_mean += self.mean_acc[mi]
+                if total_obs > 0:
+                    global_mean /= total_obs
+                    self.var_weight_acc[0] = total_obs
+                    self.var_acc[0] = ((self.vars[0] + global_mean ** 2)
+                                       * total_obs)
+
+    def split(self, min_obs: float) -> None:
+        """Split densities with enough mass, μ ± √σ² (Mixtures.cpp:465-543).
+        Iterates densities in reverse, appends the new density at the end."""
+        for m in range(self.num_mixtures):
+            for di in range(len(self.mixtures[m]) - 1, -1, -1):
+                mean_idx, var_idx = self.mixtures[m][di]
+                if self.mean_weight_acc[mean_idx] >= min_obs:
+                    if self.var_model == VarianceModel.NO_POOLING:
+                        new_md = self._create_density(len(self.mean_refs), len(self.var_refs))
+                    else:
+                        new_md = self._create_density(len(self.mean_refs), var_idx)
+                    self._update_split_densities((mean_idx, var_idx), new_md)
+                    self.mixtures[m].append(new_md)
+
+    def _update_split_densities(self, orig: Tuple[int, int], new: Tuple[int, int]) -> None:
+        mo, vo = orig
+        mn, vn = new
+        self.mean_weights[mn] = self.mean_weights[mo]
+        self.mean_weights_log[mn] = self.mean_weights_log[mo]
+        self.mean_weight_acc[mn] = self.mean_weight_acc[mo]
+        shift = np.sqrt(self.vars[vo])
+        mean_plus = self.means[mo] + shift
+        mean_minus = self.means[mo] - shift
+        self.means[mo] = mean_plus
+        self.means[mn] = mean_minus
+        if self.var_model == VarianceModel.NO_POOLING:
+            self.var_weight_acc[vn] = self.var_weight_acc[vo]
+            self.var_acc[vn] = self.var_acc[vo]
+            self.vars[vn] = self.vars[vo]
+            self.vars_inv[vn] = self.vars_inv[vo]
+            self.norm[vn] = self.norm[vo]
+
+    def eliminate(self, min_obs: float) -> None:
+        """Drop underpopulated densities (Mixtures.cpp:547-576)."""
+        for m in range(self.num_mixtures):
+            for di in range(len(self.mixtures[m]) - 1, -1, -1):
+                mean_idx, var_idx = self.mixtures[m][di]
+                if self.mean_weight_acc[mean_idx] < min_obs:
+                    del self.mixtures[m][di]
+                    self.mean_refs[mean_idx] = 0
+                    if self.var_model == VarianceModel.NO_POOLING:
+                        self.var_refs[var_idx] = 0
+
+    def num_densities(self) -> int:
+        return int(len(self.mean_refs) - np.count_nonzero(self.mean_refs == 0))
+
     @property
     def max_densities_per_mixture(self) -> int:
         return max(len(m) for m in self.mixtures)
+
+    def apply_statistics(self, w: np.ndarray, xs: np.ndarray, x2s: np.ndarray) -> None:
+        """Fold dense per-(mixture, density-slot) float64 statistics
+        (w [S, D], xs and x2s [S, D, dim], D >= the model's densities per
+        mixture) into the flat reference-indexed accumulators (handles shared
+        var slots)."""
+        self.reset_accumulators()
+        for s in range(self.num_mixtures):
+            for d, (mean_idx, var_idx) in enumerate(self.mixtures[s]):
+                self.mean_weight_acc[mean_idx] += w[s, d]
+                self.var_weight_acc[var_idx] += w[s, d]
+                self.mean_acc[mean_idx] += xs[s, d]
+                self.var_acc[var_idx] += x2s[s, d]
+
+    # -- serialization (reference .mix format) -------------------------------
+
+    def to_raw(self) -> RawMixtureSet:
+        """Compacted accumulator state, as Mixtures.cpp::write()."""
+        mean_map = -np.ones(len(self.mean_refs), dtype=np.int64)
+        mean_map[self.mean_refs > 0] = np.arange(int((self.mean_refs > 0).sum()))
+        var_map = -np.ones(len(self.var_refs), dtype=np.int64)
+        var_map[self.var_refs > 0] = np.arange(int((self.var_refs > 0).sum()))
+
+        density_list = []
+        mixtures_out: List[np.ndarray] = []
+        for m in range(self.num_mixtures):
+            ids = []
+            for (mean_idx, var_idx) in self.mixtures[m]:
+                ids.append(len(density_list))
+                density_list.append((mean_map[mean_idx], var_map[var_idx]))
+            mixtures_out.append(np.asarray(ids, dtype=np.int64))
+
+        keep_m = self.mean_refs > 0
+        keep_v = self.var_refs > 0
+        return RawMixtureSet(
+            dim=self.dim,
+            mean_acc=self.mean_acc[keep_m].copy(),
+            mean_weight=self.mean_weight_acc[keep_m].copy(),
+            var_acc=self.var_acc[keep_v].copy(),
+            var_weight=self.var_weight_acc[keep_v].copy(),
+            densities=np.asarray(density_list, dtype=np.int64).reshape(-1, 2),
+            mixtures=mixtures_out,
+        )
 
     @staticmethod
     def from_raw(raw: RawMixtureSet, var_model: VarianceModel,
@@ -362,16 +513,22 @@ def density_scores(pack: ScorePack, feats: torch.Tensor) -> torch.Tensor:
         return scores.to(pack.dtype).reshape(
             feats.shape[0], pack.num_mixtures, pack.density_cap)
     X = pack.features_expanded(feats.to(pack.dtype))
-    # full-precision f32 product: the expansion already loses ~1e-4 to
-    # cancellation in f32 (see ScorePack); TF32's 10-bit mantissa would
-    # lose ~1e-3 of every score on top of that
+    with _full_f32_matmul():
+        scores = X @ pack.P  # [N, S·D]
+    return scores.reshape(X.shape[0], pack.num_mixtures, pack.density_cap)
+
+
+@contextlib.contextmanager
+def _full_f32_matmul():
+    """Full-precision float32 products on the card: the [x², x, 1] expansion
+    already loses ~1e-4 to cancellation in f32 (see ScorePack); TF32's
+    10-bit mantissa would lose ~1e-3 of every score on top of that."""
     allow_tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        scores = X @ pack.P  # [N, S·D]
+        yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = allow_tf32
-    return scores.reshape(X.shape[0], pack.num_mixtures, pack.density_cap)
 
 
 def mixture_scores_from_density(pack: ScorePack, scores_sd: torch.Tensor) -> torch.Tensor:
@@ -496,3 +653,269 @@ def am_scores_df(packdf: ScorePackDF, feats: torch.Tensor) -> dfm.DF:
 
 
 am_scores_df.LAUNCHES = 0
+
+
+# -- E-step passes under a fixed alignment -------------------------------------
+# The trainer's passes (train/em.py): the state-sorted pass for max-approx EM
+# (every precision) and the chunked sum-mode passes (max-approx=false, f32
+# and f64). The reference's hard-membership and df32 branches of the chunked
+# passes have no caller on this path: the sorted pass covers them. Every sum
+# over frames is a product with a one-hot matrix, in float64: a fixed
+# reduction order on the card, where index_add_ would add in the order its
+# atomics land.
+
+
+def aligned_density_scores(pack: ScorePack, feats: torch.Tensor,
+                           states: torch.Tensor) -> torch.Tensor:
+    """Per-density scores of each frame's ALIGNED mixture only:
+    [N, dim] × int [N] → [N, D] (Mixtures.cpp:296-305 scores only
+    ``mixtures_[aligned]``): the aligned mixture's expansion columns,
+    gathered per frame, contracted with [x², x, 1]."""
+    X = pack.features_expanded(feats.to(pack.dtype))              # [N, K]
+    K = X.shape[-1]
+    P3 = pack.P.reshape(K, pack.num_mixtures, pack.density_cap).permute(1, 0, 2)
+    Pg = P3[states.long()]                                        # [N, K, D]
+    with _full_f32_matmul():
+        return torch.bmm(X[:, None, :], Pg)[:, 0]
+
+
+#: frames per step of the sum-mode passes: bounds aligned_density_scores'
+#: [rows, 2·dim+1, D] parameter gather (~50 MB in float64 at SieTill widths)
+SUM_ROWS = 8192
+
+
+def _state_sums(gamma: torch.Tensor, f64: torch.Tensor, states: torch.Tensor,
+                S: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Σ γ, Σ γ·x and Σ γ·x² per aligned state: gamma f64 [n, D], f64
+    [n, dim], states [n] → [S, D], [S, D, dim], [S, D, dim]."""
+    n, D = gamma.shape
+    onehot = torch.nn.functional.one_hot(states.long(), S).to(torch.float64).t()  # [S, n]
+    gx = (gamma[:, :, None] * f64[:, None, :]).reshape(n, -1)
+    gx2 = (gamma[:, :, None] * (f64 * f64)[:, None, :]).reshape(n, -1)
+    return (onehot @ gamma, (onehot @ gx).reshape(S, D, -1),
+            (onehot @ gx2).reshape(S, D, -1))
+
+
+def _sum_mode_steps(feats_chunks, states_chunks, mask_chunks):
+    """(features, states, mask) of SUM_ROWS frames at a time, in order."""
+    K, C, _ = feats_chunks.shape
+    for k in range(K):
+        for r in range(0, C, SUM_ROWS):
+            yield (feats_chunks[k, r:r + SUM_ROWS], states_chunks[k, r:r + SUM_ROWS].long(),
+                   mask_chunks[k, r:r + SUM_ROWS])
+
+
+def _require_sum_mode(pack) -> None:
+    if isinstance(pack, ScorePackDF) or pack.max_approx:
+        raise NotImplementedError("the sum-mode passes take a ScorePack with max_approx=False; "
+                                  "max-approx EM (every precision) is em_pass_sorted")
+
+
+def em_accumulate_corpus(pack: ScorePack, feats_chunks: torch.Tensor,
+                         states_chunks: torch.Tensor, mask_chunks: torch.Tensor):
+    """Sum-mode E-step (max-approx=false): feats_chunks f32 [K, C, dim];
+    states int [K, C]; mask f32 [K, C]. Returns (w [S,D], xs [S,D,dim],
+    x2s [S,D,dim]) in float64 on the chunks' device, from normalized
+    exp(−score) memberships over the aligned mixture's densities with the
+    1e-8 cutoff (Mixtures.cpp:307-336)."""
+    _require_sum_mode(pack)
+    S, D = pack.num_mixtures, pack.density_cap
+    dim = feats_chunks.shape[-1]
+    device = feats_chunks.device
+    w = torch.zeros((S, D), dtype=torch.float64, device=device)
+    xs = torch.zeros((S, D, dim), dtype=torch.float64, device=device)
+    x2s = torch.zeros((S, D, dim), dtype=torch.float64, device=device)
+    for f, st, m in _sum_mode_steps(feats_chunks, states_chunks, mask_chunks):
+        sc = aligned_density_scores(pack, f, st)
+        p = torch.exp(-(sc - sc.amin(dim=-1, keepdim=True)))
+        p = p / p.sum(dim=-1, keepdim=True)
+        gamma = (torch.where(p < MEMBERSHIP_EPS, 0.0, p)
+                 * m.to(pack.dtype)[:, None]).to(torch.float64)
+        dw, dxs, dx2s = _state_sums(gamma, f.to(torch.float64), st, S)
+        w, xs, x2s = w + dw, xs + dxs, x2s + dx2s
+    return w, xs, x2s
+
+
+def em_am_score_corpus(pack: ScorePack, feats_chunks: torch.Tensor,
+                       states_chunks: torch.Tensor, mask_chunks: torch.Tensor) -> torch.Tensor:
+    """Sum-mode AM score: the sum over frames of −log Σ exp(−score) over the
+    aligned mixture's active densities (Training.cpp:585-612,
+    Mixtures.cpp:719-728), a float64 0-dim tensor."""
+    _require_sum_mode(pack)
+    total = torch.zeros((), dtype=torch.float64, device=feats_chunks.device)
+    for f, st, m in _sum_mode_steps(feats_chunks, states_chunks, mask_chunks):
+        sc = aligned_density_scores(pack, f, st)
+        fs = -torch.logsumexp(torch.where(pack.active[st], -sc, -math.inf), dim=-1)
+        total = total + (fs.to(torch.float64) * m.to(torch.float64)).sum()
+    return total
+
+
+# -- state-sorted E-step pass ----------------------------------------------------
+# Frames grouped by their aligned mixture: each block of EM_BLOCK rows scores
+# against ONE mixture's [D, dim] parameters (Mixtures.cpp:296-305). The
+# trainer builds the sorted block index once per realignment and reuses it
+# for every pass under that alignment.
+
+EM_BLOCK = 4096
+
+
+def sorted_blocks(alignment: np.ndarray, num_mixtures: int, block: int = EM_BLOCK):
+    """Host-side grouping: frame indices sorted by aligned state, cut into
+    per-state blocks of ``block`` rows (padded with -1). Returns
+    (frame_idx int64 [NB, block], block_state int32 [NB], NB_used) with NB
+    padded to the alignment-independent capacity ceil(N/block) + S."""
+    N = alignment.shape[0]
+    order = np.argsort(alignment, kind="stable")
+    counts = np.bincount(alignment, minlength=num_mixtures)
+    nb_cap = -(-N // block) + num_mixtures
+    frame_idx = np.full((nb_cap, block), -1, np.int64)
+    block_state = np.zeros(nb_cap, np.int32)
+    nb = 0
+    pos = 0
+    for s in range(num_mixtures):
+        n_s = int(counts[s])
+        for off in range(0, n_s, block):
+            rows = order[pos + off: pos + min(off + block, n_s)]
+            frame_idx[nb, : rows.shape[0]] = rows
+            block_state[nb] = s
+            nb += 1
+        pos += n_s
+    return frame_idx, block_state, nb
+
+
+def _best_density_df(packdf: ScorePackDF, frames: torch.Tensor, mask: torch.Tensor,
+                     block_state: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Double-float scores of each live row (mask != 0) against its block's
+    mixture, in ``density_scores_df_reference``'s op order: the first
+    density at the exact minimum, and the minimum capped at MIN_SCORE_INIT
+    as float64. Rows with mask 0 get density 0 and score 0."""
+    NB, R, dim = frames.shape
+    S, D = packdf.num_mixtures, packdf.density_cap
+    device = frames.device
+    rows = torch.nonzero(mask.reshape(-1) != 0)[:, 0]
+    x = frames.reshape(-1, dim)[rows].to(torch.float32)
+    st = block_state.repeat_interleave(R)[rows]
+    tab = {k: (getattr(packdf, k).hi.reshape(S, D, -1), getattr(packdf, k).lo.reshape(S, D, -1))
+           for k in ("mu", "iv", "norm", "logw")}
+    zeros = torch.zeros((x.shape[0], D), dtype=torch.float32, device=device)
+    acc = dfm.DF(zeros, zeros)
+    for i in range(dim):
+        mu_i = dfm.DF(tab["mu"][0][:, :, i][st], tab["mu"][1][:, :, i][st])    # [n, D]
+        iv_i = dfm.DF(tab["iv"][0][:, :, i][st], tab["iv"][1][:, :, i][st])
+        diff = dfm.add_f(dfm.neg(mu_i), x[:, i, None])
+        acc = dfm.add(acc, dfm.mul(dfm.mul(diff, diff), iv_i))
+    half = dfm.DF(acc.hi * 0.5, acc.lo * 0.5)
+    sc = dfm.add(dfm.DF(tab["norm"][0][st, :, 0], tab["norm"][1][st, :, 0]), half)
+    sc = dfm.add(sc, dfm.neg(dfm.DF(tab["logw"][0][st, :, 0], tab["logw"][1][st, :, 0])))
+    mn = dfm.min_axis(sc, -1)
+    eq = (sc.hi == mn.hi[:, None]) & (sc.lo == mn.lo[:, None])
+    capped_hi = torch.clamp(mn.hi, max=MIN_SCORE_INIT)
+    capped_lo = torch.where(mn.hi < MIN_SCORE_INIT, mn.lo, 0.0)
+    best = torch.zeros(NB * R, dtype=torch.long, device=device)
+    best[rows] = torch.argmax(eq.to(torch.uint8), dim=-1)      # first minimum
+    fs64 = torch.zeros(NB * R, dtype=torch.float64, device=device)
+    fs64[rows] = capped_hi.to(torch.float64) + capped_lo.to(torch.float64)
+    return best.reshape(NB, R), fs64.reshape(NB, R)
+
+
+def _sorted_sums(frames: torch.Tensor, mask: torch.Tensor, block_state: torch.Tensor,
+                 best: torch.Tensor, fs64: torch.Tensor, S: int, D: int):
+    """(score total, w, xs, x2s) from each row's density and score: per
+    block a one-hot product, then per state a one-hot product over the
+    blocks, all in float64."""
+    NB = frames.shape[0]
+    m64 = mask.to(torch.float64)
+    total = (fs64 * m64).sum(dim=1).sum()
+    gamma = torch.nn.functional.one_hot(best, D).to(torch.float64) * m64[:, :, None]
+    gT = gamma.transpose(1, 2)                                  # [NB, D, R]
+    f64 = frames.to(torch.float64)
+    per_state = torch.nn.functional.one_hot(block_state, S).to(torch.float64).t()  # [S, NB]
+    w = per_state @ gamma.sum(dim=1)
+    xs = (per_state @ torch.bmm(gT, f64).reshape(NB, -1)).reshape(S, D, -1)
+    x2s = (per_state @ torch.bmm(gT, f64 * f64).reshape(NB, -1)).reshape(S, D, -1)
+    return total, w, xs, x2s
+
+
+def em_pass_sorted_reference(pack, frames: torch.Tensor, mask: torch.Tensor,
+                             block_state: torch.Tensor, first_pass: bool = False):
+    """Plain PyTorch version of ``em_pass_sorted`` (any device, any pack).
+    The f32/f64 branch is the reference's: one batched [x², x, 1] · P
+    product per block, the first minimum, the cap. The df32 branch scores
+    only the live rows, in kernel C's op order."""
+    if not (first_pass or pack.max_approx):
+        raise NotImplementedError("sorted EM pass covers max-approx only")
+    S, D = pack.num_mixtures, pack.density_cap
+    bs = block_state.to(device=frames.device, dtype=torch.long)
+    if isinstance(pack, ScorePackDF):
+        best, fs64 = _best_density_df(pack, frames, mask, bs)
+    else:
+        P3 = pack.P.reshape(-1, S, D)[:, bs, :].permute(1, 0, 2)   # [NB, K, D]
+        X = pack.features_expanded(frames.to(pack.dtype))           # [NB, R, K]
+        with _full_f32_matmul():
+            sc = torch.bmm(X, P3)                                   # [NB, R, D]
+        best = sc.argmin(dim=-1)
+        fs64 = torch.clamp(sc.amin(dim=-1), max=MIN_SCORE_INIT).to(torch.float64)
+    if first_pass:
+        best = torch.zeros_like(best)
+    return _sorted_sums(frames, mask, bs, best, fs64, S, D)
+
+
+def em_pass_sorted(pack, frames: torch.Tensor, mask: torch.Tensor,
+                   block_state: torch.Tensor, first_pass: bool = False):
+    """One fused AM-score + E-step pass over state-sorted frame blocks.
+
+    frames f32 [NB, R, dim] (rows gathered in sorted order, padding rows
+    arbitrary), mask f32 [NB, R] (0 on padding rows), block_state int [NB].
+    Returns float64 tensors (score total, w [S,D], xs [S,D,dim],
+    x2s [S,D,dim]); ``first_pass`` assigns every frame to density 0.
+
+    A ScorePackDF on CUDA tensors launches kernel H (``csrc/em_pass_df.cu``,
+    counted in ``em_pass_sorted.LAUNCHES``); CPU tensors take the plain
+    version. A ScorePack (f32/f64) always runs the plain version, whose
+    product goes to cuBLAS on the card as the reference leaves it to XLA."""
+    if not isinstance(pack, ScorePackDF) or frames.device.type == "cpu":
+        return em_pass_sorted_reference(pack, frames, mask, block_state, first_pass)
+    device = frames.device
+    if device.type != "cuda":
+        raise ValueError(f"em_pass_sorted: unsupported device {device}")
+    if not (first_pass or pack.max_approx):
+        raise NotImplementedError("sorted EM pass covers max-approx only")
+    S, D, dim = pack.num_mixtures, pack.density_cap, pack.dim
+    if frames.dim() != 3 or frames.dtype != torch.float32 or frames.shape[2] != dim \
+            or not frames.is_contiguous():
+        raise ValueError(f"em_pass_sorted: frames must be a contiguous float32 "
+                         f"[NB, R, {dim}] tensor")
+    NB, R, _ = frames.shape
+    if tuple(mask.shape) != (NB, R) or tuple(block_state.shape) != (NB,) \
+            or mask.device != device or block_state.device != device:
+        raise ValueError(f"em_pass_sorted: mask must be [{NB}, {R}] and block_state "
+                         f"[{NB}] on {device}")
+    if NB and bool((block_state.min() < 0) | (block_state.max() >= S)):
+        raise ValueError(f"em_pass_sorted: block_state outside [0, {S})")
+    words = []
+    for name, shape in (("mu", (S * D, dim)), ("iv", (S * D, dim)), ("norm", (S * D,)),
+                        ("logw", (S * D,))):
+        for t in getattr(pack, name):
+            if t.device != device or tuple(t.shape) != shape or not t.is_contiguous():
+                raise ValueError(f"em_pass_sorted: {name} must be a contiguous {shape} "
+                                 f"pair on {device}")
+            words.append(t)
+    dfm.require_f32("em_pass_sorted", *words)
+    m32 = mask.to(torch.float32).contiguous()
+    bs32 = block_state.to(torch.int32).contiguous()
+    f64 = dict(dtype=torch.float64, device=device)
+    partial = (torch.empty((NB,), **f64), torch.empty((NB, D), **f64),
+               torch.empty((NB, D, dim), **f64), torch.empty((NB, D, dim), **f64))
+    out = (torch.empty((), **f64), torch.empty((S, D), **f64),
+           torch.empty((S, D, dim), **f64), torch.empty((S, D, dim), **f64))
+    err = _native.load().sr_em_pass_df(
+        frames.data_ptr(), m32.data_ptr(), bs32.data_ptr(), *(t.data_ptr() for t in words),
+        *(t.data_ptr() for t in partial), *(t.data_ptr() for t in out),
+        NB, R, S, D, dim, int(bool(first_pass)), device.index,
+        torch.cuda.current_stream(device).cuda_stream)
+    _native.check(err, "em_pass_sorted")
+    em_pass_sorted.LAUNCHES += 1
+    return out
+
+
+em_pass_sorted.LAUNCHES = 0

@@ -64,6 +64,22 @@ SIGNATURES = {
     # device, stream
     "sr_decode_scan_df": ((_P,) * 24 + (_I, _I, _I, _I, _I, _I, _F, _I, _I,
                                         _P), _I),
+    # prev, ams, tdp, pos_valid, feat_len, out, jumps, B, C, A, t0, thr,
+    # tie_pruned, use_pruning, device, stream
+    "sr_align_fwd": ((_P,) * 7 + (_I, _I, _I, _I, _F, _I, _I, _I, _P), _I),
+    # the same, in float64 (score arrays and thr)
+    "sr_align_fwd_f64": ((_P,) * 7 + (_I, _I, _I, _I, _D, _I, _I, _I, _P), _I),
+    # prev_hi, prev_lo, ams_hi, ams_lo, tdp_hi, tdp_lo, pos_valid, feat_len,
+    # out_hi, out_lo, jumps, B, C, A, t0, thr_hi, thr_lo, tie_pruned,
+    # use_pruning, device, stream
+    "sr_align_fwd_df": ((_P,) * 11 + (_I, _I, _I, _I, _F, _F, _I, _I, _I, _P), _I),
+    # final_hi, aut_len, jumps, feat_len, states_tbl, states, final_pos, B, A,
+    # Tp, T, tie_pruned, device, stream
+    "sr_align_backtrack": ((_P,) * 7 + (_I, _I, _I, _I, _I, _I, _P), _I),
+    # frames, mask, block_state, mu_hi, mu_lo, iv_hi, iv_lo, norm_hi, norm_lo,
+    # logw_hi, logw_lo, total_b, w_b, xs_b, x2s_b, total, w, xs, x2s, NB, R,
+    # S, D, dim, first_pass, device, stream
+    "sr_em_pass_df": ((_P,) * 19 + (_I, _I, _I, _I, _I, _I, _I, _P), _I),
     "sr_error_string": ((_I,), ctypes.c_char_p),
 }
 

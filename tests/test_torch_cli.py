@@ -4,9 +4,11 @@
 package) and ``corpus-statistics`` with ``--device cpu`` on a temporary
 config over tests/fixtures/demo_corpus.json print the same lines as
 ``speechrecognition_tpu.cli.main``, except the ``Time:`` and ``RTF:`` lines;
-``recognize`` prints the golden WER and SER. The actions not ported raise
-NotImplementedError naming their ROADMAP item, and ``--device cuda`` without
-a card fails instead of running on the CPU.
+``recognize`` prints the golden WER and SER. ``train`` with ``train-dtype``
+f64 runs the EM trainer on the CPU and writes the oracle's iter-2.mix (rtol
+1e-9 / atol 1e-7, as tests/test_em_demo.py holds the JAX trainer). The
+actions not ported raise NotImplementedError naming their ROADMAP item, and
+``--device cuda`` without a card fails instead of running on the CPU.
 """
 
 import contextlib
@@ -14,12 +16,14 @@ import io
 import json
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 import speechrecognition_tpu.cli as jcli
 
 import speechrecognition_torch.cli as tcli
+import speechrecognition_torch.io as tio
 
 REPO = Path(__file__).resolve().parent.parent
 FIX = REPO / "tests" / "fixtures"
@@ -86,7 +90,28 @@ def test_corpus_statistics_prints_the_jax_lines(config_path, capsys):
     assert out[0].split() == ["segments:", "35"]
 
 
-@pytest.mark.parametrize("action", ["train", "train-nn", "compute-prior", "plot-activations"])
+def test_train_writes_the_oracle_model(config_path, tmp_path, capsys):
+    cfg = json.loads(Path(config_path).read_text())
+    cfg.update({"train-dtype": "f64", "tdp-loop": 20.0, "tdp-forward": 0.0, "tdp-skip": 20.0,
+                "min-obs": 1, "num-splits": 2, "num-aligns": 1, "num-estimates": 3,
+                "pruning-threshold": 120.0, "mixture-path": str(tmp_path / "iter-"),
+                "alignment-path": str(tmp_path / "alignment-"),
+                "training-stats-path": str(tmp_path / "stats.txt")})
+    path = tmp_path / "train.json"
+    path.write_text(json.dumps(cfg))
+    rc, _out, err = run(tcli.main, [str(path), "train", "--device", "cpu"], capsys)
+    assert rc == 0
+    assert any(ln.startswith("Training took") for ln in err)
+    ref = tio.read_mixture_set(str(FIX / "iter-2.mix"), 25)
+    mine = tio.read_mixture_set(str(tmp_path / "iter-2.mix"), 25)
+    assert [len(m) for m in mine.mixtures] == [len(m) for m in ref.mixtures]
+    np.testing.assert_array_equal(mine.mean_weight, ref.mean_weight)
+    np.testing.assert_allclose(mine.mean_acc, ref.mean_acc, rtol=1e-9, atol=1e-7)
+    lines = (tmp_path / "stats.txt").read_text().splitlines()
+    assert len(lines) == 10 and lines[-1].startswith("2 0 2 31.238")
+
+
+@pytest.mark.parametrize("action", ["train-nn", "compute-prior", "plot-activations"])
 def test_unported_actions_raise(config_path, action):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcli.main([config_path, action, "--device", "cpu"])

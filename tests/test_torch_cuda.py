@@ -9,7 +9,11 @@ imports no jax, so it also runs where the JAX package is not installed:
 chip_smoke.py: kernel A within 1e-6 relative of its plain version over
 active slots (FMA contraction and operation order); kernel B (float32 and
 float64), kernel C (double-float scores) and kernel D (double-float scan)
-bit-equal, hi and lo.
+bit-equal, hi and lo; the trainer's kernels E (alignment DP, float32 and
+float64), F (its double-float twin) and G (backtrack) bit-equal, kernel H
+(double-float E-step) with w bit-equal, its float64 sums within 1e-12
+relative and two launches bit-identical; the golden demo trainer in df32
+and f64 on the card.
 """
 
 import json
@@ -284,3 +288,143 @@ def test_recognizer_golden_on_card(dev, kind):
         golden = json.load(f)
     assert all(res["hyps"][u["idx"]] == u["hyp"] for u in golden["utts"])
     assert [res["substitutions"], res["insertions"], res["deletions"]] == golden["corpus"]["sid"]
+
+
+# -- the trainer's kernels: E, F, G, H ------------------------------------------------
+
+
+def align_inputs(case, B=6, T=60, A=9):
+    """Seeded alignment DP inputs (float64), as tests/test_torch_align.py."""
+    rng = np.random.default_rng(len(case) * 7 + A)
+    aut = np.array([A, A - 2, 3, 5, A, 2], np.int32)[:B]
+    lens = np.array([60, 41, 13, 0, 59, 1], np.int32)[:B]
+    if case.startswith("ties"):
+        ams = rng.integers(0, 3, size=(B, T, A)).astype(np.float64)
+        tdp, thr = np.zeros((B, A, 3)), 4.0
+    else:
+        ams = rng.uniform(0.0, 40.0, size=(B, T, A))
+        tdp, thr = rng.uniform(0.0, 20.0, size=(B, A, 3)), 60.0
+    tie = "full-dp" not in case
+    valid = np.arange(A)[None, :] < aut[:, None]
+    return ams, tdp, valid, aut, lens, thr, tie, tie and case != "pruned-nothr"
+
+
+ALIGN_CASES = ["pruned", "full-dp", "pruned-nothr", "ties-pruned", "ties-full-dp"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ALIGN_CASES)
+def test_kernels_e_and_g_bit_equal(dev, case, dtype):
+    from speechrecognition_torch.align import viterbi as vit
+    ams, tdp, valid, aut, lens, thr, tie, prune = align_inputs(case)
+    B, T, A = ams.shape
+    args = (torch.as_tensor(tdp, dtype=dtype, device=dev), torch.as_tensor(valid, device=dev),
+            torch.as_tensor(lens, device=dev), thr)
+    tbl = torch.as_tensor(np.random.default_rng(1).integers(0, 106, size=(B, A)),
+                          dtype=torch.int32, device=dev)
+    results = []
+    for fwd, back in ((vit.align_fwd_chunk, vit.align_backtrack),
+                      (vit.align_fwd_chunk_reference, vit.align_backtrack_reference)):
+        prev = torch.full((B, A), 1e30, dtype=dtype, device=dev)
+        jumps = []
+        for t0, n in ((0, 25), (25, 35)):
+            am = torch.as_tensor(ams[:, t0:t0 + n], dtype=dtype, device=dev).contiguous()
+            prev, j = fwd(prev, am, *args, t0, tie_pruned=tie, use_pruning=prune)
+            jumps.append(j)
+        states, fp = back(prev.float().contiguous(), torch.as_tensor(aut, device=dev),
+                          torch.cat(jumps), torch.as_tensor(lens, device=dev), tbl, 53,
+                          tie_pruned=tie)
+        results.append((prev, torch.cat(jumps), states, fp))
+    torch.cuda.synchronize()
+    for name, k, p in zip(("carry", "jumps", "states", "final_pos"), *results):
+        assert k.dtype == p.dtype and torch.equal(k, p), name
+
+
+@pytest.mark.parametrize("case", ALIGN_CASES)
+def test_kernel_f_bit_equal(dev, case):
+    from speechrecognition_torch.align import viterbi as vit
+    ams, tdp, valid, aut, lens, thr, tie, prune = align_inputs(case)
+    B, T, A = ams.shape
+    am = dfm.from_f64(ams, dev)
+    args = (dfm.from_f64(tdp, dev), torch.as_tensor(valid, device=dev),
+            torch.as_tensor(lens, device=dev), dfm.from_f64(np.float64(thr), dev))
+    before = vit.align_fwd_chunk_df.LAUNCHES
+    results = []
+    for fwd in (vit.align_fwd_chunk_df, vit.align_fwd_chunk_df_reference):
+        prev = dfm.DF(torch.full((B, A), 1e30, device=dev), torch.zeros((B, A), device=dev))
+        jumps = []
+        for t0, n in ((0, 25), (25, 35)):
+            chunk = dfm.DF(am.hi[:, t0:t0 + n].contiguous(), am.lo[:, t0:t0 + n].contiguous())
+            prev, j = fwd(prev, chunk, *args, t0, tie_pruned=tie, use_pruning=prune)
+            jumps.append(j)
+        results.append((prev.hi, prev.lo, torch.cat(jumps)))
+    torch.cuda.synchronize()
+    assert vit.align_fwd_chunk_df.LAUNCHES == before + 2
+    for name, k, p in zip(("hi", "lo", "jumps"), *results):
+        assert torch.equal(k, p), name
+
+
+def sorted_demo_blocks(dev, block):
+    lex = build_sietill_lexicon()
+    desc = CorpusDescription.read(str(FIX / "demo_corpus.json"), lex)
+    corpus = Corpus.read(desc, str(FIX / "demo_features") + "/", SignalAnalysisConfig(),
+                         normalization_path=str(FIX / "normalization-demo.bin"))
+    from speechrecognition_torch.io import read_alignment
+    align, _w, _m = read_alignment(str(FIX / "demo_alignments" / "alignment-2-0.dump"))
+    frame_idx, block_state, _nb = gmm.sorted_blocks(align, 106, block=block)
+    frames = torch.as_tensor(corpus.features[np.maximum(frame_idx, 0)], device=dev)
+    mask = torch.as_tensor((frame_idx >= 0).astype(np.float32), device=dev)
+    return frames, mask, torch.as_tensor(block_state, device=dev)
+
+
+@pytest.mark.parametrize("block,first_pass,cap", [(4096, False, None), (256, False, 16),
+                                                  (4096, True, None)])
+def test_kernel_h_matches_plain(dev, block, first_pass, cap):
+    """w bit-equal, xs, x2s and the total within 1e-12 relative (float64
+    sums in another order), two launches bit-identical."""
+    model = gmm.MixtureModel.from_raw(read_mixture_set(str(FIX / "iter-2.mix"), 25),
+                                      gmm.VarianceModel.MIXTURE_POOLING, max_approx=True)
+    pack = model.pack_df(density_cap=cap, device=dev)
+    frames, mask, bs = sorted_demo_blocks(dev, block)
+    before = gmm.em_pass_sorted.LAUNCHES
+    got = gmm.em_pass_sorted(pack, frames, mask, bs, first_pass=first_pass)
+    again = gmm.em_pass_sorted(pack, frames, mask, bs, first_pass=first_pass)
+    ref = gmm.em_pass_sorted_reference(pack, frames, mask, bs, first_pass=first_pass)
+    torch.cuda.synchronize()
+    assert gmm.em_pass_sorted.LAUNCHES == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(got[1], ref[1]) and got[1].dtype == torch.float64
+    for g, r in ((got[0], ref[0]), (got[2], ref[2]), (got[3], ref[3])):
+        assert ((g - r).abs() <= 1e-12 * r.abs().max()).all()
+
+
+@pytest.mark.parametrize("kind", ["df32", "f64"])
+def test_trainer_golden_on_card(dev, kind, tmp_path):
+    """The oracle recipe through the kernels: the ten AM-score lines within
+    1e-4, alignment-2-0.dump equal to the C++ trainer's."""
+    from speechrecognition_torch.align import viterbi as vit
+    from speechrecognition_torch.io import read_alignment
+    from speechrecognition_torch.train.em import Trainer, TrainerConfig
+    oracle = [32.9885, 32.5804, 32.1673, 31.9418, 31.9074, 31.8869, 31.4152, 31.3187,
+              31.2697, 31.2383]
+    lex = build_sietill_lexicon()
+    desc = CorpusDescription.read(str(FIX / "demo_corpus.json"), lex)
+    corpus = Corpus.read(desc, str(FIX / "demo_features") + "/", SignalAnalysisConfig(),
+                         normalization_path=str(FIX / "normalization-demo.bin"))
+    model = gmm.MixtureModel(25, lex.num_states, gmm.VarianceModel.MIXTURE_POOLING)
+    cfg = TrainerConfig(min_obs=1, num_splits=2, num_aligns=1, num_estimates=3,
+                        pruning_threshold=120.0, alignment_path=str(tmp_path) + "/alignment-")
+    tdp = TdpModel(silence_state=lex.silence_state, loop=20.0, forward=0.0, skip=20.0)
+    counters = ([gmm.am_scores_df, vit.align_fwd_chunk_df, vit.align_backtrack,
+                 gmm.em_pass_sorted] if kind == "df32"
+                else [vit.align_fwd_chunk, vit.align_backtrack])
+    before = [c.LAUNCHES for c in counters]
+    trainer = Trainer(cfg, lex, model, tdp, dtype="df32" if kind == "df32" else torch.float64,
+                      device=dev, log=lambda *a: None)
+    trainer.train(corpus)
+    assert all(c.LAUNCHES > b for c, b in zip(counters, before))
+    got = [float(line.split()[3]) for line in trainer.stats_lines]
+    assert len(got) == 10 and all(abs(g - o) < 1e-4 for g, o in zip(got, oracle))
+    ref, _, _ = read_alignment(str(FIX / "demo_alignments" / "alignment-2-0.dump"))
+    mine, _, _ = read_alignment(str(tmp_path / "alignment-2-0.dump"))
+    np.testing.assert_array_equal(mine, ref)

@@ -2,6 +2,8 @@
 when it is rebuilt, and what happens without a CUDA toolkit. Building and
 launching need nvcc and a card (tests/test_torch_cuda.py, chip_smoke.py)."""
 
+import ctypes
+import re
 import shutil
 
 import pytest
@@ -22,16 +24,52 @@ def test_library_path_is_keyed_by_sources(tmp_path, monkeypatch):
     assert _native.library_path() != first
 
 
+SOURCES = ["align_backtrack.cu", "align_scan.cu", "align_scan_df.cu", "am_scores_df.cu",
+           "decode_scan.cu", "decode_scan_df.cu", "em_pass_df.cu", "mahalanobis.cu"]
+
+
 def test_sources_are_the_two_kernels():
     """The kernel sources (A mahalanobis, B decode_scan in f32 and f64, C
-    am_scores_df, D decode_scan_df) and the shared double-float header."""
-    assert [p.name for p in _native._sources()] == [
-        "am_scores_df.cu", "decode_scan.cu", "decode_scan_df.cu", "mahalanobis.cu", "df.cuh"]
+    am_scores_df, D decode_scan_df, E align_scan in f32 and f64, F
+    align_scan_df, G align_backtrack, H em_pass_df) and the shared
+    double-float header."""
+    assert [p.name for p in _native._sources()] == SOURCES + ["df.cuh"]
     assert "sm_90a" in " ".join(_native.NVCC_FLAGS)
     assert "--fmad=false" not in _native.NVCC_FLAGS
     assert set(_native.SIGNATURES) == {
         "sr_mahalanobis_scores", "sr_decode_scan", "sr_decode_scan_f64", "sr_am_scores_df",
-        "sr_decode_scan_df", "sr_error_string"}
+        "sr_decode_scan_df", "sr_align_fwd", "sr_align_fwd_f64", "sr_align_fwd_df",
+        "sr_align_backtrack", "sr_em_pass_df", "sr_error_string"}
+
+
+def c_entry_points():
+    """name → (parameter declarations, result type) of every extern "C"
+    function in csrc/*.cu."""
+    found = {}
+    for src in sorted(_native.CSRC.glob("*.cu")):
+        for m in re.finditer(r'extern "C" ([\w ]+?\*?) *(sr_\w+)\(([^)]*)\)',
+                             src.read_text()):
+            found[m.group(2)] = ([p.strip() for p in m.group(3).split(",")], m.group(1).strip())
+    return found
+
+
+def ctype_of(decl: str):
+    if "*" in decl:
+        return ctypes.c_void_p
+    return {"int": ctypes.c_int, "float": ctypes.c_float,
+            "double": ctypes.c_double}[decl.split()[0]]
+
+
+def test_every_entry_point_has_its_signature():
+    """Every C entry point of every source is bound, with one ctypes type per
+    parameter that matches its declaration (a pointer, int, float or
+    double passed as another type would be cut or misread silently)."""
+    found = c_entry_points()
+    assert set(found) == set(_native.SIGNATURES)
+    for name, (params, result) in found.items():
+        argtypes, restype = _native.SIGNATURES[name]
+        assert list(argtypes) == [ctype_of(p) for p in params], name
+        assert restype == (ctypes.c_char_p if result == "const char*" else ctypes.c_int), name
 
 
 def test_header_edit_rebuilds(tmp_path, monkeypatch):
@@ -63,8 +101,7 @@ def test_build_compiles_each_source_then_links(tmp_path, monkeypatch):
     out = tmp_path / "libsr_kernels_test.so"
     _native._build(out)
     compiles, (link,) = calls
-    assert [c[-1].rsplit("/", 1)[-1] for c in compiles] == [
-        "am_scores_df.cu", "decode_scan.cu", "decode_scan_df.cu", "mahalanobis.cu"]
+    assert [c[-1].rsplit("/", 1)[-1] for c in compiles] == SOURCES
     assert all("-c" in c and "-shared" not in c for c in compiles)
     assert "-shared" in link and out.exists()
     assert sorted(p.name for p in tmp_path.iterdir()) == [out.name]
