@@ -27,11 +27,16 @@ kernel against its plain PyTorch version on the same tensors:
      plain versions: equal transcripts, each equal to the 35-utterance run;
   7. kernel C (double-float GMM scores, min over densities and cap) at
      N=32768, J=1696 and at a ragged N with iter-2.mix (J=424): equal hi and
-     lo words to its plain version; max error against float64 printed;
+     lo words to its plain version; max error against float64 printed; then
+     on tables whose magnitudes span 1e-6 .. 1e6 and on frames equal to
+     bench/model.mix's mu.hi: the same bits as the plain version, whose
+     exact product is Dekker's where the kernel's is one FMA (csrc/df.cuh);
   8. kernel D (double-float Viterbi chunk) and the float64 kernel B at
      B=1024, T=320 on real scores of both models, two chunks with carry:
      bit-equal to their plain versions;
-  9. times of kernels C, D and f64 B against their plain versions, in turns;
+  9. times of kernels C, D and f64 B against their plain versions, in turns,
+     beside each kernel's bound (and kernel C's FP32 issue limit, also at
+     the instruction count of Dekker's product);
  10. golden demo runs in df32 and f64 on iter-2.mix: 35/35 transcripts,
      WER 19.587629 %, S/I/D 4/14/1, through the new kernels;
  11. full width, df32 (the production path; launch counts are read from this
@@ -46,7 +51,8 @@ kernel against its plain PyTorch version on the same tensors:
      times in turns;
  14. kernel H (double-float E-step) over the 1024-utterance corpus's sorted
      blocks: counts bit-equal, sums within 1e-12 relative, two launches
-     bit-identical, times in turns;
+     bit-identical, times in turns beside its bound and the scoring's FP32
+     issue limit;
  15. the golden demo trainer (the C++ trainer's recipe) in df32 and f64 on
      the card: its ten AM-score lines within 1e-4, alignment-2-0.dump and
      iter-2.mix as the fixtures; the f32 trainer through the kernels and
@@ -61,12 +67,18 @@ kernel against its plain PyTorch version on the same tensors:
  17. the CLI's train on a temporary demo config with train-dtype df32 and
      --device cuda: exit 0 and the oracle's iter-2.mix.
 
-Every check that fails raises, so the script exits non-zero. It exits
-non-zero without a result when no CUDA device is present. The last line of
-standard output is {"ok": true, "device": {...}}; the line before it is the
-per-kernel JSON summary.
+Every kernel's time is printed beside its bound: the larger of the bytes it
+must move over 3.35 TB/s and the operations its function needs (an FMA as
+two) over 67 TFLOP/s in float32 or 34 TFLOP/s in float64; for the
+sequential scans also per frame. Every check that fails raises, so the
+script exits non-zero. It exits non-zero without a result when no CUDA
+device is present. The last line of standard output is
+{"ok": true, "device": {...}}; the line before it is the per-kernel JSON
+summary (launches on the main paths, error against the plain version, ms,
+plain_ms, bound_ms, bound_by, library_ms).
 """
 
+import importlib.util
 import json
 import os
 import subprocess
@@ -99,6 +111,49 @@ TRAIN_BATCH = 256
 #: comparison is cut to the first PLAIN_TRAIN_CUT utterances
 PLAIN_TRAIN_BUDGET_S = 300.0
 PLAIN_TRAIN_CUT = 256
+#: NVIDIA's H100 SXM data sheet: HBM3 bandwidth, and the FP32 and FP64 peaks
+#: outside the tensor cores (an FMA counted as two operations)
+HBM_BYTES_S = 3.35e12
+FP32_OPS_S = 67e12
+FP64_OPS_S = 34e12
+#: FP32 instructions the card issues per second: 132 SMs x 128 lanes x
+#: 1.98 GHz (the clock at which 67 TFLOP/s counts an FMA as two operations)
+FP32_ISSUE_S = 132 * 128 * 1.98e9
+#: operations per unit of work, counted from the kernels' sources: a float
+#: add, multiply, compare or min is 1 and an FMA 2; a double-float add 20
+#: (df.cuh add: two two_sums of 6, two fast_two_sums of 3, two adds), a
+#: double-float compare or minimum 3
+DF_ADD, DF_CMP = 20, 3
+#: kernel A, per frame and density slot and dimension: sub, mul, FMA
+A_ELEMENT_OPS = 4
+#: kernels C and H, per frame, density and dimension: add_f 10, two mul of 9
+#: instructions each (1 product, 1 FMA counted twice, 3 for the cross terms,
+#: 1 add, 3 for fast_two_sum), add 20; per density: half 2, two adds, minimum
+C_ELEMENT_OPS = 10 + 2 * 10 + DF_ADD
+C_ELEMENT_INSTR = 10 + 2 * 9 + DF_ADD
+C_ELEMENT_INSTR_DEKKER = C_ELEMENT_INSTR + 2 * 14     # two_prod by splitting: 16, not 2
+C_DENSITY_OPS = 2 + 2 * DF_ADD + DF_CMP
+#: what the function needs, not how a kernel reduces. Kernels B and D, per
+#: utterance, frame and (word, position) slot: five adds (three candidates,
+#: the emission, the renormalisation), five compares in the score type (two
+#: candidates, the entry, one step of the minimum over the W*P slots, the
+#: prune) and two guards on the hi word (the BIG cap, the BIG/2 test); per
+#: utterance and frame, the W-1 compares of the word-end minimum and two
+#: guards, less the one compare the W*P-slot minimum does not need. The
+#: entries' two adds in 2 of 24 slots are left out.
+B_SLOT_OPS = 5 + 5 + 2
+D_SLOT_OPS = 5 * DF_ADD + 5 * DF_CMP + 2
+#: kernels E and F, per utterance, frame and position: five adds, four
+#: compares in the score type (two candidates, one step of the row minimum,
+#: the prune) and two guards on the hi word (BIG/2 before and after the
+#: renormalisation); the guard on the row minimum, once per row and frame,
+#: stands for the compare its minimum does not need
+E_POS_OPS = 5 + 4 + 2
+F_POS_OPS = 5 * DF_ADD + 4 * DF_CMP + 2
+#: kernel H's float64 sums, per live row and dimension (x*m, x*x*m, two adds),
+#: and per live row (its score, w, the total)
+H_ROW_DIM_F64 = 5
+H_ROW_F64 = 4
 #: the C++ trainer's AM-score trajectory on the demo corpus (tests/test_em_demo.py)
 ORACLE_AM_SCORES = [32.9885, 32.5804, 32.1673, 31.9418, 31.9074, 31.8869, 31.4152, 31.3187,
                     31.2697, 31.2383]
@@ -125,6 +180,42 @@ def cuda_ms(fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+PROFILED = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+
+
+def log_profile(tag, prof, seconds):
+    """The device busy share of a profiled run and its top device operations."""
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(dev_us(e) for e in events)
+    busy = (f"{busy_us / 1e6 / seconds:.4f} ({busy_us / 1e3:.1f} ms of device time in "
+            f"{seconds:.4f} s)" if busy_us > 0 else "not measured (no device time recorded)")
+    log(f"{tag} profiled run: device busy share {busy}")
+    for e in sorted(events, key=dev_us, reverse=True)[:8]:
+        log(f"{tag}   {dev_us(e) / 1e3:10.3f} ms  {e.count:6d}x  {e.key[:90]}")
+
+
+def scan_frame_ops(W, cmp):
+    """Kernels B and D, per utterance and frame, besides the slots' ops."""
+    return (W - 1) * cmp + 2 - cmp
+
+
+def bound(nbytes, fp32=0.0, fp64=0.0):
+    """(bound_ms, bound_by): the least time the card could take, the larger
+    of the bytes over the memory rate and the operations over their peaks."""
+    mem = nbytes / HBM_BYTES_S
+    ops = fp32 / FP32_OPS_S + fp64 / FP64_OPS_S
+    return max(mem, ops) * 1e3, ("bytes" if mem >= ops else "operations")
+
+
+def entry(name, source, replaces, launches, err, ms, plain_ms, bnd):
+    return {"name": name, "route": "cuda", "source": f"speechrecognition_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
 
 
 def in_turns(plain, kernel, reps_plain, reps_kernel):
@@ -234,9 +325,20 @@ def main():
     a_ms, a_plain_ms, a_all = in_turns(
         lambda: maha.mahalanobis_scores_reference(x, pack_bench.mu, pack_bench.a, pack_bench.c),
         lambda: maha.mahalanobis_scores(x, pack_bench.mu, pack_bench.a, pack_bench.c), 5, 20)
-    log(f"[3] kernel A time at N={gmm.AM_CHUNK} J=1696: kernel {a_ms:.4f} ms, "
+    n_a, j_a = x.shape[0], pack_bench.mu.shape[0]
+    a_bound = bound(4 * (n_a * 25 + 2 * j_a * 25 + j_a + n_a * j_a),
+                    fp32=n_a * j_a * (A_ELEMENT_OPS * 25 + 1))
+    log(f"[3] kernel A time at N={n_a} J={j_a}: kernel {a_ms:.4f} ms, "
         f"plain {a_plain_ms:.4f} ms (plain, kernel, kernel, plain: "
-        f"{', '.join(f'{v:.4f}' for v in a_all)}) on {card}")
+        f"{', '.join(f'{v:.4f}' for v in a_all)}); bound {a_bound[0]:.4f} ms "
+        f"({a_bound[1]}) on {card}")
+    X = pack_bench.features_expanded(x)
+    with gmm._full_f32_matmul():
+        mm_ms = cuda_ms(lambda: torch.mm(X, pack_bench.P), 20)
+    log(f"[3] context for kernel A, a different function: the one-call quadratic "
+        f"expansion [x^2, x, 1] @ P (torch.mm, full float32; ~1e-4 cancellation, so it "
+        f"fails kernel A's 3e-6 gate) {mm_ms:.4f} ms at N={n_a} J={j_a} on {card}")
+    del X
 
     # -- 4. kernel B against its plain version -----------------------------------
     big = repeat_corpus(corpus, FULL_BATCH, Corpus)
@@ -279,9 +381,23 @@ def main():
     b_ms, b_plain_ms, b_all = in_turns(
         lambda: dec.decode_scan_reference(ams[0], lens, *targs, 200.0, prune=True, t0=0),
         lambda: dec.decode_scan(ams[0], lens, *targs, 200.0, prune=True, t0=0), 2, 10)
+    W, P = tables.state_table.shape
+    S_b = ams[0].shape[2]
+
+    def scan_bound(word):
+        """Kernel B or D over one chunk: the scores read once, the carry in
+        and out, the per-frame outputs; ops per slot and frame."""
+        nbytes = (FULL_BATCH * chunk * S_b * word + 2 * FULL_BATCH * W * P * (word + 4)
+                  + 2 * FULL_BATCH * word + 3 * chunk * FULL_BATCH * 4)
+        return nbytes, FULL_BATCH * chunk * W * P
+
+    frames_b = FULL_BATCH * chunk
+    nb_b, slots = scan_bound(4)
+    b_bound = bound(nb_b, fp32=slots * B_SLOT_OPS + frames_b * scan_frame_ops(W, 1))
     log(f"[4] kernel B time at B={FULL_BATCH} T={chunk}: kernel {b_ms:.4f} ms, "
         f"plain {b_plain_ms:.4f} ms (plain, kernel, kernel, plain: "
-        f"{', '.join(f'{v:.4f}' for v in b_all)}) on {card}")
+        f"{', '.join(f'{v:.4f}' for v in b_all)}); bound {b_bound[0]:.4f} ms "
+        f"({b_bound[1]}); per frame {b_ms / chunk * 1e3:.3f} us on {card}")
     del ams, feats, carry_k, carry_p, out_k, out_p
     torch.cuda.empty_cache()
 
@@ -365,6 +481,28 @@ def main():
         check(excess <= 0, f"kernel C vs f64 beyond the bound ({label})")
     del got, ref, exact, g64, err64
 
+    # the FMA product of df.cuh against the plain version's Dekker product:
+    # magnitudes 1e-6 .. 1e6 across the dimensions, and frames equal to a
+    # density's mu.hi (diff = -mu.lo), on synthetic and real tables
+    spec = importlib.util.spec_from_file_location("torch_df_tables",
+                                                  REPO / "tests" / "torch_df_tables.py")
+    tables_mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tables_mod)
+    wide, x_wide = tables_mod.wide_magnitude_pack_df(106, 16, 25, seed=4, n=4133, device=dev)
+    J_b = packdf_bench.mu.hi.shape[0]
+    x_hit = packdf_bench.mu.hi[(torch.arange(4133, device=dev) * 7) % J_b].contiguous()
+    for label, packdf, x in (("wide-magnitude tables", wide, x_wide),
+                             ("bench/model.mix, x == mu.hi", packdf_bench, x_hit)):
+        got = gmm.am_scores_df(packdf, x)
+        ref = gmm.am_scores_df_reference(packdf, x)
+        torch.cuda.synchronize()
+        equal = (torch.equal(got.hi.view(torch.int32), ref.hi.view(torch.int32))
+                 and torch.equal(got.lo.view(torch.int32), ref.lo.view(torch.int32)))
+        log(f"[7] kernel C on {label}, N={x.shape[0]} J={packdf.mu.hi.shape[0]}: hi and lo "
+            f"bits equal to plain (Dekker product) {equal}")
+        check(equal, f"kernel C differs from its plain version on {label}")
+    del wide, x_wide, x_hit, got, ref
+
     # -- 8. kernel D and f64 kernel B against their plain versions -------------------
     rec_df = dec.Recognizer(config, lex, tdp, packdf_bench, dtype="df32")
     feats = dec.DeviceCorpus(big, dev).batch(list(range(FULL_BATCH)), T)
@@ -440,23 +578,38 @@ def main():
     c_ms, c_plain_ms, c_all = in_turns(
         lambda: gmm.am_scores_df_reference(packdf_bench, x),
         lambda: gmm.am_scores_df(packdf_bench, x), 1, 10)
-    log(f"[9] kernel C time at N={gmm.AM_CHUNK} J=1696: kernel {c_ms:.4f} ms, plain "
+    n_c, S_c, D_c = x.shape[0], packdf_bench.num_mixtures, packdf_bench.density_cap
+    J_c = S_c * D_c
+    elements = n_c * J_c * 25
+    c_bound = bound(4 * n_c * 25 + 8 * (2 * J_c * 25 + 2 * J_c) + 8 * n_c * S_c,
+                    fp32=elements * C_ELEMENT_OPS + n_c * J_c * C_DENSITY_OPS)
+    c_issue = (elements * C_ELEMENT_INSTR + n_c * J_c * C_DENSITY_OPS) / FP32_ISSUE_S * 1e3
+    c_issue_dekker = (elements * C_ELEMENT_INSTR_DEKKER + n_c * J_c * C_DENSITY_OPS) / FP32_ISSUE_S * 1e3
+    log(f"[9] kernel C time at N={n_c} J={J_c}: kernel {c_ms:.4f} ms, plain "
         f"{c_plain_ms:.4f} ms (plain, kernel, kernel, plain: "
-        f"{', '.join(f'{v:.4f}' for v in c_all)}) on {card}")
+        f"{', '.join(f'{v:.4f}' for v in c_all)}); bound {c_bound[0]:.4f} ms ({c_bound[1]}), "
+        f"FP32 issue limit {c_issue:.4f} ms at {C_ELEMENT_INSTR} instructions per element "
+        f"({c_issue_dekker:.4f} ms at the Dekker product's {C_ELEMENT_INSTR_DEKKER}) on {card}")
     am0 = chunks_df[0]
     d_ms, d_plain_ms, d_all = in_turns(
         lambda: dec.decode_scan_df_reference(am0, lens, *largs, *df_tabs, 200.0, t0=0),
         lambda: dec.decode_scan_df(am0, lens, *largs, *df_tabs, 200.0, t0=0), 1, 10)
+    nb_d, slots = scan_bound(8)
+    d_bound = bound(nb_d, fp32=slots * D_SLOT_OPS + frames_b * scan_frame_ops(W, DF_CMP))
     log(f"[9] kernel D time at B={FULL_BATCH} T={chunk}: kernel {d_ms:.4f} ms, plain "
         f"{d_plain_ms:.4f} ms (plain, kernel, kernel, plain: "
-        f"{', '.join(f'{v:.4f}' for v in d_all)}) on {card}")
+        f"{', '.join(f'{v:.4f}' for v in d_all)}); bound {d_bound[0]:.4f} ms ({d_bound[1]}); "
+        f"per frame {d_ms / chunk * 1e3:.3f} us on {card}")
     a64 = ams64[0]
     b64_ms, b64_plain_ms, b64_all = in_turns(
         lambda: dec.decode_scan_reference(a64, lens, *targs64, 200.0, t0=0),
         lambda: dec.decode_scan(a64, lens, *targs64, 200.0, t0=0), 2, 10)
+    nb_b64, slots = scan_bound(8)
+    b64_bound = bound(nb_b64, fp64=slots * B_SLOT_OPS + frames_b * scan_frame_ops(W, 1))
     log(f"[9] f64 kernel B time at B={FULL_BATCH} T={chunk}: kernel {b64_ms:.4f} ms, plain "
         f"{b64_plain_ms:.4f} ms (plain, kernel, kernel, plain: "
-        f"{', '.join(f'{v:.4f}' for v in b64_all)}) on {card}")
+        f"{', '.join(f'{v:.4f}' for v in b64_all)}); bound {b64_bound[0]:.4f} ms "
+        f"({b64_bound[1]}); per frame {b64_ms / chunk * 1e3:.3f} us on {card}")
     del x, chunks_df, ams64, am0, a64, carry_k, carry_p, out_k, out_p, feats
     torch.cuda.empty_cache()
 
@@ -500,6 +653,11 @@ def main():
         f"{peak_df / 2 ** 20:.1f} MiB; launches {launches}; on {card}")
     check(all(v > 0 for v in launches.values()), f"df32 main path skipped a kernel: {launches}")
     check(res["num_decoded"] == FULL_BATCH, "df32 full batch decoded")
+    with torch.profiler.profile(activities=PROFILED) as prof:
+        res_prof = rec_df.recognize_corpus(big, batch_size=FULL_BATCH)
+    log_profile("[11]", prof, res_prof["time"])
+    check(res_prof["hyps"] == res["hyps"], "the profiled df32 decode changed a transcript")
+    del prof, res_prof
 
     # the plain decode's projected time from phase 9: T/chunk scans and
     # FULL_BATCH*T/AM_CHUNK scoring calls
@@ -555,31 +713,16 @@ def main():
     train = train_phases(dev, card, lex, corpus, big, bench, packdf_bench, c_plain_ms)
 
     kernels = [
-        {"name": "mahalanobis_scores", "route": "cuda",
-         "source": "speechrecognition_torch/csrc/mahalanobis.cu",
-         "replaces": "speechrecognition_tpu/ops/mahalanobis.py:90",
-         "launches": f32_launches["mahalanobis_scores"], "max_abs_err": a_err["main"],
-         "ms": a_ms, "plain_ms": a_plain_ms},
-        {"name": "decode_scan", "route": "cuda",
-         "source": "speechrecognition_torch/csrc/decode_scan.cu",
-         "replaces": "speechrecognition_tpu/search/decoder.py:108",
-         "launches": f32_launches["decode_scan"], "max_abs_err": b_abs,
-         "ms": b_ms, "plain_ms": b_plain_ms},
-        {"name": "decode_scan[f64]", "route": "cuda",
-         "source": "speechrecognition_torch/csrc/decode_scan.cu",
-         "replaces": "speechrecognition_tpu/search/decoder.py:108",
-         "launches": launches["decode_scan[f64]"], "max_abs_err": b64_abs,
-         "ms": b64_ms, "plain_ms": b64_plain_ms},
-        {"name": "am_scores_df", "route": "cuda",
-         "source": "speechrecognition_torch/csrc/am_scores_df.cu",
-         "replaces": "speechrecognition_tpu/models/gmm.py:568",
-         "launches": launches["am_scores_df"], "max_abs_err": c_err["main"],
-         "ms": c_ms, "plain_ms": c_plain_ms},
-        {"name": "decode_scan_df", "route": "cuda",
-         "source": "speechrecognition_torch/csrc/decode_scan_df.cu",
-         "replaces": "speechrecognition_tpu/search/decoder.py:220",
-         "launches": launches["decode_scan_df"], "max_abs_err": d_abs,
-         "ms": d_ms, "plain_ms": d_plain_ms},
+        entry("mahalanobis_scores", "mahalanobis.cu", "speechrecognition_tpu/ops/mahalanobis.py:90",
+              f32_launches["mahalanobis_scores"], a_err["main"], a_ms, a_plain_ms, a_bound),
+        entry("decode_scan", "decode_scan.cu", "speechrecognition_tpu/search/decoder.py:108",
+              f32_launches["decode_scan"], b_abs, b_ms, b_plain_ms, b_bound),
+        entry("decode_scan[f64]", "decode_scan.cu", "speechrecognition_tpu/search/decoder.py:108",
+              launches["decode_scan[f64]"], b64_abs, b64_ms, b64_plain_ms, b64_bound),
+        entry("am_scores_df", "am_scores_df.cu", "speechrecognition_tpu/models/gmm.py:568",
+              launches["am_scores_df"], c_err["main"], c_ms, c_plain_ms, c_bound),
+        entry("decode_scan_df", "decode_scan_df.cu", "speechrecognition_tpu/search/decoder.py:220",
+              launches["decode_scan_df"], d_abs, d_ms, d_plain_ms, d_bound),
         *train,
     ]
     print(json.dumps({"kernels": kernels}))
@@ -650,6 +793,12 @@ def train_phases(dev, card, lex, corpus, big, bench, packdf_bench, c_plain_ms):
             jumps.append(j)
         return prev, torch.cat(jumps)
 
+    def align_bytes(word):
+        """One chunk of kernel E or F: the scores read once, the jumps
+        written, the carry in and out, the TDP table and valid mask."""
+        return (TRAIN_BATCH * C * A * (word + 1) + 2 * TRAIN_BATCH * A * word
+                + TRAIN_BATCH * A * (3 * word + 1))
+
     res = {}
     for label, dt in (("align_fwd", torch.float32), ("align_fwd[f64]", torch.float64)):
         pack = bench.pack(dtype=dt, device=dev)
@@ -666,13 +815,17 @@ def train_phases(dev, card, lex, corpus, big, bench, packdf_bench, c_plain_ms):
         ms, plain_ms, all_ = in_turns(
             lambda: vit.align_fwd_chunk_reference(big0, ams[0], tdp, valid, lens, 200.0, 0),
             lambda: vit.align_fwd_chunk(big0, ams[0], tdp, valid, lens, 200.0, 0), 1, 10)
+        word = 4 if dt == torch.float32 else 8
+        ops = TRAIN_BATCH * C * A * E_POS_OPS
+        bnd = bound(align_bytes(word), **({"fp32": ops} if word == 4 else {"fp64": ops}))
         log(f"[13] kernel E {dt} B={TRAIN_BATCH} C={C} A={A} on bench/model.mix scores, "
             f"3 chunks with carry: carry and jumps bit-equal {equal}, max abs {err:.3e}, "
             f"live positions after the chunks {live:.3f}; kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms per chunk (plain, kernel, kernel, plain: "
-            f"{', '.join(f'{v:.4f}' for v in all_)}) on {card}")
+            f"{', '.join(f'{v:.4f}' for v in all_)}); bound {bnd[0]:.4f} ms ({bnd[1]}); "
+            f"per frame {ms / C * 1e3:.3f} us on {card}")
         check(equal, f"kernel E ({dt}) is not bit-equal to its plain version")
-        res[label] = (err, ms, plain_ms)
+        res[label] = (err, ms, plain_ms, bnd)
 
     am_df = [gmm.am_scores_df(packdf_bench, x) for x in flat_chunks]
     ams_df = [dfm.DF(a.hi.reshape(TRAIN_BATCH, C, -1).gather(2, idx).contiguous(),
@@ -694,12 +847,14 @@ def train_phases(dev, card, lex, corpus, big, bench, packdf_bench, c_plain_ms):
                                                  thr_df, 0),
         lambda: vit.align_fwd_chunk_df(big_df, ams_df[0], tdp_df, valid, lens, thr_df, 0),
         1, 10)
+    bnd = bound(align_bytes(8), fp32=TRAIN_BATCH * C * A * F_POS_OPS)
     log(f"[13] kernel F B={TRAIN_BATCH} C={C} A={A} on df32 scores, 3 chunks with carry: "
         f"hi, lo and jumps bit-equal {equal}, max abs {err:.3e}; kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms per chunk (plain, kernel, kernel, plain: "
-        f"{', '.join(f'{v:.4f}' for v in all_)}) on {card}")
+        f"{', '.join(f'{v:.4f}' for v in all_)}); bound {bnd[0]:.4f} ms ({bnd[1]}); "
+        f"per frame {ms / C * 1e3:.3f} us on {card}")
     check(equal, "kernel F is not bit-equal to its plain version")
-    res["align_fwd_df"] = (err, ms, plain_ms)
+    res["align_fwd_df"] = (err, ms, plain_ms, bnd)
 
     g_args = (k_prev.hi.contiguous(), aut, k_j, lens, st_tbl, int(big.lengths[:TRAIN_BATCH].max()))
     k_states, k_fp = vit.align_backtrack(*g_args)
@@ -708,11 +863,16 @@ def train_phases(dev, card, lex, corpus, big, bench, packdf_bench, c_plain_ms):
     equal = torch.equal(k_states, p_states) and torch.equal(k_fp, p_fp)
     ms, plain_ms, all_ = in_turns(lambda: vit.align_backtrack_reference(*g_args),
                                   lambda: vit.align_backtrack(*g_args), 1, 10)
+    # the walk reads one jump byte per utterance and frame, each final row
+    # and state-table row once, and writes the states and final positions
+    T_g = g_args[-1]
+    bnd = bound(TRAIN_BATCH * (T_al + 2 * A * 4 + 4 * T_g + 4 + 3 * 4))
     log(f"[13] kernel G B={TRAIN_BATCH} Tp={T_al} A={A}: states and final positions "
         f"bit-equal {equal}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (plain, kernel, "
-        f"kernel, plain: {', '.join(f'{v:.4f}' for v in all_)}) on {card}")
+        f"kernel, plain: {', '.join(f'{v:.4f}' for v in all_)}); bound {bnd[0]:.4f} ms "
+        f"({bnd[1]}); per step of the walk {ms / T_al * 1e3:.3f} us on {card}")
     check(equal, "kernel G is not bit-equal to its plain version")
-    res["align_backtrack"] = (0.0, ms, plain_ms)
+    res["align_backtrack"] = (0.0, ms, plain_ms, bnd)
     f_plain_ms, g_plain_ms = res["align_fwd_df"][2], plain_ms
     del feats, flat_chunks, am_df, ams_df, ams, k_prev, p_prev, k_j, p_j
     log(f"[13] phase seconds {time.perf_counter() - t_phase:.1f}")
@@ -740,15 +900,24 @@ def train_phases(dev, card, lex, corpus, big, bench, packdf_bench, c_plain_ms):
     ms, plain_ms, all_ = in_turns(
         lambda: gmm.em_pass_sorted_reference(packdf_bench, frames, mask, bs),
         lambda: gmm.em_pass_sorted(packdf_bench, frames, mask, bs), 1, 10)
-    log(f"[14] kernel H NB={frame_idx.shape[0]} ({nb} used) x {frame_idx.shape[1]} rows, "
-        f"{align_big.shape[0]} frames, S=106 D=16 dim=25: w bit-equal {w_equal}, "
+    NB_h, R_h = frame_idx.shape
+    S_h, D_h = packdf_bench.num_mixtures, packdf_bench.density_cap
+    live = int((frame_idx >= 0).sum())
+    h_bound = bound(4 * NB_h * R_h * 26 + 4 * NB_h + 8 * (2 * S_h * D_h * 25 + 2 * S_h * D_h)
+                    + 8 * (2 * S_h * D_h * 25 + S_h * D_h + 1),
+                    fp32=live * D_h * (25 * C_ELEMENT_OPS + C_DENSITY_OPS),
+                    fp64=live * (25 * H_ROW_DIM_F64 + H_ROW_F64))
+    h_issue = live * D_h * (25 * C_ELEMENT_INSTR + C_DENSITY_OPS) / FP32_ISSUE_S * 1e3
+    log(f"[14] kernel H NB={NB_h} ({nb} used) x {R_h} rows, {live} live rows, "
+        f"S={S_h} D={D_h} dim=25: w bit-equal {w_equal}, "
         f"total/xs/x2s max rel {rel:.3e} (max abs {h_err:.3e}), two launches bit-identical "
         f"{ident}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (plain, kernel, kernel, "
-        f"plain: {', '.join(f'{v:.4f}' for v in all_)}) on {card}")
+        f"plain: {', '.join(f'{v:.4f}' for v in all_)}); bound {h_bound[0]:.4f} ms "
+        f"({h_bound[1]}), FP32 issue limit of the scoring {h_issue:.4f} ms on {card}")
     check(w_equal, "kernel H counts differ from its plain version")
     check(rel <= 1e-12, f"kernel H sums differ from plain by {rel} > 1e-12 relative")
     check(ident, "kernel H is not deterministic")
-    res["em_pass_df"] = (h_err, ms, plain_ms)
+    res["em_pass_df"] = (h_err, ms, plain_ms, h_bound)
     h_plain_ms = plain_ms
     del frames, mask, got, again, ref
     torch.cuda.empty_cache()
@@ -858,23 +1027,11 @@ def train_phases(dev, card, lex, corpus, big, bench, packdf_bench, c_plain_ms):
                                            "em_pass_df")),
           f"the df32 main path skipped a kernel: {main_counts}")
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=PROFILED) as prof:
         tr_prof, _al, secs_prof = full_run("df32", big)
-    dev_events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
-    busy_us = sum(dev_us(e) for e in dev_events)
-    top = sorted(dev_events, key=dev_us, reverse=True)[:8]
-    busy = (f"{busy_us / 1e6 / secs_prof:.4f} ({busy_us / 1e3:.1f} ms of device time in "
-            f"{secs_prof:.4f} s)" if busy_us > 0 else "not measured (no device time recorded)")
-    log(f"[16] profiled run: device busy share {busy}; stats lines equal to the unprofiled "
-        f"run {tr_prof.stats_lines == tr_df.stats_lines}")
-    for e in top:
-        log(f"[16]   {dev_us(e) / 1e3:10.3f} ms  {e.count:6d}x  {e.key[:90]}")
+    log_profile("[16]", prof, secs_prof)
+    log(f"[16] profiled run: stats lines equal to the unprofiled run "
+        f"{tr_prof.stats_lines == tr_df.stats_lines}")
     del tr_prof, prof
 
     # the plain run's projected seconds from phases 9, 13 and 14: the scoring
@@ -957,11 +1114,7 @@ def train_phases(dev, card, lex, corpus, big, bench, packdf_bench, c_plain_ms):
                                    main_counts["align_backtrack"]),
                "em_pass_df": ("em_pass_df.cu", "speechrecognition_tpu/models/gmm.py:996",
                               main_counts["em_pass_df"])}
-    return [{"name": name, "route": "cuda",
-             "source": f"speechrecognition_torch/csrc/{src}", "replaces": replaces,
-             "launches": n, "max_abs_err": res[name][0], "ms": res[name][1],
-             "plain_ms": res[name][2]}
-            for name, (src, replaces, n) in sources.items()]
+    return [entry(name, src, replaces, n, *res[name]) for name, (src, replaces, n) in sources.items()]
 
 
 def repeat_corpus(corpus, n, corpus_cls):

@@ -2,12 +2,27 @@
 //
 // The same error-free transforms as speechrecognition_tpu/ops/doublefloat.py
 // and its plain PyTorch counterpart speechrecognition_torch/ops/doublefloat.py,
-// step for step and in the same operation order. Every add, subtract and
-// multiply is an explicit round-to-nearest intrinsic (__fadd_rn, __fsub_rn,
-// __fmul_rn): nvcc never contracts those into a fused multiply-add, which
-// would round once where the transform relies on two roundings and so change
-// the lo words. The build keeps nvcc's default --fmad=true for the other
-// kernels; only these intrinsics are protected from contraction.
+// step for step and in the same operation order, with one exception: the
+// exact product. Every add, subtract and multiply is an explicit
+// round-to-nearest intrinsic (__fadd_rn, __fsub_rn, __fmul_rn): nvcc never
+// contracts those into a fused multiply-add, which would round once where the
+// transform relies on two roundings and so change the lo words. The build
+// keeps nvcc's default --fmad=true for the other kernels; only these
+// intrinsics are protected from contraction.
+//
+// The exception: mul forms the error of hi*hi with one explicit FMA
+// (two_prod_fma: p = fl(a*b), e = fma(a, b, -p)), in 2 instructions where
+// Dekker's split product (two_prod, kept below as the reference's own
+// formulation) takes 16. Both give the exact error a*b - fl(a*b), which is a
+// float32 whenever it does not underflow: the FMA rounds that exact value
+// once, so it returns it unchanged, and each partial product and sum of
+// Dekker's version is exact in that range. So the two agree bit for bit
+// wherever |a*b| stays above about 2^-100 (ulp(a)*ulp(b) >= 2^-149); they part
+// only where the error falls below the float32 normal range, which no score
+// reaches (tests/test_torch_doublefloat.py pins both facts). The plain
+// versions keep Dekker's formula, and the kernels are held bit-equal to them.
+// That one FMA is the only fused operation here: the cross terms of mul and
+// every add of two_sum and fast_two_sum must stay as two roundings.
 //
 // Denormals are kept (no -ftz), as on the CPU, so the lo words agree with
 // the plain versions even where they underflow.
@@ -61,6 +76,13 @@ __device__ __forceinline__ DF two_prod(float a, float b) {
   return DF{p, e};
 }
 
+// p = fl(a*b); e = a*b - p, rounded once by the FMA: exact, and equal to
+// two_prod's e, wherever that error does not underflow (see the top comment)
+__device__ __forceinline__ DF two_prod_fma(float a, float b) {
+  const float p = __fmul_rn(a, b);
+  return DF{p, __fmaf_rn(a, b, -p)};
+}
+
 __device__ __forceinline__ DF add(DF a, DF b) {
   DF s = two_sum(a.hi, b.hi);
   const DF t = two_sum(a.lo, b.lo);
@@ -81,8 +103,10 @@ __device__ __forceinline__ DF neg(DF a) { return DF{-a.hi, -a.lo}; }
 
 __device__ __forceinline__ DF sub(DF a, DF b) { return add(a, neg(b)); }
 
+// the product's exact part through the FMA; the cross terms a.hi*b.lo and
+// a.lo*b.hi are two rounded products and a rounded add, as in the reference
 __device__ __forceinline__ DF mul(DF a, DF b) {
-  DF p = two_prod(a.hi, b.hi);
+  DF p = two_prod_fma(a.hi, b.hi);
   p.lo = __fadd_rn(p.lo, __fadd_rn(__fmul_rn(a.hi, b.lo), __fmul_rn(a.lo, b.hi)));
   return fast_two_sum(p.hi, p.lo);
 }

@@ -904,13 +904,18 @@ def em_pass_sorted(pack, frames: torch.Tensor, mask: torch.Tensor,
     m32 = mask.to(torch.float32).contiguous()
     bs32 = block_state.to(torch.int32).contiguous()
     f64 = dict(dtype=torch.float64, device=device)
-    partial = (torch.empty((NB,), **f64), torch.empty((NB, D), **f64),
-               torch.empty((NB, D, dim), **f64), torch.empty((NB, D, dim), **f64))
+    lib = _native.load()
+    # the kernel's per-tile and per-block partial sums, sized by the kernel
+    n_scratch = lib.sr_em_pass_df_scratch(NB, R, D, dim)
+    if n_scratch < 0:
+        raise ValueError(f"em_pass_sorted: {NB} blocks of {R} rows at D={D}, dim={dim} "
+                         f"need more partial sums than kernel H indexes")
+    scratch = torch.empty((n_scratch,), **f64)
     out = (torch.empty((), **f64), torch.empty((S, D), **f64),
            torch.empty((S, D, dim), **f64), torch.empty((S, D, dim), **f64))
-    err = _native.load().sr_em_pass_df(
+    err = lib.sr_em_pass_df(
         frames.data_ptr(), m32.data_ptr(), bs32.data_ptr(), *(t.data_ptr() for t in words),
-        *(t.data_ptr() for t in partial), *(t.data_ptr() for t in out),
+        scratch.data_ptr(), *(t.data_ptr() for t in out),
         NB, R, S, D, dim, int(bool(first_pass)), device.index,
         torch.cuda.current_stream(device).cuda_stream)
     _native.check(err, "em_pass_sorted")

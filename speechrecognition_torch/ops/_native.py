@@ -77,9 +77,11 @@ SIGNATURES = {
     # Tp, T, tie_pruned, device, stream
     "sr_align_backtrack": ((_P,) * 7 + (_I, _I, _I, _I, _I, _I, _P), _I),
     # frames, mask, block_state, mu_hi, mu_lo, iv_hi, iv_lo, norm_hi, norm_lo,
-    # logw_hi, logw_lo, total_b, w_b, xs_b, x2s_b, total, w, xs, x2s, NB, R,
-    # S, D, dim, first_pass, device, stream
-    "sr_em_pass_df": ((_P,) * 19 + (_I, _I, _I, _I, _I, _I, _I, _P), _I),
+    # logw_hi, logw_lo, scratch, total, w, xs, x2s, NB, R, S, D, dim,
+    # first_pass, device, stream
+    "sr_em_pass_df": ((_P,) * 16 + (_I,) * 7 + (_P,), _I),
+    # NB, R, D, dim → doubles of scratch sr_em_pass_df needs (-1: too many)
+    "sr_em_pass_df_scratch": ((_I, _I, _I, _I), _I),
     "sr_error_string": ((_I,), ctypes.c_char_p),
 }
 

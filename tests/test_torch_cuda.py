@@ -8,8 +8,8 @@ imports no jax, so it also runs where the JAX package is not installed:
 (--noconftest because tests/conftest.py configures jax). Criteria as in
 chip_smoke.py: kernel A within 1e-6 relative of its plain version over
 active slots (FMA contraction and operation order); kernel B (float32 and
-float64), kernel C (double-float scores) and kernel D (double-float scan)
-bit-equal, hi and lo; the trainer's kernels E (alignment DP, float32 and
+float64), kernel C (double-float scores, also on tables whose magnitudes
+span 1e-6 .. 1e6) and kernel D (double-float scan) bit-equal, hi and lo; the trainer's kernels E (alignment DP, float32 and
 float64), F (its double-float twin) and G (backtrack) bit-equal, kernel H
 (double-float E-step) with w bit-equal, its float64 sums within 1e-12
 relative and two launches bit-identical; the golden demo trainer in df32
@@ -33,6 +33,7 @@ from speechrecognition_torch.ops import doublefloat as dfm
 from speechrecognition_torch.ops import mahalanobis as maha
 from speechrecognition_torch.search import decoder as dec
 from speechrecognition_torch.tdp import TdpModel
+from torch_df_tables import wide_magnitude_pack_df
 
 pytestmark = pytest.mark.cuda
 
@@ -192,13 +193,23 @@ def random_pack_df(dev, S, D, dim, seed, inactive=()):
                            density_cap=D, dim=dim, max_approx=True)
 
 
-@pytest.mark.parametrize("n,s,d,dim", [(777, 9, 3, 25), (64, 4, 1, 25), (1, 1, 1, 13),
-                                       (300, 7, 16, 25), (130, 3, 40, 64)])
-def test_kernel_c_bit_equal(dev, n, s, d, dim):
-    inactive = (0, s * d - 1) if s * d > 2 else ()
-    pack = random_pack_df(dev, s, d, dim, seed=n + s + d + dim, inactive=inactive)
-    x = torch.as_tensor(np.random.default_rng(n).normal(size=(n, dim)).astype(np.float32),
-                        device=dev)
+@pytest.mark.parametrize("n,s,d,dim,tables", [
+    (777, 9, 3, 25, "random"), (64, 4, 1, 25, "random"), (1, 1, 1, 13, "random"),
+    (300, 7, 16, 25, "random"), (130, 3, 40, 64, "random"),
+    (1000, 106, 16, 25, "wide"), (257, 5, 3, 13, "wide"), (130, 3, 8, 64, "wide"),
+    (513, 106, 4, 25, "random"), (300, 5, 16, 150, "random"), (140, 3, 8, 100, "wide")])
+def test_kernel_c_bit_equal(dev, n, s, d, dim, tables):
+    """Random tables with inactive slots, and tables whose magnitudes span
+    1e-6 .. 1e6 with frames equal to mu.hi (the FMA product of df.cuh against
+    the plain version's Dekker product); N not a multiple of the block's 256
+    frames; dims other than 25 (the generic instance), up to 150."""
+    if tables == "wide":
+        pack, x = wide_magnitude_pack_df(s, d, dim, seed=n + s, n=n, device=dev)
+    else:
+        inactive = (0, s * d - 1) if s * d > 2 else ()
+        pack = random_pack_df(dev, s, d, dim, seed=n + s + d + dim, inactive=inactive)
+        x = torch.as_tensor(np.random.default_rng(n).normal(size=(n, dim)).astype(np.float32),
+                            device=dev)
     before = gmm.am_scores_df.LAUNCHES
     got = gmm.am_scores_df(pack, x)
     ref = gmm.am_scores_df_reference(pack, x)
@@ -377,15 +388,28 @@ def sorted_demo_blocks(dev, block):
     return frames, mask, torch.as_tensor(block_state, device=dev)
 
 
-@pytest.mark.parametrize("block,first_pass,cap", [(4096, False, None), (256, False, 16),
-                                                  (4096, True, None)])
-def test_kernel_h_matches_plain(dev, block, first_pass, cap):
+@pytest.mark.parametrize("block,first_pass,cap,case", [
+    (4096, False, None, "demo"), (256, False, 16, "demo"), (4096, True, None, "demo"),
+    (1000, False, None, "demo"), (1000, False, None, "masked-block"),
+    (1000, False, None, "one-density"), (1000, False, None, "dim-100")])
+def test_kernel_h_matches_plain(dev, block, first_pass, cap, case):
     """w bit-equal, xs, x2s and the total within 1e-12 relative (float64
-    sums in another order), two launches bit-identical."""
+    sums in another order), two launches bit-identical; R = 1000 is not a
+    multiple of the kernel's 512-row tile, "masked-block" masks a whole
+    block, "one-density" scores against random tables with D = 1, "dim-100"
+    random tables and frames of dim 100 (the generic instance)."""
     model = gmm.MixtureModel.from_raw(read_mixture_set(str(FIX / "iter-2.mix"), 25),
                                       gmm.VarianceModel.MIXTURE_POOLING, max_approx=True)
-    pack = model.pack_df(density_cap=cap, device=dev)
+    pack = (random_pack_df(dev, 106, 1, 25, seed=5) if case == "one-density"
+            else random_pack_df(dev, 106, 4, 100, seed=6) if case == "dim-100"
+            else model.pack_df(density_cap=cap, device=dev))
     frames, mask, bs = sorted_demo_blocks(dev, block)
+    if case == "masked-block":
+        mask[1] = 0.0
+    if case == "dim-100":
+        rng = np.random.default_rng(6)
+        frames = torch.as_tensor(rng.normal(size=(*frames.shape[:2], 100)).astype(np.float32),
+                                 device=dev)
     before = gmm.em_pass_sorted.LAUNCHES
     got = gmm.em_pass_sorted(pack, frames, mask, bs, first_pass=first_pass)
     again = gmm.em_pass_sorted(pack, frames, mask, bs, first_pass=first_pass)

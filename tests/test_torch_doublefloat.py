@@ -208,3 +208,93 @@ def test_min_axis_matches_f64():
     xr = tdf.to_f64(d).reshape(x.shape)
     for axis in (0, 1, 2, (1, 2), (0, 1, 2)):
         np.testing.assert_array_equal(tdf.to_f64(tdf.min_axis(d, axis)), xr.min(axis=axis))
+
+
+# -- Dekker's exact product against the FMA's (the kernels' product) ----------
+# Kernels C and H form the error of hi*hi with one FMA (csrc/df.cuh
+# two_prod_fma); the plain versions keep Dekker's split product. The FMA
+# rounds the exact a*b - fl(a*b) once; on the CPU that is
+# float32(float64(a)*float64(b) - p), since the float64 product and
+# difference are exact.
+
+
+def fma_two_prod(a, b):
+    p = a * b
+    return p, (a.double() * b.double() - p.double()).float()
+
+
+def error_words_differ(a, b):
+    """Per pair: whether Dekker's and the FMA's error words differ in any bit."""
+    _p, e_dekker = tdf.two_prod(a, b)
+    _p, e_fma = fma_two_prod(a, b)
+    return e_dekker.view(torch.int32) != e_fma.view(torch.int32)
+
+
+def signed_magnitudes(rng, n, lo_exp, hi_exp):
+    return torch.from_numpy((rng.choice([-1.0, 1.0], n)
+                             * 10.0 ** rng.uniform(lo_exp, hi_exp, n)).astype(np.float32))
+
+
+@pytest.mark.parametrize("lo_exp,hi_exp", [(-12, 12), (-6, 6), (-1, 1), (8, 12), (-12, -8)])
+def test_dekker_error_equals_fma_error(lo_exp, hi_exp):
+    """Equal bit for bit over random float32 pairs of the given decades."""
+    rng = np.random.default_rng(abs(lo_exp) * 31 + abs(hi_exp))
+    a, b = (signed_magnitudes(rng, 400_000, lo_exp, hi_exp) for _ in range(2))
+    assert not bool(error_words_differ(a, b).any())
+
+
+def test_dekker_and_fma_part_below_the_normal_range():
+    """Where the error falls below 2^-126 the two part (Dekker's partial
+    products lose bits there): pairs near 1e-20 differ often, and every
+    differing product lies below 2^-100, which no score reaches."""
+    rng = np.random.default_rng(3)
+    a, b = (signed_magnitudes(rng, 200_000, -20.5, -18.0) for _ in range(2))
+    differ = error_words_differ(a, b)
+    assert int(differ.sum()) > 10_000
+    prod = (a.double() * b.double()).abs()
+    assert float(prod[differ].max()) < 2.0 ** -100
+    assert not bool(differ[prod >= 2.0 ** -100].any())
+
+
+def scorer_case(name):
+    """(pack, frames) of a scorer case, all on the CPU."""
+    from pathlib import Path
+
+    from speechrecognition_torch.corpus import Corpus, CorpusDescription
+    from speechrecognition_torch.features.frontend import SignalAnalysisConfig
+    from speechrecognition_torch.io import read_mixture_set
+    from speechrecognition_torch.lexicon import build_sietill_lexicon
+    from speechrecognition_torch.models import gmm
+    from torch_df_tables import wide_magnitude_pack_df
+    if name == "wide":
+        return wide_magnitude_pack_df(106, 16, 25, seed=1, n=300)
+    repo = Path(__file__).resolve().parents[1]
+    fix = repo / "tests" / "fixtures"
+    path, pooling = ((fix / "iter-2.mix", gmm.VarianceModel.MIXTURE_POOLING)
+                     if name == "iter-2.mix"
+                     else (repo / "bench" / "model.mix", gmm.VarianceModel.NO_POOLING))
+    model = gmm.MixtureModel.from_raw(read_mixture_set(str(path), 25), pooling, max_approx=True)
+    lex = build_sietill_lexicon()
+    corpus = Corpus.read(CorpusDescription.read(str(fix / "demo_corpus.json"), lex),
+                         str(fix / "demo_features") + "/", SignalAnalysisConfig(),
+                         normalization_path=str(fix / "normalization-demo.bin"))
+    return model.pack_df(), torch.as_tensor(corpus.features[::40][:300])
+
+
+@pytest.mark.parametrize("name", ["iter-2.mix", "bench/model.mix", "wide"])
+def test_scorer_products_dekker_equals_fma(name, monkeypatch):
+    """At the magnitudes the scorer meets: the error words of diff*diff and
+    of (diff*diff)*iv agree, and the plain scorer gives the same hi and lo
+    words with the FMA product in place of Dekker's (what kernels C and H
+    compute)."""
+    from speechrecognition_torch.models import gmm
+    pack, x = scorer_case(name)
+    diff = tdf.add_f(tdf.neg(tdf.DF(pack.mu.hi[None], pack.mu.lo[None])), x[:, None, :])
+    sq = tdf.mul(diff, diff)
+    assert not bool(error_words_differ(diff.hi, diff.hi).any())
+    assert not bool(error_words_differ(sq.hi, pack.iv.hi[None].expand_as(sq.hi)).any())
+    dekker = gmm.am_scores_df_reference(pack, x)
+    monkeypatch.setattr(tdf, "two_prod", fma_two_prod)
+    fma = gmm.am_scores_df_reference(pack, x)
+    assert torch.equal(dekker.hi.view(torch.int32), fma.hi.view(torch.int32))
+    assert torch.equal(dekker.lo.view(torch.int32), fma.lo.view(torch.int32))

@@ -28,7 +28,7 @@ SOURCES = ["align_backtrack.cu", "align_scan.cu", "align_scan_df.cu", "am_scores
            "decode_scan.cu", "decode_scan_df.cu", "em_pass_df.cu", "mahalanobis.cu"]
 
 
-def test_sources_are_the_two_kernels():
+def test_sources_are_the_eight_kernels_and_the_header():
     """The kernel sources (A mahalanobis, B decode_scan in f32 and f64, C
     am_scores_df, D decode_scan_df, E align_scan in f32 and f64, F
     align_scan_df, G align_backtrack, H em_pass_df) and the shared
@@ -39,7 +39,7 @@ def test_sources_are_the_two_kernels():
     assert set(_native.SIGNATURES) == {
         "sr_mahalanobis_scores", "sr_decode_scan", "sr_decode_scan_f64", "sr_am_scores_df",
         "sr_decode_scan_df", "sr_align_fwd", "sr_align_fwd_f64", "sr_align_fwd_df",
-        "sr_align_backtrack", "sr_em_pass_df", "sr_error_string"}
+        "sr_align_backtrack", "sr_em_pass_df", "sr_em_pass_df_scratch", "sr_error_string"}
 
 
 def c_entry_points():
