@@ -16,15 +16,24 @@ kernel against its plain PyTorch version on the same tensors:
   3. kernel A (Mahalanobis scores) at the path's shape N=32768, J=1696,
      dim=25 and at a ragged shape: ≤ 1e-6 relative to the plain version
      over active slots, ≤ 3e-6 relative to a float64 centered computation;
+     its fused entry (each mixture's minimum over its D slots, capped) at
+     the same shapes (D=16 and the ragged iter-2.mix, D=4): bit-equal to the
+     capped minimum of the unfused kernel on the same tensors, ≤ 1e-6
+     relative to its plain version, ≤ 3e-6 to float64; the unfused kernel
+     at dims 100 and 128; times of the unfused kernel + amin + clamp against
+     the fused kernel, in turns, beside the fused kernel's bound and FP32
+     issue limit;
   4. kernel B (word-loop Viterbi chunk) at B=1024, T=320 on real acoustic
      scores, over two chunks with carry: bit-equal to the plain version;
   5. the golden demo run: iter-2.mix on the 35 demo utterances reproduces
      tests/fixtures/demo_recognition.json (WER 19.587629 %, S/I/D 4/14/1),
-     through both kernels;
+     through kernel A's fused entry and kernel B;
   6. full width: bench/model.mix (106 mixtures × 16 densities) on the demo
      utterances repeated to one batch of 1024, decoded through the kernels
-     (the main path; launch counts are read from this run) and through the
+     (the main path; launch counts are read from this run: the fused entry
+     of kernel A, never the unfused one, and kernel B) and through the
      plain versions: equal transcripts, each equal to the 35-utterance run;
+     one torch.profiler run (device busy share, top device operations);
   7. kernel C (double-float GMM scores, min over densities and cap) at
      N=32768, J=1696 and at a ragged N with iter-2.mix (J=424): equal hi and
      lo words to its plain version; max error against float64 printed; then
@@ -48,7 +57,8 @@ kernel against its plain PyTorch version on the same tensors:
  13. kernels E (alignment DP chunk, f32 and f64), F (its double-float twin)
      and G (backtrack) at B=256, C=320, A=70 on real bench/model.mix
      scores, three chunks with carry: bit-equal to their plain versions,
-     times in turns;
+     times in turns; F's block instance on a synthetic batch with A=160:
+     bit-equal over two chunks, timed;
  14. kernel H (double-float E-step) over the 1024-utterance corpus's sorted
      blocks: counts bit-equal, sums within 1e-12 relative, two launches
      bit-identical, times in turns beside its bound and the scoring's FP32
@@ -124,8 +134,12 @@ FP32_ISSUE_S = 132 * 128 * 1.98e9
 #: (df.cuh add: two two_sums of 6, two fast_two_sums of 3, two adds), a
 #: double-float compare or minimum 3
 DF_ADD, DF_CMP = 20, 3
-#: kernel A, per frame and density slot and dimension: sub, mul, FMA
+#: kernel A, per frame and density slot and dimension: sub, mul, FMA (its
+#: operations, and its FP32 instructions)
 A_ELEMENT_OPS = 4
+A_ELEMENT_INSTR = 3
+#: the synthetic automaton length that takes kernel F's block instance
+F_BLOCK_A = 160
 #: kernels C and H, per frame, density and dimension: add_f 10, two mul of 9
 #: instructions each (1 product, 1 FMA counted twice, 3 for the cross terms,
 #: 1 add, 3 for fast_two_sum), add 20; per density: half 2, two adds, minimum
@@ -216,6 +230,18 @@ def entry(name, source, replaces, launches, err, ms, plain_ms, bnd):
     return {"name": name, "route": "cuda", "source": f"speechrecognition_torch/csrc/{source}",
             "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+
+
+def f_warps(A):
+    """Warps per utterance of kernel F's warp instance for A positions, 0
+    where the block instance runs: the choice of its C entry."""
+    from speechrecognition_torch.ops import _native
+    return _native.load().sr_align_fwd_df_warps(A)
+
+
+def f_instance(A):
+    w = f_warps(A)
+    return f"warp instance, {w} warp(s) per utterance" if w else "block instance"
 
 
 def in_turns(plain, kernel, reps_plain, reps_kernel):
@@ -321,6 +347,44 @@ def main():
         check(inactive_equal, "kernel A inactive slots")
         a_err[label] = abs_err
 
+        # the fused entry on the same tensors
+        D = pack.density_cap
+        S = pack.num_mixtures
+        fused = maha.mahalanobis_min_scores(x, pack.mu, pack.a, pack.c, D)
+        fused_ref = maha.mahalanobis_min_scores_reference(x, pack.mu, pack.a, pack.c, D)
+        expect = torch.clamp(got.reshape(n, S, D).amin(dim=-1), max=gmm.MIN_SCORE_INIT)
+        exact_min = torch.where(active[None, :], exact, torch.inf).reshape(n, S, D).amin(-1)
+        exact_min = exact_min.clamp(max=gmm.MIN_SCORE_INIT)
+        torch.cuda.synchronize()
+        bit_equal = torch.equal(fused.view(torch.int32), expect.view(torch.int32))
+        f = fused.double()
+        rel_m = ((f - fused_ref.double()).abs() / (1 + fused_ref.double().abs())).max().item()
+        rel64_m = ((f - exact_min).abs() / (1 + exact_min.abs())).max().item()
+        log(f"[3] kernel A fused {label} N={n} S={S} D={D}: bit-equal to the capped minimum "
+            f"of the unfused kernel {bit_equal}; max rel vs plain {rel_m:.3e}, max rel vs f64 "
+            f"{rel64_m:.3e}")
+        check(tuple(fused.shape) == (n, S), "fused kernel A output shape")
+        check(bit_equal, f"fused kernel A differs from the minimum of the unfused one ({label})")
+        check(rel_m <= A_REL_TOL, f"fused kernel A vs plain {rel_m} > {A_REL_TOL}")
+        check(rel64_m <= A_F64_TOL, f"fused kernel A vs f64 {rel64_m} > {A_F64_TOL}")
+        a_err[f"fused {label}"] = (f - fused_ref.double()).abs().max().item()
+    del got, ref, exact, fused, fused_ref, expect, exact_min
+
+    # the generic instance at the dims past the first design's limit of 64
+    for n, j, dim in ((4100, 424, 100), (4100, 424, 128)):
+        rng = np.random.default_rng(dim)
+        xr, mur, ar = (torch.as_tensor(rng.normal(size=sh).astype(np.float32), device=dev)
+                       for sh in ((n, dim), (j, dim), (j, dim)))
+        ar = ar.abs() + 0.1
+        cr = torch.as_tensor(rng.uniform(10.0, 40.0, size=j).astype(np.float32), device=dev)
+        got = maha.mahalanobis_scores(xr, mur, ar, cr)
+        ref = maha.mahalanobis_scores_reference(xr, mur, ar, cr)
+        torch.cuda.synchronize()
+        rel = ((got.double() - ref.double()).abs() / (1 + ref.double().abs())).max().item()
+        log(f"[3] kernel A at dim={dim} N={n} J={j}: max rel vs plain {rel:.3e}")
+        check(rel <= A_REL_TOL, f"kernel A at dim {dim} vs plain {rel} > {A_REL_TOL}")
+    del xr, mur, ar, cr, got, ref
+
     x = torch.as_tensor(np.resize(corpus.features, (gmm.AM_CHUNK, 25)), device=dev)
     a_ms, a_plain_ms, a_all = in_turns(
         lambda: maha.mahalanobis_scores_reference(x, pack_bench.mu, pack_bench.a, pack_bench.c),
@@ -332,6 +396,26 @@ def main():
         f"plain {a_plain_ms:.4f} ms (plain, kernel, kernel, plain: "
         f"{', '.join(f'{v:.4f}' for v in a_all)}); bound {a_bound[0]:.4f} ms "
         f"({a_bound[1]}) on {card}")
+    S_a, D_a = pack_bench.num_mixtures, pack_bench.density_cap
+    args_a = (x, pack_bench.mu, pack_bench.a, pack_bench.c)
+    m_ms, m_plain_ms, m_all = in_turns(
+        lambda: maha.mahalanobis_min_scores_reference(*args_a, D_a),
+        lambda: maha.mahalanobis_min_scores(*args_a, D_a), 5, 20)
+    u_ms, f_ms, uf_all = in_turns(
+        lambda: maha.mahalanobis_min_scores(*args_a, D_a),
+        lambda: torch.clamp(maha.mahalanobis_scores(*args_a).reshape(n_a, S_a, D_a).amin(-1),
+                            max=gmm.MIN_SCORE_INIT), 20, 20)
+    m_bound = bound(4 * (n_a * 25 + 2 * j_a * 25 + j_a + n_a * S_a),
+                    fp32=n_a * j_a * (A_ELEMENT_OPS * 25 + 1) + n_a * S_a * (D_a - 1))
+    m_issue = (n_a * j_a * (A_ELEMENT_INSTR * 25 + 1) + n_a * S_a * D_a) / FP32_ISSUE_S * 1e3
+    log(f"[3] fused kernel A time at N={n_a} S={S_a} D={D_a}: kernel {m_ms:.4f} ms, plain "
+        f"{m_plain_ms:.4f} ms (plain, kernel, kernel, plain: "
+        f"{', '.join(f'{v:.4f}' for v in m_all)}); bound {m_bound[0]:.4f} ms ({m_bound[1]}), "
+        f"FP32 issue limit {m_issue:.4f} ms at {A_ELEMENT_INSTR} instructions per element "
+        f"and dim on {card}")
+    log(f"[3] unfused kernel A + amin + clamp {u_ms:.4f} ms against fused kernel A "
+        f"{f_ms:.4f} ms, {u_ms / f_ms:.2f}x (fused, unfused, unfused, fused: "
+        f"{', '.join(f'{v:.4f}' for v in uf_all)}) on {card}")
     X = pack_bench.features_expanded(x)
     with gmm._full_f32_matmul():
         mm_ms = cuda_ms(lambda: torch.mm(X, pack_bench.P), 20)
@@ -405,31 +489,42 @@ def main():
     with open(FIX / "demo_recognition.json") as f:
         golden = json.load(f)
     rec_iter2 = dec.Recognizer(config, lex, tdp, pack_iter2, dtype=torch.float32)
-    maha.mahalanobis_scores.LAUNCHES = dec.decode_scan.LAUNCHES = 0
+    maha.mahalanobis_min_scores.LAUNCHES = dec.decode_scan.LAUNCHES = 0
+    maha.mahalanobis_scores.LAUNCHES = 0
     res = rec_iter2.recognize_corpus(corpus, batch_size=35)
-    counts = (maha.mahalanobis_scores.LAUNCHES, dec.decode_scan.LAUNCHES)
+    counts = (maha.mahalanobis_min_scores.LAUNCHES, dec.decode_scan.LAUNCHES,
+              maha.mahalanobis_scores.LAUNCHES)
     mism = [u["idx"] for u in golden["utts"] if res["hyps"][u["idx"]] != u["hyp"]]
     sid = [res["substitutions"], res["insertions"], res["deletions"]]
     log(f"[5] golden iter-2.mix: WER {res['wer']:.6f} % SER {res['ser']:.6f} % "
         f"S/I/D {sid[0]}/{sid[1]}/{sid[2]}, {len(mism)} mismatches of 35, "
-        f"launches A {counts[0]} B {counts[1]}")
+        f"launches A fused {counts[0]} B {counts[1]}, A unfused {counts[2]}")
     check(not mism, f"golden transcripts differ at {mism}")
     check(abs(res["wer"] - golden["corpus"]["wer"]) < 1e-5, "golden WER")
     check(abs(res["ser"] - golden["corpus"]["ser"]) < 1e-9, "golden SER")
     check(sid == golden["corpus"]["sid"], "golden S/I/D")
     check(counts[0] > 0 and counts[1] > 0, "golden run did not launch both kernels")
+    check(counts[2] == 0, "the max-approximation decode launched the unfused kernel A")
 
     # -- 6. full width: the main path -------------------------------------------------
     hyps35 = rec_bench.recognize_corpus(corpus, batch_size=35)["hyps"]
     rec_bench.warmup(big, batch_size=FULL_BATCH)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    maha.mahalanobis_scores.LAUNCHES = dec.decode_scan.LAUNCHES = 0
+    maha.mahalanobis_min_scores.LAUNCHES = maha.mahalanobis_scores.LAUNCHES = 0
+    dec.decode_scan.LAUNCHES = 0
     res = rec_bench.recognize_corpus(big, batch_size=FULL_BATCH)
-    launches = {"mahalanobis_scores": maha.mahalanobis_scores.LAUNCHES,
+    launches = {"mahalanobis_min_scores": maha.mahalanobis_min_scores.LAUNCHES,
+                "mahalanobis_scores": maha.mahalanobis_scores.LAUNCHES,
                 "decode_scan": dec.decode_scan.LAUNCHES}
     peak = torch.cuda.max_memory_allocated(dev)
-    with mock.patch.object(maha, "mahalanobis_scores", maha.mahalanobis_scores_reference), \
+    with torch.profiler.profile(activities=PROFILED) as prof:
+        res_prof = rec_bench.recognize_corpus(big, batch_size=FULL_BATCH)
+    log_profile("[6]", prof, res_prof["time"])
+    check(res_prof["hyps"] == res["hyps"], "the profiled f32 decode changed a transcript")
+    del prof, res_prof
+    with mock.patch.object(maha, "mahalanobis_min_scores", maha.mahalanobis_min_scores_reference), \
+            mock.patch.object(maha, "mahalanobis_scores", maha.mahalanobis_scores_reference), \
             mock.patch.object(dec, "decode_scan", dec.decode_scan_reference):
         res_plain = rec_bench.recognize_corpus(big, batch_size=FULL_BATCH)
     check(res["num_decoded"] == res_plain["num_decoded"] == FULL_BATCH, "full batch decoded")
@@ -444,7 +539,9 @@ def main():
         f"peak device memory {peak / 2 ** 20:.1f} MiB; launches {launches}; on {card}")
     check(not diff, f"kernel and plain transcripts differ at {diff[:10]}")
     check(not vs35, f"full-batch transcripts differ from the 35-utterance run at {vs35[:10]}")
-    check(all(v > 0 for v in launches.values()), f"main path skipped a kernel: {launches}")
+    check(launches["mahalanobis_min_scores"] > 0 and launches["decode_scan"] > 0,
+          f"main path skipped a kernel: {launches}")
+    check(launches["mahalanobis_scores"] == 0, "the f32 main path launched the unfused kernel A")
 
     f32_launches = launches
     from speechrecognition_torch.ops import doublefloat as dfm
@@ -715,6 +812,10 @@ def main():
     kernels = [
         entry("mahalanobis_scores", "mahalanobis.cu", "speechrecognition_tpu/ops/mahalanobis.py:90",
               f32_launches["mahalanobis_scores"], a_err["main"], a_ms, a_plain_ms, a_bound),
+        entry("mahalanobis_min_scores", "mahalanobis.cu",
+              "speechrecognition_tpu/ops/mahalanobis.py:90 + speechrecognition_tpu/models/gmm.py:539",
+              f32_launches["mahalanobis_min_scores"], a_err["fused main"], m_ms, m_plain_ms,
+              m_bound),
         entry("decode_scan", "decode_scan.cu", "speechrecognition_tpu/search/decoder.py:108",
               f32_launches["decode_scan"], b_abs, b_ms, b_plain_ms, b_bound),
         entry("decode_scan[f64]", "decode_scan.cu", "speechrecognition_tpu/search/decoder.py:108",
@@ -848,13 +949,16 @@ def train_phases(dev, card, lex, corpus, big, bench, packdf_bench, c_plain_ms):
         lambda: vit.align_fwd_chunk_df(big_df, ams_df[0], tdp_df, valid, lens, thr_df, 0),
         1, 10)
     bnd = bound(align_bytes(8), fp32=TRAIN_BATCH * C * A * F_POS_OPS)
-    log(f"[13] kernel F B={TRAIN_BATCH} C={C} A={A} on df32 scores, 3 chunks with carry: "
+    log(f"[13] kernel F B={TRAIN_BATCH} C={C} A={A} ({f_instance(A)}) on df32 "
+        f"scores, 3 chunks with carry: "
         f"hi, lo and jumps bit-equal {equal}, max abs {err:.3e}; kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms per chunk (plain, kernel, kernel, plain: "
         f"{', '.join(f'{v:.4f}' for v in all_)}); bound {bnd[0]:.4f} ms ({bnd[1]}); "
         f"per frame {ms / C * 1e3:.3f} us on {card}")
     check(equal, "kernel F is not bit-equal to its plain version")
+    check(f_warps(A) > 0, "the SieTill automata take kernel F's warp instance")
     res["align_fwd_df"] = (err, ms, plain_ms, bnd)
+    log_block_instance(dev, card, vit, dfm, C)
 
     g_args = (k_prev.hi.contiguous(), aut, k_j, lens, st_tbl, int(big.lengths[:TRAIN_BATCH].max()))
     k_states, k_fp = vit.align_backtrack(*g_args)
@@ -1115,6 +1219,41 @@ def train_phases(dev, card, lex, corpus, big, bench, packdf_bench, c_plain_ms):
                "em_pass_df": ("em_pass_df.cu", "speechrecognition_tpu/models/gmm.py:996",
                               main_counts["em_pass_df"])}
     return [entry(name, src, replaces, n, *res[name]) for name, (src, replaces, n) in sources.items()]
+
+
+def log_block_instance(dev, card, vit, dfm, C):
+    """Kernel F's block instance (A > 128) on a synthetic batch
+    of TRAIN_BATCH utterances: two chunks with carry bit-equal to the plain
+    version, one chunk timed."""
+    A = F_BLOCK_A
+    rng = np.random.default_rng(A)
+    ams = [dfm.from_f64(rng.uniform(0.0, 40.0, size=(TRAIN_BATCH, C, A)), dev) for _ in range(2)]
+    tdp = dfm.from_f64(rng.uniform(0.0, 20.0, size=(TRAIN_BATCH, A, 3)), dev)
+    aut = torch.as_tensor(rng.integers(A // 2, A + 1, size=TRAIN_BATCH), device=dev)
+    valid = torch.arange(A, device=dev)[None, :] < aut[:, None]
+    lens = torch.as_tensor(rng.integers(C, 2 * C + 1, size=TRAIN_BATCH), dtype=torch.int32,
+                           device=dev)
+    thr = dfm.from_f64(np.float64(200.0), dev)
+    big = dfm.DF(torch.full((TRAIN_BATCH, A), 1e30, device=dev),
+                 torch.zeros((TRAIN_BATCH, A), device=dev))
+    outs = []
+    for fn in (vit.align_fwd_chunk_df, vit.align_fwd_chunk_df_reference):
+        prev, jumps = big, []
+        for c in range(2):
+            prev, j = fn(prev, ams[c], tdp, valid, lens, thr, c * C)
+            jumps.append(j)
+        outs.append((prev.hi, prev.lo, torch.cat(jumps)))
+    torch.cuda.synchronize()
+    equal = all(torch.equal(k, p) for k, p in zip(*outs))
+    ms, plain_ms, all_ = in_turns(
+        lambda: vit.align_fwd_chunk_df_reference(big, ams[0], tdp, valid, lens, thr, 0),
+        lambda: vit.align_fwd_chunk_df(big, ams[0], tdp, valid, lens, thr, 0), 1, 10)
+    log(f"[13] kernel F B={TRAIN_BATCH} C={C} A={A} ({f_instance(A)}) on "
+        f"synthetic scores, 2 chunks with carry: hi, lo and jumps bit-equal {equal}; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms per chunk (plain, kernel, kernel, plain: "
+        f"{', '.join(f'{v:.4f}' for v in all_)}); per frame {ms / C * 1e3:.3f} us on {card}")
+    check(f_warps(A) == 0, "kernel F's block instance runs")
+    check(equal, "kernel F's block instance is not bit-equal to its plain version")
 
 
 def repeat_corpus(corpus, n, corpus_cls):

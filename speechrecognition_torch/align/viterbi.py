@@ -49,7 +49,8 @@ BIG = np.float64(1e30)  # pseudo-infinity that stays NaN-free under adds
 #: frames per forward chunk: one (B, ALIGN_CHUNK) step serves utterances of
 #: any length by streaming chunks through the carried cost row
 ALIGN_CHUNK = 320
-#: kernels E and F run one thread per automaton position in one block
+#: kernel E, and kernel F's block instance, run one thread per automaton
+#: position in one block
 MAX_POSITIONS = 1024
 
 
@@ -270,7 +271,8 @@ def align_fwd_chunk_df(prev: dfm.DF, ams: dfm.DF, tdp: dfm.DF, pos_valid: torch.
     DF scalar. Returns (DF cost row after the chunk, jumps int8 [C, B, A]).
 
     CPU tensors take the plain version; CUDA tensors launch kernel F
-    (counted in ``align_fwd_chunk_df.LAUNCHES``)."""
+    (counted in ``align_fwd_chunk_df.LAUNCHES``), whose C entry chooses its
+    instance from A alone (``sr_align_fwd_df_warps``)."""
     device = ams.hi.device
     if device.type == "cpu":
         return align_fwd_chunk_df_reference(prev, ams, tdp, pos_valid, feat_len, thr, t0,

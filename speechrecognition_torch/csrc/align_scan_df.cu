@@ -2,7 +2,7 @@
 //
 // Replaces speechrecognition_tpu/align/viterbi.py::_align_fwd_chunk_df, the
 // (hi, lo) float32-pair twin of _align_fwd_chunk that the df32 trainer
-// realigns with (XLA fuses it into one lax.scan). Kernel E's layout and step
+// realigns with (XLA fuses it into one lax.scan). Kernel E's step
 // (csrc/align_scan.cu), with every score a pair and df.cuh's exact add, sub
 // and comparisons:
 //   * candidates c_j = add(prev[a-j], tdp[a,j]), (BIG, 0) where a-j < 0;
@@ -20,9 +20,35 @@
 // from contracting anything, so the kernel matches its plain PyTorch version
 // bit for bit in both words.
 //
-// What bounds it: latency, as kernel E; a double-float add is ~20 FP32
-// instructions, so a frame costs about 100 instructions a thread between its
-// two __syncthreads.
+// What bounds it: one frame's dependent work, not bytes or operations (a
+// 256 x 320 x 70 chunk moves 51 MB, 0.016 ms at 3.35 TB/s). Each frame
+// depends on the previous frame's whole row through its minimum, and 256
+// utterances fill about one warp per SM sub-partition, so a chunk takes C x
+// the time of one frame: three dependent double-float adds (candidate,
+// emission, renormalisation; ~20 FP32 instructions each), the selection,
+// the row minimum and the guards, issued by warps that have little else to
+// interleave. The first design ran one block of ceil(A/32)*32 threads per
+// utterance with two __syncthreads a frame and the frame's emissions loaded
+// from device memory on the chain; one warp per utterance with ceil(A/32)
+// positions a lane (no barrier, no shared memory) was no faster in trials on
+// the card, because that one warp issues all its positions' work alone.
+//
+// Design (A <= 128, every SieTill automaton): W = ceil(A/32) warps per
+// utterance, one position a lane, 8 / W utterances per block. The
+// candidates from a-1 and a-2 come from the lanes below through
+// __shfl_up_sync. The warp's row minimum is two redux.sync minima on an
+// order-preserving 32-bit key: of hi, then of lo among the lanes whose hi
+// equals the minimum, the exact lexicographic minimum. Each warp publishes
+// its minimum and the costs of its last two positions in shared memory
+// (double-buffered by frame parity), and one named barrier of the
+// utterance's warps a frame makes them visible: every warp folds the W
+// minima in the same order, and lanes 0 and 1 recompute the carry of the
+// previous warp's last two positions from the published costs (a "shadow",
+// bit for bit the owner's), so the next frame needs no second barrier. Each
+// lane keeps the emissions of the next PREFETCH frames in a register ring,
+// so device-memory latency leaves the chain; jumps are predicated byte
+// stores, write-only. Longer automata (A <= 1024) take the block instance,
+// the first design; sr_align_fwd_df_warps holds the choice, from A alone.
 
 #include <cuda_runtime.h>
 
@@ -32,10 +58,185 @@ namespace {
 
 constexpr float BIG = 1e30f;
 constexpr float HALF_BIG = BIG * 0.5f;  // exact in float32
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int MAX_WARPS = 8;         // warps a block of the warp instance holds
+constexpr int PREFETCH = 4;          // frames of emissions in flight
+constexpr int WARP_POSITIONS = 128;  // the warp instance's longest automaton (4 warps)
 
 __device__ __forceinline__ df::DF big() { return df::make(BIG, 0.f); }
 
-__global__ void align_fwd_df_kernel(
+// the candidates, the selection, the emission and the BIG guards of one
+// position; jump is the winning jump
+__device__ __forceinline__ df::DF step_cost(df::DF h0, df::DF h1, df::DF h2, df::DF tw0,
+                                            df::DF tw1, df::DF tw2, df::DF am, int a,
+                                            bool valid, bool tie_pruned, signed char& jump) {
+  const df::DF c0 = df::add(h0, tw0);
+  const df::DF c1 = a >= 1 ? df::add(h1, tw1) : big();
+  const df::DF c2 = a >= 2 ? df::add(h2, tw2) : big();
+  df::DF best;
+  if (tie_pruned) {
+    best = c2;
+    jump = 2;
+    if (df::less(c1, best)) { best = c1; jump = 1; }
+    if (df::less(c0, best)) { best = c0; jump = 0; }
+  } else {
+    best = c0;
+    jump = 0;
+    if (df::less(c1, best)) { best = c1; jump = 1; }
+    if (df::less(c2, best)) { best = c2; jump = 2; }
+  }
+  df::DF cost = valid ? df::add(best, am) : big();
+  if (cost.hi >= HALF_BIG) cost = big();
+  return cost;
+}
+
+// renormalisation, pruning, the t == 0 initialisation and the carry of one
+// position, given the row minimum
+__device__ __forceinline__ df::DF step_carry(df::DF cost, df::DF row_best, df::DF am,
+                                             df::DF h, df::DF thr, int a, bool valid, int t,
+                                             int len, int use_pruning) {
+  const df::DF shifted = df::sub(cost, row_best);
+  cost = cost.hi >= HALF_BIG ? big() : shifted;
+  if (use_pruning && !df::less_equal(cost, thr)) cost = big();
+  if (t == 0) cost = (a == 0 && valid) ? am : big();
+  return t < len ? cost : h;
+}
+
+// an unsigned key whose order is the float order (-0 taken as +0, as the
+// float compare takes it), and back; a row minimum of -0 comes back as +0,
+// which no score of the DP produces (its inputs carry no -0)
+__device__ __forceinline__ unsigned order_key(float f) {
+  const unsigned u = __float_as_uint(__fadd_rn(f, 0.f));
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float key_value(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// a byte store under a predicate, without a branch around it (a branch
+// region would keep the scheduler from interleaving the positions' work)
+__device__ __forceinline__ void store_if(signed char* p, signed char v, bool cond) {
+  asm volatile("{\n\t.reg .pred q;\n\tsetp.ne.u32 q, %2, 0;\n\t@q st.global.s8 [%0], %1;\n\t}"
+               :: "l"(p), "h"((short)v), "r"((unsigned)cond));
+}
+
+// the exact lexicographic (hi, lo) minimum over the warp
+__device__ __forceinline__ df::DF warp_minimum(df::DF m) {
+  const unsigned kh = order_key(m.hi);
+  const unsigned key_hi = __reduce_min_sync(FULL, kh);
+  const unsigned key_lo = __reduce_min_sync(FULL, kh == key_hi ? order_key(m.lo) : 0xffffffffu);
+  return df::make(key_value(key_hi), key_value(key_lo));
+}
+
+// W warps per utterance, one position a lane: position a = w*32 + lane;
+// named barrier 1 + u for utterance u of the block (at most 4 with W > 1)
+template <int W>
+__global__ void __launch_bounds__(MAX_WARPS / W * W * 32)
+align_fwd_df_warp_kernel(
+    const float* __restrict__ prev_hi, const float* __restrict__ prev_lo,
+    const float* __restrict__ ams_hi, const float* __restrict__ ams_lo,
+    const float* __restrict__ tdp_hi, const float* __restrict__ tdp_lo,
+    const unsigned char* __restrict__ pos_valid, const int* __restrict__ feat_len,
+    float* __restrict__ out_hi, float* __restrict__ out_lo, signed char* __restrict__ jumps,
+    int B, int C, int A, int t0, float thr_hi, float thr_lo, int tie_pruned,
+    int use_pruning) {
+  constexpr int U = MAX_WARPS / W;  // utterances a block
+  // per utterance and frame parity, per warp: its minimum and the costs of
+  // its second-last and last positions
+  __shared__ float2 s_pub[U][2][W][3];
+  const int warp = threadIdx.x >> 5;
+  const int u = warp / W;
+  const int w = warp - u * W;
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * U + u;
+  if (b >= B) return;  // the utterance's W warps together
+  const df::DF thr = df::make(thr_hi, thr_lo);
+  const int a = w * 32 + lane;
+  const size_t urow = (size_t)b * A;
+  const size_t row = urow + min(a, A - 1);  // the last position stands in past A
+  const bool pos = a < A;
+  const bool valid = pos && pos_valid[row] != 0;
+  const df::DF tw0 = df::make(tdp_hi[row * 3 + 0], tdp_lo[row * 3 + 0]);
+  const df::DF tw1 = df::make(tdp_hi[row * 3 + 1], tdp_lo[row * 3 + 1]);
+  const df::DF tw2 = df::make(tdp_hi[row * 3 + 2], tdp_lo[row * 3 + 2]);
+  df::DF h = pos ? df::make(prev_hi[row], prev_lo[row]) : big();
+  // the shadow: lane 0 follows position w*32-1 and lane 1 position w*32-2,
+  // the previous warp's last two, from the costs that warp publishes
+  const int sa = w * 32 - 1 - lane;
+  df::DF sh = df::make(0.f, 0.f);
+  if (W > 1 && w > 0) sh = df::make(prev_hi[urow + max(sa, 0)], prev_lo[urow + max(sa, 0)]);
+  const int len = feat_len[b];
+  // this lane's column of the utterance's emissions
+  const float* am_hi = ams_hi + (size_t)b * C * A + min(a, A - 1);
+  const float* am_lo = ams_lo + (size_t)b * C * A + min(a, A - 1);
+
+  // the emissions of frames i .. i+PREFETCH-1, slot i % PREFETCH
+  float ring_hi[PREFETCH], ring_lo[PREFETCH];
+#pragma unroll
+  for (int p = 0; p < PREFETCH; ++p) {
+    ring_hi[p] = am_hi[(size_t)min(p, C - 1) * A];
+    ring_lo[p] = am_lo[(size_t)min(p, C - 1) * A];
+  }
+
+  for (int i0 = 0; i0 < C; i0 += PREFETCH) {
+#pragma unroll
+    for (int p = 0; p < PREFETCH; ++p) {
+      const int i = i0 + p;
+      if (i < C) {  // the same for the whole utterance
+        const df::DF am = df::make(ring_hi[p], ring_lo[p]);
+        ring_hi[p] = am_hi[(size_t)min(i + PREFETCH, C - 1) * A];
+        ring_lo[p] = am_lo[(size_t)min(i + PREFETCH, C - 1) * A];
+        // positions a-1 and a-2: the lanes below, or the shadow
+        df::DF n1 = df::make(__shfl_up_sync(FULL, h.hi, 1), __shfl_up_sync(FULL, h.lo, 1));
+        df::DF n2 = df::make(__shfl_up_sync(FULL, h.hi, 2), __shfl_up_sync(FULL, h.lo, 2));
+        if (W > 1) {
+          const df::DF sh_up = df::make(__shfl_up_sync(FULL, sh.hi, 1),
+                                        __shfl_up_sync(FULL, sh.lo, 1));
+          const df::DF sh_down = df::make(__shfl_down_sync(FULL, sh.hi, 1),
+                                          __shfl_down_sync(FULL, sh.lo, 1));
+          if (lane == 0) { n1 = sh; n2 = sh_down; }
+          if (lane == 1) n2 = sh_up;
+        }
+        const int t = t0 + i;
+        signed char jump;
+        df::DF cost = step_cost(h, n1, n2, tw0, tw1, tw2, am, a, valid, tie_pruned, jump);
+        cost = pos ? cost : big();
+        store_if(jumps + ((size_t)i * B + b) * A + a, jump, pos);
+
+        // the exact row minimum: the warp's, then the utterance's
+        df::DF row_best = warp_minimum(cost);
+        if (W > 1) {
+          float2* pub = s_pub[u][i & 1][w];
+          if (lane == 0) pub[0] = make_float2(row_best.hi, row_best.lo);
+          if (lane >= 30) pub[lane - 29] = make_float2(cost.hi, cost.lo);
+          asm volatile("bar.sync %0, %1;" :: "r"(1 + u), "r"(W * 32) : "memory");
+          const float2 m0 = s_pub[u][i & 1][0][0];
+          row_best = df::make(m0.x, m0.y);
+#pragma unroll
+          for (int v = 1; v < W; ++v) {
+            const float2 mv = s_pub[u][i & 1][v][0];
+            row_best = df::minimum(row_best, df::make(mv.x, mv.y));
+          }
+        }
+        if (row_best.hi >= HALF_BIG) row_best = df::make(0.f, 0.f);
+        if (W > 1) {
+          const float2 sc = s_pub[u][i & 1][max(w - 1, 0)][lane == 0 ? 2 : 1];
+          sh = step_carry(df::make(sc.x, sc.y), row_best, df::make(0.f, 0.f), sh, thr, sa,
+                          false, t, len, use_pruning);
+        }
+        h = step_carry(cost, row_best, am, h, thr, a, valid, t, len, use_pruning);
+      }
+    }
+  }
+  if (pos) {
+    out_hi[row] = h.hi;
+    out_lo[row] = h.lo;
+  }
+}
+
+// one block of ceil(A/32)*32 threads per utterance, one position a thread
+__global__ void align_fwd_df_block_kernel(
     const float* __restrict__ prev_hi, const float* __restrict__ prev_lo,
     const float* __restrict__ ams_hi, const float* __restrict__ ams_lo,
     const float* __restrict__ tdp_hi, const float* __restrict__ tdp_lo,
@@ -82,28 +283,10 @@ __global__ void align_fwd_df_kernel(
     df::DF am = df::make(0.f, 0.f);
     if (pos) {
       am = df::make(ams_hi[am_b + (size_t)i * A + a], ams_lo[am_b + (size_t)i * A + a]);
-      const df::DF c0 = df::add(h, tw0);
-      const df::DF c1 = a >= 1 ? df::add(df::make(sh_hi[buf * A + a - 1],
-                                                   sh_lo[buf * A + a - 1]), tw1)
-                               : big();
-      const df::DF c2 = a >= 2 ? df::add(df::make(sh_hi[buf * A + a - 2],
-                                                   sh_lo[buf * A + a - 2]), tw2)
-                               : big();
-      df::DF best;
+      const df::DF h1 = a >= 1 ? df::make(sh_hi[buf * A + a - 1], sh_lo[buf * A + a - 1]) : big();
+      const df::DF h2 = a >= 2 ? df::make(sh_hi[buf * A + a - 2], sh_lo[buf * A + a - 2]) : big();
       signed char jump;
-      if (tie_pruned) {
-        best = c2;
-        jump = 2;
-        if (df::less(c1, best)) { best = c1; jump = 1; }
-        if (df::less(c0, best)) { best = c0; jump = 0; }
-      } else {
-        best = c0;
-        jump = 0;
-        if (df::less(c1, best)) { best = c1; jump = 1; }
-        if (df::less(c2, best)) { best = c2; jump = 2; }
-      }
-      cost = valid ? df::add(best, am) : big();
-      if (cost.hi >= HALF_BIG) cost = big();
+      cost = step_cost(h, h1, h2, tw0, tw1, tw2, am, a, valid, tie_pruned, jump);
       jumps[((size_t)i * B + b) * A + a] = jump;
     }
 
@@ -112,8 +295,8 @@ __global__ void align_fwd_df_kernel(
     df::DF m = cost;
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
-      const df::DF o = df::make(__shfl_xor_sync(0xffffffffu, m.hi, off),
-                                __shfl_xor_sync(0xffffffffu, m.lo, off));
+      const df::DF o = df::make(__shfl_xor_sync(FULL, m.hi, off),
+                                __shfl_xor_sync(FULL, m.lo, off));
       m = df::minimum(m, o);
     }
     if ((a & 31) == 0) {
@@ -125,11 +308,7 @@ __global__ void align_fwd_df_kernel(
     for (int k = 1; k < nwarps; ++k)
       row_best = df::minimum(row_best, df::make(s_whi[k], s_wlo[k]));
     if (row_best.hi >= HALF_BIG) row_best = df::make(0.f, 0.f);
-    const df::DF shifted = df::sub(cost, row_best);
-    cost = cost.hi >= HALF_BIG ? big() : shifted;
-    if (use_pruning && !df::less_equal(cost, thr)) cost = big();
-    if (t == 0) cost = (a == 0 && valid) ? am : big();
-    if (t < len) h = cost;
+    h = step_carry(cost, row_best, am, h, thr, a, valid, t, len, use_pruning);
     buf ^= 1;
   }
   if (pos) {
@@ -139,6 +318,12 @@ __global__ void align_fwd_df_kernel(
 }
 
 }  // namespace
+
+// warps per utterance of the warp instance for A positions, or 0 where the
+// block instance runs
+extern "C" int sr_align_fwd_df_warps(int A) {
+  return A <= WARP_POSITIONS ? (A + 31) / 32 : 0;
+}
 
 extern "C" int sr_align_fwd_df(const float* prev_hi, const float* prev_lo,
                                const float* ams_hi, const float* ams_lo, const float* tdp_hi,
@@ -150,10 +335,25 @@ extern "C" int sr_align_fwd_df(const float* prev_hi, const float* prev_lo,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B == 0 || A == 0) return (int)cudaSuccess;
-  const int threads = (A + 31) / 32 * 32;
-  const size_t smem = (4 * (size_t)A + 64) * sizeof(float);
-  align_fwd_df_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
-      prev_hi, prev_lo, ams_hi, ams_lo, tdp_hi, tdp_lo, pos_valid, feat_len, out_hi, out_lo,
-      jumps, B, C, A, t0, thr_hi, thr_lo, tie_pruned, use_pruning);
+  const cudaStream_t st = (cudaStream_t)stream;
+#define SR_WARPS(W)                                                                           \
+  align_fwd_df_warp_kernel<W><<<(B + MAX_WARPS / W - 1) / (MAX_WARPS / W),                    \
+                                MAX_WARPS / W * W * 32, 0, st>>>(                             \
+      prev_hi, prev_lo, ams_hi, ams_lo, tdp_hi, tdp_lo, pos_valid, feat_len, out_hi, out_lo,  \
+      jumps, B, C, A, t0, thr_hi, thr_lo, tie_pruned, use_pruning)
+  switch (sr_align_fwd_df_warps(A)) {
+    case 1: SR_WARPS(1); break;
+    case 2: SR_WARPS(2); break;
+    case 3: SR_WARPS(3); break;
+    case 4: SR_WARPS(4); break;
+    default: {
+      const int threads = (A + 31) / 32 * 32;
+      const size_t smem = (4 * (size_t)A + 64) * sizeof(float);
+      align_fwd_df_block_kernel<<<B, threads, smem, st>>>(
+          prev_hi, prev_lo, ams_hi, ams_lo, tdp_hi, tdp_lo, pos_valid, feat_len, out_hi, out_lo,
+          jumps, B, C, A, t0, thr_hi, thr_lo, tie_pruned, use_pruning);
+    }
+  }
+#undef SR_WARPS
   return (int)cudaGetLastError();
 }

@@ -7,7 +7,8 @@ on the host in float64 numpy and mirrors the reference exactly
 device; scoring by one of two methods:
 
     "mxu":    score[t, (s,d)] = [x², x, 1]ₜ · P[:, (s,d)]      (one matmul)
-    "pallas": score[t, (s,d)] = Σᵢ (xᵢ−μᵢ)²·aᵢ + c            (kernel A)
+    "pallas": score[t, (s,d)] = Σᵢ (xᵢ−μᵢ)²·aᵢ + c            (kernel A; with the
+              max-approximation, its fused entry takes the per-mixture minimum)
 
 The names follow the reference package: "mxu" is the quadratic expansion as
 a plain matrix product, "pallas" the centered form that
@@ -542,6 +543,19 @@ def mixture_scores_from_density(pack: ScorePack, scores_sd: torch.Tensor) -> tor
 AM_CHUNK = 1 << 15  # frames per chunk: bounds the [chunk, S·D] intermediate
 
 
+def _am_chunk(pack: ScorePack, feats: torch.Tensor) -> torch.Tensor:
+    """One chunk of ``am_scores``. A "pallas" pack with the max-approximation
+    takes kernel A's fused entry: the per-mixture minimum and cap in the
+    kernel, converted to the pack's dtype after the minimum (the same values:
+    conversion keeps the order, and the cap 1e10 is exact in float32)."""
+    if pack.method == "pallas" and pack.max_approx:
+        from ..ops.mahalanobis import mahalanobis_min_scores
+        scores = mahalanobis_min_scores(feats.to(torch.float32).contiguous(),
+                                        pack.mu, pack.a, pack.c, pack.density_cap)
+        return scores.to(pack.dtype)
+    return mixture_scores_from_density(pack, density_scores(pack, feats))
+
+
 def am_scores(pack: ScorePack, feats: torch.Tensor) -> torch.Tensor:
     """[N, dim] → [N, S] state-level acoustic scores.
 
@@ -550,10 +564,8 @@ def am_scores(pack: ScorePack, feats: torch.Tensor) -> torch.Tensor:
     immediately)."""
     N = feats.shape[0]
     if N <= AM_CHUNK:
-        return mixture_scores_from_density(pack, density_scores(pack, feats))
-    return torch.cat([
-        mixture_scores_from_density(pack, density_scores(pack, feats[s:s + AM_CHUNK]))
-        for s in range(0, N, AM_CHUNK)])
+        return _am_chunk(pack, feats)
+    return torch.cat([_am_chunk(pack, feats[s:s + AM_CHUNK]) for s in range(0, N, AM_CHUNK)])
 
 
 AM_CHUNK_DF = 1 << 12  # df scoring holds several [chunk, S·D] f32 pairs

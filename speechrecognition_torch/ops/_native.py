@@ -42,6 +42,8 @@ _D = ctypes.c_double
 SIGNATURES = {
     # x, mu, a, c, out, N, J, dim, device, stream
     "sr_mahalanobis_scores": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
+    # x, mu, a, c, out, N, S, D, dim, device, stream
+    "sr_mahalanobis_min": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P), _I),
     # am, feat_len, state_table, last_pos, word_len, tdp_within, entry_pen,
     # exit_pen (or NULL), hyp_in, bkp_in, book_in, hyp_out, bkp_out,
     # book_out, score, word, bkp, B, T, S, W, P, t0, am_threshold, prune,
@@ -73,6 +75,8 @@ SIGNATURES = {
     # out_hi, out_lo, jumps, B, C, A, t0, thr_hi, thr_lo, tie_pruned,
     # use_pruning, device, stream
     "sr_align_fwd_df": ((_P,) * 11 + (_I, _I, _I, _I, _F, _F, _I, _I, _I, _P), _I),
+    # A → warps per utterance of kernel F's warp instance (0: block instance)
+    "sr_align_fwd_df_warps": ((_I,), _I),
     # final_hi, aut_len, jumps, feat_len, states_tbl, states, final_pos, B, A,
     # Tp, T, tie_pruned, device, stream
     "sr_align_backtrack": ((_P,) * 7 + (_I, _I, _I, _I, _I, _I, _P), _I),

@@ -7,10 +7,12 @@ imports no jax, so it also runs where the JAX package is not installed:
 
 (--noconftest because tests/conftest.py configures jax). Criteria as in
 chip_smoke.py: kernel A within 1e-6 relative of its plain version over
-active slots (FMA contraction and operation order); kernel B (float32 and
+active slots (FMA contraction and operation order), at dims up to 128, and
+its fused entry bit-equal to the capped minimum of the unfused one; kernel B (float32 and
 float64), kernel C (double-float scores, also on tables whose magnitudes
 span 1e-6 .. 1e6) and kernel D (double-float scan) bit-equal, hi and lo; the trainer's kernels E (alignment DP, float32 and
-float64), F (its double-float twin) and G (backtrack) bit-equal, kernel H
+float64), F (its double-float twin, both instances, every lane boundary up to A = 300)
+and G (backtrack) bit-equal, kernel H
 (double-float E-step) with w bit-equal, its float64 sums within 1e-12
 relative and two launches bit-identical; the golden demo trainer in df32
 and f64 on the card.
@@ -52,19 +54,53 @@ def rel_err(got, ref):
     return ((got - ref).abs() / (1.0 + ref.abs())).max().item()
 
 
-@pytest.mark.parametrize("n,j,dim", [(777, 300, 25), (64, 64, 25), (1, 1, 13), (4100, 130, 64)])
-def test_kernel_a_matches_plain(dev, n, j, dim):
-    rng = np.random.default_rng(n + j + dim)
+def random_tables(dev, n, j, dim, seed):
+    rng = np.random.default_rng(seed)
     x = torch.as_tensor(rng.normal(size=(n, dim)).astype(np.float32), device=dev)
     mu = torch.as_tensor(rng.normal(size=(j, dim)).astype(np.float32), device=dev)
     a = torch.as_tensor(rng.uniform(0.1, 2.0, size=(j, dim)).astype(np.float32), device=dev)
     c = torch.as_tensor(rng.uniform(10.0, 40.0, size=j).astype(np.float32), device=dev)
+    return x, mu, a, c
+
+
+@pytest.mark.parametrize("n,j,dim", [(777, 300, 25), (64, 64, 25), (1, 1, 13), (4100, 130, 64),
+                                     (300, 70, 100), (64, 80, 128)])
+def test_kernel_a_matches_plain(dev, n, j, dim):
+    """Any dim up to 128 (the generic instance past dim 25), J not a multiple
+    of the block's 32 slots, N not a multiple of its frames."""
+    x, mu, a, c = random_tables(dev, n, j, dim, seed=n + j + dim)
     before = maha.mahalanobis_scores.LAUNCHES
     got = maha.mahalanobis_scores(x, mu, a, c)
     torch.cuda.synchronize()
     assert maha.mahalanobis_scores.LAUNCHES == before + 1
     assert got.shape == (n, j) and got.dtype == torch.float32
     assert rel_err(got, maha.mahalanobis_scores_reference(x, mu, a, c)) <= 1e-6
+
+
+@pytest.mark.parametrize("n,s,d,dim", [(777, 19, 16, 25), (1, 1, 1, 13), (4100, 106, 4, 25),
+                                       (300, 7, 3, 100), (64, 5, 16, 128), (200, 3, 128, 64),
+                                       (300, 5, 40, 25)])
+def test_kernel_a_fused_min(dev, n, s, d, dim):
+    """The fused entry: bit-equal to the capped minimum of the unfused kernel
+    on the same tensors (one routine scores both), within 1e-6 relative of its
+    plain version; a mixture of inactive slots gives the cap. D = 40 and 128
+    take several rounds of staged slots (shared memory does not grow with D)."""
+    x, mu, a, c = random_tables(dev, n, s * d, dim, seed=n + s + d + dim)
+    mu[-d:] = 0.0
+    a[-d:] = 0.0
+    c[-d:] = gmm.INACTIVE_SCORE
+    before = (maha.mahalanobis_min_scores.LAUNCHES, maha.mahalanobis_scores.LAUNCHES)
+    got = maha.mahalanobis_min_scores(x, mu, a, c, d)
+    unfused = maha.mahalanobis_scores(x, mu, a, c)
+    ref = maha.mahalanobis_min_scores_reference(x, mu, a, c, d)
+    torch.cuda.synchronize()
+    assert (maha.mahalanobis_min_scores.LAUNCHES, maha.mahalanobis_scores.LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    assert got.shape == (n, s) and got.dtype == torch.float32
+    expect = torch.clamp(unfused.reshape(n, s, d).amin(dim=-1), max=gmm.MIN_SCORE_INIT)
+    assert torch.equal(got, expect)
+    assert bool((got[:, -1] == 1e10).all())
+    assert rel_err(got, ref) <= 1e-6
 
 
 def test_kernel_a_demo_model(dev):
@@ -78,6 +114,9 @@ def test_kernel_a_demo_model(dev):
     ref = maha.mahalanobis_scores_reference(x, pack.mu, pack.a, pack.c)
     assert rel_err(got[:, active], ref[:, active]) <= 1e-6
     assert torch.equal(got[:, ~active], ref[:, ~active])
+    fused = gmm.am_scores(pack, x)
+    expect = torch.clamp(got.reshape(1000, 106, -1).amin(dim=-1), max=gmm.MIN_SCORE_INIT)
+    assert torch.equal(fused, expect)
 
 
 def test_kernel_a_checks_inputs(dev):
@@ -90,6 +129,13 @@ def test_kernel_a_checks_inputs(dev):
         maha.mahalanobis_scores(torch.zeros((25, 8), device=dev).t(), mu, mu, c)
     with pytest.raises(ValueError, match="on"):
         maha.mahalanobis_scores(x, mu.cpu(), mu, c)
+    with pytest.raises(ValueError, match="S·D"):
+        maha.mahalanobis_min_scores(x, mu, mu, c, 3)
+    wide = torch.zeros((8, 129), device=dev)
+    with pytest.raises(ValueError, match="1..128"):
+        maha.mahalanobis_scores(wide, wide[:4], wide[:4], c)
+    with pytest.raises(ValueError, match="1..128"):
+        maha.mahalanobis_min_scores(wide, wide[:4], wide[:4], c, 2)
 
 
 def sietill_tables(prune=True, flat=False):
@@ -282,9 +328,10 @@ def test_recognizer_golden_on_card(dev, kind):
     tdp = TdpModel(silence_state=lex.silence_state, loop=3.0, forward=0.0, skip=30.0)
     config = Configuration({"am-threshold": 200.0, "word-penalty": 80.0,
                             "pruned-search": True, "max-recognition-runs": 10000})
+    unfused = maha.mahalanobis_scores.LAUNCHES
     if kind == "pallas":
         rec = dec.Recognizer(config, lex, tdp, model.pack(method="pallas", device=dev))
-        counters = (maha.mahalanobis_scores, dec.decode_scan)
+        counters = (maha.mahalanobis_min_scores, dec.decode_scan)
     elif kind == "df32":
         rec = dec.Recognizer(config, lex, tdp, model.pack_df(device=dev), dtype="df32")
         counters = (gmm.am_scores_df, dec.decode_scan_df)
@@ -295,6 +342,7 @@ def test_recognizer_golden_on_card(dev, kind):
     before = [c.LAUNCHES for c in counters]
     res = rec.recognize_corpus(corpus, batch_size=35)
     assert all(c.LAUNCHES > b for c, b in zip(counters, before))
+    assert maha.mahalanobis_scores.LAUNCHES == unfused     # the max-approximation fuses
     with open(FIX / "demo_recognition.json") as f:
         golden = json.load(f)
     assert all(res["hyps"][u["idx"]] == u["hyp"] for u in golden["utts"])
@@ -351,10 +399,15 @@ def test_kernels_e_and_g_bit_equal(dev, case, dtype):
         assert k.dtype == p.dtype and torch.equal(k, p), name
 
 
+@pytest.mark.parametrize("A", [1, 2, 9, 31, 32, 33, 70, 96, 97, 128, 129, 300])
 @pytest.mark.parametrize("case", ALIGN_CASES)
-def test_kernel_f_bit_equal(dev, case):
+def test_kernel_f_bit_equal(dev, case, A):
+    """Every lane boundary of the warp instance (1-4 positions a lane) and
+    the block instance past A = 128."""
     from speechrecognition_torch.align import viterbi as vit
-    ams, tdp, valid, aut, lens, thr, tie, prune = align_inputs(case)
+    from speechrecognition_torch.ops import _native
+    assert _native.load().sr_align_fwd_df_warps(A) == (-(-A // 32) if A <= 128 else 0)
+    ams, tdp, valid, aut, lens, thr, tie, prune = align_inputs(case, A=A)
     B, T, A = ams.shape
     am = dfm.from_f64(ams, dev)
     args = (dfm.from_f64(tdp, dev), torch.as_tensor(valid, device=dev),

@@ -7,6 +7,12 @@ Tolerance: max |Δ|/(1+|ref|) ≤ 1e-6 over active slots. Both sides sum the
 and orders the multiply-adds differently from PyTorch's separate kernels
 (measured: ≤ 3.3e-7). Against the float64 centered form the bound is the
 3e-6 of tests/test_pallas_ops.py.
+
+The fused entry (``mahalanobis_min_scores``, each mixture's minimum over its
+D slots, capped) is held against JAX's ``am_scores`` on the same "pallas"
+pack, the Pallas kernel in interpret mode followed by the max-approximation's
+minimum, within the same 1e-6; its plain version is exactly the minimum of
+the unfused plain version.
 """
 
 from pathlib import Path
@@ -130,3 +136,78 @@ def test_wrapper_refuses_other_devices():
     args = [torch.empty(s, device="meta") for s in ((4, 25), (8, 25), (8, 25), (8,))]
     with pytest.raises(ValueError, match="unsupported device"):
         tmaha.mahalanobis_scores(*args)
+
+
+# -- the fused entry: each mixture's minimum over its density slots -------------
+
+
+@pytest.mark.parametrize("name", sorted(MODELS))
+def test_fused_am_scores_match_jax(name, demo_feats, monkeypatch):
+    """The port's am_scores on a "pallas" pack goes through
+    mahalanobis_min_scores (its plain version on the CPU) and agrees with
+    JAX's am_scores on the same pack: iter-2.mix (D = 4) and bench/model.mix
+    (D = 16)."""
+    path, pooling = MODELS[name]
+    j = jgmm.MixtureModel.from_raw(jio.read_mixture_set(str(path), 25),
+                                   jgmm.VarianceModel[pooling], max_approx=True)
+    t = tgmm.MixtureModel.from_raw(tio.read_mixture_set(str(path), 25),
+                                   tgmm.VarianceModel[pooling], max_approx=True)
+    feats = demo_feats[:1000]
+    ref = np.asarray(jgmm.am_scores(j.pack(method="pallas"), jnp.asarray(feats)), np.float64)
+    calls = []
+    fused = tmaha.mahalanobis_min_scores
+    monkeypatch.setattr(tmaha, "mahalanobis_min_scores",
+                        lambda *args: calls.append(args[-1]) or fused(*args))
+    pack = t.pack(method="pallas")
+    got = tgmm.am_scores(pack, torch.from_numpy(feats))
+    assert calls == [pack.density_cap] and pack.density_cap == {"iter-2": 4, "bench": 16}[name]
+    assert got.dtype == torch.float32 and got.shape == (1000, t.num_mixtures)
+    assert rel_err(got.numpy(), ref).max() <= REL_TOL
+
+
+@pytest.mark.parametrize("n,s,d,dim", [(57, 7, 3, 25), (1, 1, 1, 13), (40, 5, 16, 128)])
+def test_min_reference_is_amin_of_plain(n, s, d, dim):
+    """Exactly the minimum of the unfused plain version over each run of D
+    slots, capped at MIN_SCORE_INIT: slots with the inactive sentinel and a
+    mixture with no active slot (capped) included."""
+    rng = np.random.default_rng(n + s + d + dim)
+    x = torch.from_numpy(rng.normal(size=(n, dim)).astype(np.float32))
+    mu = torch.from_numpy(rng.normal(size=(s * d, dim)).astype(np.float32))
+    a = torch.from_numpy(rng.uniform(0.1, 2.0, size=(s * d, dim)).astype(np.float32))
+    c = torch.from_numpy(rng.uniform(10.0, 40.0, size=s * d).astype(np.float32))
+    mu[-d:] = a[-d:] = 0.0
+    c[-d:] = 5e17
+    if d > 1:
+        c[0] = 5e17
+    got = tmaha.mahalanobis_min_scores_reference(x, mu, a, c, d)
+    plain = tmaha.mahalanobis_scores_reference(x, mu, a, c)
+    expect = torch.clamp(plain.reshape(n, s, d).amin(dim=-1), max=tgmm.MIN_SCORE_INIT)
+    assert got.shape == (n, s) and torch.equal(got, expect)
+    assert torch.equal(got[:, -1], torch.full((n,), 1e10))
+    assert tmaha.MIN_SCORE_INIT == tgmm.MIN_SCORE_INIT
+
+
+def test_max_dim_is_the_pallas_lane_limit():
+    """The wrapper takes every dim the JAX package's mahalanobis_scores takes."""
+    assert tmaha.MAX_DIM == jmaha.LANES == 128
+
+
+def test_min_wrapper_on_cpu_is_the_plain_version():
+    rng = np.random.default_rng(4)
+    args = [torch.from_numpy(rng.normal(size=s).astype(np.float32))
+            for s in ((33, 25), (72, 25), (72, 25), (72,))]
+    before = tmaha.mahalanobis_min_scores.LAUNCHES
+    assert torch.equal(tmaha.mahalanobis_min_scores(*args, 8),
+                       tmaha.mahalanobis_min_scores_reference(*args, 8))
+    assert tmaha.mahalanobis_min_scores.LAUNCHES == before
+
+
+def test_min_wrapper_checks_the_mixture_layout():
+    """J must be S·D; other devices are refused."""
+    args = [torch.zeros(s) for s in ((4, 25), (10, 25), (10, 25), (10,))]
+    for D in (0, 3, 4):
+        with pytest.raises(ValueError, match="S·D"):
+            tmaha.mahalanobis_min_scores(*args, D)
+    meta = [torch.empty(s, device="meta") for s in ((4, 25), (8, 25), (8, 25), (8,))]
+    with pytest.raises(ValueError, match="unsupported device"):
+        tmaha.mahalanobis_min_scores(*meta, 4)
