@@ -25,6 +25,7 @@ kernel against its plain PyTorch version on the same tensors:
      issue limit;
   4. kernel B (word-loop Viterbi chunk) at B=1024, T=320 on real acoustic
      scores, over two chunks with carry: bit-equal to the plain version;
+     its instance, residency (blocks per SM) and waves;
   5. the golden demo run: iter-2.mix on the 35 demo utterances reproduces
      tests/fixtures/demo_recognition.json (WER 19.587629 %, S/I/D 4/14/1),
      through kernel A's fused entry and kernel B;
@@ -45,7 +46,10 @@ kernel against its plain PyTorch version on the same tensors:
      bit-equal to their plain versions;
   9. times of kernels C, D and f64 B against their plain versions, in turns,
      beside each kernel's bound (and kernel C's FP32 issue limit, also at
-     the instruction count of Dekker's product);
+     the instruction count of Dekker's product; kernel D's FP32 issue limit
+     and the instance that ran); kernel D's residency, the waves its
+     1024-utterance launch takes and its times at B = 132, 264, 528, 924 and
+     1024 (a staircase shows the waves);
  10. golden demo runs in df32 and f64 on iter-2.mix: 35/35 transcripts,
      WER 19.587629 %, S/I/D 4/14/1, through the new kernels;
  11. full width, df32 (the production path; launch counts are read from this
@@ -57,8 +61,10 @@ kernel against its plain PyTorch version on the same tensors:
  13. kernels E (alignment DP chunk, f32 and f64), F (its double-float twin)
      and G (backtrack) at B=256, C=320, A=70 on real bench/model.mix
      scores, three chunks with carry: bit-equal to their plain versions,
-     times in turns; F's block instance on a synthetic batch with A=160:
-     bit-equal over two chunks, timed;
+     times in turns beside the instance that ran; kernel E's warp instance
+     timed at A = 32 to 128 (every warp count) in three rounds; F's block
+     instance on a synthetic batch with A=160: bit-equal over two chunks,
+     timed;
  14. kernel H (double-float E-step) over the 1024-utterance corpus's sorted
      blocks: counts bit-equal, sums within 1e-12 relative, two launches
      bit-identical, times in turns beside its bound and the scoring's FP32
@@ -73,9 +79,17 @@ kernel against its plain PyTorch version on the same tensors:
      second of audio, peak memory, one torch.profiler run (device busy
      share, top device operations); the plain run (cut to PLAIN_TRAIN_CUT
      utterances past PLAIN_TRAIN_BUDGET_S): equal stats lines, final
-     alignment and density counts; the f64 trainer's differing frames;
+     alignment and density counts; the f64 trainer's differing frames and
+     one torch.profiler run of it (kernel E's device time and launches);
  17. the CLI's train on a temporary demo config with train-dtype df32 and
-     --device cuda: exit 0 and the oracle's iter-2.mix.
+     --device cuda: exit 0 and the oracle's iter-2.mix;
+ 18. every scan whose lattice lives in device scratch (past 1,024 slots or
+     positions): kernels B (f32, f64) and D at W*P = 1,056 and 24,000, E
+     (f32, f64) and F at A = 1,025 and 3,000, on a small synthetic batch
+     (B 4, T 40): bit-equal to their plain versions over two chunks, timed
+     in turns; each has its own entry in the kernels line, whose launches
+     are the wrapper's SCRATCH_LAUNCHES counted over the main paths' runs
+     (checked to be 0: no SieTill shape needs scratch).
 
 Every kernel's time is printed beside its bound: the larger of the bytes it
 must move over 3.35 TB/s and the operations its function needs (an FMA as
@@ -157,6 +171,14 @@ C_DENSITY_OPS = 2 + 2 * DF_ADD + DF_CMP
 #: entries' two adds in 2 of 24 slots are left out.
 B_SLOT_OPS = 5 + 5 + 2
 D_SLOT_OPS = 5 * DF_ADD + 5 * DF_CMP + 2
+#: kernel D's FP32 instructions, counted from its warp instance's source
+#: (csrc/decode_scan_df.cu): per slot and frame exactly the operations above
+#: (slot_step, the minimum, renorm); per lane and frame the entry's two adds
+#: (every lane forms one), the word end's renormalisation (an add, a guard, a
+#: prune compare) and its cap guard, the dead-row guard and four key adds,
+#: plus one compare per warp of the utterance's fold
+D_SLOT_INSTR = D_SLOT_OPS
+D_LANE_INSTR = 3 * DF_ADD + DF_CMP + 7
 #: kernels E and F, per utterance, frame and position: five adds, four
 #: compares in the score type (two candidates, one step of the row minimum,
 #: the prune) and two guards on the hi word (BIG/2 before and after the
@@ -233,15 +255,81 @@ def entry(name, source, replaces, launches, err, ms, plain_ms, bnd):
 
 
 def f_warps(A):
-    """Warps per utterance of kernel F's warp instance for A positions, 0
-    where the block instance runs: the choice of its C entry."""
+    """Warps per utterance of kernel F's warp instance for A positions; 0 or
+    -1 for its block instance (the row in shared memory or in device
+    scratch): the choice of its C entry."""
     from speechrecognition_torch.ops import _native
     return _native.load().sr_align_fwd_df_warps(A)
 
 
-def f_instance(A):
-    w = f_warps(A)
-    return f"warp instance, {w} warp(s) per utterance" if w else "block instance"
+#: the scans' kernels whose machine code phase 2 counts
+SASS_KERNELS = ("decode_scan_kernel", "decode_scan_df_warp_kernel", "decode_scan_df_block_kernel",
+                "align_fwd_warp_kernel", "align_fwd_df_warp_kernel")
+
+
+def log_sass_counts(lib):
+    """Static instruction counts of the scans' kernels in the built library
+    (cuobjdump -sass): all instructions, and the float adds (FADD, DADD)
+    among them; the frame loop is unrolled, so these count several frames
+    and the set-up. Printed as not measured where cuobjdump is missing."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        log("[2] machine code of the scans: not measured (no cuobjdump)")
+        return
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=120).stdout
+    for fn, body in re.findall(r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", sass, re.S):
+        m = re.search(r"\d+([a-z_]+_kernel)(I\w*?E)?E", fn)
+        if not m or m.group(1) not in SASS_KERNELS:
+            continue
+        ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", body)
+        adds = sum(o.split(".")[0] in ("FADD", "DADD") for o in ops)
+        log(f"[2] {m.group(1)}{m.group(2) or ''}: {len(ops)} instructions, {adds} float adds")
+
+
+def instance(query, *shape):
+    """The instance a scan's C entry chooses for ``shape``, as the library's
+    ``query`` reports it: warps per utterance (kernels E and F) or positions
+    a lane (kernel D) of the warp instance; 0 for the block instance and -1
+    for kernel B's scratch instance, or for the others' block instance with
+    its lattice in device scratch."""
+    from speechrecognition_torch.ops import _native
+    v = getattr(_native.load(), query)(*shape)
+    if v <= 0 and query == "sr_decode_scan_instance":
+        return "scratch instance" if v < 0 else "block instance"
+    if v <= 0:
+        return f"block instance, lattice in {'device scratch' if v < 0 else 'shared memory'}"
+    unit = "position(s) a lane" if query == "sr_decode_scan_df_instance" else "warp(s) per utterance"
+    return f"warp instance, {v} {unit}"
+
+
+def waves(blocks, per_sm):
+    """Waves of a launch of ``blocks`` blocks at ``per_sm`` blocks per SM."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return -(-blocks // (per_sm * sms)) if per_sm > 0 else None
+
+
+def scan_bound(nb, T, S, W, P, word, df=False):
+    """Kernel B or D over one chunk: the scores read once, the carry in and
+    out, the per-frame outputs; the operations per slot and frame."""
+    nbytes = nb * T * S * word + 2 * nb * W * P * (word + 4) + 2 * nb * word + 3 * T * nb * 4
+    slots, frames = nb * T * W * P, nb * T
+    if df:
+        return bound(nbytes, fp32=slots * D_SLOT_OPS + frames * scan_frame_ops(W, DF_CMP))
+    ops = slots * B_SLOT_OPS + frames * scan_frame_ops(W, 1)
+    return bound(nbytes, **({"fp32": ops} if word == 4 else {"fp64": ops}))
+
+
+def align_bound(nb, C, A, word, df=False):
+    """Kernel E or F over one chunk: the scores read once, the jumps written,
+    the carry in and out, the TDP table and valid mask; the operations per
+    position and frame."""
+    nbytes = nb * C * A * (word + 1) + 2 * nb * A * word + nb * A * (3 * word + 1)
+    ops = nb * C * A * (F_POS_OPS if df else E_POS_OPS)
+    return bound(nbytes, **({"fp32": ops} if word == 4 or df else {"fp64": ops}))
 
 
 def in_turns(plain, kernel, reps_plain, reps_kernel):
@@ -285,9 +373,15 @@ def main():
     _native.load()
     log(f"[2] kernels: {_native.library_path().relative_to(REPO)} "
         f"(nvcc {_native.build_seconds:.2f} s, load {time.perf_counter() - t0:.2f} s)")
+    kernel_name = ""
     for line in _native.build_log.splitlines():
-        if "ptxas info" in line and ("Used" in line or "spill" in line):
-            log(f"    {line.strip()}")
+        if "Compiling entry function" in line:
+            kernel_name = line.split("'")[1]
+        elif ("ptxas info" in line and "Used" in line
+              or "spill" in line and " 0 bytes spill stores" not in line):
+            log(f"    {kernel_name[:72]}: {line.strip()}")
+
+    log_sass_counts(_native.library_path())
 
     lex = build_sietill_lexicon()
     desc = CorpusDescription.read(str(FIX / "demo_corpus.json"), lex)
@@ -467,21 +561,14 @@ def main():
         lambda: dec.decode_scan(ams[0], lens, *targs, 200.0, prune=True, t0=0), 2, 10)
     W, P = tables.state_table.shape
     S_b = ams[0].shape[2]
-
-    def scan_bound(word):
-        """Kernel B or D over one chunk: the scores read once, the carry in
-        and out, the per-frame outputs; ops per slot and frame."""
-        nbytes = (FULL_BATCH * chunk * S_b * word + 2 * FULL_BATCH * W * P * (word + 4)
-                  + 2 * FULL_BATCH * word + 3 * chunk * FULL_BATCH * 4)
-        return nbytes, FULL_BATCH * chunk * W * P
-
-    frames_b = FULL_BATCH * chunk
-    nb_b, slots = scan_bound(4)
-    b_bound = bound(nb_b, fp32=slots * B_SLOT_OPS + frames_b * scan_frame_ops(W, 1))
-    log(f"[4] kernel B time at B={FULL_BATCH} T={chunk}: kernel {b_ms:.4f} ms, "
-        f"plain {b_plain_ms:.4f} ms (plain, kernel, kernel, plain: "
+    b_bound = scan_bound(FULL_BATCH, chunk, S_b, W, P, 4)
+    b_res = _native.load().sr_decode_scan_residency(W, P, 0)
+    b_inst = instance("sr_decode_scan_instance", W, P)
+    log(f"[4] kernel B time at B={FULL_BATCH} T={chunk} ({b_inst}): kernel "
+        f"{b_ms:.4f} ms, plain {b_plain_ms:.4f} ms (plain, kernel, kernel, plain: "
         f"{', '.join(f'{v:.4f}' for v in b_all)}); bound {b_bound[0]:.4f} ms "
-        f"({b_bound[1]}); per frame {b_ms / chunk * 1e3:.3f} us on {card}")
+        f"({b_bound[1]}); per frame {b_ms / chunk * 1e3:.3f} us; residency {b_res} blocks "
+        f"per SM, {waves(FULL_BATCH, b_res)} wave(s) on {card}")
     del ams, feats, carry_k, carry_p, out_k, out_p
     torch.cuda.empty_cache()
 
@@ -512,11 +599,12 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     maha.mahalanobis_min_scores.LAUNCHES = maha.mahalanobis_scores.LAUNCHES = 0
-    dec.decode_scan.LAUNCHES = 0
+    dec.decode_scan.LAUNCHES = dec.decode_scan.SCRATCH_LAUNCHES = 0
     res = rec_bench.recognize_corpus(big, batch_size=FULL_BATCH)
     launches = {"mahalanobis_min_scores": maha.mahalanobis_min_scores.LAUNCHES,
                 "mahalanobis_scores": maha.mahalanobis_scores.LAUNCHES,
-                "decode_scan": dec.decode_scan.LAUNCHES}
+                "decode_scan": dec.decode_scan.LAUNCHES,
+                "decode_scan in scratch": dec.decode_scan.SCRATCH_LAUNCHES}
     peak = torch.cuda.max_memory_allocated(dev)
     with torch.profiler.profile(activities=PROFILED) as prof:
         res_prof = rec_bench.recognize_corpus(big, batch_size=FULL_BATCH)
@@ -691,18 +779,25 @@ def main():
     d_ms, d_plain_ms, d_all = in_turns(
         lambda: dec.decode_scan_df_reference(am0, lens, *largs, *df_tabs, 200.0, t0=0),
         lambda: dec.decode_scan_df(am0, lens, *largs, *df_tabs, 200.0, t0=0), 1, 10)
-    nb_d, slots = scan_bound(8)
-    d_bound = bound(nb_d, fp32=slots * D_SLOT_OPS + frames_b * scan_frame_ops(W, DF_CMP))
-    log(f"[9] kernel D time at B={FULL_BATCH} T={chunk}: kernel {d_ms:.4f} ms, plain "
-        f"{d_plain_ms:.4f} ms (plain, kernel, kernel, plain: "
-        f"{', '.join(f'{v:.4f}' for v in d_all)}); bound {d_bound[0]:.4f} ms ({d_bound[1]}); "
+    d_bound = scan_bound(FULL_BATCH, chunk, S_b, W, P, 8, df=True)
+    d_warps = _native.load().sr_decode_scan_df_threads(W, P) // 32
+    d_issue = (FULL_BATCH * chunk * (W * P * D_SLOT_INSTR + d_warps * 32 * (
+        D_LANE_INSTR + (d_warps - 1) * DF_CMP)) / FP32_ISSUE_S * 1e3)
+    d_inst = instance("sr_decode_scan_df_instance", W, P)
+    log(f"[9] kernel D time at B={FULL_BATCH} T={chunk} ({d_inst}): kernel "
+        f"{d_ms:.4f} ms, plain {d_plain_ms:.4f} ms (plain, kernel, kernel, plain: "
+        f"{', '.join(f'{v:.4f}' for v in d_all)}); bound {d_bound[0]:.4f} ms ({d_bound[1]}), "
+        f"FP32 issue limit {d_issue:.4f} ms at {D_SLOT_INSTR} instructions per slot and frame; "
         f"per frame {d_ms / chunk * 1e3:.3f} us on {card}")
+    d_staircase(dec, _native, am0, lens, largs, df_tabs, W, P, card)
     a64 = ams64[0]
     b64_ms, b64_plain_ms, b64_all = in_turns(
         lambda: dec.decode_scan_reference(a64, lens, *targs64, 200.0, t0=0),
         lambda: dec.decode_scan(a64, lens, *targs64, 200.0, t0=0), 2, 10)
-    nb_b64, slots = scan_bound(8)
-    b64_bound = bound(nb_b64, fp64=slots * B_SLOT_OPS + frames_b * scan_frame_ops(W, 1))
+    b64_bound = scan_bound(FULL_BATCH, chunk, S_b, W, P, 8)
+    b64_res = _native.load().sr_decode_scan_residency(W, P, 1)
+    log(f"[9] f64 kernel B residency {b64_res} blocks per SM, {waves(FULL_BATCH, b64_res)} "
+        f"wave(s) for {FULL_BATCH} utterances")
     log(f"[9] f64 kernel B time at B={FULL_BATCH} T={chunk}: kernel {b64_ms:.4f} ms, plain "
         f"{b64_plain_ms:.4f} ms (plain, kernel, kernel, plain: "
         f"{', '.join(f'{v:.4f}' for v in b64_all)}); bound {b64_bound[0]:.4f} ms "
@@ -740,9 +835,12 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     gmm.am_scores_df.LAUNCHES = dec.decode_scan_df.LAUNCHES = 0
+    dec.decode_scan_df.SCRATCH_LAUNCHES = 0
     res = rec_df.recognize_corpus(big, batch_size=FULL_BATCH)
     launches = {"am_scores_df": gmm.am_scores_df.LAUNCHES,
                 "decode_scan_df": dec.decode_scan_df.LAUNCHES}
+    main_scratch = {"decode_scan": f32_launches["decode_scan in scratch"],
+                    "decode_scan_df": dec.decode_scan_df.SCRATCH_LAUNCHES}
     peak_df = torch.cuda.max_memory_allocated(dev)
     log(f"[11] full width df32 bench/model.mix, {FULL_BATCH} utterances "
         f"({res['audio_seconds']:.1f} s audio, padded to {T} frames): decode through "
@@ -775,9 +873,10 @@ def main():
     rec64 = dec.Recognizer(config, lex, tdp, bench.pack(dtype=torch.float64, device=dev),
                            dtype=torch.float64)
     rec64.warmup(big, batch_size=FULL_BATCH)
-    dec.decode_scan.LAUNCHES = 0
+    dec.decode_scan.LAUNCHES = dec.decode_scan.SCRATCH_LAUNCHES = 0
     res64 = rec64.recognize_corpus(big, batch_size=FULL_BATCH)
     launches["decode_scan[f64]"] = dec.decode_scan.LAUNCHES
+    main_scratch["decode_scan[f64]"] = dec.decode_scan.SCRATCH_LAUNCHES
     vs64 = [s for s in range(FULL_BATCH) if res["hyps"][s] != res64["hyps"][s]]
     log(f"[11] f64 decode of the same batch (kernel B f64, scores from the float64 "
         f"[x^2, x, 1] product): {res64['time']:.4f} s, RTF {res64['rtf']:.3e}; df32 "
@@ -807,24 +906,32 @@ def main():
     check("WER: 19.587629% (S/I/D) 4/14/1" in cli_lines, "CLI recognize golden WER line")
 
     check("jax" not in sys.modules, "the port imported jax")
-    train = train_phases(dev, card, lex, corpus, big, bench, packdf_bench, c_plain_ms)
+    train, train_scratch = train_phases(dev, card, lex, corpus, big, bench, packdf_bench,
+                                        c_plain_ms)
+    main_scratch.update(train_scratch)
+    log(f"[18] launches with the lattice in device scratch on the main paths: {main_scratch}")
+    check(not any(main_scratch.values()), f"a main path kept its lattice in scratch: {main_scratch}")
+    t_phase = time.perf_counter()
+    large = large_instances(dev, card, main_scratch)
+    log(f"[18] phase seconds {time.perf_counter() - t_phase:.1f}")
 
     kernels = [
         entry("mahalanobis_scores", "mahalanobis.cu", "speechrecognition_tpu/ops/mahalanobis.py:90",
               f32_launches["mahalanobis_scores"], a_err["main"], a_ms, a_plain_ms, a_bound),
         entry("mahalanobis_min_scores", "mahalanobis.cu",
-              "speechrecognition_tpu/ops/mahalanobis.py:90 + speechrecognition_tpu/models/gmm.py:539",
+              "speechrecognition_tpu/ops/mahalanobis.py:90 + speechrecognition_tpu/models/gmm.py:538",
               f32_launches["mahalanobis_min_scores"], a_err["fused main"], m_ms, m_plain_ms,
               m_bound),
-        entry("decode_scan", "decode_scan.cu", "speechrecognition_tpu/search/decoder.py:108",
+        entry("decode_scan", "decode_scan.cu", "speechrecognition_tpu/search/decoder.py:109",
               f32_launches["decode_scan"], b_abs, b_ms, b_plain_ms, b_bound),
-        entry("decode_scan[f64]", "decode_scan.cu", "speechrecognition_tpu/search/decoder.py:108",
+        entry("decode_scan[f64]", "decode_scan.cu", "speechrecognition_tpu/search/decoder.py:109",
               launches["decode_scan[f64]"], b64_abs, b64_ms, b64_plain_ms, b64_bound),
         entry("am_scores_df", "am_scores_df.cu", "speechrecognition_tpu/models/gmm.py:568",
               launches["am_scores_df"], c_err["main"], c_ms, c_plain_ms, c_bound),
-        entry("decode_scan_df", "decode_scan_df.cu", "speechrecognition_tpu/search/decoder.py:220",
+        entry("decode_scan_df", "decode_scan_df.cu", "speechrecognition_tpu/search/decoder.py:221",
               launches["decode_scan_df"], d_abs, d_ms, d_plain_ms, d_bound),
         *train,
+        *large,
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -862,12 +969,17 @@ def train_phases(dev, card, lex, corpus, big, bench, packdf_bench, c_plain_ms):
                 "align_fwd_df": vit.align_fwd_chunk_df,
                 "align_backtrack": vit.align_backtrack, "em_pass_df": gmm.em_pass_sorted}
 
+    scans = {"align_fwd": vit.align_fwd_chunk, "align_fwd_df": vit.align_fwd_chunk_df}
+
     def zero():
         for fn in counters.values():
             fn.LAUNCHES = 0
+        for fn in scans.values():
+            fn.SCRATCH_LAUNCHES = 0
 
     def counts():
-        return {k: fn.LAUNCHES for k, fn in counters.items()}
+        return {**{k: fn.LAUNCHES for k, fn in counters.items()},
+                **{f"{k} in scratch": fn.SCRATCH_LAUNCHES for k, fn in scans.items()}}
 
     # -- 13. kernels E (f32, f64), F and G against their plain versions -------------
     t_phase = time.perf_counter()
@@ -894,12 +1006,6 @@ def train_phases(dev, card, lex, corpus, big, bench, packdf_bench, c_plain_ms):
             jumps.append(j)
         return prev, torch.cat(jumps)
 
-    def align_bytes(word):
-        """One chunk of kernel E or F: the scores read once, the jumps
-        written, the carry in and out, the TDP table and valid mask."""
-        return (TRAIN_BATCH * C * A * (word + 1) + 2 * TRAIN_BATCH * A * word
-                + TRAIN_BATCH * A * (3 * word + 1))
-
     res = {}
     for label, dt in (("align_fwd", torch.float32), ("align_fwd[f64]", torch.float64)):
         pack = bench.pack(dtype=dt, device=dev)
@@ -916,10 +1022,10 @@ def train_phases(dev, card, lex, corpus, big, bench, packdf_bench, c_plain_ms):
         ms, plain_ms, all_ = in_turns(
             lambda: vit.align_fwd_chunk_reference(big0, ams[0], tdp, valid, lens, 200.0, 0),
             lambda: vit.align_fwd_chunk(big0, ams[0], tdp, valid, lens, 200.0, 0), 1, 10)
-        word = 4 if dt == torch.float32 else 8
-        ops = TRAIN_BATCH * C * A * E_POS_OPS
-        bnd = bound(align_bytes(word), **({"fp32": ops} if word == 4 else {"fp64": ops}))
-        log(f"[13] kernel E {dt} B={TRAIN_BATCH} C={C} A={A} on bench/model.mix scores, "
+        bnd = align_bound(TRAIN_BATCH, C, A, 4 if dt == torch.float32 else 8)
+        log(f"[13] kernel E {dt} B={TRAIN_BATCH} C={C} A={A} "
+            f"({instance('sr_align_fwd_warps', A)}) on "
+            f"bench/model.mix scores, "
             f"3 chunks with carry: carry and jumps bit-equal {equal}, max abs {err:.3e}, "
             f"live positions after the chunks {live:.3f}; kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms per chunk (plain, kernel, kernel, plain: "
@@ -948,8 +1054,9 @@ def train_phases(dev, card, lex, corpus, big, bench, packdf_bench, c_plain_ms):
                                                  thr_df, 0),
         lambda: vit.align_fwd_chunk_df(big_df, ams_df[0], tdp_df, valid, lens, thr_df, 0),
         1, 10)
-    bnd = bound(align_bytes(8), fp32=TRAIN_BATCH * C * A * F_POS_OPS)
-    log(f"[13] kernel F B={TRAIN_BATCH} C={C} A={A} ({f_instance(A)}) on df32 "
+    bnd = align_bound(TRAIN_BATCH, C, A, 8, df=True)
+    log(f"[13] kernel F B={TRAIN_BATCH} C={C} A={A} "
+        f"({instance('sr_align_fwd_df_warps', A)}) on df32 "
         f"scores, 3 chunks with carry: "
         f"hi, lo and jumps bit-equal {equal}, max abs {err:.3e}; kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms per chunk (plain, kernel, kernel, plain: "
@@ -958,6 +1065,7 @@ def train_phases(dev, card, lex, corpus, big, bench, packdf_bench, c_plain_ms):
     check(equal, "kernel F is not bit-equal to its plain version")
     check(f_warps(A) > 0, "the SieTill automata take kernel F's warp instance")
     res["align_fwd_df"] = (err, ms, plain_ms, bnd)
+    e_sweep(dev, card, vit)
     log_block_instance(dev, card, vit, dfm, C)
 
     g_args = (k_prev.hi.contiguous(), aut, k_j, lens, st_tbl, int(big.lengths[:TRAIN_BATCH].max()))
@@ -1173,7 +1281,14 @@ def train_phases(dev, card, lex, corpus, big, bench, packdf_bench, c_plain_ms):
         f"{al_df.shape[0]}; AM scores {' '.join(ln.split()[3] for ln in tr64.stats_lines)}; "
         f"launches {f64_counts}")
     check(f64_counts["align_fwd"] > 0, "the f64 trainer skipped kernel E")
-    del tr64, al64, tr_df
+    with torch.profiler.profile(activities=PROFILED) as prof:
+        tr64p, _al, secs64p = full_run(torch.float64, big)
+    log_profile("[16] f64 trainer", prof, secs64p)
+    e_ms, e_n = kernel_device_ms(prof, "align_fwd")
+    log(f"[16] f64 trainer profiled: kernel E {e_ms:.3f} ms of device time over {e_n} "
+        f"launches; stats lines equal to the unprofiled run "
+        f"{tr64p.stats_lines == tr64.stats_lines}")
+    del tr64, al64, tr_df, tr64p, prof
     torch.cuda.empty_cache()
     check("jax" not in sys.modules, "the training path imported jax")
     log(f"[16] phase seconds {time.perf_counter() - t_phase:.1f}")
@@ -1207,18 +1322,22 @@ def train_phases(dev, card, lex, corpus, big, bench, packdf_bench, c_plain_ms):
     check(cli.returncode == 0, f"CLI train failed:\n{cli.stderr[-2000:]}")
     check(mix_ok, "CLI train iter-2.mix")
 
-    sources = {"align_fwd": ("align_scan.cu", "speechrecognition_tpu/align/viterbi.py:314",
+    sources = {"align_fwd": ("align_scan.cu", "speechrecognition_tpu/align/viterbi.py:315",
                              f32_counts["align_fwd"]),
-               "align_fwd[f64]": ("align_scan.cu", "speechrecognition_tpu/align/viterbi.py:314",
+               "align_fwd[f64]": ("align_scan.cu", "speechrecognition_tpu/align/viterbi.py:315",
                                   f64_counts["align_fwd"]),
-               "align_fwd_df": ("align_scan_df.cu", "speechrecognition_tpu/align/viterbi.py:367",
+               "align_fwd_df": ("align_scan_df.cu", "speechrecognition_tpu/align/viterbi.py:368",
                                 main_counts["align_fwd_df"]),
                "align_backtrack": ("align_backtrack.cu",
-                                   "speechrecognition_tpu/align/viterbi.py:581",
+                                   "speechrecognition_tpu/align/viterbi.py:582",
                                    main_counts["align_backtrack"]),
-               "em_pass_df": ("em_pass_df.cu", "speechrecognition_tpu/models/gmm.py:996",
+               "em_pass_df": ("em_pass_df.cu", "speechrecognition_tpu/models/gmm.py:997",
                               main_counts["em_pass_df"])}
-    return [entry(name, src, replaces, n, *res[name]) for name, (src, replaces, n) in sources.items()]
+    scratch = {"align_fwd": f32_counts["align_fwd in scratch"],
+               "align_fwd[f64]": f64_counts["align_fwd in scratch"],
+               "align_fwd_df": main_counts["align_fwd_df in scratch"]}
+    return ([entry(name, src, replaces, n, *res[name])
+             for name, (src, replaces, n) in sources.items()], scratch)
 
 
 def log_block_instance(dev, card, vit, dfm, C):
@@ -1248,12 +1367,245 @@ def log_block_instance(dev, card, vit, dfm, C):
     ms, plain_ms, all_ = in_turns(
         lambda: vit.align_fwd_chunk_df_reference(big, ams[0], tdp, valid, lens, thr, 0),
         lambda: vit.align_fwd_chunk_df(big, ams[0], tdp, valid, lens, thr, 0), 1, 10)
-    log(f"[13] kernel F B={TRAIN_BATCH} C={C} A={A} ({f_instance(A)}) on "
+    log(f"[13] kernel F B={TRAIN_BATCH} C={C} A={A} "
+        f"({instance('sr_align_fwd_df_warps', A)}) on "
         f"synthetic scores, 2 chunks with carry: hi, lo and jumps bit-equal {equal}; kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms per chunk (plain, kernel, kernel, plain: "
         f"{', '.join(f'{v:.4f}' for v in all_)}); per frame {ms / C * 1e3:.3f} us on {card}")
     check(f_warps(A) == 0, "kernel F's block instance runs")
     check(equal, "kernel F's block instance is not bit-equal to its plain version")
+
+
+#: automaton lengths of phase 13's sweep of kernel E's warp instance: every
+#: warp count of its layout (1 to 4 warps an utterance)
+E_SWEEP_A = (32, 33, 64, 70, 96, 128)
+
+
+def e_sweep(dev, card, vit):
+    """Kernel E's warp instance at B 256, C 320 on synthetic scores, at each
+    length of E_SWEEP_A, in both score types: three rounds, the lengths in
+    ascending, descending and ascending order, so that a drift of the card's
+    clock shows as a spread and not as a trend over A."""
+    C = vit.ALIGN_CHUNK
+    rng = np.random.default_rng(13)
+    lens = torch.full((TRAIN_BATCH,), C, dtype=torch.int32, device=dev)
+    for dt in (torch.float64, torch.float32):
+        inputs = {}
+        for A in E_SWEEP_A:
+            ams = torch.as_tensor(rng.uniform(0.0, 40.0, (TRAIN_BATCH, C, A)), dtype=dt, device=dev)
+            tdp = torch.as_tensor(rng.uniform(0.0, 20.0, (TRAIN_BATCH, A, 3)), dtype=dt,
+                                  device=dev)
+            valid = torch.ones((TRAIN_BATCH, A), dtype=torch.bool, device=dev)
+            prev = torch.full((TRAIN_BATCH, A), 1e30, dtype=dt, device=dev)
+            inputs[A] = (prev, ams, tdp, valid, lens, 200.0, 0)
+        times = {A: [] for A in E_SWEEP_A}
+        for order in (E_SWEEP_A, E_SWEEP_A[::-1], E_SWEEP_A):
+            for A in order:
+                times[A].append(cuda_ms(lambda: vit.align_fwd_chunk(*inputs[A]), 10))
+        log(f"[13] kernel E sweep {dt} B={TRAIN_BATCH} C={C} on synthetic scores, ms a chunk in "
+            f"three rounds: " + "; ".join(
+                f"A={A} ({instance('sr_align_fwd_warps', A)}) "
+                + ", ".join(f"{v:.4f}" for v in times[A]) for A in E_SWEEP_A) + f" on {card}")
+        del inputs
+
+
+def d_staircase(dec, native, am, lens, largs, df_tabs, W, P, card):
+    """Kernel D's residency (blocks per SM, from the occupancy calculator),
+    the waves its launch takes, and its time at batch sizes that fill
+    whole multiples of the SMs: a staircase in time shows the waves."""
+    per_sm = native.load().sr_decode_scan_df_residency(W, P)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    steps = []
+    for nb in (132, 264, 528, 924, FULL_BATCH):
+        sub = type(am)(am.hi[:nb].contiguous(), am.lo[:nb].contiguous())
+        ms = cuda_ms(lambda: dec.decode_scan_df(sub, lens[:nb].contiguous(), *largs, *df_tabs,
+                                                200.0, t0=0), 5)
+        steps.append(f"B={nb} {ms:.4f} ms ({waves(nb, per_sm)} wave(s))")
+    log(f"[9] kernel D residency {per_sm} blocks (utterances) per SM on {sms} SMs: the "
+        f"{FULL_BATCH}-utterance chunk takes {waves(FULL_BATCH, per_sm)} wave(s); "
+        f"times {'; '.join(steps)} on {card}")
+
+
+def kernel_device_ms(prof, name):
+    """Device milliseconds and launches of the kernels whose name holds ``name``."""
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key]
+    us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+             for e in events)
+    return us / 1e3, sum(e.count for e in events)
+
+
+#: the large-lattice and long-automaton shapes of phase 18: just past the
+#: block instances' 1,024 threads, and far past them
+LARGE_LATTICES = ((44, 24), (1000, 24))
+LARGE_AUTOMATA = (1025, 3000)
+LARGE_B, LARGE_T = 4, 40
+
+
+def large_instances(dev, card, main_scratch):
+    """Phase 18: every scan with its lattice in device scratch (kernels B in
+    f32 and f64 and D at W*P = 1,056 and 24,000; E in f32 and f64 and F at
+    A = 1,025 and 3,000) on a small synthetic batch (B 4, T 40, two chunks
+    with carry), bit-equal to its plain version, one chunk timed in turns.
+    Each entry's launches are ``main_scratch``'s: the wrapper's
+    SCRATCH_LAUNCHES over the main paths' runs."""
+    from speechrecognition_torch.align import viterbi as vit
+    from speechrecognition_torch.lexicon import Lexicon
+    from speechrecognition_torch.ops import doublefloat as dfm
+    from speechrecognition_torch.search import decoder as dec
+    from speechrecognition_torch.tdp import TdpModel
+
+    entries = []
+    nb, T = LARGE_B, LARGE_T
+    lens = torch.as_tensor([T, 23, 0, T - 1], dtype=torch.int32, device=dev)
+    halves = ((0, 15), (15, T - 15))
+
+    def both(fn_kernel, fn_plain, run):
+        """run(fn) with the wrapper and with its plain version; checks that
+        each of the wrapper's launches kept its lattice in scratch."""
+        before = (fn_kernel.LAUNCHES, fn_kernel.SCRATCH_LAUNCHES)
+        outs = [run(fn_kernel), run(fn_plain)]
+        n, n_scratch = fn_kernel.LAUNCHES - before[0], fn_kernel.SCRATCH_LAUNCHES - before[1]
+        check(n == n_scratch == len(halves), f"{fn_kernel.__name__}: {n} launches, {n_scratch} "
+              f"with the lattice in scratch")
+        torch.cuda.synchronize()
+        return outs
+
+    def compare(tag, kern, plain):
+        equal = all(k.dtype == p.dtype and torch.equal(k, p) for k, p in zip(kern, plain))
+        err = max(((k.double() - p.double()).abs().max().item() for k, p in zip(kern, plain)
+                   if k.is_floating_point()), default=0.0)
+        check(equal, f"{tag} is not bit-equal to its plain version")
+        return err
+
+    for W, P in LARGE_LATTICES:
+        rng = np.random.default_rng(W * P)
+        lex = Lexicon()
+        lex.add_word("[silence]", 1, 1, silence=True)
+        for w in range(W - 1):
+            lex.add_word(f"w{w}", P if w == 0 else int(rng.integers(1, P + 1)), 1)
+        tdp = TdpModel(silence_state=lex.silence_state, loop=2.0, forward=0.5, skip=9.0)
+        tables = dec.DecoderTables.build(lex, tdp, 15.0)
+        S = lex.num_states
+        am64 = rng.uniform(0.0, 40.0, size=(nb, T, S))
+        lex_t = tuple(torch.as_tensor(a, device=dev) for a in (
+            tables.state_table, tables.last_pos, tables.word_len, tables.first_state))
+        for dt, word in ((torch.float32, 4), (torch.float64, 8)):
+            am = torch.as_tensor(am64, dtype=dt, device=dev)
+            targs = (*lex_t, torch.as_tensor(tables.tdp_within, device=dev),
+                     torch.as_tensor(tables.entry_pen, device=dev))
+            def run_b(fn):
+                carry, parts = None, []
+                for t0, n in halves:
+                    carry, out = fn(am[:, t0:t0 + n].contiguous(), lens, *targs, 60.0,
+                                    carry_in=carry, t0=t0)
+                    parts.append(out)
+                return [*carry] + [torch.cat([o[k] for o in parts]) for k in range(3)]
+
+            outs = both(dec.decode_scan, dec.decode_scan_reference, run_b)
+            name = "decode_scan" if dt == torch.float32 else "decode_scan[f64]"
+            err = compare(f"{name} at {W}x{P}", *outs)
+            a0 = am[:, :T].contiguous()
+            ms, plain_ms, all_ = in_turns(
+                lambda: dec.decode_scan_reference(a0, lens, *targs, 60.0),
+                lambda: dec.decode_scan(a0, lens, *targs, 60.0), 1, 5)
+            bnd = scan_bound(nb, T, S, W, P, word)
+            log(f"[18] kernel B {dt} W*P={W}x{P}={W * P} B={nb} T={T} "
+                f"({instance('sr_decode_scan_instance', W, P)}): "
+                f"bit-equal over 2 chunks with carry; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                f"ms (plain, kernel, kernel, plain: {', '.join(f'{v:.4f}' for v in all_)}); "
+                f"bound {bnd[0]:.4f} ms ({bnd[1]}); per frame {ms / T * 1e3:.3f} us on {card}")
+            entries.append(entry(f"{name}[W*P={W * P}]", "decode_scan.cu",
+                                 "speechrecognition_tpu/search/decoder.py:109",
+                                 main_scratch[name], err, ms, plain_ms, bnd))
+        am = dfm.from_f64(am64, dev)
+        dargs = (*lex_t, dfm.from_f64(tables.tdp_within, dev),
+                 dfm.from_f64(tables.entry_pen, dev))
+        def run_d(fn):
+            carry, parts = None, []
+            for t0, n in halves:
+                chunk = dfm.DF(am.hi[:, t0:t0 + n].contiguous(), am.lo[:, t0:t0 + n].contiguous())
+                carry, out = fn(chunk, lens, *dargs, 60.0, carry_in=carry, t0=t0)
+                parts.append(out)
+            (hyp, bk, book) = carry
+            return ([hyp.hi, hyp.lo, bk, book.hi, book.lo]
+                    + [torch.cat([o[k] for o in parts]) for k in range(3)])
+
+        outs = both(dec.decode_scan_df, dec.decode_scan_df_reference, run_d)
+        err = compare(f"decode_scan_df at {W}x{P}", *outs)
+        ms, plain_ms, all_ = in_turns(
+            lambda: dec.decode_scan_df_reference(am, lens, *dargs, 60.0),
+            lambda: dec.decode_scan_df(am, lens, *dargs, 60.0), 1, 5)
+        bnd = scan_bound(nb, T, S, W, P, 8, df=True)
+        log(f"[18] kernel D W*P={W}x{P}={W * P} B={nb} T={T} "
+            f"({instance('sr_decode_scan_df_instance', W, P)}): bit-equal "
+            f"over 2 chunks with carry; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (plain, "
+            f"kernel, kernel, plain: {', '.join(f'{v:.4f}' for v in all_)}); bound "
+            f"{bnd[0]:.4f} ms ({bnd[1]}); per frame {ms / T * 1e3:.3f} us on {card}")
+        entries.append(entry(f"decode_scan_df[W*P={W * P}]", "decode_scan_df.cu",
+                             "speechrecognition_tpu/search/decoder.py:221",
+                             main_scratch["decode_scan_df"], err, ms, plain_ms, bnd))
+
+    for A in LARGE_AUTOMATA:
+        rng = np.random.default_rng(A)
+        ams64 = rng.uniform(0.0, 40.0, size=(nb, T, A))
+        tdp64 = rng.uniform(0.0, 20.0, size=(nb, A, 3))
+        aut = torch.as_tensor([A, A - 37, 5, A], device=dev)
+        valid = torch.arange(A, device=dev)[None, :] < aut[:, None]
+        # a live cost row entering at frame 3, so that every position takes part
+        prev64 = rng.uniform(0.0, 50.0, size=(nb, A))
+        for dt, word in ((torch.float32, 4), (torch.float64, 8)):
+            ams = torch.as_tensor(ams64, dtype=dt, device=dev)
+            tdp = torch.as_tensor(tdp64, dtype=dt, device=dev)
+            prev0 = torch.as_tensor(prev64, dtype=dt, device=dev)
+            def run_e(fn):
+                prev, jumps = prev0, []
+                for t0, n in halves:
+                    prev, j = fn(prev, ams[:, t0:t0 + n].contiguous(), tdp, valid, lens, 60.0,
+                                 3 + t0)
+                    jumps.append(j)
+                return [prev, torch.cat(jumps)]
+
+            outs = both(vit.align_fwd_chunk, vit.align_fwd_chunk_reference, run_e)
+            name = "align_fwd" if dt == torch.float32 else "align_fwd[f64]"
+            err = compare(f"{name} at A={A}", *outs)
+            ms, plain_ms, all_ = in_turns(
+                lambda: vit.align_fwd_chunk_reference(prev0, ams, tdp, valid, lens, 60.0, 3),
+                lambda: vit.align_fwd_chunk(prev0, ams, tdp, valid, lens, 60.0, 3), 1, 5)
+            bnd = align_bound(nb, T, A, word)
+            log(f"[18] kernel E {dt} A={A} B={nb} C={T} "
+                f"({instance('sr_align_fwd_warps', A)}): bit-equal over 2 "
+                f"chunks with carry; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (plain, kernel, "
+                f"kernel, plain: {', '.join(f'{v:.4f}' for v in all_)}); bound {bnd[0]:.4f} ms "
+                f"({bnd[1]}); per frame {ms / T * 1e3:.3f} us on {card}")
+            entries.append(entry(f"{name}[A={A}]", "align_scan.cu",
+                                 "speechrecognition_tpu/align/viterbi.py:315",
+                                 main_scratch[name], err, ms, plain_ms, bnd))
+        ams, tdp = dfm.from_f64(ams64, dev), dfm.from_f64(tdp64, dev)
+        prev0, thr = dfm.from_f64(prev64, dev), dfm.from_f64(np.float64(60.0), dev)
+        def run_f(fn):
+            prev, jumps = prev0, []
+            for t0, n in halves:
+                chunk = dfm.DF(ams.hi[:, t0:t0 + n].contiguous(), ams.lo[:, t0:t0 + n].contiguous())
+                prev, j = fn(prev, chunk, tdp, valid, lens, thr, 3 + t0)
+                jumps.append(j)
+            return [prev.hi, prev.lo, torch.cat(jumps)]
+
+        outs = both(vit.align_fwd_chunk_df, vit.align_fwd_chunk_df_reference, run_f)
+        err = compare(f"align_fwd_df at A={A}", *outs)
+        ms, plain_ms, all_ = in_turns(
+            lambda: vit.align_fwd_chunk_df_reference(prev0, ams, tdp, valid, lens, thr, 3),
+            lambda: vit.align_fwd_chunk_df(prev0, ams, tdp, valid, lens, thr, 3), 1, 5)
+        bnd = align_bound(nb, T, A, 8, df=True)
+        log(f"[18] kernel F A={A} B={nb} C={T} "
+            f"({instance('sr_align_fwd_df_warps', A)}): bit-equal over 2 chunks with "
+            f"carry; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (plain, kernel, kernel, plain: "
+            f"{', '.join(f'{v:.4f}' for v in all_)}); bound {bnd[0]:.4f} ms ({bnd[1]}); per "
+            f"frame {ms / T * 1e3:.3f} us on {card}")
+        entries.append(entry(f"align_fwd_df[A={A}]", "align_scan_df.cu",
+                             "speechrecognition_tpu/align/viterbi.py:368",
+                             main_scratch["align_fwd_df"], err, ms, plain_ms, bnd))
+    return entries
 
 
 def repeat_corpus(corpus, n, corpus_cls):

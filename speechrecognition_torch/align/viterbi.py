@@ -49,9 +49,6 @@ BIG = np.float64(1e30)  # pseudo-infinity that stays NaN-free under adds
 #: frames per forward chunk: one (B, ALIGN_CHUNK) step serves utterances of
 #: any length by streaming chunks through the carried cost row
 ALIGN_CHUNK = 320
-#: kernel E, and kernel F's block instance, run one thread per automaton
-#: position in one block
-MAX_POSITIONS = 1024
 
 
 @dataclass
@@ -151,7 +148,10 @@ def align_fwd_chunk(prev: torch.Tensor, ams: torch.Tensor, tdp: torch.Tensor,
     after the chunk [B, A], jumps int8 [C, B, A]).
 
     CPU tensors take the plain version; CUDA tensors launch kernel E
-    (float32 or float64; counted in ``align_fwd_chunk.LAUNCHES``)."""
+    (float32 or float64; counted in ``align_fwd_chunk.LAUNCHES``), whose C
+    entry chooses its instance from A alone (``sr_align_fwd_warps``): any A
+    is taken, as the reference takes it. Launches whose row lives in device
+    scratch (A > 1024) are also counted in ``SCRATCH_LAUNCHES``."""
     device = ams.device
     if device.type == "cpu":
         return align_fwd_chunk_reference(prev, ams, tdp, pos_valid, feat_len,
@@ -164,8 +164,6 @@ def align_fwd_chunk(prev: torch.Tensor, ams: torch.Tensor, tdp: torch.Tensor,
     if ams.dim() != 3 or not ams.is_contiguous():
         raise ValueError("align_fwd_chunk: ams must be a contiguous [B, C, A] tensor")
     B, C, A = ams.shape
-    if A > MAX_POSITIONS:
-        raise ValueError(f"align_fwd_chunk: {A} positions exceed {MAX_POSITIONS} threads")
     for name, t, shape, dt in (("prev", prev, (B, A), dtype), ("tdp", tdp, (B, A, 3), dtype)):
         if t.device != device or t.dtype != dt or tuple(t.shape) != shape \
                 or not t.is_contiguous():
@@ -174,17 +172,23 @@ def align_fwd_chunk(prev: torch.Tensor, ams: torch.Tensor, tdp: torch.Tensor,
     pv, lens = _check_tables("align_fwd_chunk", pos_valid, feat_len, B, A, device)
     out = torch.empty_like(prev)
     jumps = torch.empty((C, B, A), dtype=torch.int8, device=device)
+    lib = _native.load()
+    # the block instance keeps the row in device scratch past A = 1024
+    scratch = (torch.empty(2 * B * A, dtype=dtype, device=device)
+               if lib.sr_align_fwd_warps(A) < 0 else None)
     thr = float(torch.tensor(float(pruning_threshold), dtype=dtype))
-    err = getattr(_native.load(), _FWD_ENTRY[dtype])(
+    err = getattr(lib, _FWD_ENTRY[dtype])(
         prev.data_ptr(), ams.data_ptr(), tdp.data_ptr(), pv.data_ptr(), lens.data_ptr(),
-        out.data_ptr(), jumps.data_ptr(), B, C, A, int(t0), thr, int(bool(tie_pruned)),
+        out.data_ptr(), jumps.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        B, C, A, int(t0), thr, int(bool(tie_pruned)),
         int(bool(use_pruning)), device.index, torch.cuda.current_stream(device).cuda_stream)
     _native.check(err, "align_fwd_chunk")
     align_fwd_chunk.LAUNCHES += 1
+    align_fwd_chunk.SCRATCH_LAUNCHES += scratch is not None
     return out, jumps
 
 
-align_fwd_chunk.LAUNCHES = 0
+align_fwd_chunk.LAUNCHES = align_fwd_chunk.SCRATCH_LAUNCHES = 0
 
 #: kernel E's C entry point for each score type
 _FWD_ENTRY = {torch.float32: "sr_align_fwd", torch.float64: "sr_align_fwd_f64"}
@@ -272,7 +276,9 @@ def align_fwd_chunk_df(prev: dfm.DF, ams: dfm.DF, tdp: dfm.DF, pos_valid: torch.
 
     CPU tensors take the plain version; CUDA tensors launch kernel F
     (counted in ``align_fwd_chunk_df.LAUNCHES``), whose C entry chooses its
-    instance from A alone (``sr_align_fwd_df_warps``)."""
+    instance from A alone (``sr_align_fwd_df_warps``): any A is taken.
+    Launches whose row lives in device scratch (A > 1024) are also counted
+    in ``SCRATCH_LAUNCHES``."""
     device = ams.hi.device
     if device.type == "cpu":
         return align_fwd_chunk_df_reference(prev, ams, tdp, pos_valid, feat_len, thr, t0,
@@ -282,8 +288,6 @@ def align_fwd_chunk_df(prev: dfm.DF, ams: dfm.DF, tdp: dfm.DF, pos_valid: torch.
     if ams.hi.dim() != 3:
         raise ValueError("align_fwd_chunk_df: ams must be a [B, C, A] pair")
     B, C, A = ams.hi.shape
-    if A > MAX_POSITIONS:
-        raise ValueError(f"align_fwd_chunk_df: {A} positions exceed {MAX_POSITIONS} threads")
     for name, (pair, shape) in {"prev": (prev, (B, A)), "ams": (ams, (B, C, A)),
                                 "tdp": (tdp, (B, A, 3))}.items():
         for t in pair:
@@ -295,18 +299,24 @@ def align_fwd_chunk_df(prev: dfm.DF, ams: dfm.DF, tdp: dfm.DF, pos_valid: torch.
     pv, lens = _check_tables("align_fwd_chunk_df", pos_valid, feat_len, B, A, device)
     out = dfm.DF(torch.empty_like(prev.hi), torch.empty_like(prev.lo))
     jumps = torch.empty((C, B, A), dtype=torch.int8, device=device)
-    err = _native.load().sr_align_fwd_df(
+    lib = _native.load()
+    # the block instance keeps the row's pairs in device scratch past A = 1024
+    scratch = (torch.empty(4 * B * A, dtype=torch.float32, device=device)
+               if lib.sr_align_fwd_df_warps(A) < 0 else None)
+    err = lib.sr_align_fwd_df(
         prev.hi.data_ptr(), prev.lo.data_ptr(), ams.hi.data_ptr(), ams.lo.data_ptr(),
         tdp.hi.data_ptr(), tdp.lo.data_ptr(), pv.data_ptr(), lens.data_ptr(),
-        out.hi.data_ptr(), out.lo.data_ptr(), jumps.data_ptr(), B, C, A, int(t0),
+        out.hi.data_ptr(), out.lo.data_ptr(), jumps.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), B, C, A, int(t0),
         float(thr.hi), float(thr.lo), int(bool(tie_pruned)), int(bool(use_pruning)),
         device.index, torch.cuda.current_stream(device).cuda_stream)
     _native.check(err, "align_fwd_chunk_df")
     align_fwd_chunk_df.LAUNCHES += 1
+    align_fwd_chunk_df.SCRATCH_LAUNCHES += scratch is not None
     return out, jumps
 
 
-align_fwd_chunk_df.LAUNCHES = 0
+align_fwd_chunk_df.LAUNCHES = align_fwd_chunk_df.SCRATCH_LAUNCHES = 0
 
 
 # -- kernel G: final position, backward walk, position → state --------------------

@@ -17,7 +17,8 @@
 //     c2 = prev[a-2] + tdp[a,2] (BIG where a-j < 0); with pruning start from
 //     c2 and take c1, then c0, only if strictly less (the largest jump wins
 //     ties); without, start from c0 and take c1, then c2, if strictly less;
-//   * cost = valid ? best + am : BIG, then min(cost, BIG);
+//   * cost = valid ? best + am : BIG, then min(cost, BIG) (the kernel
+//     leaves the cap out: see step_cost);
 //   * the row minimum (exact in any order); renormalise with the >= BIG/2
 //     guards; prune cost > thr when pruning;
 //   * at t == 0 only position 0 is initialised (am), with no renormalisation
@@ -26,20 +27,54 @@
 // Every operation is an add, compare or select in the score type, so the
 // kernel matches its plain PyTorch version bit for bit.
 //
-// Design: one block per utterance, one thread per position (A <= 1024; the
-// SieTill demo automata have 20-70), the frame loop inside the kernel. Each
-// thread keeps its cost in a register and publishes it to shared memory
-// (double-buffered) for its right-hand neighbours; the row minimum is a warp
-// shuffle plus one shared slot per warp.
-//
-// What bounds it: latency. A frame is two __syncthreads and one read of am
-// per thread; the arithmetic is a dozen instructions. A block holds one SM
-// slot for the whole chunk, so the card is filled by many utterances at once
-// (the trainer's batches of 256).
+// What bounds it: one frame's chain of dependent work, not bytes or
+// operations (a 256 x 320 x 70 chunk in float64 moves 52 MB, 0.016 ms at
+// 3.35 TB/s). Each frame depends on the whole previous row through its
+// minimum, and 256 utterances of 3 warps fill the card's 528 SM
+// sub-partitions about one and a half times, so a chunk takes about C
+// times one frame's chain: the neighbours' shuffles, the adds and
+// selections, the row minimum, the barrier and the carry. Float64 adds,
+// compares and selects have longer latencies than float32 ones, and the
+// float64 frame is about twice the float32 one (0.62 against 0.30 us at
+// A = 70 on an H100; the first design took 0.82 and 0.58 us). Whether the
+// chain is the whole cost is open: chip_smoke.py's phase 13 times the warp
+// instance at every warp count. Two instances, chosen in the C entry from
+// A alone (sr_align_fwd_warps):
+//   * A <= 128 (every SieTill automaton; the trainers' main path): kernel
+//     F's layout. W = ceil(A/32) warps per utterance, one position a lane,
+//     8 / W utterances a block; the candidates from a-1 and a-2 come from
+//     the lanes below through __shfl_up_sync; the three candidate compares
+//     are independent and the selection has no branch; the warp's row
+//     minimum is redux.sync on an order-preserving key (one for float; for
+//     double two, on the high and then the low halves of the 64-bit key:
+//     exact; five float64 shuffles and minima were no faster on the card);
+//     each warp publishes its minimum and its last two costs
+//     (double-buffered by frame parity) and one named barrier of the
+//     utterance's warps a frame makes them visible; lanes 0 and 1 recompute
+//     the carry of the previous warp's last two positions from the
+//     published costs (a "shadow", bit for bit the owner's), so no second
+//     barrier; each lane keeps the next PREFETCH frames' emissions in
+//     registers, so device-memory latency leaves the chain; jumps are
+//     predicated byte stores.
+//   * A > 128: the block instance, one block of min(ceil(A/32)*32, 1024)
+//     threads per utterance, each looping over ceil(A/1024) positions, two
+//     __syncthreads a frame; the row double-buffered by frame parity in
+//     shared memory up to A = 1024 (sr_align_fwd_warps gives 0), beyond in
+//     device scratch [B, 2, A] that the wrapper allocates (-1; a block's
+//     global writes are visible to the block after __syncthreads). Simple,
+//     not tuned: each position's constants and cost are read from memory
+//     every frame. No SieTill automaton reaches it.
 
 #include <cuda_runtime.h>
 
 namespace {
+
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int MAX_WARPS = 8;          // warps a block of the warp instance holds
+constexpr int PREFETCH = 4;           // frames of emissions in flight
+constexpr int WARP_POSITIONS = 128;   // the warp instance's longest automaton (4 warps)
+constexpr int SHARED_POSITIONS = 1024; // the longest row the block instance keeps in shared memory
+constexpr int BLOCK_THREADS = 1024;   // threads per utterance of the block instance, at most
 
 template <typename T>
 __device__ __forceinline__ T tmin(T a, T b);
@@ -49,118 +84,304 @@ template <>
 __device__ __forceinline__ double tmin<double>(double a, double b) { return fmin(a, b); }
 
 template <typename T>
-__global__ void align_fwd_kernel(const T* __restrict__ prev, const T* __restrict__ ams,
-                                 const T* __restrict__ tdp,
-                                 const unsigned char* __restrict__ pos_valid,
-                                 const int* __restrict__ feat_len, T* __restrict__ out,
-                                 signed char* __restrict__ jumps, int B, int C, int A,
-                                 int t0, T thr, int tie_pruned, int use_pruning) {
-  const T BIG = T(1e30);
-  const T half_big = BIG * T(0.5);
-  extern __shared__ __align__(8) unsigned char smem_raw[];
-  T* sh = reinterpret_cast<T*>(smem_raw);  // [2][A]
-  T* s_wmin = sh + 2 * A;                  // [32]
+__device__ __forceinline__ T big() { return T(1e30); }
 
-  const int b = blockIdx.x;
-  const int a = threadIdx.x;
-  const int nwarps = blockDim.x / 32;
-  const bool pos = a < A;
-  const size_t row = (size_t)b * A + a;
-
-  bool valid = false;
-  T tw0 = T(0), tw1 = T(0), tw2 = T(0);
-  T h = BIG;
-  if (pos) {
-    valid = pos_valid[row] != 0;
-    tw0 = tdp[row * 3 + 0];
-    tw1 = tdp[row * 3 + 1];
-    tw2 = tdp[row * 3 + 2];
-    h = prev[row];
+// the candidates, the selection and the emission of one position; jump is
+// the winning jump
+template <typename T>
+__device__ __forceinline__ T step_cost(T h0, T h1, T h2, T tw0, T tw1, T tw2, T am, int a,
+                                       bool valid, bool tie_pruned, signed char& jump) {
+  const T c0 = h0 + tw0;
+  const T c1 = a >= 1 ? h1 + tw1 : big<T>();
+  const T c2 = a >= 2 ? h2 + tw2 : big<T>();
+  // the reference's sequential selection with its three compares made
+  // independent, so that they overlap: start at the first candidate, take
+  // the second if strictly less, then the third if strictly less than the
+  // one held
+  T best;
+  if (tie_pruned) {  // c2, then c1, then c0
+    const bool t1 = c1 < c2;
+    const bool t0 = t1 ? c0 < c1 : c0 < c2;
+    best = t0 ? c0 : t1 ? c1 : c2;
+    jump = t0 ? 0 : t1 ? 1 : 2;
+  } else {           // c0, then c1, then c2
+    const bool t1 = c1 < c0;
+    const bool t2 = t1 ? c2 < c1 : c2 < c0;
+    best = t2 ? c2 : t1 ? c1 : c0;
+    jump = t2 ? 2 : t1 ? 1 : 0;
   }
+  // the reference then caps the cost at BIG; the cap is left out, because
+  // it changes no output: a cost at or above BIG/2 is never a live row's
+  // minimum (a dead row renormalises by 0 either way) and the carry turns
+  // it into BIG
+  return valid ? best + am : big<T>();
+}
+
+// renormalisation, pruning, the t == 0 initialisation and the carry of one
+// position, given the row minimum (already 0 for a dead row)
+template <typename T>
+__device__ __forceinline__ T step_carry(T cost, T row_best, T am, T h, T thr, int a, bool valid,
+                                        int t, int len, int use_pruning) {
+  cost = cost >= big<T>() * T(0.5) ? big<T>() : cost - row_best;
+  if (use_pruning && cost > thr) cost = big<T>();
+  if (t == 0) cost = (a == 0 && valid) ? am : big<T>();
+  return t < len ? cost : h;
+}
+
+// unsigned keys whose order is the float order (-0 taken as +0, as the
+// float compare takes it), and back; a row minimum of -0 comes back as +0,
+// which no score of the DP produces (its inputs carry no -0)
+__device__ __forceinline__ unsigned order_key(float f) {
+  const unsigned u = __float_as_uint(__fadd_rn(f, 0.f));
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float key_value(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+__device__ __forceinline__ unsigned long long order_key(double d) {
+  const unsigned long long u = (unsigned long long)__double_as_longlong(__dadd_rn(d, 0.0));
+  return (u >> 63) ? ~u : (u | (1ull << 63));
+}
+
+__device__ __forceinline__ double key_value(unsigned long long k) {
+  return __longlong_as_double((long long)((k >> 63) ? (k & ~(1ull << 63)) : ~k));
+}
+
+// the exact minimum over the warp: one redux.sync for float; for double the
+// high halves of the keys, then the low halves of the lanes that hold the
+// smallest high half
+__device__ __forceinline__ float warp_minimum(float m) {
+  return key_value(__reduce_min_sync(FULL, order_key(m)));
+}
+
+__device__ __forceinline__ double warp_minimum(double m) {
+  const unsigned long long k = order_key(m);
+  const unsigned hi = (unsigned)(k >> 32);
+  const unsigned key_hi = __reduce_min_sync(FULL, hi);
+  const unsigned key_lo = __reduce_min_sync(FULL, hi == key_hi ? (unsigned)k : FULL);
+  return key_value(((unsigned long long)key_hi << 32) | key_lo);
+}
+
+// a byte store under a predicate, without a branch around it (a branch
+// region would keep the scheduler from interleaving the positions' work)
+__device__ __forceinline__ void store_if(signed char* p, signed char v, bool cond) {
+  asm volatile("{\n\t.reg .pred q;\n\tsetp.ne.u32 q, %2, 0;\n\t@q st.global.s8 [%0], %1;\n\t}"
+               :: "l"(p), "h"((short)v), "r"((unsigned)cond));
+}
+
+// W warps per utterance, one position a lane: position a = w*32 + lane;
+// named barrier 1 + u for utterance u of the block (at most 4 with W > 1)
+template <typename T, int W>
+__global__ void __launch_bounds__(MAX_WARPS / W * W * 32)
+align_fwd_warp_kernel(const T* __restrict__ prev, const T* __restrict__ ams,
+                      const T* __restrict__ tdp, const unsigned char* __restrict__ pos_valid,
+                      const int* __restrict__ feat_len, T* __restrict__ out,
+                      signed char* __restrict__ jumps, int B, int C, int A, int t0, T thr,
+                      int tie_pruned, int use_pruning) {
+  constexpr int U = MAX_WARPS / W;  // utterances a block
+  // per utterance and frame parity, per warp: its minimum and the costs of
+  // its second-last and last positions
+  __shared__ T s_pub[U][2][W][3];
+  const int warp = threadIdx.x >> 5;
+  const int u = warp / W;
+  const int w = warp - u * W;
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * U + u;
+  if (b >= B) return;  // the utterance's W warps together
+  const T BIG = big<T>();
+  const int a = w * 32 + lane;
+  const size_t urow = (size_t)b * A;
+  const size_t row = urow + min(a, A - 1);  // the last position stands in past A
+  const bool pos = a < A;
+  const bool valid = pos && pos_valid[row] != 0;  // no position past A is valid
+  const T tw0 = tdp[row * 3 + 0], tw1 = tdp[row * 3 + 1], tw2 = tdp[row * 3 + 2];
+  T h = pos ? prev[row] : BIG;
+  // the shadow: lane 0 follows position w*32-1 and lane 1 position w*32-2,
+  // the previous warp's last two, from the costs that warp publishes
+  const int sa = w * 32 - 1 - lane;
+  T sh = T(0);
+  if (W > 1 && w > 0) sh = prev[urow + max(sa, 0)];
   const int len = feat_len[b];
-  const T* am_b = ams + (size_t)b * C * A;
+  // this lane's column of the utterance's emissions
+  const T* am_col = ams + (size_t)b * C * A + min(a, A - 1);
 
-  int buf = 0;
-  for (int i = 0; i < C; ++i) {
-    const int t = t0 + i;
-    if (pos) sh[buf * A + a] = h;
-    __syncthreads();  // (1) the previous frame's row is visible
-
-    T cost = BIG;
-    T am = T(0);
-    if (pos) {
-      am = am_b[(size_t)i * A + a];
-      const T c0 = h + tw0;
-      const T c1 = a >= 1 ? sh[buf * A + a - 1] + tw1 : BIG;
-      const T c2 = a >= 2 ? sh[buf * A + a - 2] + tw2 : BIG;
-      T best;
-      signed char jump;
-      if (tie_pruned) {
-        best = c2;
-        jump = 2;
-        if (c1 < best) { best = c1; jump = 1; }
-        if (c0 < best) { best = c0; jump = 0; }
-      } else {
-        best = c0;
-        jump = 0;
-        if (c1 < best) { best = c1; jump = 1; }
-        if (c2 < best) { best = c2; jump = 2; }
-      }
-      cost = valid ? best + am : BIG;
-      cost = tmin(cost, BIG);
-      jumps[((size_t)i * B + b) * A + a] = jump;
-    }
-
-    // row minimum (exact in any order); idle threads hold BIG, which every
-    // real row minimum already is or undercuts
-    T m = cost;
+  // the emissions of frames i .. i+PREFETCH-1, slot i % PREFETCH
+  T ring[PREFETCH];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      m = tmin(m, __shfl_xor_sync(0xffffffffu, m, off));
-    if ((a & 31) == 0) s_wmin[a >> 5] = m;
-    __syncthreads();  // (2) per-warp minima are visible
-    T row_best = s_wmin[0];
-    for (int k = 1; k < nwarps; ++k) row_best = tmin(row_best, s_wmin[k]);
-    if (row_best >= half_big) row_best = T(0);
-    cost = cost >= half_big ? BIG : cost - row_best;
-    if (use_pruning && cost > thr) cost = BIG;
-    if (t == 0) cost = (a == 0 && valid) ? am : BIG;
-    if (t < len) h = cost;
-    buf ^= 1;
+  for (int p = 0; p < PREFETCH; ++p) ring[p] = p < C ? am_col[(size_t)p * A] : T(0);
+
+  for (int i0 = 0; i0 < C; i0 += PREFETCH) {
+#pragma unroll
+    for (int p = 0; p < PREFETCH; ++p) {
+      const int i = i0 + p;
+      if (i < C) {  // the same for the whole utterance
+        const T am = ring[p];
+        ring[p] = am_col[(size_t)min(i + PREFETCH, C - 1) * A];
+        // positions a-1 and a-2: the lanes below, or the shadow
+        T n1 = __shfl_up_sync(FULL, h, 1);
+        T n2 = __shfl_up_sync(FULL, h, 2);
+        if (W > 1) {
+          const T sh_up = __shfl_up_sync(FULL, sh, 1);
+          const T sh_down = __shfl_down_sync(FULL, sh, 1);
+          if (lane == 0) { n1 = sh; n2 = sh_down; }
+          if (lane == 1) n2 = sh_up;
+        }
+        const int t = t0 + i;
+        signed char jump;
+        const T cost = step_cost(h, n1, n2, tw0, tw1, tw2, am, a, valid, tie_pruned, jump);
+        store_if(jumps + ((size_t)i * B + b) * A + a, jump, pos);
+
+        // the exact row minimum: the warp's, then the utterance's
+        T row_best = warp_minimum(cost);
+        if (W > 1) {
+          T* pub = s_pub[u][i & 1][w];
+          if (lane == 0) pub[0] = row_best;
+          if (lane >= 30) pub[lane - 29] = cost;
+          asm volatile("bar.sync %0, %1;" :: "r"(1 + u), "r"(W * 32) : "memory");
+          row_best = s_pub[u][i & 1][0][0];
+#pragma unroll
+          for (int v = 1; v < W; ++v) {
+            const T mv = s_pub[u][i & 1][v][0];
+            row_best = mv < row_best ? mv : row_best;
+          }
+        }
+        if (row_best >= BIG * T(0.5)) row_best = T(0);
+        if (W > 1) {
+          const T sc = s_pub[u][i & 1][max(w - 1, 0)][lane == 0 ? 2 : 1];
+          sh = step_carry(sc, row_best, T(0), sh, thr, sa, false, t, len, use_pruning);
+        }
+        h = step_carry(cost, row_best, am, h, thr, a, valid, t, len, use_pruning);
+      }
+    }
   }
   if (pos) out[row] = h;
 }
 
+// one block of min(ceil(A/32)*32, 1024) threads per utterance, each thread
+// looping over the positions a = threadIdx.x + k*blockDim.x; the row
+// double-buffered by frame parity in lat [2][A]: shared memory where
+// scratch is null, else the utterance's part of the wrapper's device
+// scratch [B][2][A] (not restrict: the threads read one another's writes
+// after each __syncthreads)
+template <typename T>
+__global__ void __launch_bounds__(BLOCK_THREADS)
+align_fwd_block_kernel(const T* __restrict__ prev, const T* __restrict__ ams,
+                       const T* __restrict__ tdp, const unsigned char* __restrict__ pos_valid,
+                       const int* __restrict__ feat_len, T* __restrict__ out,
+                       signed char* __restrict__ jumps, T* scratch, int B, int C, int A, int t0,
+                       T thr, int tie_pruned, int use_pruning) {
+  const T BIG = big<T>();
+  extern __shared__ __align__(8) unsigned char smem_raw[];
+  __shared__ T s_wmin[BLOCK_THREADS / 32];
+  const int b = blockIdx.x;
+  const int nwarps = blockDim.x / 32;
+  const size_t urow = (size_t)b * A;
+  T* lat = scratch != nullptr ? scratch + 2 * urow : reinterpret_cast<T*>(smem_raw);
+  const int len = feat_len[b];
+  for (int a = threadIdx.x; a < A; a += blockDim.x) lat[a] = prev[urow + a];
+  __syncthreads();
+
+  int buf = 0;
+  for (int i = 0; i < C; ++i) {
+    const int t = t0 + i;
+    const T* cur = lat + (size_t)buf * A;
+    T* nxt = lat + (size_t)(buf ^ 1) * A;
+    const T* am_t = ams + ((size_t)b * C + i) * A;
+    // (a) every position's cost before the renormalisation, into nxt
+    T m = BIG;
+    for (int a = threadIdx.x; a < A; a += blockDim.x) {
+      const size_t r = urow + a;
+      const T h1 = a >= 1 ? cur[a - 1] : BIG;
+      const T h2 = a >= 2 ? cur[a - 2] : BIG;
+      signed char jump;
+      const T cost = step_cost(cur[a], h1, h2, tdp[r * 3 + 0], tdp[r * 3 + 1], tdp[r * 3 + 2],
+                               am_t[a], a, pos_valid[r] != 0, tie_pruned, jump);
+      jumps[((size_t)i * B + b) * A + a] = jump;
+      nxt[a] = cost;
+      m = tmin(m, cost);
+    }
+    // the row minimum (exact in any order); a thread without a position
+    // holds BIG, which every real row minimum already is or undercuts
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) m = tmin(m, __shfl_xor_sync(FULL, m, off));
+    if ((threadIdx.x & 31) == 0) s_wmin[threadIdx.x >> 5] = m;
+    __syncthreads();  // the per-warp minima are visible
+    T row_best = s_wmin[0];
+    for (int k = 1; k < nwarps; ++k) row_best = tmin(row_best, s_wmin[k]);
+    if (row_best >= BIG * T(0.5)) row_best = T(0);
+    // (b) each thread's own positions: the carry
+    for (int a = threadIdx.x; a < A; a += blockDim.x)
+      nxt[a] = step_carry(nxt[a], row_best, am_t[a], cur[a], thr, a, pos_valid[urow + a] != 0,
+                          t, len, use_pruning);
+    __syncthreads();  // the new row is visible; the minima may be rewritten
+    buf ^= 1;
+  }
+  for (int a = threadIdx.x; a < A; a += blockDim.x) out[urow + a] = lat[(size_t)buf * A + a];
+}
+
+// warps per utterance of the warp instance for A positions; for the block
+// instance 0 (its row in shared memory) or -1 (in device scratch)
+int warps_for(int A) {
+  if (A <= WARP_POSITIONS) return (A + 31) / 32;
+  return A <= SHARED_POSITIONS ? 0 : -1;
+}
+
 template <typename T>
 int launch(const T* prev, const T* ams, const T* tdp, const unsigned char* pos_valid,
-           const int* feat_len, T* out, signed char* jumps, int B, int C, int A, int t0,
-           T thr, int tie_pruned, int use_pruning, int device, void* stream) {
+           const int* feat_len, T* out, signed char* jumps, T* scratch, int B, int C, int A,
+           int t0, T thr, int tie_pruned, int use_pruning, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B == 0 || A == 0) return (int)cudaSuccess;
-  const int threads = (A + 31) / 32 * 32;
-  const size_t smem = (2 * (size_t)A + 32) * sizeof(T);
-  align_fwd_kernel<T><<<B, threads, smem, (cudaStream_t)stream>>>(
-      prev, ams, tdp, pos_valid, feat_len, out, jumps, B, C, A, t0, thr, tie_pruned,
-      use_pruning);
+  const cudaStream_t st = (cudaStream_t)stream;
+#define SR_WARPS(W)                                                                          \
+  align_fwd_warp_kernel<T, W><<<(B + MAX_WARPS / W - 1) / (MAX_WARPS / W),                   \
+                                MAX_WARPS / W * W * 32, 0, st>>>(                            \
+      prev, ams, tdp, pos_valid, feat_len, out, jumps, B, C, A, t0, thr, tie_pruned,         \
+      use_pruning)
+  const int inst = warps_for(A);
+  switch (inst) {
+    case 1: SR_WARPS(1); break;
+    case 2: SR_WARPS(2); break;
+    case 3: SR_WARPS(3); break;
+    case 4: SR_WARPS(4); break;
+    default: {
+      // the row in shared memory (0) or in the scratch (-1)
+      if (inst < 0 && scratch == nullptr) return (int)cudaErrorInvalidValue;
+      const int threads = A < BLOCK_THREADS ? (A + 31) / 32 * 32 : BLOCK_THREADS;
+      const size_t smem = inst < 0 ? 0 : 2 * (size_t)A * sizeof(T);
+      align_fwd_block_kernel<T><<<B, threads, smem, st>>>(
+          prev, ams, tdp, pos_valid, feat_len, out, jumps, inst < 0 ? scratch : nullptr, B, C,
+          A, t0, thr, tie_pruned, use_pruning);
+    }
+  }
+#undef SR_WARPS
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// the instance the entries below launch for A positions: warps per
+// utterance of the warp instance (1-4); the block instance with its row in
+// shared memory (0), or in device scratch of 2*B*A scores (-1)
+extern "C" int sr_align_fwd_warps(int A) { return warps_for(A); }
+
 extern "C" int sr_align_fwd(const float* prev, const float* ams, const float* tdp,
                             const unsigned char* pos_valid, const int* feat_len, float* out,
-                            signed char* jumps, int B, int C, int A, int t0, float thr,
-                            int tie_pruned, int use_pruning, int device, void* stream) {
-  return launch<float>(prev, ams, tdp, pos_valid, feat_len, out, jumps, B, C, A, t0, thr,
-                       tie_pruned, use_pruning, device, stream);
+                            signed char* jumps, float* scratch, int B, int C, int A, int t0,
+                            float thr, int tie_pruned, int use_pruning, int device,
+                            void* stream) {
+  return launch<float>(prev, ams, tdp, pos_valid, feat_len, out, jumps, scratch, B, C, A, t0,
+                       thr, tie_pruned, use_pruning, device, stream);
 }
 
 extern "C" int sr_align_fwd_f64(const double* prev, const double* ams, const double* tdp,
                                 const unsigned char* pos_valid, const int* feat_len,
-                                double* out, signed char* jumps, int B, int C, int A, int t0,
-                                double thr, int tie_pruned, int use_pruning, int device,
-                                void* stream) {
-  return launch<double>(prev, ams, tdp, pos_valid, feat_len, out, jumps, B, C, A, t0, thr,
-                        tie_pruned, use_pruning, device, stream);
+                                double* out, signed char* jumps, double* scratch, int B, int C,
+                                int A, int t0, double thr, int tie_pruned, int use_pruning,
+                                int device, void* stream) {
+  return launch<double>(prev, ams, tdp, pos_valid, feat_len, out, jumps, scratch, B, C, A, t0,
+                        thr, tie_pruned, use_pruning, device, stream);
 }

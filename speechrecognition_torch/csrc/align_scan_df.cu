@@ -47,8 +47,12 @@
 // bit for bit the owner's), so the next frame needs no second barrier. Each
 // lane keeps the emissions of the next PREFETCH frames in a register ring,
 // so device-memory latency leaves the chain; jumps are predicated byte
-// stores, write-only. Longer automata (A <= 1024) take the block instance,
-// the first design; sr_align_fwd_df_warps holds the choice, from A alone.
+// stores, write-only. Longer automata take the block instance: one block
+// of min(ceil(A/32)*32, 1024) threads per utterance, each looping over
+// ceil(A/1024) positions, two __syncthreads a frame, the row
+// double-buffered by frame parity in shared memory up to A = 1024, beyond
+// in device scratch [B, 2, A] that the wrapper allocates (simple, not
+// tuned). sr_align_fwd_df_warps holds the choice, from A alone.
 
 #include <cuda_runtime.h>
 
@@ -62,6 +66,8 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int MAX_WARPS = 8;         // warps a block of the warp instance holds
 constexpr int PREFETCH = 4;          // frames of emissions in flight
 constexpr int WARP_POSITIONS = 128;  // the warp instance's longest automaton (4 warps)
+constexpr int SHARED_POSITIONS = 1024;  // the longest row the block instance keeps in shared memory
+constexpr int BLOCK_THREADS = 1024;     // threads per utterance of the block instance, at most
 
 __device__ __forceinline__ df::DF big() { return df::make(BIG, 0.f); }
 
@@ -175,8 +181,8 @@ align_fwd_df_warp_kernel(
   float ring_hi[PREFETCH], ring_lo[PREFETCH];
 #pragma unroll
   for (int p = 0; p < PREFETCH; ++p) {
-    ring_hi[p] = am_hi[(size_t)min(p, C - 1) * A];
-    ring_lo[p] = am_lo[(size_t)min(p, C - 1) * A];
+    ring_hi[p] = p < C ? am_hi[(size_t)p * A] : 0.f;
+    ring_lo[p] = p < C ? am_lo[(size_t)p * A] : 0.f;
   }
 
   for (int i0 = 0; i0 < C; i0 += PREFETCH) {
@@ -235,103 +241,99 @@ align_fwd_df_warp_kernel(
   }
 }
 
-// one block of ceil(A/32)*32 threads per utterance, one position a thread
-__global__ void align_fwd_df_block_kernel(
+// one block of min(ceil(A/32)*32, 1024) threads per utterance, each thread
+// looping over the positions a = threadIdx.x + k*blockDim.x; the row's
+// (hi, lo) pairs double-buffered by frame parity in lat [2][A]: shared
+// memory where scratch is null, else the utterance's part of the wrapper's
+// device scratch [B][2][A] (not restrict: the threads read one another's
+// writes after each __syncthreads)
+__global__ void __launch_bounds__(BLOCK_THREADS) align_fwd_df_block_kernel(
     const float* __restrict__ prev_hi, const float* __restrict__ prev_lo,
     const float* __restrict__ ams_hi, const float* __restrict__ ams_lo,
     const float* __restrict__ tdp_hi, const float* __restrict__ tdp_lo,
     const unsigned char* __restrict__ pos_valid, const int* __restrict__ feat_len,
     float* __restrict__ out_hi, float* __restrict__ out_lo, signed char* __restrict__ jumps,
-    int B, int C, int A, int t0, float thr_hi, float thr_lo, int tie_pruned,
+    float2* scratch, int B, int C, int A, int t0, float thr_hi, float thr_lo, int tie_pruned,
     int use_pruning) {
-  extern __shared__ float smem[];
-  float* sh_hi = smem;           // [2][A]
-  float* sh_lo = sh_hi + 2 * A;  // [2][A]
-  float* s_whi = sh_lo + 2 * A;  // [32]
-  float* s_wlo = s_whi + 32;     // [32]
-
+  extern __shared__ float2 smem[];
+  __shared__ float2 s_wmin[BLOCK_THREADS / 32];
   const int b = blockIdx.x;
-  const int a = threadIdx.x;
   const int nwarps = blockDim.x / 32;
-  const bool pos = a < A;
-  const size_t row = (size_t)b * A + a;
+  const size_t urow = (size_t)b * A;
+  float2* lat = scratch != nullptr ? scratch + 2 * urow : smem;
   const df::DF thr = df::make(thr_hi, thr_lo);
-
-  bool valid = false;
-  df::DF tw0 = df::make(0.f, 0.f), tw1 = tw0, tw2 = tw0;
-  df::DF h = big();
-  if (pos) {
-    valid = pos_valid[row] != 0;
-    tw0 = df::make(tdp_hi[row * 3 + 0], tdp_lo[row * 3 + 0]);
-    tw1 = df::make(tdp_hi[row * 3 + 1], tdp_lo[row * 3 + 1]);
-    tw2 = df::make(tdp_hi[row * 3 + 2], tdp_lo[row * 3 + 2]);
-    h = df::make(prev_hi[row], prev_lo[row]);
-  }
   const int len = feat_len[b];
-  const size_t am_b = (size_t)b * C * A;
+  for (int a = threadIdx.x; a < A; a += blockDim.x)
+    lat[a] = make_float2(prev_hi[urow + a], prev_lo[urow + a]);
+  __syncthreads();
 
   int buf = 0;
   for (int i = 0; i < C; ++i) {
     const int t = t0 + i;
-    if (pos) {
-      sh_hi[buf * A + a] = h.hi;
-      sh_lo[buf * A + a] = h.lo;
-    }
-    __syncthreads();  // (1) the previous frame's row is visible
-
-    df::DF cost = big();
-    df::DF am = df::make(0.f, 0.f);
-    if (pos) {
-      am = df::make(ams_hi[am_b + (size_t)i * A + a], ams_lo[am_b + (size_t)i * A + a]);
-      const df::DF h1 = a >= 1 ? df::make(sh_hi[buf * A + a - 1], sh_lo[buf * A + a - 1]) : big();
-      const df::DF h2 = a >= 2 ? df::make(sh_hi[buf * A + a - 2], sh_lo[buf * A + a - 2]) : big();
+    const float2* cur = lat + (size_t)buf * A;
+    float2* nxt = lat + (size_t)(buf ^ 1) * A;
+    const size_t am_t = ((size_t)b * C + i) * A;
+    // (a) every position's cost before the renormalisation, into nxt
+    df::DF m = big();
+    for (int a = threadIdx.x; a < A; a += blockDim.x) {
+      const size_t r = urow + a;
+      const df::DF h1 = a >= 1 ? df::make(cur[a - 1].x, cur[a - 1].y) : big();
+      const df::DF h2 = a >= 2 ? df::make(cur[a - 2].x, cur[a - 2].y) : big();
       signed char jump;
-      cost = step_cost(h, h1, h2, tw0, tw1, tw2, am, a, valid, tie_pruned, jump);
+      const df::DF cost = step_cost(
+          df::make(cur[a].x, cur[a].y), h1, h2, df::make(tdp_hi[r * 3 + 0], tdp_lo[r * 3 + 0]),
+          df::make(tdp_hi[r * 3 + 1], tdp_lo[r * 3 + 1]),
+          df::make(tdp_hi[r * 3 + 2], tdp_lo[r * 3 + 2]),
+          df::make(ams_hi[am_t + a], ams_lo[am_t + a]), a, pos_valid[r] != 0, tie_pruned, jump);
       jumps[((size_t)i * B + b) * A + a] = jump;
+      nxt[a] = make_float2(cost.hi, cost.lo);
+      m = df::minimum(m, cost);
     }
-
-    // lexicographic row minimum (exact in any order); idle threads hold
-    // (BIG, 0), which every real row minimum already is or undercuts
-    df::DF m = cost;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const df::DF o = df::make(__shfl_xor_sync(FULL, m.hi, off),
-                                __shfl_xor_sync(FULL, m.lo, off));
-      m = df::minimum(m, o);
-    }
-    if ((a & 31) == 0) {
-      s_whi[a >> 5] = m.hi;
-      s_wlo[a >> 5] = m.lo;
-    }
-    __syncthreads();  // (2) per-warp minima are visible
-    df::DF row_best = df::make(s_whi[0], s_wlo[0]);
+    // the lexicographic row minimum (exact in any order); a thread without
+    // a position holds (BIG, 0), which every real row minimum already is or
+    // undercuts
+    m = warp_minimum(m);
+    if ((threadIdx.x & 31) == 0) s_wmin[threadIdx.x >> 5] = make_float2(m.hi, m.lo);
+    __syncthreads();  // the per-warp minima are visible
+    df::DF row_best = df::make(s_wmin[0].x, s_wmin[0].y);
     for (int k = 1; k < nwarps; ++k)
-      row_best = df::minimum(row_best, df::make(s_whi[k], s_wlo[k]));
+      row_best = df::minimum(row_best, df::make(s_wmin[k].x, s_wmin[k].y));
     if (row_best.hi >= HALF_BIG) row_best = df::make(0.f, 0.f);
-    h = step_carry(cost, row_best, am, h, thr, a, valid, t, len, use_pruning);
+    // (b) each thread's own positions: the carry
+    for (int a = threadIdx.x; a < A; a += blockDim.x) {
+      const df::DF c = step_carry(df::make(nxt[a].x, nxt[a].y), row_best,
+                                  df::make(ams_hi[am_t + a], ams_lo[am_t + a]),
+                                  df::make(cur[a].x, cur[a].y), thr, a,
+                                  pos_valid[urow + a] != 0, t, len, use_pruning);
+      nxt[a] = make_float2(c.hi, c.lo);
+    }
+    __syncthreads();  // the new row is visible; the minima may be rewritten
     buf ^= 1;
   }
-  if (pos) {
-    out_hi[row] = h.hi;
-    out_lo[row] = h.lo;
+  for (int a = threadIdx.x; a < A; a += blockDim.x) {
+    const float2 v = lat[(size_t)buf * A + a];
+    out_hi[urow + a] = v.x;
+    out_lo[urow + a] = v.y;
   }
 }
 
 }  // namespace
 
-// warps per utterance of the warp instance for A positions, or 0 where the
-// block instance runs
+// the instance sr_align_fwd_df launches for A positions: warps per
+// utterance of the warp instance (1-4); the block instance with its row in
+// shared memory (0), or in device scratch of 2*B*A (hi, lo) pairs (-1)
 extern "C" int sr_align_fwd_df_warps(int A) {
-  return A <= WARP_POSITIONS ? (A + 31) / 32 : 0;
+  if (A <= WARP_POSITIONS) return (A + 31) / 32;
+  return A <= SHARED_POSITIONS ? 0 : -1;
 }
 
 extern "C" int sr_align_fwd_df(const float* prev_hi, const float* prev_lo,
                                const float* ams_hi, const float* ams_lo, const float* tdp_hi,
                                const float* tdp_lo, const unsigned char* pos_valid,
                                const int* feat_len, float* out_hi, float* out_lo,
-                               signed char* jumps, int B, int C, int A, int t0, float thr_hi,
-                               float thr_lo, int tie_pruned, int use_pruning, int device,
-                               void* stream) {
+                               signed char* jumps, float* scratch, int B, int C, int A, int t0,
+                               float thr_hi, float thr_lo, int tie_pruned, int use_pruning,
+                               int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B == 0 || A == 0) return (int)cudaSuccess;
@@ -341,17 +343,21 @@ extern "C" int sr_align_fwd_df(const float* prev_hi, const float* prev_lo,
                                 MAX_WARPS / W * W * 32, 0, st>>>(                             \
       prev_hi, prev_lo, ams_hi, ams_lo, tdp_hi, tdp_lo, pos_valid, feat_len, out_hi, out_lo,  \
       jumps, B, C, A, t0, thr_hi, thr_lo, tie_pruned, use_pruning)
-  switch (sr_align_fwd_df_warps(A)) {
+  const int inst = sr_align_fwd_df_warps(A);
+  switch (inst) {
     case 1: SR_WARPS(1); break;
     case 2: SR_WARPS(2); break;
     case 3: SR_WARPS(3); break;
     case 4: SR_WARPS(4); break;
     default: {
-      const int threads = (A + 31) / 32 * 32;
-      const size_t smem = (4 * (size_t)A + 64) * sizeof(float);
+      // the row in shared memory (0) or in the scratch (-1)
+      if (inst < 0 && scratch == nullptr) return (int)cudaErrorInvalidValue;
+      const int threads = A < BLOCK_THREADS ? (A + 31) / 32 * 32 : BLOCK_THREADS;
+      const size_t smem = inst < 0 ? 0 : 2 * (size_t)A * sizeof(float2);
       align_fwd_df_block_kernel<<<B, threads, smem, st>>>(
           prev_hi, prev_lo, ams_hi, ams_lo, tdp_hi, tdp_lo, pos_valid, feat_len, out_hi, out_lo,
-          jumps, B, C, A, t0, thr_hi, thr_lo, tie_pruned, use_pruning);
+          jumps, inst < 0 ? reinterpret_cast<float2*>(scratch) : nullptr, B, C, A, t0, thr_hi,
+          thr_lo, tie_pruned, use_pruning);
     }
   }
 #undef SR_WARPS

@@ -22,21 +22,55 @@
 //     kernel B charges the entered position's state instead; the two agree
 //     wherever positions 0 and 1 share a state, as in SieTill); entries win
 //     ties (less_equal);
-//   * invalid slots and hi >= BIG become (BIG, 0); the block-wide lexicographic
-//     minimum; renormalise with the hi >= BIG/2 guards; prune where the score
-//     is not <= (threshold, 0);
-//   * word ends at last_pos, the first word index attaining the minimum;
+//   * invalid slots and hi >= BIG become (BIG, 0) (the kernel leaves the
+//     second out: see slot_step); the utterance's
+//     lexicographic minimum; renormalise with the hi >= BIG/2 guards; prune
+//     where the score is not <= (threshold, 0);
+//   * word ends at last_pos, on the renormalised and pruned scores: the
+//     first word index attaining the minimum;
 //   * the utterance freezes once t > feat_len (outputs are still written).
 // Every step is an error-free transform, a lexicographic compare or a select
 // written with round-to-nearest intrinsics, so the kernel matches its plain
-// PyTorch version bit for bit. The minimum is exact in any order, so the
-// warp-shuffle reduction of both words keeps that property; the word choice
-// is a serial first-index scan.
+// PyTorch version bit for bit. The minima are exact in any order.
 //
-// What bounds it: latency, as for kernel B. A frame is three __syncthreads,
-// two scattered reads of am and about a hundred FP32 instructions per thread
-// (four DF adds and the compares); one block per utterance, one thread per
-// (word, position) slot, the pairs double-buffered in shared memory.
+// What bounds it: instruction issue. A frame of 1,024 utterances x 288
+// slots needs 5 double-float adds a slot (about 117 FP32 instructions with
+// the compares); the kernel issues about 1,000 instructions a lane and frame
+// for its 3 slots (cuobjdump; about 420 of them float adds), and each frame
+// also waits on its chain (the row minimum, the renormalisation, the word
+// end that the next frame's entries read). Two instances, chosen in the C
+// entry from the lattice's shape alone (sr_decode_scan_df_instance):
+//   * P <= 32 and W <= 32 (SieTill: 12 x 24, the production path): one
+//     block per utterance of ceil(W/4) warps; 8 lanes a word and K =
+//     ceil(P/8) consecutive positions a lane, so a word's neighbours are
+//     shuffles within its 8-lane group and the per-lane overhead is shared
+//     by K slots. Every add is formed and missing candidates are replaced
+//     after it, and the three candidate compares are independent, so the
+//     selection has no branch. One __syncthreads a frame: before it each
+//     warp publishes its exact minimum (a butterfly of shuffles) and the
+//     owner of each word end its raw score and backpointer
+//     (double-buffered by frame parity); after it every warp folds the
+//     minima in the same order, renormalises its own slots, and chooses the
+//     word end itself from the published raw scores (renormalised and
+//     pruned by the same operations, then the first index at the minimum
+//     by redux.sync on order-preserving keys), so the next frame's entries
+//     need no second barrier. Each lane forms the entry of its group's
+//     position min(l, 1) (the same warp instruction serves every lane);
+//     each lane keeps the next PREFETCH frames' emissions in registers. At
+//     80 registers a thread (launch bounds; a few values spill), 8
+//     utterances of 96 threads fit an SM, so 1,024 utterances take one wave
+//     on 132 SMs where the first design (one thread a slot, three
+//     __syncthreads a frame, a serial word-end scan by thread 0) fit 4 of
+//     its 288-thread blocks and took two.
+//   * any other W x P: the block instance, one block of min(ceil(W*P/32)*32,
+//     1024) threads per utterance, each looping over ceil(W*P/1024) slots,
+//     two __syncthreads a frame, the word end by a block reduction of
+//     (score, word) pairs; the lattice double-buffered by frame parity in
+//     shared memory up to 1,024 slots (the query gives 0), beyond in device
+//     scratch that the wrapper allocates (-1; 24,000 slots of df32 carry do
+//     not fit a block's shared memory). Simple, not tuned.
+// sr_decode_scan_df_residency gives the blocks an SM holds of the chosen
+// instance's launch.
 
 #include <cuda_runtime.h>
 
@@ -46,7 +80,90 @@ namespace {
 
 using df::DF;
 
-__global__ void decode_scan_df_kernel(
+constexpr float BIG = 1e30f;
+constexpr float HALF_BIG = BIG * 0.5f;  // exact in float32
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int GROUP = 8;            // lanes a word in the warp instance
+constexpr int WORDS_PER_WARP = 32 / GROUP;
+constexpr int MAX_K = 4;            // positions a lane: P <= 32
+constexpr int MAX_WARP_WORDS = 32;  // words of the warp instance: 8 warps
+constexpr int PREFETCH = 2;         // frames of emissions in flight
+constexpr int SHARED_SLOTS = 1024;   // the largest lattice the block instance keeps in shared memory
+constexpr int BLOCK_THREADS = 1024;  // threads per utterance of the block instance, at most
+
+__device__ __forceinline__ DF big() { return df::make(BIG, 0.f); }
+
+// an unsigned key whose order is the float order (-0 taken as +0, as the
+// float compare takes it)
+__device__ __forceinline__ unsigned order_key(float f) {
+  const unsigned u = __float_as_uint(__fadd_rn(f, 0.f));
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+
+// the exact lexicographic (hi, lo) minimum over the warp (a butterfly of
+// shuffles: on the card it was a little faster here than two redux.sync on
+// order-preserving keys)
+__device__ __forceinline__ DF warp_minimum(DF m) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    m = df::minimum(m, df::make(__shfl_xor_sync(FULL, m.hi, o), __shfl_xor_sync(FULL, m.lo, o)));
+  return m;
+}
+
+// within-word candidates, the selection, the emission and the entry of one
+// slot, then the validity and BIG guards: the new score and backpointer
+__device__ __forceinline__ DF slot_step(DF h, int bk, DF h1, int b1, DF h2, int b2, DF tw0,
+                                        DF tw1, DF tw2, DF am, DF entry, int p, bool valid,
+                                        int t, int& nb) {
+  // every add is formed and the missing candidates replaced after it, and
+  // the three compares are independent (c1 against c2, c0 against both),
+  // so the selection is short and free of branches; it is the reference's
+  // sequential one (start at c2, take c1, then c0, if strictly less)
+  const DF c0 = df::add(h, tw0);
+  DF c1 = df::add(h1, tw1);
+  DF c2 = df::add(h2, tw2);
+  if (p < 1) c1 = big();
+  if (p < 2) c2 = big();
+  const bool t1 = df::less(c1, c2);
+  const bool t0 = t1 ? df::less(c0, c1) : df::less(c0, c2);
+  DF within = t0 ? c0 : t1 ? c1 : c2;
+  const int wb = t0 ? bk : t1 ? (p >= 1 ? b1 : 0) : (p >= 2 ? b2 : 0);
+  within = df::add(within, am);
+  DF nv;
+  if (df::less_equal(entry, within)) {
+    nv = entry;
+    nb = t - 1;
+  } else {
+    nv = within;
+    nb = wb;
+  }
+  // the reference also caps every score with hi >= BIG at (BIG, 0); the cap
+  // is left out, because it changes no output: such a score is never a live
+  // row's minimum (a dead row renormalises by 0 either way), renorm turns it
+  // into (BIG, 0), and its backpointer is kept as the reference keeps it
+  return valid ? nv : big();
+}
+
+// renormalisation by the row minimum (already 0 for a dead row) and pruning
+__device__ __forceinline__ DF renorm(DF nv, DF best, DF thr, int prune) {
+  nv = nv.hi >= HALF_BIG ? big() : df::sub(nv, best);
+  if (prune && !df::less_equal(nv, thr)) nv = big();
+  return nv;
+}
+
+// ---- the warp instance: 8 lanes a word, K positions a lane -------------------------
+
+// per frame parity: each warp's minimum; each word end's raw score and
+// backpointer
+struct WarpShared {
+  float2 wmin[2][MAX_WARP_WORDS / WORDS_PER_WARP];
+  float2 end[2][MAX_WARP_WORDS];
+  int endb[2][MAX_WARP_WORDS];
+};
+
+template <int K>
+__global__ void __launch_bounds__(256, 3) decode_scan_df_warp_kernel(
     const float* __restrict__ am_hi, const float* __restrict__ am_lo,
     const int* __restrict__ feat_len, const int* __restrict__ state_table,
     const int* __restrict__ last_pos, const int* __restrict__ word_len,
@@ -60,162 +177,346 @@ __global__ void decode_scan_df_kernel(
     float* __restrict__ book_lo_out, float* __restrict__ score,
     int* __restrict__ word, int* __restrict__ bkp, int B, int T, int S, int W,
     int P, int t0, float am_threshold, int prune) {
-  const float BIG = 1e30f;
-  const DF big = df::make(BIG, 0.f);
+  __shared__ WarpShared s;
   const DF thr = df::make(am_threshold, 0.f);
-  const int WP = W * P;
-  const int nwarps = blockDim.x / 32;
-  extern __shared__ float smem[];
-  float* sh_hi = smem;                                   // [2][WP]
-  float* sh_lo = sh_hi + 2 * WP;                         // [2][WP]
-  int* sh_b = reinterpret_cast<int*>(sh_lo + 2 * WP);    // [2][WP]
-  float* s_end_hi = reinterpret_cast<float*>(sh_b + 2 * WP);  // [W]
-  float* s_end_lo = s_end_hi + W;                        // [W]
-  int* s_endb = reinterpret_cast<int*>(s_end_lo + W);    // [W]
-  float* s_wmin_hi = reinterpret_cast<float*>(s_endb + W);    // [32]
-  float* s_wmin_lo = s_wmin_hi + 32;                     // [32]
-  float* s_book = s_wmin_lo + 32;                        // [2]: hi, lo
-
   const int b = blockIdx.x;
-  const int idx = threadIdx.x;
-  const bool slot = idx < WP;
-  const int w = slot ? idx / P : 0;
-  const int p = slot ? idx - w * P : 0;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int l = lane & (GROUP - 1);        // lane within the word's group
+  const int w = warp * WORDS_PER_WARP + (lane >> 3);
+  const bool wv = w < W;
+  const int wc = wv ? w : 0;               // a word that exists, for loads
+  const int WP = W * P;
+  const size_t off = (size_t)b * WP;
 
-  // per-slot constants
-  int st = 0, first = 0;
-  DF tw0 = big, tw1 = big, tw2 = big, ep = big;
-  bool valid = false, is_end = false;
-  if (slot) {
-    st = state_table[idx];
-    first = first_state[w];
-    tw0 = df::make(tdp_hi[idx * 3 + 0], tdp_lo[idx * 3 + 0]);
-    tw1 = df::make(tdp_hi[idx * 3 + 1], tdp_lo[idx * 3 + 1]);
-    tw2 = df::make(tdp_hi[idx * 3 + 2], tdp_lo[idx * 3 + 2]);
-    valid = p < word_len[w];
-    is_end = p == last_pos[w];
-    if (p < 2) ep = df::make(ent_hi[w * 2 + p], ent_lo[w * 2 + p]);
+  // per-slot constants; slot k of this lane is position p = l*K + k
+  int st[K];
+  DF tw0[K], tw1[K], tw2[K], h[K];
+  int bk[K];
+  unsigned valid = 0;                      // bit k: the slot is a valid position
+  const int wlen = word_len[wc];
+  const int end_k = wv ? last_pos[wc] - l * K : -1;  // the slot holding the word end
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int p = l * K + k;
+    const bool real = wv && p < P;
+    const int idx = wc * P + (real ? p : 0);
+    st[k] = state_table[idx];
+    tw0[k] = real ? df::make(tdp_hi[idx * 3 + 0], tdp_lo[idx * 3 + 0]) : big();
+    tw1[k] = real ? df::make(tdp_hi[idx * 3 + 1], tdp_lo[idx * 3 + 1]) : big();
+    tw2[k] = real ? df::make(tdp_hi[idx * 3 + 2], tdp_lo[idx * 3 + 2]) : big();
+    h[k] = real ? df::make(hyp_hi_in[off + idx], hyp_lo_in[off + idx]) : big();
+    bk[k] = real ? bkp_in[off + idx] : 0;
+    if (real && p < wlen) valid |= 1u << k;
   }
-
-  const size_t off = (size_t)b * WP + idx;
-  DF h = slot ? df::make(hyp_hi_in[off], hyp_lo_in[off]) : big;
-  int bk = slot ? bkp_in[off] : 0;
-  if (idx == 0) {
-    s_book[0] = book_hi_in[b];
-    s_book[1] = book_lo_in[b];
-  }
+  // lanes 0 and 1 of a group form the entries into positions 0 and 1
+  const DF ep = df::make(ent_hi[wc * 2 + min(l, 1)], ent_lo[wc * 2 + min(l, 1)]);
+  const int first = first_state[wc];
+  DF book = df::make(book_hi_in[b], book_lo_in[b]);
   const int len = feat_len[b];
-  const float half_big = BIG * 0.5f;
-  const size_t am_off = (size_t)b * T * S;
+
+  // the emissions of frames i .. i+PREFETCH-1 (slot i % PREFETCH): the K
+  // slots' states, then the word's first state
+  const float* amh = am_hi + (size_t)b * T * S;
+  const float* aml = am_lo + (size_t)b * T * S;
+  float ring_hi[PREFETCH][K + 1], ring_lo[PREFETCH][K + 1];
+#pragma unroll
+  for (int q = 0; q < PREFETCH; ++q) {
+    const size_t row = (size_t)q * S;
+#pragma unroll
+    for (int k = 0; k <= K; ++k) {
+      const int sk = k < K ? st[k] : first;
+      ring_hi[q][k] = q < T ? amh[row + sk] : 0.f;
+      ring_lo[q][k] = q < T ? aml[row + sk] : 0.f;
+    }
+  }
+
+  for (int i0 = 0; i0 < T; i0 += PREFETCH) {
+#pragma unroll
+    for (int q = 0; q < PREFETCH; ++q) {
+      const int i = i0 + q;
+      if (i < T) {  // the same for the whole block
+        const int t = t0 + i + 1;  // 1-based frame index
+        const int par = i & 1;
+        DF am[K + 1];
+        const int row = min(i + PREFETCH, T - 1) * S;
+        const float* rh = amh + row;
+        const float* rl = aml + row;
+#pragma unroll
+        for (int k = 0; k <= K; ++k) {
+          am[k] = df::make(ring_hi[q][k], ring_lo[q][k]);
+          const int sk = k < K ? st[k] : first;
+          ring_hi[q][k] = rh[sk];
+          ring_lo[q][k] = rl[sk];
+        }
+        // the entry this lane forms (positions 0 and 1 are lanes 0 and 1's
+        // own when K == 1; lane 0's slots 0 and 1 otherwise)
+        const DF ent_own = df::add(df::add(book, ep), am[K]);
+        const DF ent_next = df::make(__shfl_down_sync(FULL, ent_own.hi, 1, GROUP),
+                                     __shfl_down_sync(FULL, ent_own.lo, 1, GROUP));
+        // the two positions left of this lane's first slot: the lane below
+        const DF left1 = df::make(__shfl_up_sync(FULL, h[K - 1].hi, 1, GROUP),
+                                  __shfl_up_sync(FULL, h[K - 1].lo, 1, GROUP));
+        const int left1b = __shfl_up_sync(FULL, bk[K - 1], 1, GROUP);
+        const int d2 = K >= 2 ? 1 : 2;
+        const DF src2 = K >= 2 ? h[K >= 2 ? K - 2 : 0] : h[0];
+        const int src2b = K >= 2 ? bk[K >= 2 ? K - 2 : 0] : bk[0];
+        const DF left2 = df::make(__shfl_up_sync(FULL, src2.hi, d2, GROUP),
+                                  __shfl_up_sync(FULL, src2.lo, d2, GROUP));
+        const int left2b = __shfl_up_sync(FULL, src2b, d2, GROUP);
+
+        DF nv[K];
+        int nb[K];
+        DF m = big();
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const int p = l * K + k;
+          const DF h1 = k >= 1 ? h[k - 1] : left1;
+          const int b1 = k >= 1 ? bk[k - 1] : left1b;
+          const DF h2 = k >= 2 ? h[k - 2] : (k == 1 ? left1 : left2);
+          const int b2 = k >= 2 ? bk[k - 2] : (k == 1 ? left1b : left2b);
+          const DF entry = p == 0 ? ent_own : p == 1 ? (K == 1 ? ent_own : ent_next) : big();
+          nv[k] = slot_step(h[k], bk[k], h1, b1, h2, b2, tw0[k], tw1[k], tw2[k], am[k], entry, p,
+                            (valid >> k) & 1u, t, nb[k]);
+          m = df::minimum(m, nv[k]);
+          if (k == end_k) {
+            s.end[par][w] = make_float2(nv[k].hi, nv[k].lo);
+            s.endb[par][w] = nb[k];
+          }
+        }
+        m = warp_minimum(m);
+        if (lane == 0) s.wmin[par][warp] = make_float2(m.hi, m.lo);
+        __syncthreads();  // the minima and the raw word ends are visible
+
+        DF best = df::make(s.wmin[par][0].x, s.wmin[par][0].y);
+#pragma unroll
+        for (int v = 1; v < MAX_WARP_WORDS / WORDS_PER_WARP; ++v)
+          if (v < nwarps) best = df::minimum(best, df::make(s.wmin[par][v].x, s.wmin[par][v].y));
+        if (best.hi >= HALF_BIG) best = df::make(0.f, 0.f);
+
+        // the word end, in every warp: lane j takes word j's published score
+        // through the same renormalisation and pruning as its owner, then
+        // the first index at the exact minimum
+        const int j = min(lane, W - 1);
+        const DF e = renorm(df::make(s.end[par][j].x, s.end[par][j].y), best, thr, prune);
+        const int eb = s.endb[par][j];
+        const unsigned kh = lane < W ? order_key(e.hi) : FULL;
+        const unsigned mh = __reduce_min_sync(FULL, kh);
+        const unsigned kl = kh == mh ? order_key(e.lo) : FULL;
+        const unsigned ml = __reduce_min_sync(FULL, kl);
+        const int bw = (int)__reduce_min_sync(FULL, kh == mh && kl == ml ? (unsigned)lane : FULL);
+        DF bs = df::make(__shfl_sync(FULL, e.hi, bw), __shfl_sync(FULL, e.lo, bw));
+        const int bb = __shfl_sync(FULL, eb, bw);
+        if (bs.hi >= HALF_BIG) bs = big();
+        if (threadIdx.x == 0) {
+          score[(size_t)i * B + b] = bs.hi;
+          word[(size_t)i * B + b] = bw;
+          bkp[(size_t)i * B + b] = bb;
+        }
+        if (t <= len) {
+          book = bs;
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+            h[k] = renorm(nv[k], best, thr, prune);
+            bk[k] = nb[k];
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int p = l * K + k;
+    if (wv && p < P) {
+      const size_t o = off + (size_t)w * P + p;
+      hyp_hi_out[o] = h[k].hi;
+      hyp_lo_out[o] = h[k].lo;
+      bkp_out[o] = bk[k];
+    }
+  }
+  if (threadIdx.x == 0) {
+    book_hi_out[b] = book.hi;
+    book_lo_out[b] = book.lo;
+  }
+}
+
+// ---- the block instance: any W*P, threads looping over the slots ------------------
+
+// a word-end candidate: the renormalised score, its word and backpointer
+struct End {
+  DF v;
+  int w, bk;
+};
+
+// (score, word) lexicographic: the smaller score, the smaller word on ties
+__device__ __forceinline__ bool end_less(const End& a, const End& b) {
+  return df::less(a.v, b.v) || (a.v.hi == b.v.hi && a.v.lo == b.v.lo && a.w < b.w);
+}
+
+__device__ __forceinline__ End shfl_end(const End& e, int o) {
+  return End{df::make(__shfl_xor_sync(FULL, e.v.hi, o), __shfl_xor_sync(FULL, e.v.lo, o)),
+             __shfl_xor_sync(FULL, e.w, o), __shfl_xor_sync(FULL, e.bk, o)};
+}
+
+// one block of min(ceil(W*P/32)*32, 1024) threads per utterance, thread x
+// owning the slots x + k*blockDim.x; the lattice double-buffered by frame
+// parity in lat_h / lat_b [2][W*P]: shared memory where lat_h is null, else
+// the utterance's part of the wrapper's device scratch [B][2][W*P] (not
+// restrict: the threads read one another's writes after __syncthreads)
+__global__ void __launch_bounds__(BLOCK_THREADS) decode_scan_df_block_kernel(
+    const float* __restrict__ am_hi, const float* __restrict__ am_lo,
+    const int* __restrict__ feat_len, const int* __restrict__ state_table,
+    const int* __restrict__ last_pos, const int* __restrict__ word_len,
+    const int* __restrict__ first_state, const float* __restrict__ tdp_hi,
+    const float* __restrict__ tdp_lo, const float* __restrict__ ent_hi,
+    const float* __restrict__ ent_lo, const float* __restrict__ hyp_hi_in,
+    const float* __restrict__ hyp_lo_in, const int* __restrict__ bkp_in,
+    const float* __restrict__ book_hi_in, const float* __restrict__ book_lo_in,
+    float* __restrict__ hyp_hi_out, float* __restrict__ hyp_lo_out,
+    int* __restrict__ bkp_out, float* __restrict__ book_hi_out,
+    float* __restrict__ book_lo_out, float* __restrict__ score,
+    int* __restrict__ word, int* __restrict__ bkp, float2* lat_h, int* lat_b, int B, int T,
+    int S, int W, int P, int t0, float am_threshold, int prune) {
+  extern __shared__ float2 smem[];
+  __shared__ float2 s_wmin[BLOCK_THREADS / 32];
+  __shared__ End s_wend[BLOCK_THREADS / 32];
+  const DF thr = df::make(am_threshold, 0.f);
+  const int b = blockIdx.x;
+  const int nwarps = blockDim.x / 32;
+  const int WP = W * P;
+  const size_t off = (size_t)b * WP;
+  if (lat_h != nullptr) {
+    lat_h += 2 * off;
+    lat_b += 2 * off;
+  } else {
+    lat_h = smem;
+    lat_b = reinterpret_cast<int*>(smem + 2 * WP);
+  }
+  for (int s = threadIdx.x; s < WP; s += blockDim.x) {
+    lat_h[s] = make_float2(hyp_hi_in[off + s], hyp_lo_in[off + s]);
+    lat_b[s] = bkp_in[off + s];
+  }
+  DF book = df::make(book_hi_in[b], book_lo_in[b]);
+  const int len = feat_len[b];
+  __syncthreads();
 
   int buf = 0;
   for (int i = 0; i < T; ++i) {
     const int t = t0 + i + 1;  // 1-based frame index
-    if (slot) {
-      sh_hi[buf * WP + idx] = h.hi;
-      sh_lo[buf * WP + idx] = h.lo;
-      sh_b[buf * WP + idx] = bk;
+    const float2* ch = lat_h + (size_t)buf * WP;
+    const int* cb = lat_b + (size_t)buf * WP;
+    float2* nh = lat_h + (size_t)(buf ^ 1) * WP;
+    int* nbk = lat_b + (size_t)(buf ^ 1) * WP;
+    const size_t row = ((size_t)b * T + i) * S;
+    // (a) every slot's new score and backpointer, before the renormalisation
+    DF m = big();
+    for (int s = threadIdx.x; s < WP; s += blockDim.x) {
+      const int w = s / P, p = s - w * P;
+      const DF h1 = p >= 1 ? df::make(ch[s - 1].x, ch[s - 1].y) : big();
+      const DF h2 = p >= 2 ? df::make(ch[s - 2].x, ch[s - 2].y) : big();
+      const int b1 = p >= 1 ? cb[s - 1] : 0;
+      const int b2 = p >= 2 ? cb[s - 2] : 0;
+      const int fs = first_state[w];
+      const DF entry = p < 2 ? df::add(df::add(book, df::make(ent_hi[w * 2 + p],
+                                                              ent_lo[w * 2 + p])),
+                                       df::make(am_hi[row + fs], am_lo[row + fs]))
+                             : big();
+      const int st = state_table[s];
+      int nb;
+      const DF nv = slot_step(df::make(ch[s].x, ch[s].y), cb[s], h1, b1, h2, b2,
+                              df::make(tdp_hi[s * 3 + 0], tdp_lo[s * 3 + 0]),
+                              df::make(tdp_hi[s * 3 + 1], tdp_lo[s * 3 + 1]),
+                              df::make(tdp_hi[s * 3 + 2], tdp_lo[s * 3 + 2]),
+                              df::make(am_hi[row + st], am_lo[row + st]), entry, p,
+                              p < word_len[w], t, nb);
+      nh[s] = make_float2(nv.hi, nv.lo);
+      nbk[s] = nb;
+      m = df::minimum(m, nv);
     }
-    __syncthreads();  // (1) hyp of frame t-1 and book_prev are visible
-    const DF book_prev = df::make(s_book[0], s_book[1]);
+    // a thread without a slot holds (BIG, 0), which every real row minimum
+    // already is or undercuts
+    m = warp_minimum(m);
+    if ((threadIdx.x & 31) == 0) s_wmin[threadIdx.x >> 5] = make_float2(m.hi, m.lo);
+    __syncthreads();  // the per-warp minima are visible
+    DF best = df::make(s_wmin[0].x, s_wmin[0].y);
+    for (int k = 1; k < nwarps; ++k) best = df::minimum(best, df::make(s_wmin[k].x, s_wmin[k].y));
+    if (best.hi >= HALF_BIG) best = df::make(0.f, 0.f);
 
-    DF nv = big;
-    int nb = 0;
-    if (slot) {
-      const size_t row = am_off + (size_t)i * S;
-      const DF am_v = df::make(am_hi[row + st], am_lo[row + st]);
-      const int q1 = buf * WP + idx - 1, q2 = q1 - 1;
-      const DF c0 = df::add(h, tw0);
-      const DF c1 = p >= 1 ? df::add(df::make(sh_hi[q1], sh_lo[q1]), tw1) : big;
-      const DF c2 = p >= 2 ? df::add(df::make(sh_hi[q2], sh_lo[q2]), tw2) : big;
-      const int b0 = p >= 1 ? sh_b[q1] : 0;
-      const int b00 = p >= 2 ? sh_b[q2] : 0;
-      DF within = c2;
-      int wb = b00;
-      if (df::less(c1, within)) { within = c1; wb = b0; }
-      if (df::less(c0, within)) { within = c0; wb = bk; }
-      within = df::add(within, am_v);
-      DF entry = big;
-      if (p < 2) {
-        const DF am_first = df::make(am_hi[row + first], am_lo[row + first]);
-        entry = df::add(df::add(book_prev, ep), am_first);
-      }
-      if (df::less_equal(entry, within)) {
-        nv = entry;
-        nb = t - 1;
+    // (b) each thread's own slots: renormalise, prune, offer the word ends
+    const bool alive = t <= len;
+    End e{df::make(__int_as_float(0x7f800000), 0.f), 0x7fffffff, 0};  // loses to every end
+    for (int s = threadIdx.x; s < WP; s += blockDim.x) {
+      const int w = s / P;
+      const DF nv = renorm(df::make(nh[s].x, nh[s].y), best, thr, prune);
+      const End c{nv, w, nbk[s]};
+      if (s - w * P == last_pos[w] && end_less(c, e)) e = c;
+      if (alive) {
+        nh[s] = make_float2(nv.hi, nv.lo);
       } else {
-        nv = within;
-        nb = wb;
+        nh[s] = ch[s];
+        nbk[s] = cb[s];
       }
-      if (!valid) nv = big;
-      if (nv.hi >= BIG) nv = big;
     }
-
-    // block-wide lexicographic minimum (exact in any order)
-    DF m = nv;
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) {
-      const DF other = df::make(__shfl_xor_sync(0xffffffffu, m.hi, o),
-                                __shfl_xor_sync(0xffffffffu, m.lo, o));
-      m = df::minimum(m, other);
+      const End other = shfl_end(e, o);
+      if (end_less(other, e)) e = other;
     }
-    if ((idx & 31) == 0) {
-      s_wmin_hi[idx >> 5] = m.hi;
-      s_wmin_lo[idx >> 5] = m.lo;
-    }
-    __syncthreads();  // (2) per-warp minima are visible
-    DF best = df::make(s_wmin_hi[0], s_wmin_lo[0]);
+    if ((threadIdx.x & 31) == 0) s_wend[threadIdx.x >> 5] = e;
+    __syncthreads();  // the word ends and the new lattice are visible
+    End be = s_wend[0];
     for (int k = 1; k < nwarps; ++k)
-      best = df::minimum(best, df::make(s_wmin_hi[k], s_wmin_lo[k]));
-    if (best.hi >= half_big) best = df::make(0.f, 0.f);
-    nv = nv.hi >= half_big ? big : df::sub(nv, best);
-    if (prune && !df::less_equal(nv, thr)) nv = big;
-
-    if (slot && is_end) {
-      s_end_hi[w] = nv.hi;
-      s_end_lo[w] = nv.lo;
-      s_endb[w] = nb;
-    }
-    __syncthreads();  // (3) word-end scores are visible
-
-    const bool alive = t <= len;
-    if (idx == 0) {
-      DF bs = df::make(s_end_hi[0], s_end_lo[0]);
-      int bw = 0;
-      for (int k = 1; k < W; ++k) {
-        const DF e = df::make(s_end_hi[k], s_end_lo[k]);
-        if (df::less(e, bs)) { bs = e; bw = k; }
-      }
-      const int bb = s_endb[bw];
-      if (bs.hi >= half_big) bs = big;
+      if (end_less(s_wend[k], be)) be = s_wend[k];
+    DF bs = be.v.hi >= HALF_BIG ? big() : be.v;
+    if (threadIdx.x == 0) {
       score[(size_t)i * B + b] = bs.hi;
-      word[(size_t)i * B + b] = bw;
-      bkp[(size_t)i * B + b] = bb;
-      if (alive) {
-        s_book[0] = bs.hi;
-        s_book[1] = bs.lo;
-      }
+      word[(size_t)i * B + b] = be.w;
+      bkp[(size_t)i * B + b] = be.bk;
     }
-    if (alive) {
-      h = nv;
-      bk = nb;
-    }
+    if (alive) book = bs;
     buf ^= 1;
   }
 
-  if (slot) {
-    hyp_hi_out[off] = h.hi;
-    hyp_lo_out[off] = h.lo;
-    bkp_out[off] = bk;
+  for (int s = threadIdx.x; s < WP; s += blockDim.x) {
+    const float2 v = lat_h[(size_t)buf * WP + s];
+    hyp_hi_out[off + s] = v.x;
+    hyp_lo_out[off + s] = v.y;
+    bkp_out[off + s] = lat_b[(size_t)buf * WP + s];
   }
-  __syncthreads();
-  if (idx == 0) {
-    book_hi_out[b] = s_book[0];
-    book_lo_out[b] = s_book[1];
+  if (threadIdx.x == 0) {
+    book_hi_out[b] = book.hi;
+    book_lo_out[b] = book.lo;
   }
 }
 
+// positions a lane of the warp instance (1-4); for the block instance 0
+// (its lattice in shared memory) or -1 (in device scratch)
+int instance_for(int W, int P) {
+  if (P <= GROUP * MAX_K && W <= MAX_WARP_WORDS) return (P + GROUP - 1) / GROUP;
+  return W * P <= SHARED_SLOTS ? 0 : -1;
+}
+
+// the warp instance's threads a block (4 words a warp), and the block
+// instance's
+int threads_for(int W, int P) {
+  if (instance_for(W, P) > 0) return (W + WORDS_PER_WARP - 1) / WORDS_PER_WARP * 32;
+  return W * P < BLOCK_THREADS ? (W * P + 31) / 32 * 32 : BLOCK_THREADS;
+}
+
+// the block instance's shared lattice: two buffers of (hi, lo) pairs, then
+// two of backpointers
+size_t block_smem(int W, int P) {
+  return instance_for(W, P) == 0 ? 2 * (size_t)W * P * (sizeof(float2) + sizeof(int)) : 0;
+}
+
 }  // namespace
+
+extern "C" int sr_decode_scan_df_instance(int W, int P) { return instance_for(W, P); }
+
+// threads a block of the chosen instance's launch for a W x P lattice
+extern "C" int sr_decode_scan_df_threads(int W, int P) { return threads_for(W, P); }
 
 extern "C" int sr_decode_scan_df(
     const float* am_hi, const float* am_lo, const int* feat_len,
@@ -225,18 +526,50 @@ extern "C" int sr_decode_scan_df(
     const float* hyp_lo_in, const int* bkp_in, const float* book_hi_in,
     const float* book_lo_in, float* hyp_hi_out, float* hyp_lo_out,
     int* bkp_out, float* book_hi_out, float* book_lo_out, float* score,
-    int* word, int* bkp, int B, int T, int S, int W, int P, int t0,
+    int* word, int* bkp, float* scratch, int B, int T, int S, int W, int P, int t0,
     float am_threshold, int prune, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (B == 0) return (int)cudaSuccess;
+  if (B == 0 || W == 0 || P == 0) return (int)cudaSuccess;
+  const cudaStream_t st = (cudaStream_t)stream;
   const int WP = W * P;
-  const int threads = (WP + 31) / 32 * 32;
-  const size_t smem = (6 * (size_t)WP + 3 * (size_t)W + 66) * sizeof(float);
-  decode_scan_df_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
-      am_hi, am_lo, feat_len, state_table, last_pos, word_len, first_state,
-      tdp_hi, tdp_lo, ent_hi, ent_lo, hyp_hi_in, hyp_lo_in, bkp_in,
-      book_hi_in, book_lo_in, hyp_hi_out, hyp_lo_out, bkp_out, book_hi_out,
-      book_lo_out, score, word, bkp, B, T, S, W, P, t0, am_threshold, prune);
+  const int inst = instance_for(W, P);
+  const int threads = threads_for(W, P);
+#define SR_ARGS                                                                     \
+  am_hi, am_lo, feat_len, state_table, last_pos, word_len, first_state, tdp_hi,     \
+      tdp_lo, ent_hi, ent_lo, hyp_hi_in, hyp_lo_in, bkp_in, book_hi_in, book_lo_in, \
+      hyp_hi_out, hyp_lo_out, bkp_out, book_hi_out, book_lo_out, score, word, bkp
+  switch (inst) {
+    case 1: decode_scan_df_warp_kernel<1><<<B, threads, 0, st>>>(SR_ARGS, B, T, S, W, P, t0, am_threshold, prune); break;
+    case 2: decode_scan_df_warp_kernel<2><<<B, threads, 0, st>>>(SR_ARGS, B, T, S, W, P, t0, am_threshold, prune); break;
+    case 3: decode_scan_df_warp_kernel<3><<<B, threads, 0, st>>>(SR_ARGS, B, T, S, W, P, t0, am_threshold, prune); break;
+    case 4: decode_scan_df_warp_kernel<4><<<B, threads, 0, st>>>(SR_ARGS, B, T, S, W, P, t0, am_threshold, prune); break;
+    default:
+      // the lattice in shared memory (0) or in the scratch (-1)
+      if (inst < 0 && scratch == nullptr) return (int)cudaErrorInvalidValue;
+      decode_scan_df_block_kernel<<<B, threads, block_smem(W, P), st>>>(
+          SR_ARGS, inst < 0 ? reinterpret_cast<float2*>(scratch) : nullptr,
+          inst < 0 ? reinterpret_cast<int*>(scratch) + 4 * (size_t)B * WP : nullptr, B, T, S, W,
+          P, t0, am_threshold, prune);
+  }
+#undef SR_ARGS
   return (int)cudaGetLastError();
+}
+
+// blocks of the chosen instance that one SM holds at once for a W x P
+// lattice (the occupancy calculator's answer for the launch above), or -1
+extern "C" int sr_decode_scan_df_residency(int W, int P) {
+  int n = 0;
+  const int threads = threads_for(W, P);
+  cudaError_t err;
+  switch (instance_for(W, P)) {
+    case 1: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, decode_scan_df_warp_kernel<1>, threads, 0); break;
+    case 2: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, decode_scan_df_warp_kernel<2>, threads, 0); break;
+    case 3: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, decode_scan_df_warp_kernel<3>, threads, 0); break;
+    case 4: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, decode_scan_df_warp_kernel<4>, threads, 0); break;
+    default:
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, decode_scan_df_block_kernel, threads,
+                                                          block_smem(W, P));
+  }
+  return err == cudaSuccess ? n : -1;
 }

@@ -46,15 +46,15 @@ SIGNATURES = {
     "sr_mahalanobis_min": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P), _I),
     # am, feat_len, state_table, last_pos, word_len, tdp_within, entry_pen,
     # exit_pen (or NULL), hyp_in, bkp_in, book_in, hyp_out, bkp_out,
-    # book_out, score, word, bkp, B, T, S, W, P, t0, am_threshold, prune,
-    # device, stream
-    "sr_decode_scan": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I,
-                        _P), _I),
+    # book_out, score, word, bkp, scratch (or NULL), B, T, S, W, P, t0,
+    # am_threshold, prune, device, stream
+    "sr_decode_scan": ((_P,) * 18 + (_I, _I, _I, _I, _I, _I, _F, _I, _I, _P), _I),
     # the same, in float64 (score arrays and am_threshold)
-    "sr_decode_scan_f64": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _D, _I, _I,
-                            _P), _I),
+    "sr_decode_scan_f64": ((_P,) * 18 + (_I, _I, _I, _I, _I, _I, _D, _I, _I, _P), _I),
+    # W, P → kernel B's instance (0: block, -1: scratch)
+    "sr_decode_scan_instance": ((_I, _I), _I),
+    # W, P, f64 → blocks per SM of kernel B's launch (-1: error)
+    "sr_decode_scan_residency": ((_I, _I, _I), _I),
     # x, mu_hi, mu_lo, iv_hi, iv_lo, norm_hi, norm_lo, logw_hi, logw_lo,
     # out_hi, out_lo, N, S, D, dim, device, stream
     "sr_am_scores_df": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -62,20 +62,32 @@ SIGNATURES = {
     # am_hi, am_lo, feat_len, state_table, last_pos, word_len, first_state,
     # tdp_hi, tdp_lo, ent_hi, ent_lo, hyp_hi_in, hyp_lo_in, bkp_in,
     # book_hi_in, book_lo_in, hyp_hi_out, hyp_lo_out, bkp_out, book_hi_out,
-    # book_lo_out, score, word, bkp, B, T, S, W, P, t0, am_threshold, prune,
-    # device, stream
-    "sr_decode_scan_df": ((_P,) * 24 + (_I, _I, _I, _I, _I, _I, _F, _I, _I,
+    # book_lo_out, score, word, bkp, scratch (or NULL), B, T, S, W, P, t0,
+    # am_threshold, prune, device, stream
+    "sr_decode_scan_df": ((_P,) * 25 + (_I, _I, _I, _I, _I, _I, _F, _I, _I,
                                         _P), _I),
-    # prev, ams, tdp, pos_valid, feat_len, out, jumps, B, C, A, t0, thr,
-    # tie_pruned, use_pruning, device, stream
-    "sr_align_fwd": ((_P,) * 7 + (_I, _I, _I, _I, _F, _I, _I, _I, _P), _I),
+    # W, P → kernel D's instance (1-4: positions a lane of the warp
+    # instance; 0: block instance, its lattice in shared memory; -1: in
+    # device scratch)
+    "sr_decode_scan_df_instance": ((_I, _I), _I),
+    # W, P → threads a block of kernel D's launch for that lattice
+    "sr_decode_scan_df_threads": ((_I, _I), _I),
+    # W, P → blocks per SM of kernel D's launch for that lattice (-1: error)
+    "sr_decode_scan_df_residency": ((_I, _I), _I),
+    # prev, ams, tdp, pos_valid, feat_len, out, jumps, scratch (or NULL), B,
+    # C, A, t0, thr, tie_pruned, use_pruning, device, stream
+    "sr_align_fwd": ((_P,) * 8 + (_I, _I, _I, _I, _F, _I, _I, _I, _P), _I),
     # the same, in float64 (score arrays and thr)
-    "sr_align_fwd_f64": ((_P,) * 7 + (_I, _I, _I, _I, _D, _I, _I, _I, _P), _I),
+    "sr_align_fwd_f64": ((_P,) * 8 + (_I, _I, _I, _I, _D, _I, _I, _I, _P), _I),
+    # A → warps per utterance of kernel E's warp instance (0: block
+    # instance, its row in shared memory; -1: in device scratch)
+    "sr_align_fwd_warps": ((_I,), _I),
     # prev_hi, prev_lo, ams_hi, ams_lo, tdp_hi, tdp_lo, pos_valid, feat_len,
-    # out_hi, out_lo, jumps, B, C, A, t0, thr_hi, thr_lo, tie_pruned,
-    # use_pruning, device, stream
-    "sr_align_fwd_df": ((_P,) * 11 + (_I, _I, _I, _I, _F, _F, _I, _I, _I, _P), _I),
-    # A → warps per utterance of kernel F's warp instance (0: block instance)
+    # out_hi, out_lo, jumps, scratch (or NULL), B, C, A, t0, thr_hi, thr_lo,
+    # tie_pruned, use_pruning, device, stream
+    "sr_align_fwd_df": ((_P,) * 12 + (_I, _I, _I, _I, _F, _F, _I, _I, _I, _P), _I),
+    # A → warps per utterance of kernel F's warp instance (0: block
+    # instance, its row in shared memory; -1: in device scratch)
     "sr_align_fwd_df_warps": ((_I,), _I),
     # final_hi, aut_len, jumps, feat_len, states_tbl, states, final_pos, B, A,
     # Tp, T, tie_pruned, device, stream

@@ -52,9 +52,6 @@ from ..ops import doublefloat as dfm
 
 BIG = np.float64(1e30)
 
-#: kernel B runs one thread per (word, position) slot in one block
-MAX_SLOTS = 1024
-
 
 @dataclass
 class DecoderTables:
@@ -230,7 +227,11 @@ def decode_scan(am: torch.Tensor, feat_len: torch.Tensor,
     through fixed-length chunks.
 
     CPU tensors take the plain version; CUDA tensors launch kernel B
-    (float32 or float64; counted in ``decode_scan.LAUNCHES``)."""
+    (float32 or float64; counted in ``decode_scan.LAUNCHES``), whose C entry
+    chooses its instance from the lattice's shape alone
+    (``sr_decode_scan_instance``): any [W, P] is taken, as the reference
+    takes it. Launches whose lattice lives in device scratch (W*P > 1024)
+    are also counted in ``SCRATCH_LAUNCHES``."""
     if am.device.type == "cpu":
         return decode_scan_reference(am, feat_len, state_table, last_pos,
                                      word_len, first_state, tdp_within,
@@ -246,9 +247,6 @@ def decode_scan(am: torch.Tensor, feat_len: torch.Tensor,
         raise ValueError("decode_scan: am must be a contiguous [B, T, S] tensor")
     B, T, S = am.shape
     W, P = state_table.shape
-    if W * P > MAX_SLOTS:
-        raise ValueError(f"decode_scan: {W}x{P} lattice slots exceed {MAX_SLOTS} "
-                         f"threads of one block")
     device = am.device
     tables = {"feat_len": feat_len, "state_table": state_table,
               "last_pos": last_pos, "word_len": word_len,
@@ -297,21 +295,28 @@ def decode_scan(am: torch.Tensor, feat_len: torch.Tensor,
     wbkp = torch.empty((T, B), dtype=torch.int32, device=device)
     thr = float(torch.tensor(float(am_threshold), dtype=dtype))
     lib = _native.load()
+    # the scratch instance (W*P > 1024) keeps the lattice in device memory:
+    # two buffers of scores, then two of int32 backpointers
+    scratch = (torch.empty(2 * B * W * P * (hyp.element_size() + 4), dtype=torch.uint8,
+                           device=device)
+               if lib.sr_decode_scan_instance(W, P) < 0 else None)
     err = getattr(lib, _SCAN_ENTRY[dtype])(
         am.data_ptr(), i32["feat_len"].data_ptr(), i32["state_table"].data_ptr(),
         i32["last_pos"].data_ptr(), i32["word_len"].data_ptr(), tdpw.data_ptr(),
         entp.data_ptr(), None if xpen is None else xpen.data_ptr(),
         hyp.data_ptr(), bkp.data_ptr(), book.data_ptr(), hyp_out.data_ptr(),
         bkp_out.data_ptr(), book_out.data_ptr(), score.data_ptr(),
-        word.data_ptr(), wbkp.data_ptr(), B, T, S, W, P, int(t0), thr,
+        word.data_ptr(), wbkp.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        B, T, S, W, P, int(t0), thr,
         int(bool(prune)), device.index,
         torch.cuda.current_stream(device).cuda_stream)
     _native.check(err, "decode_scan")
     decode_scan.LAUNCHES += 1
+    decode_scan.SCRATCH_LAUNCHES += scratch is not None
     return (hyp_out, bkp_out, book_out), (score, word, wbkp)
 
 
-decode_scan.LAUNCHES = 0
+decode_scan.LAUNCHES = decode_scan.SCRATCH_LAUNCHES = 0
 
 #: kernel B's C entry point for each score type
 _SCAN_ENTRY = {torch.float32: "sr_decode_scan", torch.float64: "sr_decode_scan_f64"}
@@ -469,7 +474,11 @@ def decode_scan_df(am: dfm.DF, feat_len: torch.Tensor,
     carry is (hyp DF [B, W, P], bkp int32 [B, W, P], book DF [B]).
 
     CPU tensors take the plain version; CUDA tensors launch kernel D
-    (counted in ``decode_scan_df.LAUNCHES``)."""
+    (counted in ``decode_scan_df.LAUNCHES``), whose C entry chooses its
+    instance from the lattice's shape alone (``sr_decode_scan_df_instance``):
+    any [W, P] is taken. Launches whose lattice lives in device scratch
+    (past 1,024 slots outside the warp instance) are also counted in
+    ``SCRATCH_LAUNCHES``."""
     device = am.hi.device
     if device.type == "cpu":
         return decode_scan_df_reference(am, feat_len, state_table, last_pos,
@@ -482,9 +491,6 @@ def decode_scan_df(am: dfm.DF, feat_len: torch.Tensor,
         raise ValueError("decode_scan_df: am must be a [B, T, S] pair")
     B, T, S = am.hi.shape
     W, P = state_table.shape
-    if W * P > MAX_SLOTS:
-        raise ValueError(f"decode_scan_df: {W}x{P} lattice slots exceed {MAX_SLOTS} "
-                         f"threads of one block")
     ints = {"feat_len": (feat_len, (B,)), "state_table": (state_table, (W, P)),
             "last_pos": (last_pos, (W,)), "word_len": (word_len, (W,)),
             "first_state": (first_state, (W,))}
@@ -522,6 +528,10 @@ def decode_scan_df(am: dfm.DF, feat_len: torch.Tensor,
     wbkp = torch.empty((T, B), dtype=torch.int32, device=device)
     thr = float(np.float32(am_threshold))
     lib = _native.load()
+    # the block instance keeps the lattice in device scratch past 1,024
+    # slots: two buffers of (hi, lo) pairs, then two of int32 backpointers
+    scratch = (torch.empty(6 * B * W * P, dtype=torch.float32, device=device)
+               if lib.sr_decode_scan_df_instance(W, P) < 0 else None)
     err = lib.sr_decode_scan_df(
         am.hi.data_ptr(), am.lo.data_ptr(), i32["feat_len"].data_ptr(),
         i32["state_table"].data_ptr(), i32["last_pos"].data_ptr(),
@@ -531,14 +541,16 @@ def decode_scan_df(am: dfm.DF, feat_len: torch.Tensor,
         bkp.data_ptr(), book.hi.data_ptr(), book.lo.data_ptr(),
         hyp_out.hi.data_ptr(), hyp_out.lo.data_ptr(), bkp_out.data_ptr(),
         book_out.hi.data_ptr(), book_out.lo.data_ptr(), score.data_ptr(),
-        word.data_ptr(), wbkp.data_ptr(), B, T, S, W, P, int(t0), thr,
-        int(bool(prune)), device.index, torch.cuda.current_stream(device).cuda_stream)
+        word.data_ptr(), wbkp.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        B, T, S, W, P, int(t0), thr, int(bool(prune)), device.index,
+        torch.cuda.current_stream(device).cuda_stream)
     _native.check(err, "decode_scan_df")
     decode_scan_df.LAUNCHES += 1
+    decode_scan_df.SCRATCH_LAUNCHES += scratch is not None
     return (hyp_out, bkp_out, book_out), (score, word, wbkp)
 
 
-decode_scan_df.LAUNCHES = 0
+decode_scan_df.LAUNCHES = decode_scan_df.SCRATCH_LAUNCHES = 0
 
 #: time-chunk length: one (B, CHUNK) scan shape serves utterances of any
 #: length by streaming chunks through the carried lattice state

@@ -10,8 +10,11 @@ chip_smoke.py: kernel A within 1e-6 relative of its plain version over
 active slots (FMA contraction and operation order), at dims up to 128, and
 its fused entry bit-equal to the capped minimum of the unfused one; kernel B (float32 and
 float64), kernel C (double-float scores, also on tables whose magnitudes
-span 1e-6 .. 1e6) and kernel D (double-float scan) bit-equal, hi and lo; the trainer's kernels E (alignment DP, float32 and
-float64), F (its double-float twin, both instances, every lane boundary up to A = 300)
+span 1e-6 .. 1e6) and kernel D (double-float scan) bit-equal, hi and lo,
+the scans B and D on lattices of every instance up to 24,000 slots; the trainer's kernels E (alignment DP, float32 and
+float64, every instance: warp, and block with its row in shared memory or
+past A = 1,024 in device scratch), F (its
+double-float twin, every instance, every lane boundary up to A = 3,000)
 and G (backtrack) bit-equal, kernel H
 (double-float E-step) with w bit-equal, its float64 sums within 1e-12
 relative and two launches bit-identical; the golden demo trainer in df32
@@ -193,6 +196,8 @@ def test_kernel_b_bit_equal(dev, case):
                 if case == "exit-pen" else None)
     chunks = (25, 35) if case == "two-chunks" else (T,)
     thr = 4.0 if case == "ties" else 60.0
+    from speechrecognition_torch.ops import _native
+    assert _native.load().sr_decode_scan_instance(*tables.state_table.shape) == 0
     before = dec.decode_scan.LAUNCHES
     kern, plain = scan_both(dev, tables, am, lens, thr, case != "unpruned", chunks, exit_pen)
     assert dec.decode_scan.LAUNCHES == before + len(chunks)
@@ -298,12 +303,23 @@ def scan_df_both(dev, tables, am64, lens, thr, prune, chunks):
     return results
 
 
+#: kernel D's instance for each lattice W x P the tests use, as
+#: sr_decode_scan_df_instance must report it: positions a lane of the warp
+#: instance (1-4); the block instance with its lattice in shared memory (0)
+#: or in device scratch (-1)
+D_INSTANCES = {(8, 10): 2, (12, 24): 3, (5, 3): 1, (9, 16): 2, (32, 32): 4, (33, 8): 0,
+               (40, 25): 0, (44, 24): -1, (1000, 24): -1}
+
+
 @pytest.mark.parametrize("case", ["pruned", "unpruned", "two-chunks", "ties", "repetition-1"])
 def test_kernel_d_bit_equal(dev, case):
+    from speechrecognition_torch.ops import _native
     B, T = 5, 60
     lens = np.array([60, 41, 13, 0, 59], np.int32)
     tables, S = (repetition1_tables() if case == "repetition-1"
                  else sietill_tables(prune=case != "unpruned", flat=case == "ties"))
+    W, P = tables.state_table.shape
+    assert _native.load().sr_decode_scan_df_instance(W, P) == D_INSTANCES[W, P] > 0
     rng = np.random.default_rng(30 + len(case))
     am = (rng.integers(0, 3, size=(B, T, S)).astype(np.float64) if case == "ties"
           else rng.uniform(0.0, 40.0, size=(B, T, S)))
@@ -315,6 +331,68 @@ def test_kernel_d_bit_equal(dev, case):
     for name, k, p in zip(("hyp.hi", "hyp.lo", "bkp", "book.hi", "book.lo", "score",
                            "word", "bkp_t"), kern, plain):
         assert k.dtype == p.dtype and torch.equal(k, p), name
+
+
+def random_lexicon_tables(W, P, seed):
+    """Silence plus W - 1 words of 1..P states (the first of P) with
+    repetition 1: a W x P lattice."""
+    rng = np.random.default_rng(seed)
+    lex = Lexicon()
+    lex.add_word("[silence]", 1, 1, silence=True)
+    for w in range(W - 1):
+        lex.add_word(f"w{w}", P if w == 0 else int(rng.integers(1, P + 1)), 1)
+    tdp = TdpModel(silence_state=lex.silence_state, loop=2.0, forward=0.5, skip=9.0)
+    tables = dec.DecoderTables.build(lex, tdp, 15.0)
+    assert tables.state_table.shape == (W, P)
+    return tables, lex.num_states
+
+
+#: lattices of every instance of kernel D: the warp instance's K = 1-4 and
+#: its widest utterance (32 words, 8 warps), and the block instance (W > 32
+#: or P > 32) with its lattice in shared memory, and past 1,024 slots (1,056
+#: and 24,000) in device scratch
+LATTICES = [(5, 3), (9, 16), (12, 24), (32, 32), (33, 8), (40, 25), (44, 24), (1000, 24)]
+
+
+@pytest.mark.parametrize("W,P", LATTICES)
+@pytest.mark.parametrize("prune", [True, False], ids=["pruned", "unpruned"])
+def test_kernel_d_every_instance(dev, W, P, prune):
+    """B 4, T 40 over two chunks, from the initial carry and from a random
+    live one (every slot takes part)."""
+    from speechrecognition_torch.ops import _native
+    assert _native.load().sr_decode_scan_df_instance(W, P) == D_INSTANCES[W, P]
+    tables, S = random_lexicon_tables(W, P, seed=W * P)
+    rng = np.random.default_rng(W + P)
+    B, T = 4, 40
+    lens = np.array([40, 23, 0, 39], np.int32)
+    am = rng.uniform(0.0, 40.0, size=(B, T, S))
+    before = dec.decode_scan_df.LAUNCHES
+    kern, plain = scan_df_both(dev, tables, am, lens, 60.0, prune, (15, 25))
+    assert dec.decode_scan_df.LAUNCHES == before + 2
+    for name, k, p in zip(("hyp.hi", "hyp.lo", "bkp", "book.hi", "book.lo", "score",
+                           "word", "bkp_t"), kern, plain):
+        assert k.dtype == p.dtype and torch.equal(k, p), name
+    assert torch.unique(kern[6]).numel() > 1
+
+
+@pytest.mark.parametrize("W,P", [(44, 24), (1000, 24)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_b_past_1024_slots(dev, W, P, dtype):
+    """The scratch instance (W*P = 1,056 and 24,000), with an exit penalty."""
+    from speechrecognition_torch.ops import _native
+    assert _native.load().sr_decode_scan_instance(W, P) == -1
+    tables, S = random_lexicon_tables(W, P, seed=W + P)
+    rng = np.random.default_rng(W * P)
+    B, T = 4, 40
+    lens = np.array([40, 23, 0, 39], np.int32)
+    am = rng.uniform(0.0, 40.0, size=(B, T, S))
+    for exit_pen in (None, rng.uniform(0.0, 20.0, size=W)):
+        before = dec.decode_scan.LAUNCHES
+        kern, plain = scan_both(dev, tables, am, lens, 60.0, True, (15, 25), exit_pen, dtype)
+        assert dec.decode_scan.LAUNCHES == before + 2
+        for name, k, p in zip(("hyp", "bkp", "book", "score", "word", "bkp_t"), kern, plain):
+            assert k.dtype == p.dtype and torch.equal(k, p), name
+        assert torch.unique(kern[4]).numel() > 1
 
 
 @pytest.mark.parametrize("kind", ["pallas", "df32", "f64"])
@@ -399,14 +477,53 @@ def test_kernels_e_and_g_bit_equal(dev, case, dtype):
         assert k.dtype == p.dtype and torch.equal(k, p), name
 
 
-@pytest.mark.parametrize("A", [1, 2, 9, 31, 32, 33, 70, 96, 97, 128, 129, 300])
+#: kernel E's and F's instance for each automaton length the tests use, as
+#: sr_align_fwd_warps and sr_align_fwd_df_warps must report it: warps per
+#: utterance of the warp instance (1-4); the block instance with its row in
+#: shared memory (0) or in device scratch (-1)
+ALIGN_INSTANCES = {1: 1, 2: 1, 9: 1, 31: 1, 32: 1, 33: 2, 70: 3, 96: 3, 97: 4, 128: 4, 129: 0,
+                   300: 0, 1025: -1, 3000: -1}
+
+
+@pytest.mark.parametrize("A", [1, 2, 31, 32, 33, 70, 97, 128, 129, 300, 1025, 3000])
 @pytest.mark.parametrize("case", ALIGN_CASES)
-def test_kernel_f_bit_equal(dev, case, A):
-    """Every lane boundary of the warp instance (1-4 positions a lane) and
-    the block instance past A = 128."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_e_bit_equal(dev, case, A, dtype):
+    """Every lane and warp boundary of the warp instance (1-4 warps an
+    utterance), and the block instance past A = 128 with its row in shared
+    memory and past A = 1,024 in device scratch, in both score types."""
     from speechrecognition_torch.align import viterbi as vit
     from speechrecognition_torch.ops import _native
-    assert _native.load().sr_align_fwd_df_warps(A) == (-(-A // 32) if A <= 128 else 0)
+    assert _native.load().sr_align_fwd_warps(A) == ALIGN_INSTANCES[A]
+    ams, tdp, valid, aut, lens, thr, tie, prune = align_inputs(case, A=A)
+    B, T, A = ams.shape
+    args = (torch.as_tensor(tdp, dtype=dtype, device=dev), torch.as_tensor(valid, device=dev),
+            torch.as_tensor(lens, device=dev), thr)
+    before = vit.align_fwd_chunk.LAUNCHES
+    results = []
+    for fwd in (vit.align_fwd_chunk, vit.align_fwd_chunk_reference):
+        prev = torch.full((B, A), 1e30, dtype=dtype, device=dev)
+        jumps = []
+        for t0, n in ((0, 25), (25, 35)):
+            am = torch.as_tensor(ams[:, t0:t0 + n], dtype=dtype, device=dev).contiguous()
+            prev, j = fwd(prev, am, *args, t0, tie_pruned=tie, use_pruning=prune)
+            jumps.append(j)
+        results.append((prev, torch.cat(jumps)))
+    torch.cuda.synchronize()
+    assert vit.align_fwd_chunk.LAUNCHES == before + 2
+    for name, k, p in zip(("carry", "jumps"), *results):
+        assert k.dtype == p.dtype and torch.equal(k, p), name
+
+
+@pytest.mark.parametrize("A", [1, 2, 9, 31, 32, 33, 70, 96, 97, 128, 129, 300, 1025, 3000])
+@pytest.mark.parametrize("case", ALIGN_CASES)
+def test_kernel_f_bit_equal(dev, case, A):
+    """Every lane boundary of the warp instance (1-4 warps an utterance), and
+    the block instance past A = 128 with its row in shared memory and past
+    A = 1,024 in device scratch."""
+    from speechrecognition_torch.align import viterbi as vit
+    from speechrecognition_torch.ops import _native
+    assert _native.load().sr_align_fwd_df_warps(A) == ALIGN_INSTANCES[A]
     ams, tdp, valid, aut, lens, thr, tie, prune = align_inputs(case, A=A)
     B, T, A = ams.shape
     am = dfm.from_f64(ams, dev)
