@@ -25,7 +25,9 @@ kernel against its plain PyTorch version on the same tensors:
      issue limit;
   4. kernel B (word-loop Viterbi chunk) at B=1024, T=320 on real acoustic
      scores, over two chunks with carry: bit-equal to the plain version;
-     its instance, residency (blocks per SM) and waves;
+     its instance, residency (blocks per SM) and waves, its device time
+     against the plain version in turns, and its staircase (device time at
+     B = 132, 264, 528, 924 and 1024);
   5. the golden demo run: iter-2.mix on the 35 demo utterances reproduces
      tests/fixtures/demo_recognition.json (WER 19.587629 %, S/I/D 4/14/1),
      through kernel A's fused entry and kernel B;
@@ -47,9 +49,11 @@ kernel against its plain PyTorch version on the same tensors:
   9. times of kernels C, D and f64 B against their plain versions, in turns,
      beside each kernel's bound (and kernel C's FP32 issue limit, also at
      the instruction count of Dekker's product; kernel D's FP32 issue limit
-     and the instance that ran); kernel D's residency, the waves its
-     1024-utterance launch takes and its times at B = 132, 264, 528, 924 and
-     1024 (a staircase shows the waves);
+     and the instance that ran); kernel D's and f64 B's residency, the waves
+     their 1024-utterance launch takes and their times at B = 132, 264, 528,
+     924 and 1024 (a staircase shows the waves); kernel B's shape sweep
+     (B 4, T 40, both types, two chunks with carry, bit-equal) over its warp
+     instance's edges, 1 x 2 to 32 x 32, and past them, 33 x 8 and 4 x 33;
  10. golden demo runs in df32 and f64 on iter-2.mix: 35/35 transcripts,
      WER 19.587629 %, S/I/D 4/14/1, through the new kernels;
  11. full width, df32 (the production path; launch counts are read from this
@@ -64,7 +68,10 @@ kernel against its plain PyTorch version on the same tensors:
      times in turns beside the instance that ran; kernel E's warp instance
      timed at A = 32 to 128 (every warp count) in three rounds; F's block
      instance on a synthetic batch with A=160: bit-equal over two chunks,
-     timed;
+     timed; G per launch and per step beside its bound and the chain's
+     floor (a timed chain of dependent shared-memory loads, a kernel this
+     script builds for that alone), and on tests/torch_df_tables.py's edge cases plus
+     Tp 3,000 at A 1,025: bit-equal;
  14. kernel H (double-float E-step) over the 1024-utterance corpus's sorted
      blocks: counts bit-equal, sums within 1e-12 relative, two launches
      bit-identical, times in turns beside its bound and the scoring's FP32
@@ -91,6 +98,10 @@ kernel against its plain PyTorch version on the same tensors:
      are the wrapper's SCRATCH_LAUNCHES counted over the main paths' runs
      (checked to be 0: no SieTill shape needs scratch).
 
+Kernels B, D and G are timed by their device time (torch.profiler), since
+B and D's wrappers synchronise on a range check and a call timed by events
+also holds its host work; the others by events around their calls.
+
 Every kernel's time is printed beside its bound: the larger of the bytes it
 must move over 3.35 TB/s and the operations its function needs (an FMA as
 two) over 67 TFLOP/s in float32 or 34 TFLOP/s in float64; for the
@@ -102,6 +113,7 @@ summary (launches on the main paths, error against the plain version, ms,
 plain_ms, bound_ms, bound_by, library_ms).
 """
 
+import ctypes
 import importlib.util
 import json
 import os
@@ -263,8 +275,9 @@ def f_warps(A):
 
 
 #: the scans' kernels whose machine code phase 2 counts
-SASS_KERNELS = ("decode_scan_kernel", "decode_scan_df_warp_kernel", "decode_scan_df_block_kernel",
-                "align_fwd_warp_kernel", "align_fwd_df_warp_kernel")
+SASS_KERNELS = ("decode_scan_warp_kernel", "decode_scan_df_warp_kernel",
+                "decode_scan_df_block_kernel", "align_fwd_warp_kernel", "align_fwd_df_warp_kernel",
+                "align_backtrack_kernel")
 
 
 def log_sass_counts(lib):
@@ -293,16 +306,14 @@ def log_sass_counts(lib):
 def instance(query, *shape):
     """The instance a scan's C entry chooses for ``shape``, as the library's
     ``query`` reports it: warps per utterance (kernels E and F) or positions
-    a lane (kernel D) of the warp instance; 0 for the block instance and -1
-    for kernel B's scratch instance, or for the others' block instance with
-    its lattice in device scratch."""
+    a lane (kernels B and D) of the warp instance; 0 for the block instance
+    with its lattice in shared memory, -1 in device scratch."""
     from speechrecognition_torch.ops import _native
     v = getattr(_native.load(), query)(*shape)
-    if v <= 0 and query == "sr_decode_scan_instance":
-        return "scratch instance" if v < 0 else "block instance"
     if v <= 0:
         return f"block instance, lattice in {'device scratch' if v < 0 else 'shared memory'}"
-    unit = "position(s) a lane" if query == "sr_decode_scan_df_instance" else "warp(s) per utterance"
+    unit = ("position(s) a lane" if query in ("sr_decode_scan_instance", "sr_decode_scan_df_instance")
+            else "warp(s) per utterance")
     return f"warp instance, {v} {unit}"
 
 
@@ -341,31 +352,135 @@ def in_turns(plain, kernel, reps_plain, reps_kernel):
     return (k1 + k2) / 2, (p1 + p2) / 2, [p1, k1, k2, p2]
 
 
-def main():
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
-                         "this smoke run needs a CUDA card")
-    sys.path.insert(0, str(REPO))
+#: idle seconds at each end of a profiled window, and profiled windows
+#: tried before device_ms gives up on a complete record
+PROFILE_PAD_S = 0.02
+PROFILE_TRIES = 3
+
+
+def device_ms(fn, reps, key, exclude=None, bare=None):
+    """Mean device milliseconds of a launch of the kernels whose name holds
+    ``key`` (and not ``exclude``) over ``reps`` calls of ``fn``, after a
+    warm-up (torch.profiler): the kernel alone. Events around a call also
+    time its wrapper's host work wherever the device waits for it (kernels
+    B and D's wrappers synchronise on a range check of their tables).
+
+    The profiler has recorded fewer launches of kernel G than were made (4,
+    5 or 9 of 10, late in runs of this script on an H100), and never did in
+    110 windows of G alone, with and without its plain version run before;
+    the cause is not known. A mean is therefore taken only from a
+    window that recorded every launch: the window is padded with idle time
+    at both ends, and a window that misses launches is logged with the
+    device records it did hold and tried again, up to PROFILE_TRIES times.
+    Then ``bare`` (a call that launches the kernel alone, its operands
+    prepared once) is timed by events around ``reps`` back-to-back launches,
+    and that figure is returned and logged as such; without ``bare`` the
+    run fails."""
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(PROFILE_TRIES):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+        ms, n = kernel_device_ms(prof, key, exclude)
+        if n == reps:
+            return ms / n
+        held = [(e.key[:48], e.count) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        log(f"[profiler] window {attempt + 1} recorded {n} of {reps} launches of {key}; "
+            f"its device records: {held}")
+    check(bare is not None, f"no profiled window of {PROFILE_TRIES} recorded all {reps} "
+          f"launches of {key}")
+    ms = cuda_ms(bare, reps)
+    log(f"[profiler] {key}: {ms:.4f} ms a launch by events around {reps} back-to-back bare "
+        f"launches, in place of its device time")
+    return ms
+
+
+def g_bare(final_hi, aut_len, jumps, feat_len, states_tbl, T, tie_pruned=True):
+    """A call that launches kernel G alone on align_backtrack's arguments,
+    its operands prepared once (no allocation or conversion per call)."""
+    from speechrecognition_torch.ops import _native
+    dev = jumps.device
+    Tp, B, A = jumps.shape
+    check(jumps.data_ptr() % 16 == 0, "kernel G's jumps start on a 16-byte boundary")
+    ints = [t.to(torch.int32).contiguous() for t in (aut_len, feat_len, states_tbl)]
+    states = torch.empty((B, T), dtype=torch.int32, device=dev)
+    final_pos = torch.empty((B,), dtype=torch.int32, device=dev)
+    lib = _native.load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch():
+        _native.check(lib.sr_align_backtrack(
+            final_hi.data_ptr(), ints[0].data_ptr(), jumps.data_ptr(), ints[1].data_ptr(),
+            ints[2].data_ptr(), states.data_ptr(), final_pos.data_ptr(), B, A, Tp, int(T),
+            int(bool(tie_pruned)), dev.index, stream), "kernel G")
+
+    return launch
+
+
+def kernel_in_turns(plain, kernel, reps_plain, reps_kernel, key, exclude=None, bare=None):
+    """in_turns with the kernel's device time: plain (events), kernel (its
+    device time, profiler), kernel, plain. Returns (kernel ms, plain ms, all
+    four, ms of a call to the wrapper by events)."""
+    p1 = cuda_ms(plain, reps_plain)
+    k1 = device_ms(kernel, reps_kernel, key, exclude, bare)
+    k2 = device_ms(kernel, reps_kernel, key, exclude, bare)
+    p2 = cuda_ms(plain, reps_plain)
+    return (k1 + k2) / 2, (p1 + p2) / 2, [p1, k1, k2, p2], cuda_ms(kernel, reps_kernel)
+
+
+def demo_setup():
+    """The SieTill lexicon, the 35-utterance demo corpus, the decoder's TDPs
+    and settings, and iter-2.mix and bench/model.mix on the host."""
     from speechrecognition_torch.config import Configuration
     from speechrecognition_torch.corpus import Corpus, CorpusDescription
     from speechrecognition_torch.features.frontend import SignalAnalysisConfig
     from speechrecognition_torch.io import read_mixture_set
     from speechrecognition_torch.lexicon import build_sietill_lexicon
     from speechrecognition_torch.models import gmm
+    from speechrecognition_torch.tdp import TdpModel
+    lex = build_sietill_lexicon()
+    desc = CorpusDescription.read(str(FIX / "demo_corpus.json"), lex)
+    corpus = Corpus.read(desc, str(FIX / "demo_features") + "/", SignalAnalysisConfig(),
+                         normalization_path=str(FIX / "normalization-demo.bin"))
+    check(corpus.num_segments == 35, "demo corpus has 35 utterances")
+    tdp = TdpModel(silence_state=lex.silence_state, loop=3.0, forward=0.0, skip=30.0)
+    iter2 = gmm.MixtureModel.from_raw(read_mixture_set(str(FIX / "iter-2.mix"), 25),
+                                      gmm.VarianceModel.MIXTURE_POOLING, max_approx=True)
+    bench = gmm.MixtureModel.from_raw(read_mixture_set(str(REPO / "bench" / "model.mix"), 25),
+                                      gmm.VarianceModel.NO_POOLING, max_approx=True)
+    return lex, corpus, tdp, Configuration(SETTINGS), iter2, bench
+
+
+def card_name():
+    """The card's name and power limit as nvidia-smi gives them (printed)."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    log(smi)
+    return smi.splitlines()[0].strip()
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
+                         "this smoke run needs a CUDA card")
+    sys.path.insert(0, str(REPO))
+    from speechrecognition_torch.corpus import Corpus
+    from speechrecognition_torch.models import gmm
     from speechrecognition_torch.ops import _native, mahalanobis as maha
     from speechrecognition_torch.search import decoder as dec
-    from speechrecognition_torch.tdp import TdpModel
     check("jax" not in sys.modules, "the port imported jax")
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
     # -- 1. the card ------------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    card = smi.splitlines()[0].strip()
-    log(smi)
+    card = card_name()
     log(f"[1] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # -- 2. build ---------------------------------------------------------------
@@ -383,17 +498,7 @@ def main():
 
     log_sass_counts(_native.library_path())
 
-    lex = build_sietill_lexicon()
-    desc = CorpusDescription.read(str(FIX / "demo_corpus.json"), lex)
-    corpus = Corpus.read(desc, str(FIX / "demo_features") + "/", SignalAnalysisConfig(),
-                         normalization_path=str(FIX / "normalization-demo.bin"))
-    check(corpus.num_segments == 35, "demo corpus has 35 utterances")
-    tdp = TdpModel(silence_state=lex.silence_state, loop=3.0, forward=0.0, skip=30.0)
-    config = Configuration(SETTINGS)
-    iter2 = gmm.MixtureModel.from_raw(read_mixture_set(str(FIX / "iter-2.mix"), 25),
-                                      gmm.VarianceModel.MIXTURE_POOLING, max_approx=True)
-    bench = gmm.MixtureModel.from_raw(read_mixture_set(str(REPO / "bench" / "model.mix"), 25),
-                                      gmm.VarianceModel.NO_POOLING, max_approx=True)
+    lex, corpus, tdp, config, iter2, bench = demo_setup()
     pack_iter2 = iter2.pack(method="pallas", device=dev)
     pack_bench = bench.pack(method="pallas", device=dev)
 
@@ -556,19 +661,22 @@ def main():
             f"distinct best words over the 2 chunks: "
             f"{torch.unique(out_k[1]).numel()} (chunk 2)")
         check(b_equal, f"kernel B is not bit-equal to its plain version on {label} scores")
-    b_ms, b_plain_ms, b_all = in_turns(
+    b_ms, b_plain_ms, b_all, b_call = kernel_in_turns(
         lambda: dec.decode_scan_reference(ams[0], lens, *targs, 200.0, prune=True, t0=0),
-        lambda: dec.decode_scan(ams[0], lens, *targs, 200.0, prune=True, t0=0), 2, 10)
+        lambda: dec.decode_scan(ams[0], lens, *targs, 200.0, prune=True, t0=0), 2, 10,
+        "decode_scan", "decode_scan_df")
     W, P = tables.state_table.shape
     S_b = ams[0].shape[2]
     b_bound = scan_bound(FULL_BATCH, chunk, S_b, W, P, 4)
     b_res = _native.load().sr_decode_scan_residency(W, P, 0)
     b_inst = instance("sr_decode_scan_instance", W, P)
     log(f"[4] kernel B time at B={FULL_BATCH} T={chunk} ({b_inst}): kernel "
-        f"{b_ms:.4f} ms, plain {b_plain_ms:.4f} ms (plain, kernel, kernel, plain: "
-        f"{', '.join(f'{v:.4f}' for v in b_all)}); bound {b_bound[0]:.4f} ms "
+        f"{b_ms:.4f} ms (device time), plain {b_plain_ms:.4f} ms (plain, kernel, kernel, "
+        f"plain: {', '.join(f'{v:.4f}' for v in b_all)}); a call to the wrapper {b_call:.4f} "
+        f"ms (events); bound {b_bound[0]:.4f} ms "
         f"({b_bound[1]}); per frame {b_ms / chunk * 1e3:.3f} us; residency {b_res} blocks "
         f"per SM, {waves(FULL_BATCH, b_res)} wave(s) on {card}")
+    b_staircase(dec, _native, ams[0], lens, targs, W, P, card, f64=False)
     del ams, feats, carry_k, carry_p, out_k, out_p
     torch.cuda.empty_cache()
 
@@ -669,10 +777,7 @@ def main():
     # the FMA product of df.cuh against the plain version's Dekker product:
     # magnitudes 1e-6 .. 1e6 across the dimensions, and frames equal to a
     # density's mu.hi (diff = -mu.lo), on synthetic and real tables
-    spec = importlib.util.spec_from_file_location("torch_df_tables",
-                                                  REPO / "tests" / "torch_df_tables.py")
-    tables_mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(tables_mod)
+    tables_mod = shared_inputs()
     wide, x_wide = tables_mod.wide_magnitude_pack_df(106, 16, 25, seed=4, n=4133, device=dev)
     J_b = packdf_bench.mu.hi.shape[0]
     x_hit = packdf_bench.mu.hi[(torch.arange(4133, device=dev) * 7) % J_b].contiguous()
@@ -776,32 +881,43 @@ def main():
         f"FP32 issue limit {c_issue:.4f} ms at {C_ELEMENT_INSTR} instructions per element "
         f"({c_issue_dekker:.4f} ms at the Dekker product's {C_ELEMENT_INSTR_DEKKER}) on {card}")
     am0 = chunks_df[0]
-    d_ms, d_plain_ms, d_all = in_turns(
+    d_ms, d_plain_ms, d_all, d_call = kernel_in_turns(
         lambda: dec.decode_scan_df_reference(am0, lens, *largs, *df_tabs, 200.0, t0=0),
-        lambda: dec.decode_scan_df(am0, lens, *largs, *df_tabs, 200.0, t0=0), 1, 10)
+        lambda: dec.decode_scan_df(am0, lens, *largs, *df_tabs, 200.0, t0=0), 1, 10,
+        "decode_scan_df")
     d_bound = scan_bound(FULL_BATCH, chunk, S_b, W, P, 8, df=True)
     d_warps = _native.load().sr_decode_scan_df_threads(W, P) // 32
     d_issue = (FULL_BATCH * chunk * (W * P * D_SLOT_INSTR + d_warps * 32 * (
         D_LANE_INSTR + (d_warps - 1) * DF_CMP)) / FP32_ISSUE_S * 1e3)
     d_inst = instance("sr_decode_scan_df_instance", W, P)
     log(f"[9] kernel D time at B={FULL_BATCH} T={chunk} ({d_inst}): kernel "
-        f"{d_ms:.4f} ms, plain {d_plain_ms:.4f} ms (plain, kernel, kernel, plain: "
-        f"{', '.join(f'{v:.4f}' for v in d_all)}); bound {d_bound[0]:.4f} ms ({d_bound[1]}), "
+        f"{d_ms:.4f} ms (device time), plain {d_plain_ms:.4f} ms (plain, kernel, kernel, plain: "
+        f"{', '.join(f'{v:.4f}' for v in d_all)}); a call to the wrapper {d_call:.4f} ms "
+        f"(events); bound {d_bound[0]:.4f} ms ({d_bound[1]}), "
         f"FP32 issue limit {d_issue:.4f} ms at {D_SLOT_INSTR} instructions per slot and frame; "
         f"per frame {d_ms / chunk * 1e3:.3f} us on {card}")
-    d_staircase(dec, _native, am0, lens, largs, df_tabs, W, P, card)
+    staircase("[9]", "kernel D", _native.load().sr_decode_scan_df_residency(W, P),
+              lambda nb: device_ms(lambda: dec.decode_scan_df(
+                  dfm.DF(am0.hi[:nb].contiguous(), am0.lo[:nb].contiguous()),
+                  lens[:nb].contiguous(), *largs, *df_tabs, 200.0, t0=0), 5, "decode_scan_df"),
+              card)
     a64 = ams64[0]
-    b64_ms, b64_plain_ms, b64_all = in_turns(
+    b64_ms, b64_plain_ms, b64_all, b64_call = kernel_in_turns(
         lambda: dec.decode_scan_reference(a64, lens, *targs64, 200.0, t0=0),
-        lambda: dec.decode_scan(a64, lens, *targs64, 200.0, t0=0), 2, 10)
+        lambda: dec.decode_scan(a64, lens, *targs64, 200.0, t0=0), 2, 10,
+        "decode_scan", "decode_scan_df")
     b64_bound = scan_bound(FULL_BATCH, chunk, S_b, W, P, 8)
     b64_res = _native.load().sr_decode_scan_residency(W, P, 1)
     log(f"[9] f64 kernel B residency {b64_res} blocks per SM, {waves(FULL_BATCH, b64_res)} "
         f"wave(s) for {FULL_BATCH} utterances")
-    log(f"[9] f64 kernel B time at B={FULL_BATCH} T={chunk}: kernel {b64_ms:.4f} ms, plain "
-        f"{b64_plain_ms:.4f} ms (plain, kernel, kernel, plain: "
-        f"{', '.join(f'{v:.4f}' for v in b64_all)}); bound {b64_bound[0]:.4f} ms "
+    log(f"[9] f64 kernel B time at B={FULL_BATCH} T={chunk} "
+        f"({instance('sr_decode_scan_instance', W, P)}): kernel {b64_ms:.4f} ms (device time), "
+        f"plain {b64_plain_ms:.4f} ms (plain, kernel, kernel, plain: "
+        f"{', '.join(f'{v:.4f}' for v in b64_all)}); a call to the wrapper {b64_call:.4f} ms "
+        f"(events); bound {b64_bound[0]:.4f} ms "
         f"({b64_bound[1]}); per frame {b64_ms / chunk * 1e3:.3f} us on {card}")
+    b_staircase(dec, _native, a64, lens, targs64, W, P, card, f64=True)
+    b_sweep(dev, dec)
     del x, chunks_df, ams64, am0, a64, carry_k, carry_p, out_k, out_p, feats
     torch.cuda.empty_cache()
 
@@ -939,6 +1055,16 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
+def shared_inputs():
+    """tests/torch_df_tables.py, the inputs the card tests also use, loaded
+    by path (tests/ is not a package)."""
+    spec = importlib.util.spec_from_file_location("torch_df_tables",
+                                                  REPO / "tests" / "torch_df_tables.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def plain_kernels(stack, gmm, vit, em):
     """Route every kernel wrapper of the training path to its plain version
     (the trainer imports em_pass_sorted by name, so it is patched there)."""
@@ -1073,18 +1199,25 @@ def train_phases(dev, card, lex, corpus, big, bench, packdf_bench, c_plain_ms):
     p_states, p_fp = vit.align_backtrack_reference(*g_args)
     torch.cuda.synchronize()
     equal = torch.equal(k_states, p_states) and torch.equal(k_fp, p_fp)
-    ms, plain_ms, all_ = in_turns(lambda: vit.align_backtrack_reference(*g_args),
-                                  lambda: vit.align_backtrack(*g_args), 1, 10)
+    bare = g_bare(*g_args)
+    ms, plain_ms, all_, call = kernel_in_turns(lambda: vit.align_backtrack_reference(*g_args),
+                                               lambda: vit.align_backtrack(*g_args), 1, 10,
+                                               "align_backtrack_kernel", bare=bare)
+    bare_ms = cuda_ms(bare, 10)
     # the walk reads one jump byte per utterance and frame, each final row
     # and state-table row once, and writes the states and final positions
     T_g = g_args[-1]
     bnd = bound(TRAIN_BATCH * (T_al + 2 * A * 4 + 4 * T_g + 4 + 3 * 4))
-    log(f"[13] kernel G B={TRAIN_BATCH} Tp={T_al} A={A}: states and final positions "
-        f"bit-equal {equal}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (plain, kernel, "
-        f"kernel, plain: {', '.join(f'{v:.4f}' for v in all_)}); bound {bnd[0]:.4f} ms "
+    log(f"[13] kernel G B={TRAIN_BATCH} Tp={T_al} A={A} ({vit_tile(A)} frames a tile): states "
+        f"and final positions bit-equal {equal}; kernel {ms:.4f} ms (device time), plain "
+        f"{plain_ms:.4f} ms (plain, kernel, kernel, plain: "
+        f"{', '.join(f'{v:.4f}' for v in all_)}); a call to the wrapper {call:.4f} ms (events), "
+        f"a bare launch {bare_ms:.4f} ms (events around 10 back-to-back); bound {bnd[0]:.4f} ms "
         f"({bnd[1]}); per step of the walk {ms / T_al * 1e3:.3f} us on {card}")
     check(equal, "kernel G is not bit-equal to its plain version")
     res["align_backtrack"] = (0.0, ms, plain_ms, bnd)
+    g_floor(dev, card, T_al, ms)
+    g_cases(dev, card, vit)
     f_plain_ms, g_plain_ms = res["align_fwd_df"][2], plain_ms
     del feats, flat_chunks, am_df, ams_df, ams, k_prev, p_prev, k_j, p_j
     log(f"[13] phase seconds {time.perf_counter() - t_phase:.1f}")
@@ -1409,27 +1542,187 @@ def e_sweep(dev, card, vit):
         del inputs
 
 
-def d_staircase(dec, native, am, lens, largs, df_tabs, W, P, card):
-    """Kernel D's residency (blocks per SM, from the occupancy calculator),
-    the waves its launch takes, and its time at batch sizes that fill
-    whole multiples of the SMs: a staircase in time shows the waves."""
-    per_sm = native.load().sr_decode_scan_df_residency(W, P)
+def staircase(tag, name, per_sm, time_at, card):
+    """A scan's residency (blocks per SM, from the occupancy calculator), the
+    waves its launch takes, and its device time ``time_at(nb)`` at batch
+    sizes that fill whole multiples of the SMs: a staircase in time shows
+    the waves."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    steps = []
-    for nb in (132, 264, 528, 924, FULL_BATCH):
-        sub = type(am)(am.hi[:nb].contiguous(), am.lo[:nb].contiguous())
-        ms = cuda_ms(lambda: dec.decode_scan_df(sub, lens[:nb].contiguous(), *largs, *df_tabs,
-                                                200.0, t0=0), 5)
-        steps.append(f"B={nb} {ms:.4f} ms ({waves(nb, per_sm)} wave(s))")
-    log(f"[9] kernel D residency {per_sm} blocks (utterances) per SM on {sms} SMs: the "
+    steps = [f"B={nb} {time_at(nb):.4f} ms ({waves(nb, per_sm)} wave(s))"
+             for nb in (132, 264, 528, 924, FULL_BATCH)]
+    log(f"{tag} {name} residency {per_sm} blocks (utterances) per SM on {sms} SMs: the "
         f"{FULL_BATCH}-utterance chunk takes {waves(FULL_BATCH, per_sm)} wave(s); "
         f"times {'; '.join(steps)} on {card}")
 
 
-def kernel_device_ms(prof, name):
-    """Device milliseconds and launches of the kernels whose name holds ``name``."""
+def b_staircase(dec, native, am, lens, targs, W, P, card, f64):
+    """Kernel B's staircase (f32 in phase 4, f64 in phase 9)."""
+    staircase("[9]" if f64 else "[4]", f"kernel B {'f64' if f64 else 'f32'}",
+              native.load().sr_decode_scan_residency(W, P, int(f64)),
+              lambda nb: device_ms(lambda: dec.decode_scan(am[:nb].contiguous(), lens[:nb].contiguous(),
+                                                           *targs, 200.0, t0=0), 5,
+                                   "decode_scan", "decode_scan_df"), card)
+
+
+def lattice_tables(W, P):
+    """Decoder tables of a W x P lattice from a seeded lexicon with
+    repetition 1: silence (P states when it is the only word, else 1) and
+    W - 1 words, the first of P states. Returns the tables, the number of
+    states and the generator, to draw the scores from."""
+    from speechrecognition_torch.lexicon import Lexicon
+    from speechrecognition_torch.search import decoder as dec
+    from speechrecognition_torch.tdp import TdpModel
+    rng = np.random.default_rng(W * P)
+    lex = Lexicon()
+    lex.add_word("[silence]", P if W == 1 else 1, 1, silence=True)
+    for w in range(W - 1):
+        lex.add_word(f"w{w}", P if w == 0 else int(rng.integers(1, P + 1)), 1)
+    tdp = TdpModel(silence_state=lex.silence_state, loop=2.0, forward=0.5, skip=9.0)
+    tables = dec.DecoderTables.build(lex, tdp, 15.0)
+    check(tables.state_table.shape == (W, P), f"lattice {W}x{P}")
+    return tables, lex.num_states, rng
+
+
+#: the lattices of kernel B's shape sweep: the warp instance's edges (one
+#: word; P at, one past and far past a lane's 8 positions; SieTill; its
+#: widest lattice), and past them (W 33, P 33), which take the block instance
+B_SWEEP = ((1, 2), (4, 8), (4, 9), (12, 24), (32, 32), (33, 8), (4, 33))
+
+
+def b_sweep(dev, dec):
+    """Kernel B at every lattice of B_SWEEP, B 4, T 40, in both score types:
+    two chunks with carry bit-equal to its plain version, each utterance
+    ending at another frame (40, 23, 0, 39); once with an exit penalty."""
+    nb, T = LARGE_B, LARGE_T
+    lens = torch.as_tensor([T, 23, 0, T - 1], dtype=torch.int32, device=dev)
+    seen = []
+    for W, P in B_SWEEP:
+        tables, S, rng = lattice_tables(W, P)
+        am64 = rng.uniform(0.0, 40.0, size=(nb, T, S))
+        xp = torch.as_tensor(rng.uniform(0.0, 20.0, size=W), device=dev)
+        lex_t = tuple(torch.as_tensor(a, device=dev) for a in (
+            tables.state_table, tables.last_pos, tables.word_len, tables.first_state,
+            tables.tdp_within, tables.entry_pen))
+        for dt in (torch.float32, torch.float64):
+            am = torch.as_tensor(am64, dtype=dt, device=dev)
+            for exit_pen in (None, xp) if (W, P) == (4, 9) else (None,):
+                outs = []
+                for fn in (dec.decode_scan, dec.decode_scan_reference):
+                    carry, parts = None, []
+                    for t0, n in ((0, 15), (15, T - 15)):
+                        carry, out = fn(am[:, t0:t0 + n].contiguous(), lens, *lex_t, 60.0,
+                                        carry_in=carry, t0=t0, exit_pen=exit_pen)
+                        parts.append(out)
+                    outs.append([*carry] + [torch.cat([o[k] for o in parts]) for k in range(3)])
+                torch.cuda.synchronize()
+                equal = all(k.dtype == p.dtype and torch.equal(k, p) for k, p in zip(*outs))
+                check(equal, f"kernel B ({dt}) at {W}x{P} is not bit-equal to its plain version")
+        seen.append(f"{W}x{P} ({instance('sr_decode_scan_instance', W, P)})")
+    log(f"[9] kernel B sweep, B={nb} T={T}, float32 and float64, 2 chunks with carry "
+        f"(4x9 also with an exit penalty): bit-equal at {'; '.join(seen)}")
+
+
+def vit_tile(A):
+    """Frames a tile of kernel G's launch for A positions (0: rows walked
+    from device memory)."""
+    from speechrecognition_torch.ops import _native
+    return _native.load().sr_align_backtrack_tile(A)
+
+
+#: kernel G's yardstick, built by this script alone (the port does not carry
+#: it): one thread follows a chain of ``steps`` dependent shared-memory loads,
+#: each load's address the value the previous one read
+CHASE_SOURCE = r"""
+#include <cuda_runtime.h>
+
+__global__ void shared_chase_kernel(int steps, int* __restrict__ out) {
+  __shared__ int next[1024];
+  for (int i = threadIdx.x; i < 1024; i += blockDim.x) next[i] = (i * 97 + 13) & 1023;
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  int cur = 0;
+#pragma unroll 8
+  for (int s = 0; s < steps; ++s) cur = next[cur];
+  *out = cur;
+}
+
+extern "C" int shared_chase(int steps, int* out, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  shared_chase_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(steps, out);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def chase_library():
+    """CHASE_SOURCE built with the kernels' nvcc flags under build/chase/."""
+    from speechrecognition_torch.ops import _native
+    out_dir = REPO / "build" / "chase"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src, lib_path = out_dir / "shared_chase.cu", out_dir / "libshared_chase.so"
+    src.write_text(CHASE_SOURCE)
+    subprocess.run([_native._nvcc(), *_native.NVCC_FLAGS, "-shared", "-o", str(lib_path),
+                    str(src)], check=True, capture_output=True, timeout=300)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.shared_chase.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.shared_chase.restype = ctypes.c_int
+    return lib
+
+
+def g_floor(dev, card, Tp, g_ms):
+    """The floor of kernel G's serial walk: one dependent shared-memory load
+    per step (the chase of chase_library times a chain of them), beside G's
+    time."""
+    lib = chase_library()
+    out = torch.zeros(1, dtype=torch.int32, device=dev)
+    steps = 1 << 20
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def chase():
+        check(lib.shared_chase(steps, out.data_ptr(), dev.index, stream) == 0,
+              "the shared-memory chase launches")
+
+    ms = cuda_ms(chase, 3)
+    load_ns = ms * 1e6 / steps
+    log(f"[13] kernel G chain floor: one dependent shared-memory load takes {load_ns:.3f} ns "
+        f"(a chain of {steps} timed), so a walk of {Tp} steps takes at least "
+        f"{Tp * load_ns * 1e-6:.4f} ms; kernel G {g_ms:.4f} ms, {g_ms * 1e6 / Tp:.2f} ns a step, "
+        f"{g_ms * 1e6 / Tp / load_ns:.2f} loads' latency on {card}")
+
+
+def g_cases(dev, card, vit):
+    """Kernel G on tests/torch_df_tables.py's cases (Tp 1 to 2,000, A 1 to
+    1,025, walks below -A, all-BIG final rows, feat_len 0, 1 and Tp, T 0
+    to Tp) and at Tp 3,000, A 1,025, on 9 utterances (not a multiple of a
+    block's): states and final positions bit-equal to the plain version;
+    the largest timed."""
+    mod = shared_inputs()
+    cases = [*mod.BACKTRACK_CASES, (3000, 1025, "dp", True, "Tp"),
+             (3000, 1025, "random", False, "Tp-7")]
+    for Tp, A, jumps, tie, which in cases:
+        final_hi, aut_len, jmp, lens, tbl = (torch.as_tensor(a, device=dev) for a in
+                                             mod.backtrack_inputs(Tp, A, jumps, seed=Tp + A, B=9))
+        args = (final_hi, aut_len, jmp, lens, tbl, mod.backtrack_frames(Tp, which))
+        got = vit.align_backtrack(*args, tie_pruned=tie)
+        want = vit.align_backtrack_reference(*args, tie_pruned=tie)
+        torch.cuda.synchronize()
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"kernel G differs from its plain version at Tp={Tp} A={A} {jumps} "
+              f"tie_pruned={tie} T={which}")
+    ms = device_ms(lambda: vit.align_backtrack(*args, tie_pruned=tie), 10,
+                   "align_backtrack_kernel", bare=g_bare(*args, tie_pruned=tie))
+    log(f"[13] kernel G on {len(cases)} edge cases (B 9; Tp 1 to 3,000, A 1 to 1,025, walks "
+        f"below -A, all-BIG final rows, feat_len 0, 1 and Tp, T 0 to Tp): bit-equal; at "
+        f"Tp={Tp} A={A} {ms:.4f} ms, {ms * 1e6 / Tp:.2f} ns a step on {card}")
+
+
+def kernel_device_ms(prof, name, exclude=None):
+    """Device milliseconds and launches of the kernels whose name holds
+    ``name`` (and not ``exclude``)."""
     events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key]
+              if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key
+              and (exclude is None or exclude not in e.key)]
     us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
              for e in events)
     return us / 1e3, sum(e.count for e in events)
@@ -1450,10 +1743,8 @@ def large_instances(dev, card, main_scratch):
     Each entry's launches are ``main_scratch``'s: the wrapper's
     SCRATCH_LAUNCHES over the main paths' runs."""
     from speechrecognition_torch.align import viterbi as vit
-    from speechrecognition_torch.lexicon import Lexicon
     from speechrecognition_torch.ops import doublefloat as dfm
     from speechrecognition_torch.search import decoder as dec
-    from speechrecognition_torch.tdp import TdpModel
 
     entries = []
     nb, T = LARGE_B, LARGE_T
@@ -1479,14 +1770,7 @@ def large_instances(dev, card, main_scratch):
         return err
 
     for W, P in LARGE_LATTICES:
-        rng = np.random.default_rng(W * P)
-        lex = Lexicon()
-        lex.add_word("[silence]", 1, 1, silence=True)
-        for w in range(W - 1):
-            lex.add_word(f"w{w}", P if w == 0 else int(rng.integers(1, P + 1)), 1)
-        tdp = TdpModel(silence_state=lex.silence_state, loop=2.0, forward=0.5, skip=9.0)
-        tables = dec.DecoderTables.build(lex, tdp, 15.0)
-        S = lex.num_states
+        tables, S, rng = lattice_tables(W, P)
         am64 = rng.uniform(0.0, 40.0, size=(nb, T, S))
         lex_t = tuple(torch.as_tensor(a, device=dev) for a in (
             tables.state_table, tables.last_pos, tables.word_len, tables.first_state))
@@ -1506,13 +1790,15 @@ def large_instances(dev, card, main_scratch):
             name = "decode_scan" if dt == torch.float32 else "decode_scan[f64]"
             err = compare(f"{name} at {W}x{P}", *outs)
             a0 = am[:, :T].contiguous()
-            ms, plain_ms, all_ = in_turns(
+            ms, plain_ms, all_, _call = kernel_in_turns(
                 lambda: dec.decode_scan_reference(a0, lens, *targs, 60.0),
-                lambda: dec.decode_scan(a0, lens, *targs, 60.0), 1, 5)
+                lambda: dec.decode_scan(a0, lens, *targs, 60.0), 1, 5, "decode_scan",
+                "decode_scan_df")
             bnd = scan_bound(nb, T, S, W, P, word)
             log(f"[18] kernel B {dt} W*P={W}x{P}={W * P} B={nb} T={T} "
                 f"({instance('sr_decode_scan_instance', W, P)}): "
-                f"bit-equal over 2 chunks with carry; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                f"bit-equal over 2 chunks with carry; kernel {ms:.4f} ms (device time), plain "
+                f"{plain_ms:.4f} "
                 f"ms (plain, kernel, kernel, plain: {', '.join(f'{v:.4f}' for v in all_)}); "
                 f"bound {bnd[0]:.4f} ms ({bnd[1]}); per frame {ms / T * 1e3:.3f} us on {card}")
             entries.append(entry(f"{name}[W*P={W * P}]", "decode_scan.cu",
@@ -1533,13 +1819,14 @@ def large_instances(dev, card, main_scratch):
 
         outs = both(dec.decode_scan_df, dec.decode_scan_df_reference, run_d)
         err = compare(f"decode_scan_df at {W}x{P}", *outs)
-        ms, plain_ms, all_ = in_turns(
+        ms, plain_ms, all_, _call = kernel_in_turns(
             lambda: dec.decode_scan_df_reference(am, lens, *dargs, 60.0),
-            lambda: dec.decode_scan_df(am, lens, *dargs, 60.0), 1, 5)
+            lambda: dec.decode_scan_df(am, lens, *dargs, 60.0), 1, 5, "decode_scan_df")
         bnd = scan_bound(nb, T, S, W, P, 8, df=True)
         log(f"[18] kernel D W*P={W}x{P}={W * P} B={nb} T={T} "
             f"({instance('sr_decode_scan_df_instance', W, P)}): bit-equal "
-            f"over 2 chunks with carry; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (plain, "
+            f"over 2 chunks with carry; kernel {ms:.4f} ms (device time), plain {plain_ms:.4f} "
+            f"ms (plain, "
             f"kernel, kernel, plain: {', '.join(f'{v:.4f}' for v in all_)}); bound "
             f"{bnd[0]:.4f} ms ({bnd[1]}); per frame {ms / T * 1e3:.3f} us on {card}")
         entries.append(entry(f"decode_scan_df[W*P={W * P}]", "decode_scan_df.cu",

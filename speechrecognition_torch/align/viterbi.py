@@ -372,7 +372,9 @@ def align_backtrack(final_hi: torch.Tensor, aut_len: torch.Tensor, jumps: torch.
     position int32 [B]).
 
     CPU tensors take the plain version; CUDA tensors launch kernel G
-    (counted in ``align_backtrack.LAUNCHES``)."""
+    (counted in ``align_backtrack.LAUNCHES``), one warp an utterance walking
+    its jump rows out of shared memory a tile at a time, for any A
+    (``sr_align_backtrack_tile`` gives the frames a tile)."""
     device = jumps.device
     if device.type == "cpu":
         return align_backtrack_reference(final_hi, aut_len, jumps, feat_len, states_tbl, T,
@@ -381,6 +383,8 @@ def align_backtrack(final_hi: torch.Tensor, aut_len: torch.Tensor, jumps: torch.
         raise ValueError(f"align_backtrack: unsupported device {device}")
     if jumps.dim() != 3 or jumps.dtype != torch.int8 or not jumps.is_contiguous():
         raise ValueError("align_backtrack: jumps must be a contiguous int8 [Tp, B, A] tensor")
+    if jumps.data_ptr() % 16:
+        jumps = jumps.clone()   # the kernel copies whole 16-byte chunks of the rows
     Tp, B, A = jumps.shape
     if not 0 <= T <= Tp:
         raise ValueError(f"align_backtrack: T={T} outside [0, {Tp}]")

@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .models.gmm import MixtureModel, ScorePack, ScorePackDF, VarianceModel
+from .models.gmm import MixtureModel, ScorePack, ScorePackDF, VarianceModel, pack_device
 from .ops import doublefloat as dfm
 
 _MODEL_ARRAYS = ("means", "mean_acc", "mean_weights", "mean_weights_log",
@@ -40,8 +40,10 @@ def _tensor(x, device, dtype=None):
                                                   device=device)
 
 
-def score_pack_from_jax(pack, device="cpu") -> ScorePack:
-    """A port ScorePack on ``device`` holding the JAX ScorePack's tables."""
+def score_pack_from_jax(pack, device="cuda") -> ScorePack:
+    """A port ScorePack on ``device`` (the card unless the caller asks for
+    the CPU) holding the JAX ScorePack's tables."""
+    device = pack_device(device)
     dtype = getattr(torch, np.dtype(pack.dtype).name)
     return ScorePack(P=_tensor(pack.P, device, dtype),
                      active=_tensor(pack.active, device, torch.bool),
@@ -52,9 +54,10 @@ def score_pack_from_jax(pack, device="cpu") -> ScorePack:
                      a=_tensor(pack.a, device), c=_tensor(pack.c, device))
 
 
-def score_pack_df_from_jax(packdf, device="cpu") -> ScorePackDF:
-    """A port ScorePackDF on ``device`` holding the hi and lo words of the
-    JAX ScorePackDF's tables."""
+def score_pack_df_from_jax(packdf, device="cuda") -> ScorePackDF:
+    """A port ScorePackDF on ``device`` (the card unless the caller asks for
+    the CPU) holding the hi and lo words of the JAX ScorePackDF's tables."""
+    device = pack_device(device)
     def pair(x):
         return dfm.DF(_tensor(x.hi, device, torch.float32), _tensor(x.lo, device, torch.float32))
 

@@ -67,7 +67,11 @@
 
 #include <cuda_runtime.h>
 
+#include "keys.cuh"
+
 namespace {
+
+using keys::warp_minimum;
 
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int MAX_WARPS = 8;          // warps a block of the warp instance holds
@@ -126,42 +130,6 @@ __device__ __forceinline__ T step_carry(T cost, T row_best, T am, T h, T thr, in
   if (use_pruning && cost > thr) cost = big<T>();
   if (t == 0) cost = (a == 0 && valid) ? am : big<T>();
   return t < len ? cost : h;
-}
-
-// unsigned keys whose order is the float order (-0 taken as +0, as the
-// float compare takes it), and back; a row minimum of -0 comes back as +0,
-// which no score of the DP produces (its inputs carry no -0)
-__device__ __forceinline__ unsigned order_key(float f) {
-  const unsigned u = __float_as_uint(__fadd_rn(f, 0.f));
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float key_value(unsigned k) {
-  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
-}
-
-__device__ __forceinline__ unsigned long long order_key(double d) {
-  const unsigned long long u = (unsigned long long)__double_as_longlong(__dadd_rn(d, 0.0));
-  return (u >> 63) ? ~u : (u | (1ull << 63));
-}
-
-__device__ __forceinline__ double key_value(unsigned long long k) {
-  return __longlong_as_double((long long)((k >> 63) ? (k & ~(1ull << 63)) : ~k));
-}
-
-// the exact minimum over the warp: one redux.sync for float; for double the
-// high halves of the keys, then the low halves of the lanes that hold the
-// smallest high half
-__device__ __forceinline__ float warp_minimum(float m) {
-  return key_value(__reduce_min_sync(FULL, order_key(m)));
-}
-
-__device__ __forceinline__ double warp_minimum(double m) {
-  const unsigned long long k = order_key(m);
-  const unsigned hi = (unsigned)(k >> 32);
-  const unsigned key_hi = __reduce_min_sync(FULL, hi);
-  const unsigned key_lo = __reduce_min_sync(FULL, hi == key_hi ? (unsigned)k : FULL);
-  return key_value(((unsigned long long)key_hi << 32) | key_lo);
 }
 
 // a byte store under a predicate, without a branch around it (a branch

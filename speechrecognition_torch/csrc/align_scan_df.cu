@@ -57,8 +57,12 @@
 #include <cuda_runtime.h>
 
 #include "df.cuh"
+#include "keys.cuh"
 
 namespace {
+
+using keys::key_value;
+using keys::order_key;
 
 constexpr float BIG = 1e30f;
 constexpr float HALF_BIG = BIG * 0.5f;  // exact in float32
@@ -106,18 +110,6 @@ __device__ __forceinline__ df::DF step_carry(df::DF cost, df::DF row_best, df::D
   if (use_pruning && !df::less_equal(cost, thr)) cost = big();
   if (t == 0) cost = (a == 0 && valid) ? am : big();
   return t < len ? cost : h;
-}
-
-// an unsigned key whose order is the float order (-0 taken as +0, as the
-// float compare takes it), and back; a row minimum of -0 comes back as +0,
-// which no score of the DP produces (its inputs carry no -0)
-__device__ __forceinline__ unsigned order_key(float f) {
-  const unsigned u = __float_as_uint(__fadd_rn(f, 0.f));
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float key_value(unsigned k) {
-  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
 }
 
 // a byte store under a predicate, without a branch around it (a branch

@@ -75,10 +75,12 @@
 #include <cuda_runtime.h>
 
 #include "df.cuh"
+#include "keys.cuh"
 
 namespace {
 
 using df::DF;
+using keys::order_key;
 
 constexpr float BIG = 1e30f;
 constexpr float HALF_BIG = BIG * 0.5f;  // exact in float32
@@ -92,14 +94,6 @@ constexpr int SHARED_SLOTS = 1024;   // the largest lattice the block instance k
 constexpr int BLOCK_THREADS = 1024;  // threads per utterance of the block instance, at most
 
 __device__ __forceinline__ DF big() { return df::make(BIG, 0.f); }
-
-// an unsigned key whose order is the float order (-0 taken as +0, as the
-// float compare takes it)
-__device__ __forceinline__ unsigned order_key(float f) {
-  const unsigned u = __float_as_uint(__fadd_rn(f, 0.f));
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
 
 // the exact lexicographic (hi, lo) minimum over the warp (a butterfly of
 // shuffles: on the card it was a little faster here than two redux.sync on

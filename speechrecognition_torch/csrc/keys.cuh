@@ -1,0 +1,51 @@
+// Order-preserving unsigned keys of float and double, and the exact warp
+// minimum by redux.sync on them (kernels B, D, E and F).
+//
+// A key's unsigned order is the value's order, with -0 taken as +0 as the
+// float compare takes it: the key is formed from f + 0, which turns -0 into
+// +0 and changes nothing else. key_value maps a key back, so a minimum of -0
+// comes back as +0, which no score of the scans produces (their inputs carry
+// no -0). redux.sync takes 32-bit operands only, so the double minimum takes
+// two: the high halves of the keys, then the low halves of the lanes that
+// hold the smallest high half.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace keys {
+
+constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ unsigned order_key(float f) {
+  const unsigned u = __float_as_uint(__fadd_rn(f, 0.f));
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float key_value(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+__device__ __forceinline__ unsigned long long order_key(double d) {
+  const unsigned long long u = (unsigned long long)__double_as_longlong(__dadd_rn(d, 0.0));
+  return (u >> 63) ? ~u : (u | (1ull << 63));
+}
+
+__device__ __forceinline__ double key_value(unsigned long long k) {
+  return __longlong_as_double((long long)((k >> 63) ? (k & ~(1ull << 63)) : ~k));
+}
+
+// the exact minimum over the full warp
+__device__ __forceinline__ float warp_minimum(float m) {
+  return key_value(__reduce_min_sync(FULL, order_key(m)));
+}
+
+__device__ __forceinline__ double warp_minimum(double m) {
+  const unsigned long long k = order_key(m);
+  const unsigned hi = (unsigned)(k >> 32);
+  const unsigned key_hi = __reduce_min_sync(FULL, hi);
+  const unsigned key_lo = __reduce_min_sync(FULL, hi == key_hi ? (unsigned)k : FULL);
+  return key_value(((unsigned long long)key_hi << 32) | key_lo);
+}
+
+}  // namespace keys

@@ -119,6 +119,17 @@ class ScorePackDF:
         return self.mu.hi.device
 
 
+def pack_device(device) -> torch.device:
+    """The device a scoring pack is built on. The packs default to "cuda";
+    a CUDA device that is not there raises, and nothing falls back to the
+    CPU: CPU use passes ``device="cpu"``."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"scoring pack on {device}, but no CUDA device is "
+                           f"available; pass device=\"cpu\" to build it on the CPU")
+    return device
+
+
 class MixtureModel:
     """Host-side GMM state (flat f64 arrays, reference-identical indices)."""
 
@@ -421,11 +432,13 @@ class MixtureModel:
 
     def pack(self, dtype: torch.dtype = torch.float32,
              density_cap: Optional[int] = None, method: str = "mxu",
-             device="cpu") -> ScorePack:
-        """Scoring tables on ``device``. ``method="pallas"`` also uploads the
+             device="cuda") -> ScorePack:
+        """Scoring tables on ``device`` (the card unless the caller asks for
+        the CPU: see ``pack_device``). ``method="pallas"`` also uploads the
         f32 centered-form tables (mu, a, c) that kernel A reads."""
         if method not in ("mxu", "pallas"):
             raise ValueError(f"unknown scoring method: {method}")
+        device = pack_device(device)
         S = self.num_mixtures
         D = density_cap or self.max_densities_per_mixture
         dim = self.dim
@@ -468,10 +481,12 @@ class MixtureModel:
                          method=method, mu=mu, a=a, c=c)
 
     def pack_df(self, density_cap: Optional[int] = None,
-                device="cpu") -> ScorePackDF:
-        """Double-float scoring pack on ``device``: exact f32-pair splits of
-        the host float64 tables (see am_scores_df). ``density_cap`` pads the
-        density slots to a fixed capacity."""
+                device="cuda") -> ScorePackDF:
+        """Double-float scoring pack on ``device`` (the card unless the
+        caller asks for the CPU: see ``pack_device``): exact f32-pair splits
+        of the host float64 tables (see am_scores_df). ``density_cap`` pads
+        the density slots to a fixed capacity."""
+        device = pack_device(device)
         S = self.num_mixtures
         D = density_cap or self.max_densities_per_mixture
         dim = self.dim

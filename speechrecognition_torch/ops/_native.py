@@ -51,7 +51,9 @@ SIGNATURES = {
     "sr_decode_scan": ((_P,) * 18 + (_I, _I, _I, _I, _I, _I, _F, _I, _I, _P), _I),
     # the same, in float64 (score arrays and am_threshold)
     "sr_decode_scan_f64": ((_P,) * 18 + (_I, _I, _I, _I, _I, _I, _D, _I, _I, _P), _I),
-    # W, P → kernel B's instance (0: block, -1: scratch)
+    # W, P → kernel B's instance (1-4: positions a lane of the warp
+    # instance; 0: block instance, its lattice in shared memory; -1: in
+    # device scratch)
     "sr_decode_scan_instance": ((_I, _I), _I),
     # W, P, f64 → blocks per SM of kernel B's launch (-1: error)
     "sr_decode_scan_residency": ((_I, _I, _I), _I),
@@ -92,6 +94,9 @@ SIGNATURES = {
     # final_hi, aut_len, jumps, feat_len, states_tbl, states, final_pos, B, A,
     # Tp, T, tie_pruned, device, stream
     "sr_align_backtrack": ((_P,) * 7 + (_I, _I, _I, _I, _I, _I, _P), _I),
+    # A → frames a tile of kernel G's launch (0: rows walked from device
+    # memory)
+    "sr_align_backtrack_tile": ((_I,), _I),
     # frames, mask, block_state, mu_hi, mu_lo, iv_hi, iv_lo, norm_hi, norm_lo,
     # logw_hi, logw_lo, scratch, total, w, xs, x2s, NB, R, S, D, dim,
     # first_pass, device, stream

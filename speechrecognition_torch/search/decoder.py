@@ -229,9 +229,11 @@ def decode_scan(am: torch.Tensor, feat_len: torch.Tensor,
     CPU tensors take the plain version; CUDA tensors launch kernel B
     (float32 or float64; counted in ``decode_scan.LAUNCHES``), whose C entry
     chooses its instance from the lattice's shape alone
-    (``sr_decode_scan_instance``): any [W, P] is taken, as the reference
-    takes it. Launches whose lattice lives in device scratch (W*P > 1024)
-    are also counted in ``SCRATCH_LAUNCHES``."""
+    (``sr_decode_scan_instance``: the warp instance for W, P <= 32, else
+    the block instance): any [W, P] with P >= 2 is taken, as the reference
+    takes it (it builds a [B, W, P - 2] tail). Launches whose lattice lives
+    in device scratch (W*P > 1024) are also counted in
+    ``SCRATCH_LAUNCHES``."""
     if am.device.type == "cpu":
         return decode_scan_reference(am, feat_len, state_table, last_pos,
                                      word_len, first_state, tdp_within,
@@ -247,6 +249,8 @@ def decode_scan(am: torch.Tensor, feat_len: torch.Tensor,
         raise ValueError("decode_scan: am must be a contiguous [B, T, S] tensor")
     B, T, S = am.shape
     W, P = state_table.shape
+    if P < 2:
+        raise ValueError(f"decode_scan: a lattice of {P} position(s); the scan needs 2 or more")
     device = am.device
     tables = {"feat_len": feat_len, "state_table": state_table,
               "last_pos": last_pos, "word_len": word_len,
@@ -295,8 +299,8 @@ def decode_scan(am: torch.Tensor, feat_len: torch.Tensor,
     wbkp = torch.empty((T, B), dtype=torch.int32, device=device)
     thr = float(torch.tensor(float(am_threshold), dtype=dtype))
     lib = _native.load()
-    # the scratch instance (W*P > 1024) keeps the lattice in device memory:
-    # two buffers of scores, then two of int32 backpointers
+    # the block instance past 1,024 slots keeps the lattice in device
+    # memory: two buffers of scores, then two of int32 backpointers
     scratch = (torch.empty(2 * B * W * P * (hyp.element_size() + 4), dtype=torch.uint8,
                            device=device)
                if lib.sr_decode_scan_instance(W, P) < 0 else None)
@@ -691,8 +695,10 @@ class Recognizer:
     (reference: Recognizer.cpp:38-92). Runs on the pack's device.
 
     ``dtype`` is torch.float32 or torch.float64 with a ScorePack
-    (``model.pack(dtype=..., device=...)``), or ``"df32"`` with a
-    ScorePackDF (``model.pack_df(device=...)``), the production path."""
+    (``model.pack(dtype=...)``), or ``"df32"`` with a ScorePackDF
+    (``model.pack_df()``), the production path. The packs are built on the
+    card unless the caller asks for the CPU, as in
+    ``Recognizer(cfg, lex, tdp, model.pack_df(device="cpu"), dtype="df32")``."""
 
     def __init__(self, config: Configuration, lexicon: Lexicon,
                  tdp: TdpModel, pack,

@@ -16,9 +16,11 @@ on the df32 path), or the chunked sum-mode passes (max-approx=false), and
 the chunked forced alignment (align/viterbi.py; kernels C, E/F and G).
 Bookkeeping stays on the host in float64.
 
-``dtype`` is torch.float32 or torch.float64 (``model.pack(dtype=...)``, the
-[x², x, 1] · P scores) or "df32" (``model.pack_df()``, double-float scores
-and DP: the reference's float64 decisions with float32 arithmetic). Packs
+``dtype`` is torch.float32 or torch.float64 (``model.pack(dtype=...,
+device=...)``, the [x², x, 1] · P scores) or "df32" (``model.pack_df(
+device=...)``, double-float scores and DP: the reference's float64 decisions
+with float32 arithmetic); the trainer builds them on its ``device``, which
+the caller names (``device="cpu"`` for the CPU). Packs
 hold each mixture's own densities: the reference package padded them, and
 every realignment batch, to fixed shapes so that its device programs
 compiled once; inactive slots and duplicated rows change no output, and the

@@ -227,11 +227,11 @@ COST_RTOL = {"f32": 1e-4, "f64": 0.0, "df32": 1e-12}
 def test_align_batch_equals_jax(demo_batch, kind, fn, thr):
     feats, lens, tables, jtables, jm, tm = demo_batch
     if kind == "df32":
-        pack, jpack, dt, jdt = tm.pack_df(), jm.pack_df(), "df32", "df32"
+        pack, jpack, dt, jdt = tm.pack_df(device="cpu"), jm.pack_df(), "df32", "df32"
     else:
         dt = torch.float32 if kind == "f32" else torch.float64
         jdt = jnp.float32 if kind == "f32" else jnp.float64
-        pack, jpack = tm.pack(dtype=dt), jm.pack(dtype=jdt)
+        pack, jpack = tm.pack(dtype=dt, device="cpu"), jm.pack(dtype=jdt)
     tie = thr is not None
     states, costs = getattr(tvit, fn)(pack, feats, lens, tables, thr, tie_pruned=tie,
                                       dtype=dt)
@@ -250,7 +250,7 @@ def test_realign_batch_equals_align_batch(demo_batch):
     offs = np.concatenate([[0], np.cumsum(lens)[:-1]])
     idx = offs[:, None] + np.arange(T)[None, :]
     idx = np.where(np.arange(T)[None, :] < lens[:, None], idx, 0)
-    pack = tm.pack_df()
+    pack = tm.pack_df(device="cpu")
     got = tvit.realign_batch(pack, flat, idx, lens, tables, 120.0, dtype="df32")
     want, _ = tvit.align_batch_chunked(pack, feats, lens, tables, 120.0, dtype="df32")
     np.testing.assert_array_equal(got.numpy(), want)
@@ -264,7 +264,7 @@ def test_padding_rows_change_nothing(demo_batch):
     pfeats = np.concatenate([feats, feats[pad]])
     plens = np.concatenate([lens, lens[pad]])
     ptables = tables.rows(list(range(len(lens))) + pad)
-    pack = tm.pack(dtype=torch.float64)
+    pack = tm.pack(dtype=torch.float64, device="cpu")
     got, _ = tvit.align_batch_chunked(pack, pfeats, plens, ptables, 120.0,
                                       dtype=torch.float64)
     want, _ = tvit.align_batch_chunked(pack, feats, lens, tables, 120.0, dtype=torch.float64)

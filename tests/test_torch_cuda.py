@@ -11,11 +11,14 @@ active slots (FMA contraction and operation order), at dims up to 128, and
 its fused entry bit-equal to the capped minimum of the unfused one; kernel B (float32 and
 float64), kernel C (double-float scores, also on tables whose magnitudes
 span 1e-6 .. 1e6) and kernel D (double-float scan) bit-equal, hi and lo,
-the scans B and D on lattices of every instance up to 24,000 slots; the trainer's kernels E (alignment DP, float32 and
+the scans B and D on lattices of every instance up to 24,000 slots (B's
+warp instance from 1 x 2 to 32 x 32); the trainer's kernels E (alignment
+DP, float32 and
 float64, every instance: warp, and block with its row in shared memory or
 past A = 1,024 in device scratch), F (its
 double-float twin, every instance, every lane boundary up to A = 3,000)
-and G (backtrack) bit-equal, kernel H
+and G (backtrack: tests/torch_df_tables.py's cases, Tp up to 3,000, A up
+to 120,000, jumps off a 16-byte boundary) bit-equal, kernel H
 (double-float E-step) with w bit-equal, its float64 sums within 1e-12
 relative and two launches bit-identical; the golden demo trainer in df32
 and f64 on the card.
@@ -38,7 +41,8 @@ from speechrecognition_torch.ops import doublefloat as dfm
 from speechrecognition_torch.ops import mahalanobis as maha
 from speechrecognition_torch.search import decoder as dec
 from speechrecognition_torch.tdp import TdpModel
-from torch_df_tables import wide_magnitude_pack_df
+from torch_df_tables import (BACKTRACK_CASES, backtrack_frames, backtrack_inputs,
+                             wide_magnitude_pack_df)
 
 pytestmark = pytest.mark.cuda
 
@@ -197,7 +201,8 @@ def test_kernel_b_bit_equal(dev, case):
     chunks = (25, 35) if case == "two-chunks" else (T,)
     thr = 4.0 if case == "ties" else 60.0
     from speechrecognition_torch.ops import _native
-    assert _native.load().sr_decode_scan_instance(*tables.state_table.shape) == 0
+    W, P = tables.state_table.shape
+    assert _native.load().sr_decode_scan_instance(W, P) == D_INSTANCES[W, P] > 0
     before = dec.decode_scan.LAUNCHES
     kern, plain = scan_both(dev, tables, am, lens, thr, case != "unpruned", chunks, exit_pen)
     assert dec.decode_scan.LAUNCHES == before + len(chunks)
@@ -333,16 +338,19 @@ def test_kernel_d_bit_equal(dev, case):
         assert k.dtype == p.dtype and torch.equal(k, p), name
 
 
-def random_lexicon_tables(W, P, seed):
-    """Silence plus W - 1 words of 1..P states (the first of P) with
-    repetition 1: a W x P lattice."""
+def random_lexicon_tables(W, P, seed, flat=False):
+    """Silence (P states when it is the only word, else 1) plus W - 1 words
+    of 1..P states (the first of P) with repetition 1: a W x P lattice.
+    ``flat`` zeroes every TDP and the word penalty, so that integer
+    acoustic scores tie across words and jumps."""
     rng = np.random.default_rng(seed)
     lex = Lexicon()
-    lex.add_word("[silence]", 1, 1, silence=True)
+    lex.add_word("[silence]", P if W == 1 else 1, 1, silence=True)
     for w in range(W - 1):
         lex.add_word(f"w{w}", P if w == 0 else int(rng.integers(1, P + 1)), 1)
-    tdp = TdpModel(silence_state=lex.silence_state, loop=2.0, forward=0.5, skip=9.0)
-    tables = dec.DecoderTables.build(lex, tdp, 15.0)
+    pen = (0.0, 0.0, 0.0, 0.0) if flat else (2.0, 0.5, 9.0, 15.0)
+    tdp = TdpModel(silence_state=lex.silence_state, loop=pen[0], forward=pen[1], skip=pen[2])
+    tables = dec.DecoderTables.build(lex, tdp, pen[3])
     assert tables.state_table.shape == (W, P)
     return tables, lex.num_states
 
@@ -393,6 +401,62 @@ def test_kernel_b_past_1024_slots(dev, W, P, dtype):
         for name, k, p in zip(("hyp", "bkp", "book", "score", "word", "bkp_t"), kern, plain):
             assert k.dtype == p.dtype and torch.equal(k, p), name
         assert torch.unique(kern[4]).numel() > 1
+
+
+#: kernel B's instance at each lattice of its sweep (kernel D's rule):
+#: positions a lane of the warp instance, 0 for the block instance with its
+#: lattice in shared memory
+B_INSTANCES = {(1, 2): 1, (4, 8): 1, (4, 9): 2, (12, 24): 3, (32, 32): 4, (33, 8): 0,
+               (4, 33): 0}
+
+
+@pytest.mark.parametrize("W,P", list(B_INSTANCES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["pruned", "unpruned", "ties", "exit-pen"])
+def test_kernel_b_every_instance(dev, W, P, dtype, case):
+    """The warp instance at its edges (one word; P at, one past and far past
+    a lane's 8 positions; its widest lattice) and the block instance past it,
+    on repetition-1 lexica (the entered position's emission): B 4, T 40 over
+    two chunks (the second at t0 = 15), utterances of 0 frames and ending
+    mid-chunk; ties on integer scores with zero TDPs, an exit penalty, no
+    pruning."""
+    from speechrecognition_torch.ops import _native
+    assert _native.load().sr_decode_scan_instance(W, P) == B_INSTANCES[W, P]
+    tables, S = random_lexicon_tables(W, P, seed=W * 7 + P, flat=case == "ties")
+    rng = np.random.default_rng(W + P + len(case))
+    B, T = 4, 40
+    lens = np.array([40, 23, 0, 39], np.int32)
+    am = (rng.integers(0, 3, size=(B, T, S)).astype(np.float64) if case == "ties"
+          else rng.uniform(0.0, 40.0, size=(B, T, S)))
+    exit_pen = rng.uniform(0.0, 20.0, size=W) if case == "exit-pen" else None
+    thr = 4.0 if case == "ties" else 60.0
+    before = dec.decode_scan.LAUNCHES
+    kern, plain = scan_both(dev, tables, am, lens, thr, case != "unpruned", (15, 25), exit_pen,
+                            dtype)
+    assert dec.decode_scan.LAUNCHES == before + 2
+    for name, k, p in zip(("hyp", "bkp", "book", "score", "word", "bkp_t"), kern, plain):
+        assert k.dtype == p.dtype and torch.equal(k, p), name
+
+
+def test_kernel_b_queries(dev):
+    """The instance query (warp instance up to 32 x 32, then the block
+    instance, its lattice in scratch past 1,024 slots) and the residency
+    query: 8 SieTill utterances an SM in both types, so 1,024 take one wave
+    on 132 SMs."""
+    from speechrecognition_torch.ops import _native
+    lib = _native.load()
+    for (W, P), k in {**B_INSTANCES, (31, 33): 0, (44, 24): -1, (1000, 24): -1}.items():
+        assert lib.sr_decode_scan_instance(W, P) == k, (W, P)
+    for f64 in (0, 1):
+        assert lib.sr_decode_scan_residency(12, 24, f64) >= 8
+        assert lib.sr_decode_scan_residency(44, 24, f64) >= 1
+    tables, S = random_lexicon_tables(1, 1, seed=0)     # one position: no scan takes it
+    targs = [torch.as_tensor(a, device=dev) for a in (
+        tables.state_table, tables.last_pos, tables.word_len, tables.first_state,
+        tables.tdp_within, tables.entry_pen)]
+    with pytest.raises(ValueError, match="2 or more"):
+        dec.decode_scan(torch.zeros((2, 5, S), device=dev), torch.full((2,), 5, device=dev),
+                        *targs, 60.0)
 
 
 @pytest.mark.parametrize("kind", ["pallas", "df32", "f64"])
@@ -475,6 +539,52 @@ def test_kernels_e_and_g_bit_equal(dev, case, dtype):
     torch.cuda.synchronize()
     for name, k, p in zip(("carry", "jumps", "states", "final_pos"), *results):
         assert k.dtype == p.dtype and torch.equal(k, p), name
+
+
+@pytest.mark.parametrize("Tp,A,jumps,tie_pruned,T", BACKTRACK_CASES + [
+    (3000, 1025, "dp", True, "Tp"), (3000, 1025, "random", False, "Tp-7")])
+def test_kernel_g_every_case(dev, Tp, A, jumps, tie_pruned, T):
+    """tests/test_torch_backtrack_shapes.py's cases (walks below -A, all-BIG
+    final rows, feat_len 0, 1 and Tp, T 0 to Tp, A 1 to 1,025, Tp 1 to
+    2,000) and Tp 3,000, on 9 utterances (not a multiple of a block's 4):
+    states and final positions bit-equal to the plain version."""
+    from speechrecognition_torch.align import viterbi as vit
+    from speechrecognition_torch.ops import _native
+    assert _native.load().sr_align_backtrack_tile(A) > 0     # every row staged
+    args = [torch.as_tensor(a, device=dev)
+            for a in backtrack_inputs(Tp, A, jumps, seed=Tp + A, B=9)]
+    T = backtrack_frames(Tp, T)
+    before = vit.align_backtrack.LAUNCHES
+    got = vit.align_backtrack(*args, T, tie_pruned=tie_pruned)
+    want = vit.align_backtrack_reference(*args, T, tie_pruned=tie_pruned)
+    torch.cuda.synchronize()
+    assert vit.align_backtrack.LAUNCHES == before + 1
+    for name, g, w in zip(("states", "final_pos"), got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+
+
+def test_kernel_g_layouts(dev):
+    """The tile query (128 frames for short rows, fewer past 96 bytes a
+    row but not below 32 while two tiles fit a block, 0 where a row is
+    walked from device memory), that walk at A = 120,000, and jumps that do
+    not start on a 16-byte boundary (the wrapper copies them)."""
+    from speechrecognition_torch.align import viterbi as vit
+    from speechrecognition_torch.ops import _native
+    lib = _native.load()
+    assert [lib.sr_align_backtrack_tile(A) for A in (1, 70, 162, 1025, 3000, 5000, 120000)] == [
+        128, 128, 64, 32, 32, 23, 0]
+    for Tp, A, jumps, cut in ((5, 120000, "random", False), (300, 70, "dp", True)):
+        final_hi, aut_len, jmp, lens, tbl = (torch.as_tensor(a, device=dev) for a in
+                                             backtrack_inputs(Tp, A, jumps, seed=A, B=4))
+        if cut:     # frames 1 .. Tp-1 of a longer array: starts 4 * 70 bytes in
+            jmp = torch.cat([jmp[:1], jmp])[1:]
+            assert jmp.data_ptr() % 16 != 0
+        for tie in (True, False):
+            got = vit.align_backtrack(final_hi, aut_len, jmp, lens, tbl, Tp - 1, tie_pruned=tie)
+            want = vit.align_backtrack_reference(final_hi, aut_len, jmp, lens, tbl, Tp - 1,
+                                                 tie_pruned=tie)
+            torch.cuda.synchronize()
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 #: kernel E's and F's instance for each automaton length the tests use, as

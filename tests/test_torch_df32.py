@@ -101,7 +101,7 @@ def scores_both(port):
         if name not in cache:
             feats = port[1].features[:2000]
             j, t = load_models(name)
-            got = tgmm.am_scores_df(t.pack_df(), torch.from_numpy(feats))
+            got = tgmm.am_scores_df(t.pack_df(device="cpu"), torch.from_numpy(feats))
             with jax.disable_jit():
                 eager = jgmm.am_scores_df(j.pack_df(), jnp.asarray(feats))
             jitted = jgmm.am_scores_df(j.pack_df(), jnp.asarray(feats))
@@ -135,7 +135,7 @@ def test_am_scores_df_tracks_f64(scores_both, name):
 def test_am_scores_df_chunking(port):
     """N > AM_CHUNK_DF: frames are scored in chunks, each row independent."""
     _j, t = load_models("iter-2")
-    pack = t.pack_df()
+    pack = t.pack_df(device="cpu")
     feats = torch.from_numpy(np.resize(port[1].features, (tgmm.AM_CHUNK_DF + 37, 25)))
     whole = tgmm.am_scores_df(pack, feats)
     tail = tgmm.am_scores_df(pack, feats[tgmm.AM_CHUNK_DF - 3:])
@@ -146,7 +146,7 @@ def test_am_scores_df_chunking(port):
 
 def test_am_scores_df_refuses_sum_mode_and_float64(port):
     _j, t = load_models("iter-2")
-    pack = t.pack_df()
+    pack = t.pack_df(device="cpu")
     feats = torch.from_numpy(port[1].features[:8])
     pack.max_approx = False
     with pytest.raises(NotImplementedError, match="max-approx"):
@@ -156,7 +156,7 @@ def test_am_scores_df_refuses_sum_mode_and_float64(port):
     with pytest.raises(TypeError, match="float32"):
         tgmm.am_scores_df(pack, feats)
     with pytest.raises(ValueError, match="unsupported device"):
-        tgmm.am_scores_df(t.pack_df(), torch.empty((8, 25), device="meta"))
+        tgmm.am_scores_df(t.pack_df(device="cpu"), torch.empty((8, 25), device="meta"))
 
 
 def test_cap_wins_ties():
@@ -410,8 +410,8 @@ def test_convert_score_pack_df_round_trip(port):
     """The JAX pack_df() carried across scores bit-equal to the port's own."""
     j, t = load_models("bench")
     feats = torch.from_numpy(port[1].features[:512])
-    carried = score_pack_df_from_jax(j.pack_df())
-    own = t.pack_df()
+    carried = score_pack_df_from_jax(j.pack_df(), device="cpu")
+    own = t.pack_df(device="cpu")
     assert carried.device == own.device == torch.device("cpu")
     for field in ("mu", "iv", "norm", "logw"):
         for a, b in zip(getattr(carried, field), getattr(own, field)):
@@ -436,8 +436,8 @@ def recognize_both(port):
             _j, t = load_models("iter-2")
             tdp = ttdp.TdpModel(silence_state=lex.silence_state, loop=3.0, forward=0.0,
                                 skip=30.0)
-            pack, dtype = ((t.pack_df(), "df32") if kind == "df32"
-                           else (t.pack(dtype=torch.float64), torch.float64))
+            pack, dtype = ((t.pack_df(device="cpu"), "df32") if kind == "df32"
+                           else (t.pack(dtype=torch.float64, device="cpu"), torch.float64))
             res = tdec.Recognizer(tcfg.Configuration(SETTINGS), lex, tdp, pack,
                                   dtype=dtype).recognize_corpus(corpus, batch_size=35)
             jl = jlex.build_sietill_lexicon()
@@ -481,4 +481,5 @@ def test_df32_recognizer_needs_a_df_pack(port):
     _j, t = load_models("iter-2")
     tdp = ttdp.TdpModel(silence_state=lex.silence_state, loop=3.0, forward=0.0, skip=30.0)
     with pytest.raises(TypeError, match="ScorePackDF"):
-        tdec.Recognizer(tcfg.Configuration(SETTINGS), lex, tdp, t.pack(), dtype="df32")
+        tdec.Recognizer(tcfg.Configuration(SETTINGS), lex, tdp, t.pack(device="cpu"),
+                       dtype="df32")

@@ -278,7 +278,7 @@ def scorer_case(name):
     corpus = Corpus.read(CorpusDescription.read(str(fix / "demo_corpus.json"), lex),
                          str(fix / "demo_features") + "/", SignalAnalysisConfig(),
                          normalization_path=str(fix / "normalization-demo.bin"))
-    return model.pack_df(), torch.as_tensor(corpus.features[::40][:300])
+    return model.pack_df(device="cpu"), torch.as_tensor(corpus.features[::40][:300])
 
 
 @pytest.mark.parametrize("name", ["iter-2.mix", "bench/model.mix", "wide"])

@@ -78,9 +78,9 @@ def assert_stats_close(got, want, total_rtol=RTOL):
 
 def pack_pair(jm, tm, kind, cap=None):
     if kind == "df32":
-        return jm.pack_df(density_cap=cap), tm.pack_df(density_cap=cap)
+        return jm.pack_df(density_cap=cap), tm.pack_df(density_cap=cap, device="cpu")
     jdt, tdt = {"f32": (jnp.float32, torch.float32), "f64": (jnp.float64, torch.float64)}[kind]
-    return jm.pack(dtype=jdt, density_cap=cap), tm.pack(dtype=tdt, density_cap=cap)
+    return jm.pack(dtype=jdt, density_cap=cap), tm.pack(dtype=tdt, density_cap=cap, device="cpu")
 
 
 @pytest.mark.parametrize("kind", ["f32", "f64", "df32"])
@@ -115,14 +115,14 @@ def test_em_pass_sorted_df32_bit_level_equals_jax_op_by_op(demo):
         frames[b, n:] = feats[0]
         mask[b, :n] = 1.0
     jm, tm = models()
-    got = tgmm.em_pass_sorted(tm.pack_df(), torch.as_tensor(frames), torch.as_tensor(mask),
+    got = tgmm.em_pass_sorted(tm.pack_df(device="cpu"), torch.as_tensor(frames), torch.as_tensor(mask),
                               torch.as_tensor(bs))
     with jax.disable_jit():
         want = jgmm.em_pass_sorted(jm.pack_df(), jnp.asarray(frames), jnp.asarray(mask),
                                    jnp.asarray(bs))
     assert_stats_close(got, want)
     # the frame scores themselves, bit for bit: total over one-row blocks
-    best, fs64 = tgmm._best_density_df(tm.pack_df(), torch.as_tensor(frames),
+    best, fs64 = tgmm._best_density_df(tm.pack_df(device="cpu"), torch.as_tensor(frames),
                                        torch.as_tensor(mask), torch.as_tensor(bs).long())
     for b in range(4):
         row = frames[b:b + 1, :1]
@@ -187,7 +187,8 @@ def test_sum_mode_passes_equal_jax(sum_chunks, kind):
 @pytest.mark.parametrize("which", ["max-approx", "df32"])
 def test_sum_mode_passes_refuse_other_packs(sum_chunks, which):
     _jm, tm = models(max_approx=True)
-    pack = tm.pack(dtype=torch.float64) if which == "max-approx" else tm.pack_df()
+    pack = (tm.pack(dtype=torch.float64, device="cpu") if which == "max-approx"
+            else tm.pack_df(device="cpu"))
     targs = tuple(torch.as_tensor(a) for a in sum_chunks)
     for fn in (tgmm.em_am_score_corpus, tgmm.em_accumulate_corpus):
         with pytest.raises(NotImplementedError, match="em_pass_sorted"):

@@ -11,6 +11,8 @@ Tolerances (relative, |Δ|/(1+|ref|)):
 
 from pathlib import Path
 
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -25,7 +27,8 @@ import speechrecognition_torch.features.frontend as tfront
 import speechrecognition_torch.io as tio
 import speechrecognition_torch.lexicon as tlex
 import speechrecognition_torch.models.gmm as tgmm
-from speechrecognition_torch.convert import mixture_model_from_jax, score_pack_from_jax
+from speechrecognition_torch.convert import (mixture_model_from_jax, score_pack_df_from_jax,
+                                             score_pack_from_jax)
 
 REPO = Path(__file__).resolve().parent.parent
 FIX = REPO / "tests" / "fixtures"
@@ -65,7 +68,7 @@ def test_am_scores_match_jax(name, method, dtype, demo_feats):
     j, t = load_models(name)
     feats = demo_feats[:2048]
     jpack = j.pack(dtype=getattr(jnp, dtype), method=method)
-    tpack = t.pack(dtype=getattr(torch, dtype), method=method)
+    tpack = t.pack(dtype=getattr(torch, dtype), method=method, device="cpu")
     ref = np.asarray(jgmm.am_scores(jpack, jnp.asarray(feats)))
     got = tgmm.am_scores(tpack, torch.from_numpy(feats))
     assert got.dtype == getattr(torch, dtype) and got.shape == (2048, 106)
@@ -78,11 +81,11 @@ def test_am_scores_chunking(demo_feats):
     n = tgmm.AM_CHUNK + 1000
     feats = np.resize(demo_feats, (n, 25))
     ref = np.asarray(jgmm.am_scores(j.pack(method="pallas"), jnp.asarray(feats)))
-    got = tgmm.am_scores(t.pack(method="pallas"), torch.from_numpy(feats)).numpy()
+    got = tgmm.am_scores(t.pack(method="pallas", device="cpu"), torch.from_numpy(feats)).numpy()
     assert got.shape == (n, 106)
     assert rel_err(got, ref).max() <= TOL[("pallas", "float32")]
     # chunked scoring equals scoring the tail alone
-    tail = tgmm.am_scores(t.pack(method="pallas"),
+    tail = tgmm.am_scores(t.pack(method="pallas", device="cpu"),
                           torch.from_numpy(feats[tgmm.AM_CHUNK:])).numpy()
     np.testing.assert_array_equal(got[tgmm.AM_CHUNK:], tail)
 
@@ -92,7 +95,7 @@ def test_am_scores_sum_mode(demo_feats):
     j, t = load_models("iter-2", max_approx=False)
     feats = demo_feats[:512]
     ref = np.asarray(jgmm.am_scores(j.pack(method="pallas"), jnp.asarray(feats)))
-    got = tgmm.am_scores(t.pack(method="pallas"), torch.from_numpy(feats)).numpy()
+    got = tgmm.am_scores(t.pack(method="pallas", device="cpu"), torch.from_numpy(feats)).numpy()
     assert rel_err(got, ref).max() <= TOL[("pallas", "float32")]
 
 
@@ -103,11 +106,11 @@ def test_convert_round_trip(method, demo_feats):
     j, t = load_models("bench")
     feats = torch.from_numpy(demo_feats[:1024])
     jpack = j.pack(method=method)
-    own = t.pack(method=method)
-    carried = score_pack_from_jax(jpack)
+    own = t.pack(method=method, device="cpu")
+    carried = score_pack_from_jax(jpack, device="cpu")
     assert carried.dtype == torch.float32 and carried.method == method
     assert torch.equal(tgmm.am_scores(carried, feats), tgmm.am_scores(own, feats))
-    repacked = mixture_model_from_jax(j).pack(method=method)
+    repacked = mixture_model_from_jax(j).pack(method=method, device="cpu")
     for field in ("P", "active", "mu", "a", "c"):
         x, y = getattr(repacked, field), getattr(own, field)
         assert (x is None and y is None) or torch.equal(x, y), field
@@ -116,4 +119,37 @@ def test_convert_round_trip(method, demo_feats):
 def test_pack_rejects_unknown_method():
     _j, t = load_models("iter-2")
     with pytest.raises(ValueError, match="unknown scoring method"):
-        t.pack(method="dense")
+        t.pack(method="dense", device="cpu")
+
+
+@pytest.mark.parametrize("fn", ["pack", "pack_df", "score_pack_from_jax",
+                                "score_pack_df_from_jax"])
+def test_packs_default_to_the_card(fn, monkeypatch):
+    """The four pack builders default to device="cuda"; with no CUDA device
+    they raise rather than fall back to the CPU, and an explicit
+    device="cpu" gives CPU tables equal to the JAX package's."""
+    j, t = load_models("iter-2")
+    is_df = "df" in fn
+    jpack = j.pack_df() if is_df else j.pack(method="pallas")
+    target, build = {
+        "pack": (tgmm.MixtureModel.pack, lambda **kw: t.pack(method="pallas", **kw)),
+        "pack_df": (tgmm.MixtureModel.pack_df, lambda **kw: t.pack_df(**kw)),
+        "score_pack_from_jax": (score_pack_from_jax,
+                                lambda **kw: score_pack_from_jax(jpack, **kw)),
+        "score_pack_df_from_jax": (score_pack_df_from_jax,
+                                   lambda **kw: score_pack_df_from_jax(jpack, **kw)),
+    }[fn]
+    assert inspect.signature(target).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build()
+    pack = build(device="cpu")
+    if is_df:
+        fields = {f"{k}.{w}": (getattr(getattr(pack, k), w), getattr(getattr(jpack, k), w))
+                  for k in ("mu", "iv", "norm", "logw") for w in ("hi", "lo")}
+    else:
+        fields = {k: (getattr(pack, k), getattr(jpack, k)) for k in ("P", "mu", "a", "c")}
+    fields["active"] = (pack.active, jpack.active)
+    for name, (got, want) in fields.items():
+        assert got.device.type == "cpu", name
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want), err_msg=name)

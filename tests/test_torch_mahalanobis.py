@@ -158,7 +158,7 @@ def test_fused_am_scores_match_jax(name, demo_feats, monkeypatch):
     fused = tmaha.mahalanobis_min_scores
     monkeypatch.setattr(tmaha, "mahalanobis_min_scores",
                         lambda *args: calls.append(args[-1]) or fused(*args))
-    pack = t.pack(method="pallas")
+    pack = t.pack(method="pallas", device="cpu")
     got = tgmm.am_scores(pack, torch.from_numpy(feats))
     assert calls == [pack.density_cap] and pack.density_cap == {"iter-2": 4, "bench": 16}[name]
     assert got.dtype == torch.float32 and got.shape == (1000, t.num_mixtures)

@@ -32,9 +32,10 @@ def test_sources_are_the_eight_kernels_and_the_header():
     """The kernel sources (A mahalanobis, unfused and with the per-mixture
     minimum fused, B decode_scan in f32 and f64, C
     am_scores_df, D decode_scan_df, E align_scan in f32 and f64, F
-    align_scan_df, G align_backtrack, H em_pass_df) and the shared
-    double-float header; the scans' instance and residency queries."""
-    assert [p.name for p in _native._sources()] == SOURCES + ["df.cuh"]
+    align_scan_df, G align_backtrack, H em_pass_df), the shared
+    double-float header and the scans' order-key header; the scans' instance
+    and residency queries."""
+    assert [p.name for p in _native._sources()] == SOURCES + ["df.cuh", "keys.cuh"]
     assert "sm_90a" in " ".join(_native.NVCC_FLAGS)
     assert "--fmad=false" not in _native.NVCC_FLAGS
     assert set(_native.SIGNATURES) == {
@@ -43,8 +44,9 @@ def test_sources_are_the_eight_kernels_and_the_header():
         "sr_decode_scan_df", "sr_decode_scan_df_instance", "sr_decode_scan_df_threads",
         "sr_decode_scan_df_residency",
         "sr_align_fwd", "sr_align_fwd_f64", "sr_align_fwd_warps", "sr_align_fwd_df",
-        "sr_align_fwd_df_warps", "sr_align_backtrack", "sr_em_pass_df", "sr_em_pass_df_scratch",
-        "sr_error_string"}
+        "sr_align_fwd_df_warps", "sr_align_backtrack", "sr_align_backtrack_tile",
+        "sr_em_pass_df",
+        "sr_em_pass_df_scratch", "sr_error_string"}
 
 
 def c_entry_points():

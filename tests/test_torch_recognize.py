@@ -65,7 +65,7 @@ def port_recognizer(lex, name, settings=SETTINGS, dtype=torch.float32):
                                        tgmm.VarianceModel[pooling], max_approx=True)
     tdp = ttdp.TdpModel(silence_state=lex.silence_state, loop=3.0, forward=0.0, skip=30.0)
     return tdec.Recognizer(tcfg.Configuration(settings), lex, tdp,
-                           model.pack(method="pallas"), dtype=dtype)
+                           model.pack(method="pallas", device="cpu"), dtype=dtype)
 
 
 @pytest.fixture(scope="module")

@@ -1,7 +1,9 @@
-"""Double-float scorer tables for the port's tests and chip_smoke.py.
+"""Inputs shared by the port's CPU tests, its card tests and chip_smoke.py:
+double-float scorer tables, and the cases of the alignment backtrack
+(kernel G).
 
-A plain module (no pytest), so chip_smoke.py loads it by path and the CPU
-and card tests import it from tests/.
+A plain module (no pytest, no jax), so chip_smoke.py loads it by path and
+the CPU and card tests import it from tests/.
 """
 
 import numpy as np
@@ -36,3 +38,52 @@ def wide_magnitude_pack_df(S, D, dim, seed, n, device="cpu"):
                            active=torch.ones((S, D), dtype=torch.bool, device=device),
                            num_mixtures=S, density_cap=D, dim=dim, max_approx=True)
     return pack, torch.as_tensor(x, device=device)
+
+
+#: kernel G's cases (Tp, A, jumps, tie_pruned, T): Tp 1, 300 and 2,000
+#: frames (none a multiple of the kernel's tile); A 1, 70 and 1,025
+#: positions (70 and 1,025 not multiples of 4 or 16); "dp" and "random"
+#: jumps (see backtrack_inputs); the pruned final position and the forced
+#: one; T = 0, Tp - 7 or Tp frames emitted
+BACKTRACK_CASES = [
+    (1, 1, "dp", True, "Tp"), (1, 70, "random", False, "0"),
+    (300, 1, "random", True, "Tp-7"), (300, 70, "dp", True, "Tp"),
+    (300, 70, "random", False, "Tp-7"), (300, 1025, "dp", False, "Tp"),
+    (300, 1025, "random", True, "0"), (2000, 1, "dp", True, "0"),
+    (2000, 70, "random", True, "Tp"), (2000, 70, "dp", False, "Tp-7"),
+    (2000, 1025, "random", False, "Tp-7"), (2000, 1025, "dp", True, "Tp"),
+]
+
+
+def backtrack_frames(Tp, which):
+    """The frames T a case emits: "0", "Tp-7" or "Tp"."""
+    return {"0": 0, "Tp-7": max(Tp - 7, 0), "Tp": Tp}[which]
+
+
+def backtrack_inputs(Tp, A, jumps, seed, B=5):
+    """Seeded inputs of align_backtrack, not produced by a DP, as numpy:
+    final_hi float32 [B, A], aut_len int32 [B], jumps int8 [Tp, B, A],
+    feat_len int32 [B], states_tbl int32 [B, A].
+
+    Utterance 0 is Tp frames long, 1 is 0, 2 is 1, 3 a random length and
+    the rest Tp; final rows mix finite costs with BIG (1e30), and row 1 is
+    all BIG (no finite final position: the pruned rule gives 0); aut_len
+    lies in [1, A], A for utterance 0. ``jumps="dp"`` draws 0, 1 or 2 and
+    caps each at its position, as a DP's jumps are, so a walk stays in the
+    row; ``"random"`` draws 0, 1 or 2 anywhere, so a walk runs below
+    position 0 (the forced final position of an unreachable path) and, over
+    enough frames, below -A, where the position wraps once and then clamps
+    to the row."""
+    rng = np.random.default_rng(seed)
+    final_hi = np.where(rng.random((B, A)) < 0.6, rng.uniform(0.0, 300.0, (B, A)),
+                        1e30).astype(np.float32)
+    final_hi[1] = 1e30
+    aut_len = rng.integers(1, A + 1, size=B).astype(np.int32)
+    aut_len[0] = A
+    draw = rng.integers(0, 3, size=(Tp, B, A))
+    if jumps == "dp":
+        draw = np.minimum(draw, np.arange(A)[None, None, :])
+    lens = np.full(B, Tp, np.int32)
+    lens[1:4] = (0, min(1, Tp), rng.integers(min(2, Tp), Tp + 1))
+    states_tbl = rng.integers(0, 3000, size=(B, A)).astype(np.int32)
+    return final_hi, aut_len, draw.astype(np.int8), lens[:B], states_tbl
