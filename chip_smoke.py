@@ -6,9 +6,10 @@ CUDA card.
 
 Drives speechrecognition_torch's recognizers on the card — the f32 "pallas"
 path (Corpus.read → MixtureModel.from_raw → pack(method="pallas") →
-Recognizer.recognize_corpus) and the production double-float path
-(pack_df() → Recognizer(dtype="df32")), each at full width — and its EM
-trainer (Trainer(..., dtype="df32").train), and holds each hand-written
+Recognizer.recognize_corpus), the production double-float path
+(pack_df() → Recognizer(dtype="df32")) and the NN hybrid (Recognizer with an
+NNScorer), each at full width — its EM trainer (Trainer(..., dtype="df32")
+.train) and its NN trainer (NnTrainer.train), and holds each hand-written
 kernel against its plain PyTorch version on the same tensors:
 
   1. the card's name and power limit (nvidia-smi);
@@ -96,7 +97,35 @@ kernel against its plain PyTorch version on the same tensors:
      (B 4, T 40): bit-equal to their plain versions over two chunks, timed
      in turns; each has its own entry in the kernels line, whose launches
      are the wrapper's SCRATCH_LAUNCHES counted over the main paths' runs
-     (checked to be 0: no SieTill shape needs scratch).
+     (checked to be 0: no SieTill shape needs scratch);
+ 19. the NN decode (bench/nn_run/model.json: 1x150 tanh, context 2, prior
+     scale 1.2, TDP 4-0-30, word penalty 105, threshold 200): the 35 demo
+     utterances reproduce tests/fixtures/demo_recognition_nn.json; the
+     card's NN scores within NN_AM_ATOL + NN_AM_RTOL*|cpu| of the CPU
+     port's on the same features; kernel B (f32 and f64) on the MLP's scores
+     at B=1024, two chunks with carry: bit-equal to its plain version, timed
+     in turns; the MLP's GEMMs per 32,768 frames beside their bound; full
+     width (the 1024-utterance batch; launch counts are read from these
+     runs) in f32 and f64 through kernel B: transcripts equal to the
+     35-utterance run, wall time, RTF, peak memory, one torch.profiler run
+     each (busy share, top device operations, the GEMMs' share beside their
+     bound), the f64 transcripts that differ from f32;
+ 20. the NN trainer at full width: bench/nn_tanh/train_nn_restore.config
+     (1x150 tanh, context 2, batch 32, AdaDelta 0.9, cv-size 0.1,
+     newbob-restore) cut to NN_TRAIN_EPOCHS epochs with its float64 gradient
+     check, on the 1024 utterances with alignment-2-0.dump's targets
+     repeated: seconds per epoch, frames per second, train and CV FER, peak
+     memory, one profiled epoch; the same recipe with the port on this
+     machine's CPU: FERs within NN_FER_ATOL, weights within NN_PARAM_RTOL;
+ 21. the CLI's NN actions with --device cuda on temporary demo configs:
+     train-nn (models/1/, models/2/ in the raw layout, the stats file),
+     compute-prior (the text of --device cpu), recognize with
+     feature-scorer=nn (the fixture's WER line), plot-activations (output
+     rows sum to 1); t-SNE of 1,000 frames of hidden activations on the
+     card, TSNE_STEPS of its steps against the CPU port's within
+     TSNE_STEP_RTOL;
+ 22. the native corpus loader built afresh with g++: the demo corpus's
+     features and offsets bit-equal to the pure-Python path.
 
 Kernels B, D and G are timed by their device time (torch.profiler), since
 B and D's wrappers synchronise on a range check and a call timed by events
@@ -1030,6 +1059,8 @@ def main():
     t_phase = time.perf_counter()
     large = large_instances(dev, card, main_scratch)
     log(f"[18] phase seconds {time.perf_counter() - t_phase:.1f}")
+    nn = nn_phases(dev, card, lex, corpus, big)
+    check("jax" not in sys.modules, "the port imported jax")
 
     kernels = [
         entry("mahalanobis_scores", "mahalanobis.cu", "speechrecognition_tpu/ops/mahalanobis.py:90",
@@ -1048,6 +1079,7 @@ def main():
               launches["decode_scan_df"], d_abs, d_ms, d_plain_ms, d_bound),
         *train,
         *large,
+        *nn,
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1894,6 +1926,579 @@ def large_instances(dev, card, main_scratch):
                              main_scratch["align_fwd_df"], err, ms, plain_ms, bnd))
     return entries
 
+
+#: phase 19's model and settings: bench/nn_run/model.json (1x150 tanh,
+#: context 2, bench/nn_tanh/models_r/24/, prior bench/nn_tanh/prior.txt at
+#: scale 1.2, TDP 4-0-30, word penalty 105, threshold 200); its 35 demo
+#: transcripts are tests/fixtures/demo_recognition_nn.json
+NN_MODEL = REPO / "bench" / "nn_run" / "model.json"
+NN_FIXTURE = FIX / "demo_recognition_nn.json"
+#: the card's NN scores against the CPU port's on the same features: both
+#: are float32 products of 125 and 150 terms summed in different orders
+#: (cuBLAS, MKL), so |card - cpu| <= NN_AM_ATOL + NN_AM_RTOL * |cpu|
+NN_AM_RTOL, NN_AM_ATOL = 1e-5, 1e-4
+#: the MLP's two products per frame (125 -> 150 -> 106), an FMA as two
+NN_GEMM_FLOPS = 2 * (125 * 150 + 150 * 106)
+#: bytes the MLP's products must move: per frame its input read and its
+#: scores written once (the hidden layer need not leave the chip), and per
+#: call its weights read once
+NN_FRAME_BYTES = 4 * (125 + 106)
+NN_WEIGHT_BYTES = 4 * (150 * (125 + 1) + 106 * (150 + 1))
+#: phase 20's recipe: bench/nn_tanh/train_nn_restore.config, cut to
+#: NN_TRAIN_EPOCHS epochs and run with its gradient check
+NN_RECIPE = REPO / "bench" / "nn_tanh" / "train_nn_restore.config"
+NN_TRAIN_EPOCHS = 2
+#: the card's training against the CPU port's, both in float32 with their
+#: products summed in other orders. A full-width run on an NVIDIA H100 80GB
+#: HBM3 (700 W) read equal FERs and final weights within 1.6e-7 of their
+#: layer's largest weight; the limits
+#: leave room on both sides: each epoch's frame error rates within
+#: NN_FER_ATOL (three CV frames; a near-tie's argmax may flip), every final
+#: weight within NN_PARAM_RTOL of its layer's largest
+NN_FER_ATOL = 1e-4
+NN_PARAM_RTOL = 1e-5
+#: the first batch's gradients, the card's float32 against the CPU port's
+#: float64, within NN_GRAD_RTOL of each tensor's largest. On an NVIDIA
+#: H100 80GB HBM3 (700 W) the full float32 products read 3.95e-7; the TF32
+#: control run of phase 20, which must fail this check or another of the
+#: above, read 2.54e-4 (its FERs 1.53e-4, its weights 4.71e-3). AdaDelta's
+#: first steps are nearly sign(gradient), so the weights alone could hide
+#: a lower-precision product.
+NN_GRAD_RTOL = 1e-5
+#: t-SNE of 1,000 frames of hidden activations, card against the CPU port:
+#: float64 sums in other orders, so TSNE_STEPS steps from the same state
+#: (t-SNE's start, and the card's final embedding) agree within
+#: TSNE_STEP_RTOL of the embedding's scale. Longer runs multiply any
+#: difference (tenfold every three steps in the early phase,
+#: tests/test_torch_tsne.py), so the whole 500-step runs are held to each
+#: other by what they show: their costs KL(P||Q) within TSNE_KL_RTOL, and
+#: within TSNE_SHARE_ATOL the share of points whose nearest embedded
+#: neighbour is among their 10 nearest activations, and the share whose
+#: nearest embedded neighbour has their state. On an NVIDIA H100 80GB HBM3
+#: (700 W) the card and the CPU read KL 5.715723 and 5.715598 (2.2e-5
+#: apart), shares 0.425 and 0.423, 0.633 and 0.634.
+TSNE_FRAMES = 1000
+TSNE_STEPS = 10
+TSNE_STEP_RTOL = 1e-10
+TSNE_KL_RTOL = 1e-3
+TSNE_SHARE_ATOL = 0.02
+
+
+def nn_scorer(device):
+    """model.json's NN scorer on ``device``, and the model's settings."""
+    from speechrecognition_torch.config import Configuration
+    from speechrecognition_torch.models.nn import MLP, NNScorer, layer_specs_from_config
+    with open(NN_MODEL) as f:
+        m = json.load(f)
+    k = m["context_frames"]
+    mlp = MLP(layer_specs_from_config(Configuration({"layers": m["layers"]})),
+              input_dim=25 * (2 * k + 1), device=device)
+    mlp.load(str(REPO / m["model_path"]) + "/")
+    prior = NNScorer.load_prior(str(REPO / m["prior_file"]), 106, m["prior_scale"],
+                                device=device)
+    return NNScorer(mlp, prior, k), m
+
+
+def gemm_device_ms(prof):
+    """(device ms, launches) of the GEMM kernels in a profile, and the
+    profile's whole device ms."""
+    def us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    gemms = [e for e in events if "gemm" in e.key.lower()]
+    return (sum(us(e) for e in gemms) / 1e3, sum(e.count for e in gemms),
+            sum(us(e) for e in events) / 1e3)
+
+
+def b_two_chunks(dec, am, lens, targs, tag):
+    """Kernel B against its plain version over the first two chunks of
+    ``am`` [B, T, S] with carry; returns the largest difference (0.0 when
+    bit-equal, which is checked)."""
+    chunk = dec.DECODE_CHUNK
+    carry_k = carry_p = None
+    err = 0.0
+    for c in range(2):
+        a = am[:, c * chunk:(c + 1) * chunk].contiguous()
+        carry_k, out_k = dec.decode_scan(a, lens, *targs, 200.0, prune=True,
+                                         carry_in=carry_k, t0=c * chunk)
+        carry_p, out_p = dec.decode_scan_reference(a, lens, *targs, 200.0, prune=True,
+                                                   carry_in=carry_p, t0=c * chunk)
+        torch.cuda.synchronize()
+        for name, k, p in zip(("hyp", "bkp", "book", "score", "word", "bkp_t"),
+                              (*carry_k, *out_k), (*carry_p, *out_p)):
+            check(k.dtype == p.dtype and torch.equal(k, p),
+                  f"{tag}: chunk {c} {name} differs from the plain version")
+            if k.is_floating_point():
+                err = max(err, (k.double() - p.double()).abs().max().item())
+    return err
+
+
+def nn_phases(dev, card, lex, corpus, big):
+    """Phases 19-22: the NN decode and the NN trainer at full width, the
+    CLI's NN actions and t-SNE, the native corpus loader. Returns the
+    kernels line's entries of kernel B on the NN decodes."""
+    from speechrecognition_torch.config import Configuration
+    from speechrecognition_torch.search import decoder as dec
+    from speechrecognition_torch.tdp import TdpModel
+
+    entries = []
+    chunk = dec.DECODE_CHUNK
+    t_phase = time.perf_counter()
+    # -- 19. the NN decode at full width --------------------------------------------
+    scorer, m = nn_scorer(dev)
+    scorer_cpu, _ = nn_scorer("cpu")
+    loop, forward, skip = m["tdp"]
+    tdp_nn = TdpModel(silence_state=lex.silence_state, loop=loop, forward=forward, skip=skip)
+    settings = Configuration({"am-threshold": m["am_threshold"], "word-penalty": m["word_penalty"],
+                              "pruned-search": True, "max-recognition-runs": 10 ** 9})
+
+    def recognizer(dtype):
+        rec = dec.Recognizer(settings, lex, tdp_nn, dtype=dtype)
+        rec.nn_scorer = scorer
+        return rec
+
+    with open(NN_FIXTURE) as f:
+        fixture = json.load(f)
+    rec = recognizer(torch.float32)
+    dec.decode_scan.LAUNCHES = 0
+    res35 = rec.recognize_corpus(corpus, batch_size=35)
+    n35 = dec.decode_scan.LAUNCHES
+    mism = [u["idx"] for u in fixture["utts"] if res35["hyps"][u["idx"]] != u["hyp"]]
+    sid = [res35["substitutions"], res35["insertions"], res35["deletions"]]
+    log(f"[19] NN decode of the 35 demo utterances (bench/nn_run/model.json, f32): WER "
+        f"{res35['wer']:.6f} % SER {res35['ser']:.6f} % S/I/D {sid[0]}/{sid[1]}/{sid[2]}, "
+        f"{len(mism)} mismatches of 35 against {NN_FIXTURE.name}; kernel B launches {n35}")
+    check(not mism, f"NN transcripts differ from the fixture at {mism}")
+    check(res35["wer"] == fixture["corpus"]["wer"] and res35["ser"] == fixture["corpus"]["ser"]
+          and sid == fixture["corpus"]["sid"], "NN WER, SER or S/I/D differ from the fixture")
+    check(n35 > 0, "the NN demo decode did not launch kernel B")
+
+    feats35, _ = corpus.padded_batch(list(range(35)))
+    am_card = scorer.am_batch(feats35).cpu().double()
+    am_cpu = scorer_cpu.am_batch(feats35).double()
+    diff = (am_card - am_cpu).abs()
+    excess = (diff - (NN_AM_ATOL + NN_AM_RTOL * am_cpu.abs())).max().item()
+    log(f"[19] the card's NN scores against the CPU port's on the 35 utterances "
+        f"({am_cpu.shape[0]} x {am_cpu.shape[1]} x {am_cpu.shape[2]}): max abs "
+        f"{diff.max().item():.3e}, max rel {(diff / am_cpu.abs()).max().item():.3e}; "
+        f"worst excess over {NN_AM_ATOL:g} + {NN_AM_RTOL:g}*|cpu| {excess:.3e}")
+    check(excess <= 0, "the card's NN scores differ from the CPU port's beyond the tolerance")
+
+    T = rec._bucket(big.max_seq_length)
+    feats = dec.DeviceCorpus(big, dev).batch(list(range(FULL_BATCH)), T)
+    lens = torch.as_tensor(big.lengths, dtype=torch.int32, device=dev)
+    tables = rec.tables
+    W, P = tables.state_table.shape
+    targs = tuple(torch.as_tensor(a, device=dev) for a in (
+        tables.state_table, tables.last_pos, tables.word_len, tables.first_state,
+        tables.tdp_within, tables.entry_pen))
+    am_big = scorer.am_batch(feats)
+    b_entries = {}
+    for label, dt, word in (("decode_scan[nn]", torch.float32, 4),
+                            ("decode_scan[nn, f64]", torch.float64, 8)):
+        am = am_big.to(dt)
+        err = b_two_chunks(dec, am, lens, targs, f"kernel B {label}")
+        a0 = am[:, :chunk].contiguous()
+        ms, plain_ms, all_, call = kernel_in_turns(
+            lambda: dec.decode_scan_reference(a0, lens, *targs, 200.0, prune=True, t0=0),
+            lambda: dec.decode_scan(a0, lens, *targs, 200.0, prune=True, t0=0), 2, 10,
+            "decode_scan", "decode_scan_df")
+        bnd = scan_bound(FULL_BATCH, chunk, a0.shape[2], W, P, word)
+        log(f"[19] kernel B {dt} B={FULL_BATCH} T={chunk} on the MLP's scores, 2 chunks with "
+            f"carry: bit-equal True, max abs {err:.3e}; kernel {ms:.4f} ms (device time), plain "
+            f"{plain_ms:.4f} ms (plain, kernel, kernel, plain: "
+            f"{', '.join(f'{v:.4f}' for v in all_)}); a call to the wrapper {call:.4f} ms "
+            f"(events); bound {bnd[0]:.4f} ms ({bnd[1]}) on {card}")
+        b_entries[label] = (err, ms, plain_ms, bnd)
+        del am, a0
+
+    # the MLP's products per 32,768 frames: the library call is the port
+    from speechrecognition_torch.models.gmm import _full_f32_matmul
+    from speechrecognition_torch.models.nn import build_context_windows
+    X = build_context_windows(feats, scorer.context_frames).reshape(-1, 125)[:32768].contiguous()
+    weights = scorer.mlp.params()
+    W1, b1 = weights["hidden-layer1"]["W"], weights["hidden-layer1"]["b"]
+    W2 = weights["output-layer"]["W"]
+    H = torch.tanh(X @ W1.T + b1)
+    with _full_f32_matmul(), torch.no_grad():
+        gemm_ms, fwd_ms, g_all = in_turns(lambda: scorer.mlp(X),
+                                          lambda: (X @ W1.T, H @ W2.T), 20, 20)
+    n_x = X.shape[0]
+    g_bound = bound(n_x * NN_FRAME_BYTES + NN_WEIGHT_BYTES, fp32=n_x * NN_GEMM_FLOPS)
+    log(f"[19] the MLP's two GEMMs (cuBLAS, full float32) per {n_x} frames: {gemm_ms:.4f} ms; "
+        f"the whole forward (GEMMs, bias, tanh, log-softmax, exp) {fwd_ms:.4f} ms (forward, "
+        f"GEMMs, GEMMs, forward: {', '.join(f'{v:.4f}' for v in g_all)}); bound "
+        f"{g_bound[0]:.4f} ms ({g_bound[1]}); {NN_GEMM_FLOPS * n_x / gemm_ms / 1e9:.1f} TFLOP/s "
+        f"on {card}")
+    del X, H, feats, am_big
+    torch.cuda.empty_cache()
+
+    res_f32 = None
+    for label, dt in (("decode_scan[nn]", torch.float32), ("decode_scan[nn, f64]", torch.float64)):
+        rec = recognizer(dt)
+        hyps35 = rec.recognize_corpus(corpus, batch_size=35)["hyps"]
+        rec.warmup(big, batch_size=FULL_BATCH)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        dec.decode_scan.LAUNCHES = dec.decode_scan.SCRATCH_LAUNCHES = 0
+        res = rec.recognize_corpus(big, batch_size=FULL_BATCH)
+        launches, scratch = dec.decode_scan.LAUNCHES, dec.decode_scan.SCRATCH_LAUNCHES
+        peak = torch.cuda.max_memory_allocated(dev)
+        with torch.profiler.profile(activities=PROFILED) as prof:
+            res_prof = rec.recognize_corpus(big, batch_size=FULL_BATCH)
+        log_profile("[19]", prof, res_prof["time"])
+        g_ms, g_n, dev_ms = gemm_device_ms(prof)
+        frames = FULL_BATCH * T
+        f_bound = bound(frames * NN_FRAME_BYTES + NN_WEIGHT_BYTES, fp32=frames * NN_GEMM_FLOPS)
+        log(f"[19] {dt} NN decode's GEMMs: {g_ms:.3f} ms in {g_n} launches, "
+            f"{g_ms / dev_ms if dev_ms else float('nan'):.4f} of its {dev_ms:.3f} ms of device "
+            f"time; their bound over the {frames} padded frames {f_bound[0]:.4f} ms "
+            f"({f_bound[1]})")
+        check(res_prof["hyps"] == res["hyps"], f"the profiled {dt} NN decode changed a transcript")
+        del prof, res_prof
+        vs35 = [s for s in range(FULL_BATCH) if res["hyps"][s] != hyps35[s % 35]]
+        log(f"[19] full width {dt} NN decode, {FULL_BATCH} utterances ({res['audio_seconds']:.1f} "
+            f"s audio, padded to {T} frames): {res['time']:.4f} s, RTF {res['rtf']:.3e}, peak "
+            f"device memory {peak / 2 ** 20:.1f} MiB; kernel B launches {launches} ({scratch} "
+            f"with the lattice in scratch); differences from the 35-utterance run {len(vs35)}; "
+            f"WER {res['wer']:.6f} % on {card}")
+        check(res["num_decoded"] == FULL_BATCH, f"{dt} NN full batch decoded")
+        check(launches > 0, f"the {dt} NN decode did not launch kernel B")
+        check(scratch == 0, f"the {dt} NN decode kept its lattice in scratch")
+        check(not vs35, f"{dt} NN full-batch transcripts differ from the 35-utterance run at "
+              f"{vs35[:10]}")
+        if res_f32 is None:
+            check(hyps35 == res35["hyps"], "the NN demo decode is not repeatable")
+            res_f32 = res
+        else:
+            n_diff = sum(res["hyps"][s] != res_f32["hyps"][s] for s in range(FULL_BATCH))
+            log(f"[19] f64 NN transcripts that differ from f32: {n_diff} of {FULL_BATCH}")
+        err, ms, plain_ms, bnd = b_entries[label]
+        entries.append(entry(label, "decode_scan.cu", "speechrecognition_tpu/search/decoder.py:109",
+                             launches, err, ms, plain_ms, bnd))
+        del rec
+        torch.cuda.empty_cache()
+    log(f"[19] phase seconds {time.perf_counter() - t_phase:.1f}")
+
+    nn_train_phase(dev, card, lex, corpus, big)
+    nn_cli_phase(dev, card)
+    native_phase()
+    return entries
+
+
+def nn_train_phase(dev, card, lex, corpus, big):
+    """Phase 20: the NN trainer at full width on the card, against the same
+    recipe with the port on this machine's CPU; and a control run on the
+    card with TF32 products, which the same comparison must reject."""
+    import contextlib
+    from speechrecognition_torch.config import Configuration
+    from speechrecognition_torch.io import read_alignment
+    from speechrecognition_torch.models import nn as nn_mod
+    from speechrecognition_torch.models.nn import MLP, layer_specs_from_config
+    from speechrecognition_torch.train import nn_training
+    from speechrecognition_torch.train.nn_training import MiniBatchBuilder, NnTrainer
+
+    t_phase = time.perf_counter()
+    states, _, _ = read_alignment(str(FIX / "demo_alignments" / "alignment-2-0.dump"))
+    check(states.shape[0] == corpus.total_frames, "the demo alignment covers the demo corpus")
+    offs = corpus.feature_offsets
+    targets = np.concatenate([states[offs[s % 35]:offs[s % 35 + 1]]
+                              for s in range(big.num_segments)])
+    with open(NN_RECIPE) as f:
+        recipe = json.load(f)
+
+    def first_grads(trainer, dtype):
+        """The first batch's gradients at the initial weights, in ``dtype``,
+        as float64 on the host."""
+        params = trainer.mlp.init_params(np.random.default_rng(trainer.seed))
+        f, t, m = (a.to(dtype) for a in trainer._host_batch(0, cv=False))
+        p = {n: {k: v.to(dtype) for k, v in d.items()} for n, d in params.items()}
+        _, g = trainer.loss_and_grads(p, f, t, m)
+        return {n: {k: v.cpu().double() for k, v in d.items()} for n, d in g.items()}
+
+    def train(device, out, **overrides):
+        cfg = {**recipe, "num-epochs": NN_TRAIN_EPOCHS, "gradient-check": True,
+               "output-dir": os.path.join(out, "models"),
+               "nn-training-stats-path": os.path.join(out, "nn_stats.data"), **overrides}
+        config = Configuration(cfg)
+        builder = MiniBatchBuilder(corpus=big, batch_size=cfg["batch-size"], num_classes=106,
+                                   silence_state=lex.silence_state, alignment=targets,
+                                   context_frames=cfg["context-frames"], cv_size=cfg["cv-size"])
+        mlp = MLP(layer_specs_from_config(config), input_dim=builder.feature_size, device=device)
+        logs = []
+        trainer = NnTrainer(config, builder, mlp, log=logs.append, device=device)
+        grads = first_grads(trainer, torch.float64 if device == "cpu" else torch.float32)
+        t0 = time.perf_counter()
+        result = trainer.train()
+        if device != "cpu":
+            torch.cuda.synchronize()
+        frames = int(big.lengths[builder.train_segments].sum())
+        params = {n: {k: v.cpu() for k, v in d.items()} for n, d in result["params"].items()}
+        return params, grads, logs, trainer.stats_lines, time.perf_counter() - t0, frames
+
+    @contextlib.contextmanager
+    def tf32_products():
+        """The control: the NN's products in TF32 (the guard made a no-op)."""
+        allow = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            with mock.patch.object(nn_mod, "_full_f32_matmul", contextlib.nullcontext), \
+                    mock.patch.object(nn_training, "_full_f32_matmul", contextlib.nullcontext):
+                yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = allow
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.reset_peak_memory_stats(dev)
+        params, grads, logs, stats, secs, frames = train(dev, os.path.join(tmp, "card"))
+        peak = torch.cuda.max_memory_allocated(dev)
+        with torch.profiler.profile(activities=PROFILED) as prof:
+            _, _, _, _, secs_prof, _ = train(dev, os.path.join(tmp, "prof"), **{
+                "num-epochs": 1, "gradient-check": False})
+        with tf32_products():
+            ctl_params, ctl_grads, _, ctl_stats, _, _ = train(dev, os.path.join(tmp, "tf32"))
+        cpu_params, cpu_grads, cpu_logs, cpu_stats, cpu_secs, _ = train(
+            "cpu", os.path.join(tmp, "cpu"))
+    epoch_s = [float(ln.split(" # ")[2]) for ln in stats]
+
+    def fer_pairs(lines):
+        return [tuple(float(v) for v in ln.split(" # ")[:2]) for ln in lines]
+
+    fers, cpu_fers = fer_pairs(stats), fer_pairs(cpu_stats)
+    log(f"[20] full-width NN training ({NN_RECIPE.relative_to(REPO)}, cut to "
+        f"{NN_TRAIN_EPOCHS} epochs), {big.num_segments} utterances, {frames} training frames "
+        f"an epoch: {secs:.4f} s with the gradient check; seconds per epoch "
+        f"{', '.join(f'{s:.4f}' for s in epoch_s)}; frames per second "
+        f"{', '.join(f'{frames / s:.0f}' for s in epoch_s)}; (train FER, CV FER) per epoch "
+        f"{fers}; peak device memory {peak / 2 ** 20:.1f} MiB on {card}")
+    log(f"[20] {logs[0]} (card), {cpu_logs[0]} (CPU)")
+    log_profile("[20]", prof, secs_prof)
+    g_ms, g_n, dev_ms = gemm_device_ms(prof)
+    log(f"[20] one profiled epoch: GEMMs {g_ms:.3f} ms in {g_n} launches of {dev_ms:.3f} ms "
+        f"of device time")
+    del prof
+
+    def deviations(run_params, run_grads, run_stats):
+        """(FER, final weight, first gradient) deviations from the CPU port."""
+        fer = max(abs(a - b) for x, y in zip(fer_pairs(run_stats), cpu_fers)
+                  for a, b in zip(x, y))
+        weight = max((run_params[n][k] - cpu_params[n][k]).abs().max().item()
+                     / cpu_params[n][k].abs().max().item()
+                     for n in cpu_params for k in ("W", "b"))
+        grad = max((run_grads[n][k] - cpu_grads[n][k]).abs().max().item()
+                   / cpu_grads[n][k].abs().max().item()
+                   for n in cpu_grads for k in ("W", "b"))
+        return fer, weight, grad
+
+    limits = (NN_FER_ATOL, NN_PARAM_RTOL, NN_GRAD_RTOL)
+    run = deviations(params, grads, stats)
+    ctl = deviations(ctl_params, ctl_grads, ctl_stats)
+
+    def show(d):
+        return (f"largest FER difference {d[0]:.2e}, largest weight difference {d[1]:.2e} of its "
+                f"layer's largest, first gradients {d[2]:.2e} of their largest")
+
+    log(f"[20] the same recipe with the port on the CPU: {cpu_secs:.2f} s; (train FER, CV "
+        f"FER) per epoch {cpu_fers}; the card against it: {show(run)} (tolerances "
+        f"{', '.join(f'{v:g}' for v in limits)})")
+    log(f"[20] control, the card with TF32 products: (train FER, CV FER) per epoch "
+        f"{fer_pairs(ctl_stats)}; against the CPU port: {show(ctl)}; rejected "
+        f"{any(d > lim for d, lim in zip(ctl, limits))}")
+    check(logs[0].startswith("gradient check max rel dev") and
+          float(logs[0].split()[-1]) < 1e-2, "the gradient check on the card")
+    check(len(fers) == len(cpu_fers) == len(fer_pairs(ctl_stats)) == NN_TRAIN_EPOCHS,
+          "every trainer ran every epoch")
+    check(run[0] <= NN_FER_ATOL, "the card's NN training FERs differ from the CPU port's")
+    check(run[1] <= NN_PARAM_RTOL, "the card's NN weights differ from the CPU port's")
+    check(run[2] <= NN_GRAD_RTOL, "the card's NN gradients differ from the CPU port's float64")
+    check(any(d > lim for d, lim in zip(ctl, limits)),
+          "the comparison did not reject the trainer with TF32 products")
+    log(f"[20] phase seconds {time.perf_counter() - t_phase:.1f}")
+
+
+def run_cli(argv):
+    """The port's CLI in this process: (exit code, standard error lines)."""
+    import contextlib
+    import io
+    from speechrecognition_torch import cli
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    return rc, err.getvalue().splitlines()
+
+
+def nn_cli_phase(dev, card):
+    """Phase 21: the CLI's NN actions with --device cuda on temporary demo
+    configs, and t-SNE of hidden activations against the CPU port."""
+    from speechrecognition_torch.tools import tsne as tsne_mod
+
+    t_phase = time.perf_counter()
+    with open(NN_MODEL) as f:
+        m = json.load(f)
+    with open(NN_FIXTURE) as f:
+        fix = json.load(f)["corpus"]
+    with tempfile.TemporaryDirectory() as tmp:
+        base = {"corpus": str(FIX / "demo_corpus.json"),
+                "feature-path": str(FIX / "demo_features") + "/",
+                "normalization-path": str(FIX / "normalization-demo.bin"),
+                "target-file": str(FIX / "demo_alignments" / "alignment-2-0.dump"),
+                "layers": m["layers"], "context-frames": m["context_frames"],
+                "batch-size": 8, "num-epochs": 2, "cv-size": 0.1, "updater": "adadelta",
+                "gradient-check": False, "output-dir": os.path.join(tmp, "models"),
+                "nn-training-stats-path": os.path.join(tmp, "nn_stats.data"),
+                "activations-path": os.path.join(tmp, "activations"),
+                "model-path": os.path.join(tmp, "models", "2") + "/",
+                "pooling": "none", "feature-scorer": "nn", "tdp-loop": m["tdp"][0],
+                "tdp-forward": m["tdp"][1], "tdp-skip": m["tdp"][2],
+                "word-penalty": m["word_penalty"], "am-threshold": m["am_threshold"],
+                "pruned-search": True, "max-recognition-runs": 10 ** 9}
+
+        def config(name, **overrides):
+            path = os.path.join(tmp, f"{name}.json")
+            with open(path, "w") as f:
+                json.dump({**base, **overrides}, f)
+            return path
+
+        t0 = time.perf_counter()
+        rc, err = run_cli([config("train"), "train-nn", "--device", "cuda"])
+        secs = time.perf_counter() - t0
+        sizes = {e: {layer: os.path.getsize(os.path.join(tmp, "models", e, layer))
+                     for layer in ("hidden-layer1", "output-layer")} for e in ("1", "2")}
+        with open(os.path.join(tmp, "nn_stats.data")) as f:
+            stats = f.read().splitlines()
+        log(f"[21] CLI train-nn --device cuda: exit {rc} in {secs:.2f} s; "
+            f"{' | '.join(err)}; models/1, models/2 file bytes {sizes}; stats lines {len(stats)}")
+        check(rc == 0, "CLI train-nn failed")
+        expect = {"hidden-layer1": 4 * (150 * 125 + 150), "output-layer": 4 * (106 * 150 + 106)}
+        check(all(s == expect for s in sizes.values()), "train-nn's models are not the raw layout")
+        check(len(stats) == 3, "train-nn's stats file has a header and one line an epoch")
+
+        prior = {}
+        for device in ("cuda", "cpu"):
+            path = config(f"prior-{device}", **{"prior-file": os.path.join(tmp, f"prior-{device}.txt")})
+            rc, _ = run_cli([path, "compute-prior", "--device", device])
+            check(rc == 0, f"CLI compute-prior --device {device} failed")
+            with open(os.path.join(tmp, f"prior-{device}.txt")) as f:
+                prior[device] = f.read()
+        log(f"[21] CLI compute-prior --device cuda: the same text as --device cpu "
+            f"{prior['cuda'] == prior['cpu']} ({len(prior['cuda'].split())} values)")
+        check(prior["cuda"] == prior["cpu"], "compute-prior's text differs between the devices")
+
+        rc, err = run_cli([config("recognize", **{
+            "model-path": str(REPO / m["model_path"]) + "/",
+            "prior-file": str(REPO / m["prior_file"]), "prior-scale": m["prior_scale"]}),
+            "recognize", "--device", "cuda"])
+        wer_line = f"WER: {fix['wer']:.6f}% (S/I/D) {fix['sid'][0]}/{fix['sid'][1]}/{fix['sid'][2]}"
+        log(f"[21] CLI recognize feature-scorer=nn --device cuda: exit {rc}; " + " | ".join(err))
+        check(rc == 0, "CLI recognize with the NN scorer failed")
+        check(wer_line in err, f"CLI recognize did not print the fixture's line {wer_line!r}")
+
+        rc, err = run_cli([config("plot"), "plot-activations", "--device", "cuda"])
+        acts = os.path.join(tmp, "activations")
+        labels = np.fromfile(os.path.join(acts, "labels.bin"), np.int32)
+        out = np.fromfile(os.path.join(acts, "output-layer.activations"), np.float32)
+        hidden = np.fromfile(os.path.join(acts, "hidden-layer1.activations"),
+                             np.float32).reshape(labels.size, 150)
+        row_err = np.abs(out.reshape(labels.size, 106).sum(axis=1) - 1.0).max()
+        log(f"[21] CLI plot-activations --device cuda: exit {rc}; {' | '.join(err)}; output rows "
+            f"sum to 1 within {row_err:.2e}")
+        check(rc == 0, "CLI plot-activations failed")
+        check(np.isfinite(hidden).all() and row_err <= 1e-4,
+              "plot-activations' output rows do not sum to 1")
+
+    X = hidden[:TSNE_FRAMES].astype(np.float64)
+    check(X.shape[0] == TSNE_FRAMES, "the first batch has 1,000 frames of activations")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Y = tsne_mod.tsne(X, perplexity=30.0, device=dev)
+    tsne_s = time.perf_counter() - t0
+    Xc = X - X.mean(axis=0)
+    sq = (Xc * Xc).sum(axis=1)
+    P = tsne_mod.binary_search_perplexity(np.maximum(sq[:, None] + sq[None, :] - 2.0 * Xc @ Xc.T,
+                                                     0.0), 30.0)
+    P = (P + P.T) / P.sum()
+    Y0 = np.random.default_rng(0).normal(0, 1e-4, (TSNE_FRAMES, 2))
+    worst = {}
+    for label, P_run, start in (("from t-SNE's start", 4.0 * P, Y0),
+                                ("from the card's embedding", P, Y)):
+        got = tsne_mod._tsne_optimize(torch.as_tensor(P_run, device=dev),
+                                      torch.as_tensor(start, device=dev),
+                                      n_iter=TSNE_STEPS).cpu().numpy()
+        ref = tsne_mod._tsne_optimize(torch.as_tensor(P_run), torch.as_tensor(start),
+                                      n_iter=TSNE_STEPS).numpy()
+        worst[label] = np.abs(got - ref).max() / np.abs(ref).max()
+    t0 = time.perf_counter()
+    Y_cpu = tsne_mod.tsne(X, perplexity=30.0, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    d_x = np.maximum(sq[:, None] + sq[None, :] - 2.0 * Xc @ Xc.T, 0.0)
+    np.fill_diagonal(d_x, np.inf)
+    near_x = np.argsort(d_x, axis=1)[:, :10]
+    state = labels[:TSNE_FRAMES]
+
+    def structure(Yr):
+        """(KL(P||Q), share of nearest neighbours among the 10 nearest
+        activations, share of nearest neighbours with the point's state)."""
+        s2 = (Yr * Yr).sum(axis=1)
+        d_y = s2[:, None] + s2[None, :] - 2.0 * Yr @ Yr.T
+        num = 1.0 / (1.0 + d_y)
+        np.fill_diagonal(num, 0.0)
+        Q = np.maximum(num / num.sum(), 1e-12)
+        on = P > 0
+        np.fill_diagonal(d_y, np.inf)
+        nearest = d_y.argmin(axis=1)
+        return (float((P[on] * np.log(P[on] / Q[on])).sum()),
+                float((near_x == nearest[:, None]).any(axis=1).mean()),
+                float((state[nearest] == state).mean()))
+
+    card_st, cpu_st = structure(Y), structure(Y_cpu)
+    log(f"[21] t-SNE of {TSNE_FRAMES} frames of hidden-layer1 (500 steps, float64 on the card): "
+        f"{tsne_s:.3f} s, finite {bool(np.isfinite(Y).all())}; card against the CPU port, "
+        f"{TSNE_STEPS} steps: " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+        + f" of the scale (tolerance {TSNE_STEP_RTOL:g}); the whole runs (CPU {cpu_s:.2f} s): "
+        f"KL {card_st[0]:.6f} / {cpu_st[0]:.6f}, nearest neighbour among the 10 nearest "
+        f"activations {card_st[1]:.3f} / {cpu_st[1]:.3f}, of the same state {card_st[2]:.3f} / "
+        f"{cpu_st[2]:.3f} (card / CPU; tolerances {TSNE_KL_RTOL:g} relative, "
+        f"{TSNE_SHARE_ATOL:g})")
+    check(Y.shape == (TSNE_FRAMES, 2) and np.isfinite(Y).all(), "t-SNE on the card")
+    check(max(worst.values()) <= TSNE_STEP_RTOL, "t-SNE steps on the card differ from the CPU port's")
+    check(abs(card_st[0] - cpu_st[0]) <= TSNE_KL_RTOL * cpu_st[0]
+          and abs(card_st[1] - cpu_st[1]) <= TSNE_SHARE_ATOL
+          and abs(card_st[2] - cpu_st[2]) <= TSNE_SHARE_ATOL,
+          "the card's t-SNE embedding differs in structure from the CPU port's")
+    log(f"[21] phase seconds {time.perf_counter() - t_phase:.1f}")
+
+
+def native_phase():
+    """Phase 22: the native corpus loader, built afresh, against the
+    pure-Python path on the demo corpus."""
+    from speechrecognition_torch.corpus import Corpus, CorpusDescription
+    from speechrecognition_torch.features.frontend import SignalAnalysisConfig
+    from speechrecognition_torch.lexicon import build_sietill_lexicon
+    from speechrecognition_torch.native import loader
+
+    desc = CorpusDescription.read(str(FIX / "demo_corpus.json"), build_sietill_lexicon())
+
+    def read(**kw):
+        return Corpus.read(desc, str(FIX / "demo_features") + "/", SignalAnalysisConfig(),
+                           normalization_path=str(FIX / "normalization-demo.bin"), **kw)
+
+    py = read(use_native=False)
+    with tempfile.TemporaryDirectory() as tmp, \
+            mock.patch.object(loader, "BUILD_DIR", Path(tmp) / "native"):
+        t0 = time.perf_counter()
+        lib = loader.load()
+        build_s = time.perf_counter() - t0
+        fresh = loader.library_path()
+        nat = read()
+    equal = (np.array_equal(nat.feature_offsets, py.feature_offsets)
+             and np.array_equal(nat.features.view(np.int32), py.features.view(np.int32)))
+    default = loader.library_path()
+    log(f"[22] native corpus loader built afresh ({fresh.name}, g++ {build_s:.2f} s; the "
+        f"script's own under {default.parent.relative_to(REPO)}: exists {default.exists()}): "
+        f"{nat.num_segments} utterances, {nat.total_frames} frames bit-equal to the "
+        f"pure-Python path {equal}")
+    check(lib is not None and equal, "the native corpus loader differs from the Python path")
+    check(default.exists(), "the native loader's library is not under build/native")
 
 def repeat_corpus(corpus, n, corpus_cls):
     """The corpus's utterances repeated in order to ``n`` segments."""

@@ -4,11 +4,13 @@ counterpart of speechrecognition_tpu/cli.py.
 Usage: python -m speechrecognition_torch.cli <config.json> [action] [--device cpu|cuda]
 
 Actions (src/sietill/SieTill.cpp:54-243):
-  extract-features | train | recognize | corpus-statistics
-are ported; train-nn, compute-prior, plot-activations and the NN feature
-scorer raise NotImplementedError naming their ROADMAP item. ``train`` runs
-the EM trainer in the precision ``train-dtype`` names: f32 (default), f64
-or df32 (double-float, the reference's float64 decisions).
+  extract-features | train | recognize | train-nn | compute-prior |
+  plot-activations | corpus-statistics
+``train`` runs the EM trainer in the precision ``train-dtype`` names: f32
+(default), f64 or df32 (double-float, the reference's float64 decisions).
+``recognize`` scores with the GMM (``feature-scorer`` gmm, the default) or
+the hybrid MLP (``nn``: ``model-path``, ``prior-file``, ``prior-scale``,
+``context-frames`` and the ``layers`` array) in float32.
 
 The device is explicit and defaults to ``cuda``. When CUDA is asked for and
 no card is present the command fails; it never carries on on the CPU.
@@ -22,7 +24,7 @@ import sys
 import numpy as np
 import torch
 
-from .config import Configuration, ParameterBool, ParameterString
+from .config import Configuration, ParameterBool, ParameterFloat, ParameterInt, ParameterString
 from .corpus import Corpus, CorpusDescription
 from .features.frontend import (SignalAnalysisConfig, add_deltas,
                                 compute_normalization_stats, extract_features)
@@ -31,13 +33,6 @@ from .io import (read_audio_file, read_mixture_set, write_feature_file,
 from .lexicon import build_sietill_lexicon
 from .models.gmm import MixtureModel, VarianceModel
 from .tdp import TdpModel
-
-#: actions of the reference package not ported yet, and their ROADMAP item
-UNPORTED = {
-    "train-nn": "ROADMAP Queue 1 #9: the NN hybrid",
-    "compute-prior": "ROADMAP Queue 1 #9: the NN hybrid",
-    "plot-activations": "ROADMAP Queue 1 #9: the NN hybrid",
-}
 
 
 def _parse(argv):
@@ -56,9 +51,6 @@ def main(argv=None) -> int:
     device = torch.device(args.device)
     config = Configuration(args.config)
     action = args.action or ParameterString("action", "")(config)
-
-    if action in UNPORTED:
-        raise NotImplementedError(f"action {action} is not ported yet ({UNPORTED[action]})")
 
     feature_path = ParameterString("feature-path", "")(config)
     normalization_path = ParameterString("normalization-path", "")(config)
@@ -101,10 +93,7 @@ def main(argv=None) -> int:
 
     if action == "recognize":
         scorer_kind = ParameterString("feature-scorer", "gmm")(config)
-        if scorer_kind == "nn":
-            raise NotImplementedError(
-                "feature-scorer=nn is not ported yet (ROADMAP Queue 1 #9: the NN hybrid)")
-        if scorer_kind != "gmm":
+        if scorer_kind not in ("gmm", "nn"):
             print(f"unknown feature scorer: {scorer_kind}", file=sys.stderr)
             return 1
         pooling = VarianceModel.from_string(ParameterString("pooling", "")(config))
@@ -112,10 +101,22 @@ def main(argv=None) -> int:
                              normalization_path=normalization_path or None)
         tdp = TdpModel.from_config(config, lexicon.silence_state)
         from .search.decoder import Recognizer
-        mix_path = ParameterString("load-mixtures-from", "")(config)
-        raw = read_mixture_set(mix_path, sig_cfg.n_features_total)
-        model = MixtureModel.from_raw(raw, pooling, max_approx=max_approx)
-        recognizer = Recognizer(config, lexicon, tdp, model.pack(device=device))
+        if scorer_kind == "gmm":
+            mix_path = ParameterString("load-mixtures-from", "")(config)
+            raw = read_mixture_set(mix_path, sig_cfg.n_features_total)
+            model = MixtureModel.from_raw(raw, pooling, max_approx=max_approx)
+            recognizer = Recognizer(config, lexicon, tdp, model.pack(device=device))
+        else:
+            from .models.nn import MLP, NNScorer, layer_specs_from_config
+            context = ParameterInt("context-frames", 0)(config)
+            mlp = MLP(layer_specs_from_config(config),
+                      input_dim=sig_cfg.n_features_total * (2 * context + 1), device=device)
+            mlp.load(ParameterString("model-path", "")(config))
+            prior = NNScorer.load_prior(
+                ParameterString("prior-file", "")(config), lexicon.num_states,
+                ParameterFloat("prior-scale", 0.0)(config), device=device)
+            recognizer = Recognizer(config, lexicon, tdp)
+            recognizer.nn_scorer = NNScorer(mlp, prior, context)
         result = recognizer.recognize_corpus(corpus)
         print(f"WER: {result['wer']:.6f}% (S/I/D) "
               f"{result['substitutions']}/{result['insertions']}/{result['deletions']}",
@@ -123,6 +124,59 @@ def main(argv=None) -> int:
         print(f"SER: {result['ser']:.6f}%", file=sys.stderr)
         print(f"Time: {result['time']} seconds", file=sys.stderr)
         print(f"RTF: {result['rtf']}", file=sys.stderr)
+        return 0
+
+    if action in ("train-nn", "compute-prior", "plot-activations"):
+        from .models.nn import MLP, layer_specs_from_config
+        from .train.nn_training import (MiniBatchBuilder, NnTrainer,
+                                        compute_prior_from_alignment)
+        batch_size = ParameterInt("batch-size", 32)(config)
+        corpus = Corpus.read(description, feature_path, sig_cfg,
+                             normalization_path=normalization_path or None)
+        builder = MiniBatchBuilder.from_config(
+            config, corpus, batch_size, lexicon.num_states, lexicon.silence_state)
+        if action == "train-nn":
+            mlp = MLP(layer_specs_from_config(config), input_dim=builder.feature_size,
+                      device=device)
+            NnTrainer(config, builder, mlp, log=lambda *a: print(*a, file=sys.stderr),
+                      device=device).train()
+            return 0
+        if action == "plot-activations":
+            # forward the FIRST (unshuffled) minibatch through the loaded
+            # MLP and dump every layer's activations as raw float32 files;
+            # optionally t-SNE one layer colored by the target alignment
+            # (reference: SieTill.cpp:152-179 + src/activation-plotting/)
+            from .tools.tsne import dump_activations, tsne
+            mlp = MLP(layer_specs_from_config(config), input_dim=builder.feature_size,
+                      device=device)
+            params = mlp.load(ParameterString("model-path", "")(config))
+            acts_dir = ParameterString("activations-path", "activations/")(config)
+            feats, targets, mask = builder.build_batch(0, cv=False)
+            T, B, F = feats.shape
+            valid = (np.arange(T)[:, None] < mask[None, :]).reshape(T * B)
+            flat = feats.reshape(T * B, F)[valid]
+            labels = targets.reshape(T * B, -1)[valid].argmax(axis=1)
+            dump_activations(mlp, params, flat, [s.name for s in mlp.specs], acts_dir)
+            np.asarray(labels, np.int32).tofile(acts_dir + "/labels.bin")
+            print(f"wrote activations for {flat.shape[0]} frames "
+                  f"({len(mlp.specs)} layers) to {acts_dir}", file=sys.stderr)
+            tsne_plot = ParameterString("tsne-plot", "")(config)
+            if tsne_plot:
+                from .tools.tsne import plot_tsne
+                layer = ParameterString("tsne-layer", mlp.specs[0].name)(config)
+                max_frames = ParameterInt("tsne-max-frames", 1000)(config)
+                with torch.no_grad():
+                    acts = mlp.apply(params, torch.as_tensor(flat[:max_frames], device=device))
+                Y = tsne(acts[layer].cpu().numpy().astype(np.float64), perplexity=30.0,
+                         device=device)
+                plot_tsne(Y, labels[:max_frames], tsne_plot)
+                print(f"t-SNE of {layer} → {tsne_plot}", file=sys.stderr)
+            return 0
+        # compute-prior
+        prior_file = ParameterString("prior-file", "")(config)
+        prior = compute_prior_from_alignment(builder.alignment, lexicon.num_states)
+        with open(prior_file, "w") as f:
+            f.write(" ".join(str(p) for p in prior) + " ")
         return 0
 
     if action == "corpus-statistics":

@@ -2,8 +2,8 @@
 
 Each function reads the fields of a speechrecognition_tpu object as numpy
 arrays (``np.asarray`` accepts JAX arrays without this module importing
-jax) and build the port's object, so that both packages score with the same
-tables.
+jax) and builds the port's object, so that both packages score with the same
+tables (GMM packs) or weights (the NN scorer).
 """
 
 from __future__ import annotations
@@ -67,3 +67,28 @@ def score_pack_df_from_jax(packdf, device="cuda") -> ScorePackDF:
                        num_mixtures=int(packdf.num_mixtures),
                        density_cap=int(packdf.density_cap), dim=int(packdf.dim),
                        max_approx=bool(packdf.max_approx))
+
+
+def mlp_params_from_jax(params, device="cuda"):
+    """The JAX MLP's ``{layer: {"W", "b"}}`` pytree as the port's params
+    dict of float32 tensors on ``device`` (the card unless the caller asks
+    for the CPU)."""
+    device = pack_device(device, "MLP parameters")
+    return {name: {k: _tensor(v, device, torch.float32) for k, v in layer.items()}
+            for name, layer in params.items()}
+
+
+def nn_scorer_from_jax(scorer, device="cuda"):
+    """A port NNScorer on ``device`` (the card unless the caller asks for the
+    CPU) with the JAX NNScorer's layers, weights, log prior and context."""
+    from .models.nn import MLP, LayerSpec, NNScorer
+    device = pack_device(device, "NN scorer")
+    specs = [LayerSpec(name=s.name, num_outputs=int(s.num_outputs), kind=s.kind,
+                       nonlinearity=s.nonlinearity, inputs=tuple(s.inputs),
+                       weight_decay=s.weight_decay,
+                       weight_decay_factor=float(s.weight_decay_factor))
+             for s in scorer.mlp.specs]
+    mlp = MLP(specs, int(scorer.mlp.input_dim), device=device)
+    mlp.set_params(mlp_params_from_jax(scorer.params, "cpu"))
+    return NNScorer(mlp, _tensor(scorer.log_prior, device, torch.float32),
+                    int(scorer.context_frames))

@@ -68,24 +68,34 @@ class Corpus:
     @staticmethod
     def read(description: CorpusDescription, feature_path: str,
              cfg: SignalAnalysisConfig,
-             normalization_path: Optional[str] = None) -> "Corpus":
+             normalization_path: Optional[str] = None,
+             use_native: bool = True) -> "Corpus":
+        """Read every segment's features. ``use_native`` reads through the
+        threaded C++ loader (native/loader.py), which raises if it cannot be
+        built; ``use_native=False`` takes the pure-Python path. Both give
+        the same bits."""
         mean = std = None
         if normalization_path:
             mean, std = read_normalization(normalization_path, cfg.n_features_total)
         names = [seg.name for seg in description.segments]
         paths = [feature_path + n + ".mm2" for n in names]
 
-        # pure-Python path (the threaded native loader is not ported yet)
-        buffers: List[np.ndarray] = []
-        off = [0]
-        for p in paths:
-            f12 = read_feature_file(p)
-            feats = process_features(f12, mean, std, cfg)
-            buffers.append(feats)
-            off.append(off[-1] + feats.shape[0])
-        features = (np.concatenate(buffers, axis=0) if buffers
-                    else np.zeros((0, cfg.n_features_total), np.float32))
-        offsets = np.asarray(off, dtype=np.int64)
+        if use_native and paths:
+            from .native.loader import load_corpus_native
+            features, offsets = load_corpus_native(
+                paths, mean, std, cfg.n_features_in_file, cfg.n_features_first,
+                cfg.n_features_second, cfg.deriv_step, cfg.energy_max_norm)
+        else:
+            buffers: List[np.ndarray] = []
+            off = [0]
+            for p in paths:
+                f12 = read_feature_file(p)
+                feats = process_features(f12, mean, std, cfg)
+                buffers.append(feats)
+                off.append(off[-1] + feats.shape[0])
+            features = (np.concatenate(buffers, axis=0) if buffers
+                        else np.zeros((0, cfg.n_features_total), np.float32))
+            offsets = np.asarray(off, dtype=np.int64)
 
         return Corpus(
             features=features,

@@ -119,13 +119,14 @@ class ScorePackDF:
         return self.mu.hi.device
 
 
-def pack_device(device) -> torch.device:
-    """The device a scoring pack is built on. The packs default to "cuda";
-    a CUDA device that is not there raises, and nothing falls back to the
-    CPU: CPU use passes ``device="cpu"``."""
+def pack_device(device, what: str = "scoring pack") -> torch.device:
+    """The device a scoring pack (or another ``what``: the NN's weights, its
+    trainer) is built on. They default to "cuda"; a CUDA device that is not
+    there raises, and nothing falls back to the CPU: CPU use passes
+    ``device="cpu"``."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"scoring pack on {device}, but no CUDA device is "
+        raise RuntimeError(f"{what} on {device}, but no CUDA device is "
                            f"available; pass device=\"cpu\" to build it on the CPU")
     return device
 

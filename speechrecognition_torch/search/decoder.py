@@ -589,10 +589,11 @@ def decode_batch(pack: gmm_mod.ScorePack, feats, feat_len: np.ndarray,
 
     feats f32 [B, T, dim] (numpy, or a tensor on the pack's device);
     feat_len int [B]. ``am`` may be passed to reuse precomputed [B, T, S]
-    acoustic scores. Everything runs on the pack's device; acoustic scoring
-    and the scan go chunk by chunk, and the traceback tables come to the
-    host once, at the end."""
-    device = pack.device
+    acoustic scores (the NN scorer's; ``pack`` may then be None). Everything
+    runs on the pack's device, or with ``am`` on its device; acoustic
+    scoring and the scan go chunk by chunk, and the traceback tables come to
+    the host once, at the end."""
+    device = pack.device if am is None else am.device
     B, T, dim = feats.shape
     n_chunks = -(-T // chunk)
     Tp = n_chunks * chunk
@@ -698,10 +699,16 @@ class Recognizer:
     (``model.pack(dtype=...)``), or ``"df32"`` with a ScorePackDF
     (``model.pack_df()``), the production path. The packs are built on the
     card unless the caller asks for the CPU, as in
-    ``Recognizer(cfg, lex, tdp, model.pack_df(device="cpu"), dtype="df32")``."""
+    ``Recognizer(cfg, lex, tdp, model.pack_df(device="cpu"), dtype="df32")``.
+
+    The hybrid path sets ``nn_scorer`` (models/nn.NNScorer; ``pack`` may be
+    None): the MLP scores each batch on the scorer's device and kernel B
+    decodes those scores in ``dtype``, float32 or float64. df32 has no NN
+    path and raises (the reference package's df32 branch decodes with the
+    GMM pack and ignores its ``nn_scorer``)."""
 
     def __init__(self, config: Configuration, lexicon: Lexicon,
-                 tdp: TdpModel, pack,
+                 tdp: TdpModel, pack=None,
                  dtype=torch.float32):
         if dtype == "df32" and not isinstance(pack, gmm_mod.ScorePackDF):
             raise TypeError("df32 decoding needs a ScorePackDF (model.pack_df())")
@@ -719,18 +726,25 @@ class Recognizer:
         self.tables = DecoderTables.build(
             lexicon, tdp, self.word_penalty,
             exclude_last_pred=self.pruned_search)
-        #: hybrid MLP scorer slot, as in the reference; not ported yet
+        #: optional hybrid scorer (models.nn.NNScorer); when set, acoustic
+        #: scores come from the MLP + prior instead of the GMM pack
+        #: (reference: SieTill.cpp:122-127 picks the scorer the same way)
         self.nn_scorer = None
         self._device_corpus = None
 
     @property
     def device(self) -> torch.device:
-        return self.pack.device
+        return self.pack.device if self.nn_scorer is None else self.nn_scorer.device
 
     def _decode(self, feats, lens: np.ndarray) -> List[List[int]]:
         if self.nn_scorer is not None:
-            raise NotImplementedError(
-                "the NN hybrid scorer is not ported yet (ROADMAP Queue 1: NN hybrid)")
+            if self.dtype == "df32":
+                raise ValueError("the NN scorer decodes in float32 or float64; df32 has "
+                                 "no NN path")
+            am = self.nn_scorer.am_batch(feats).to(self.dtype)
+            return decode_batch(self.pack, feats, lens, self.tables,
+                                self.am_threshold, self.lexicon.silence_idx,
+                                prune=self.pruned_search, dtype=self.dtype, am=am)
         if self.dtype == "df32":
             return decode_batch_df(self.pack, feats, lens, self.tables,
                                    self.am_threshold, self.lexicon.silence_idx,
@@ -754,7 +768,8 @@ class Recognizer:
         if self.device.type == "cuda":
             _native.load()
         T = self.buckets[0]
-        feats = np.zeros((batch_size, T, self.pack.dim), np.float32)
+        dim = self.pack.dim if self.nn_scorer is None else self.nn_scorer.base_dim
+        feats = np.zeros((batch_size, T, dim), np.float32)
         lens = np.full(batch_size, T, np.int32)
         self._decode(feats, lens)
 

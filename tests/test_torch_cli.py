@@ -6,9 +6,19 @@ config over tests/fixtures/demo_corpus.json print the same lines as
 ``speechrecognition_tpu.cli.main``, except the ``Time:`` and ``RTF:`` lines;
 ``recognize`` prints the golden WER and SER. ``train`` with ``train-dtype``
 f64 runs the EM trainer on the CPU and writes the oracle's iter-2.mix (rtol
-1e-9 / atol 1e-7, as tests/test_em_demo.py holds the JAX trainer). The
-actions not ported raise NotImplementedError naming their ROADMAP item, and
-``--device cuda`` without a card fails instead of running on the CPU.
+1e-9 / atol 1e-7, as tests/test_em_demo.py holds the JAX trainer).
+
+The NN actions on the same corpus, each against ``cli.main`` of the JAX
+package on the same config: ``recognize`` with ``feature-scorer=nn``
+(bench/nn_run/model.json's model) prints the same lines and the WER of
+tests/fixtures/demo_recognition_nn.json; ``train-nn`` (a hidden layer of
+20, 2 epochs) prints the same epoch lines and writes models/1/ and
+models/2/ in the raw float32 layout, within 1e-4 relative (+1e-5) of JAX's
+(tests/test_torch_nn_training.py), and the same stats lines up to the
+seconds; ``compute-prior`` writes the same text; ``plot-activations``
+writes the same labels and activations within 1e-5 relative (+1e-6), and a
+t-SNE plot. ``--device cuda`` without a card fails instead of running on
+the CPU, for every action.
 """
 
 import contextlib
@@ -111,19 +121,119 @@ def test_train_writes_the_oracle_model(config_path, tmp_path, capsys):
     assert len(lines) == 10 and lines[-1].startswith("2 0 2 31.238")
 
 
-@pytest.mark.parametrize("action", ["train-nn", "compute-prior", "plot-activations"])
-def test_unported_actions_raise(config_path, action):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.main([config_path, action, "--device", "cpu"])
-
-
-def test_nn_scorer_raises(tmp_path, config_path):
+def nn_config(config_path, out, **overrides):
+    """The demo config with the NN actions' keys, written under ``out``."""
     cfg = json.loads(Path(config_path).read_text())
-    cfg["feature-scorer"] = "nn"
-    path = tmp_path / "nn.json"
+    cfg.update({"target-file": str(FIX / "demo_alignments" / "alignment-2-0.dump"),
+                "context-frames": 1, "cv-size": 0.1, "batch-size": 8, "num-epochs": 2,
+                "updater": "adadelta", "gradient-check": False,
+                "output-dir": str(out / "models"),
+                "nn-training-stats-path": str(out / "nn_stats.data"),
+                "prior-file": str(out / "prior.txt"),
+                "model-path": str(out / "models" / "2") + "/",
+                "activations-path": str(out / "activations"),
+                "layers": [{"layer-name": "hidden-layer1", "num-outputs": 20,
+                            "type": "feed-forward", "nonlinearity": "tanh",
+                            "input": ["data"]},
+                           {"layer-name": "output-layer", "num-outputs": 106,
+                            "type": "output", "input": ["hidden-layer1"]}]})
+    cfg.update(overrides)
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / "nn.json"
     path.write_text(json.dumps(cfg))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.main([str(path), "recognize", "--device", "cpu"])
+    return str(path)
+
+
+def run_both(config_path, tmp_path, action, capsys, **overrides):
+    """(port rc, stdout, stderr, folder), (JAX ...) of ``action``, each
+    package on its own copy of the config under its own folder."""
+    out = []
+    for name, main, extra in (("port", tcli.main, ["--device", "cpu"]),
+                              ("jax", jcli.main, [])):
+        folder = tmp_path / name
+        path = nn_config(config_path, folder, **overrides)
+        out.append((*run(main, [path, action, *extra], capsys), folder))
+    return out
+
+
+def test_recognize_nn_prints_the_jax_lines(config_path, tmp_path, capsys):
+    m = json.loads((REPO / "bench" / "nn_run" / "model.json").read_text())
+    loop, forward, skip = m["tdp"]
+    (rc, out, err, _), (jrc, jout, jerr, _) = run_both(
+        config_path, tmp_path, "recognize", capsys, **{
+            "feature-scorer": "nn", "layers": m["layers"],
+            "model-path": str(REPO / m["model_path"]) + "/",
+            "prior-file": str(REPO / m["prior_file"]), "prior-scale": m["prior_scale"],
+            "context-frames": m["context_frames"], "tdp-loop": loop, "tdp-forward": forward,
+            "tdp-skip": skip, "word-penalty": m["word_penalty"],
+            "am-threshold": m["am_threshold"]})
+    assert rc == jrc == 0
+    assert stable(out) == stable(jout) and stable(err) == stable(jerr)
+    fix = json.loads((FIX / "demo_recognition_nn.json").read_text())["corpus"]
+    assert (f"WER: {fix['wer']:.6f}% (S/I/D) {fix['sid'][0]}/{fix['sid'][1]}/{fix['sid'][2]}"
+            in err)
+
+
+def test_train_nn_writes_what_jax_writes(config_path, tmp_path, capsys):
+    (rc, _out, err, folder), (jrc, _jout, jerr, jfolder) = run_both(
+        config_path, tmp_path, "train-nn", capsys)
+    assert rc == jrc == 0
+    assert [ln.rsplit(" (", 1)[0] for ln in err] == [ln.rsplit(" (", 1)[0] for ln in jerr]
+    assert len(err) == 2 and err[1].startswith("epoch 2: train FER")
+    for epoch in ("1", "2"):
+        for layer, size in (("hidden-layer1", 20 * 75 + 20), ("output-layer", 106 * 20 + 106)):
+            got = np.fromfile(folder / "models" / epoch / layer, np.float32)
+            ref = np.fromfile(jfolder / "models" / epoch / layer, np.float32)
+            assert got.size == ref.size == size
+            np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-5)
+    stats = (folder / "nn_stats.data").read_text().splitlines()
+    jstats = (jfolder / "nn_stats.data").read_text().splitlines()
+    assert [ln.rsplit(" # ", 1)[0] for ln in stats] == [ln.rsplit(" # ", 1)[0] for ln in jstats]
+
+
+def test_compute_prior_writes_the_jax_text(config_path, tmp_path, capsys):
+    (rc, _, _, folder), (jrc, _, _, jfolder) = run_both(
+        config_path, tmp_path, "compute-prior", capsys)
+    assert rc == jrc == 0
+    text = (folder / "prior.txt").read_text()
+    assert text == (jfolder / "prior.txt").read_text()
+    assert len(text.split()) == 106
+
+
+def test_plot_activations_writes_what_jax_writes(config_path, tmp_path, capsys):
+    """A model written by the port's train-nn, read by both packages."""
+    model = tmp_path / "model"
+    assert tcli.main([nn_config(config_path, model), "train-nn", "--device", "cpu"]) == 0
+    capsys.readouterr()
+    (rc, _, err, folder), (jrc, _, jerr, jfolder) = run_both(
+        config_path, tmp_path, "plot-activations", capsys,
+        **{"model-path": str(model / "models" / "2") + "/", "tsne-max-frames": 200,
+           "tsne-plot": str(tmp_path / "tsne.png")})
+    assert rc == jrc == 0
+    assert err[0].replace("/port/", "/jax/") == jerr[0]
+    assert err[0].startswith("wrote activations for")
+    labels = np.fromfile(folder / "activations" / "labels.bin", np.int32)
+    np.testing.assert_array_equal(
+        labels, np.fromfile(jfolder / "activations" / "labels.bin", np.int32))
+    for name, width in (("hidden-layer1", 20), ("output-layer", 106)):
+        got = np.fromfile(folder / "activations" / f"{name}.activations", np.float32)
+        ref = np.fromfile(jfolder / "activations" / f"{name}.activations", np.float32)
+        assert got.size == labels.size * width
+        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got.reshape(-1, 106).sum(axis=1), 1.0, atol=1e-4)
+    assert (tmp_path / "tsne.png").stat().st_size > 0
+    assert err[-1] == f"t-SNE of hidden-layer1 → {tmp_path / 'tsne.png'}"
+
+
+@pytest.mark.parametrize("action", ["train-nn", "compute-prior", "plot-activations",
+                                    "recognize"])
+def test_nn_actions_need_the_card(config_path, tmp_path, capsys, monkeypatch, action):
+    path = nn_config(config_path, tmp_path, **{"feature-scorer": "nn"})
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rc, out, err = run(tcli.main, [path, action], capsys)
+    assert rc != 0 and out == []
+    assert "no CUDA device" in err[-1]
+    assert not (tmp_path / "models").exists()
 
 
 def test_cuda_without_a_card_fails(config_path, capsys, monkeypatch):

@@ -187,6 +187,13 @@ def test_port_imports_no_jax():
         "import speechrecognition_torch.models.gmm\n"
         "import speechrecognition_torch.search.decoder\n"
         "import speechrecognition_torch.convert\n"
+        "import speechrecognition_torch.cli\n"
+        "import speechrecognition_torch.train.em\n"
+        "import speechrecognition_torch.align.viterbi\n"
+        "import speechrecognition_torch.models.nn\n"
+        "import speechrecognition_torch.train.nn_training\n"
+        "import speechrecognition_torch.tools.tsne\n"
+        "import speechrecognition_torch.native.loader\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m.startswith('speechrecognition_tpu'))\n"
         "assert not bad, bad\n"

@@ -133,22 +133,11 @@ def test_warmup_runs(port):
     rec.warmup(corpus, batch_size=2)
 
 
-@pytest.mark.parametrize("what", ["train-nn", "tree", "nn"])
-def test_unported_paths_raise(port, what, tmp_path):
-    lex, corpus = port
-    with pytest.raises(NotImplementedError, match="ROADMAP" if what != "train-nn"
-                       else "ROADMAP Queue 1 #9"):
-        if what == "train-nn":
-            from speechrecognition_torch.cli import main
-            cfg = tmp_path / "train.json"
-            cfg.write_text(json.dumps({"corpus": str(FIX / "demo_corpus.json")}))
-            main([str(cfg), "train-nn", "--device", "cpu"])
-        elif what == "tree":
-            port_recognizer(lex, "iter-2", settings={**SETTINGS, "search-type": "tree"})
-        else:
-            rec = port_recognizer(lex, "iter-2")
-            rec.nn_scorer = object()
-            rec.recognize_corpus(corpus, batch_size=35)
+@pytest.mark.parametrize("what", ["tree"])
+def test_unported_paths_raise(port, what):
+    lex, _corpus = port
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port_recognizer(lex, "iter-2", settings={**SETTINGS, "search-type": what})
 
 
 def test_device_corpus_batch_equals_padded_batch(port):
