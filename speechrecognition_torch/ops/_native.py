@@ -25,6 +25,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -103,6 +104,30 @@ SIGNATURES = {
     "sr_em_pass_df": ((_P,) * 16 + (_I,) * 7 + (_P,), _I),
     # NB, R, D, dim → doubles of scratch sr_em_pass_df needs (-1: too many)
     "sr_em_pass_df_scratch": ((_I, _I, _I, _I), _I),
+    # f64, am, feat_len, state, parent, grand, depth, tdp, loop_allowed,
+    # end_word, exit_penalty, score, word, bkp, scratch (or NULL), B, T, S, N,
+    # am_threshold, prune, device, stream
+    "sr_tree_scan": ((_I,) + (_P,) * 14 + (_I,) * 4 + (_D, _I, _I, _P), _I),
+    # N, f64 → bytes of device scratch an utterance of kernel I needs (0: the
+    # tree in shared memory; -1: too large)
+    "sr_tree_scan_scratch": ((_I, _I), _I),
+    # f64, am, feat_len, state_table, last_pos, word_len, tdp_within,
+    # entry_tdp, lm, lm_start, book, bkp, pred, offset, scratch (or NULL), B,
+    # T, S, W, P, am_threshold, prune, device, stream
+    "sr_decode_scan_bigram": ((_I,) + (_P,) * 14 + (_I,) * 5 + (_D, _I, _I, _P), _I),
+    # W, P, f64 → kernel J's scratch bytes an utterance (0: shared memory)
+    "sr_decode_scan_bigram_scratch": ((_I, _I, _I), _I),
+    # f64, am, feat_len, state, parent, grand, tdp, loop_allowed,
+    # entry_state, entry_pen, end_node, lm_ext, la; the carry in (hyp, bkp,
+    # book, silp, silb) and out; book, bkp, pred, offset; cand, ebkp (or
+    # NULL); active states, trees, word ends (or NULL); via_sil, silb_prev,
+    # silp, silb (or NULL); scratch (or NULL); B, T, S, C, N, W, t0,
+    # am_threshold, prune, use_lookahead, state_limit, bins, silence (-1:
+    # none), device, stream
+    "sr_wcts_scan": ((_I,) + (_P,) * 36 + (_I,) * 7 + (_D,) + (_I,) * 6 + (_P,), _I),
+    # C, N, W, bins, f64 → kernel K's scratch bytes an utterance (0: shared
+    # memory)
+    "sr_wcts_scan_scratch": ((_I,) * 5, _I),
     "sr_error_string": ((_I,), ctypes.c_char_p),
 }
 
@@ -200,3 +225,34 @@ def check(err: int, what: str) -> None:
     if err != 0:
         msg = load().sr_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg}) at launch")
+
+
+# -- helpers of the wrappers that launch the search tier's kernels ------------
+
+
+def typed_args(what: str, device, dtype, **tensors) -> Dict:
+    """name → (tensor, shape): each checked for its device and shape, as a
+    contiguous tensor of ``dtype`` (no copy when it already is one)."""
+    out = {}
+    for name, (t, shape) in tensors.items():
+        if t.device != device or tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{what}: {name} must be a {tuple(shape)} tensor on {device}, "
+                             f"got {tuple(t.shape)} on {t.device}")
+        out[name] = t.to(dtype).contiguous()
+    return out
+
+
+def scratch(B: int, per_utterance: int, device):
+    """Device scratch for B utterances whose state does not fit in shared
+    memory (``per_utterance``: the C entry's bytes an utterance; 0: none
+    needed, < 0: too large)."""
+    import torch
+    if per_utterance < 0:
+        raise ValueError("an utterance's lattice is too large for this kernel")
+    return (torch.empty(B * per_utterance, dtype=torch.uint8, device=device)
+            if per_utterance else None)
+
+
+def ptr(t: Optional[object]):
+    """A tensor's device address, or None (a null pointer) for no tensor."""
+    return None if t is None else t.data_ptr()

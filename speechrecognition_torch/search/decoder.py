@@ -705,7 +705,13 @@ class Recognizer:
     None): the MLP scores each batch on the scorer's device and kernel B
     decodes those scores in ``dtype``, float32 or float64. df32 has no NN
     path and raises (the reference package's df32 branch decodes with the
-    GMM pack and ignores its ``nn_scorer``)."""
+    GMM pack and ignores its ``nn_scorer``).
+
+    ``search-type=tree`` decodes with the prefix-tree search
+    (search/tree_decoder.py, kernel I) in float32 or float64, with the GMM
+    pack or the NN scorer; df32 has no tree path and raises (the reference
+    package's df32 branch decodes with the word loop whatever the search
+    type)."""
 
     def __init__(self, config: Configuration, lexicon: Lexicon,
                  tdp: TdpModel, pack=None,
@@ -720,12 +726,16 @@ class Recognizer:
         self.pruned_search = ParameterBool("pruned-search", True)(config)
         self.max_runs = ParameterInt("max-recognition-runs", 1000)(config)
         self.search_type = Parameter("search-type", "word-loop", str)(config)
-        if self.search_type == "tree":
-            raise NotImplementedError(
-                "search-type=tree is not ported yet (ROADMAP Queue 1: LVCSR tier)")
+        if self.search_type == "tree" and dtype == "df32":
+            raise ValueError("df32 has no tree path: search-type=tree decodes in float32 "
+                             "or float64")
         self.tables = DecoderTables.build(
             lexicon, tdp, self.word_penalty,
             exclude_last_pred=self.pruned_search)
+        self.tree_tables = None
+        if self.search_type == "tree":
+            from .tree_decoder import TreeTables
+            self.tree_tables = TreeTables.build(lexicon, tdp, self.word_penalty)
         #: optional hybrid scorer (models.nn.NNScorer); when set, acoustic
         #: scores come from the MLP + prior instead of the GMM pack
         #: (reference: SieTill.cpp:122-127 picks the scorer the same way)
@@ -737,11 +747,18 @@ class Recognizer:
         return self.pack.device if self.nn_scorer is None else self.nn_scorer.device
 
     def _decode(self, feats, lens: np.ndarray) -> List[List[int]]:
+        am = None
         if self.nn_scorer is not None:
             if self.dtype == "df32":
                 raise ValueError("the NN scorer decodes in float32 or float64; df32 has "
                                  "no NN path")
             am = self.nn_scorer.am_batch(feats).to(self.dtype)
+        if self.tree_tables is not None:
+            from .tree_decoder import decode_batch_tree
+            return decode_batch_tree(self.pack, feats, lens, self.tree_tables,
+                                     self.am_threshold, self.lexicon.silence_idx,
+                                     prune=self.pruned_search, dtype=self.dtype, am=am)
+        if am is not None:
             return decode_batch(self.pack, feats, lens, self.tables,
                                 self.am_threshold, self.lexicon.silence_idx,
                                 prune=self.pruned_search, dtype=self.dtype, am=am)

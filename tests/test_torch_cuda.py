@@ -21,7 +21,10 @@ and G (backtrack: tests/torch_df_tables.py's cases, Tp up to 3,000, A up
 to 120,000, jumps off a 16-byte boundary) bit-equal, kernel H
 (double-float E-step) with w bit-equal, its float64 sums within 1e-12
 relative and two launches bit-identical; the golden demo trainer in df32
-and f64 on the card.
+and f64 on the card; the search tier's kernels I (tree scan), J (bigram
+scan) and K (word-conditioned tree search, every option, two chunks with
+carry) bit-equal in float32 and float64, also on prefix-sharing trees and
+past shared memory (tests/torch_search_tables.py's inputs).
 """
 
 import json
@@ -732,3 +735,159 @@ def test_trainer_golden_on_card(dev, kind, tmp_path):
     ref, _, _ = read_alignment(str(FIX / "demo_alignments" / "alignment-2-0.dump"))
     mine, _, _ = read_alignment(str(tmp_path / "alignment-2-0.dump"))
     np.testing.assert_array_equal(mine, ref)
+
+
+# -- the search tier: kernels I (tree), J (bigram) and K (WCTS) ----------------------
+
+
+def bits(x):
+    """A tensor's bits, so that equality is bit-equality (-0 is not +0)."""
+    if x.is_floating_point():
+        return x.view(torch.int64 if x.dtype == torch.float64 else torch.int32)
+    return x
+
+
+def same(got, ref):
+    return all(g.dtype == r.dtype and g.shape == r.shape and torch.equal(bits(g), bits(r))
+               for g, r in zip(got, ref)) and len(got) == len(ref)
+
+
+def sietill_search():
+    lex = build_sietill_lexicon()
+    return lex, TdpModel(silence_state=lex.silence_state, loop=3.0, forward=0.0, skip=30.0)
+
+
+SEARCH_LENS = [60, 41, 13, 0, 59]
+
+
+@pytest.mark.parametrize("lexicon", ["sietill", "prefix", "scratch"])
+@pytest.mark.parametrize("prune", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_i_bit_equal(dev, lexicon, prune, dtype):
+    """Kernel I against its plain version on the card: the SieTill tree, a
+    tree with shared prefixes, word ends inside it and homophones, and a
+    9,499-node tree whose lattice lives in device scratch."""
+    from speechrecognition_torch.search import tree_decoder as td
+    from torch_search_tables import PrefixLexicon, am_scores, prefix_tdp
+    if lexicon == "sietill":
+        lex, tdp = sietill_search()
+        S = lex.num_states
+    else:
+        lex = (PrefixLexicon(30, 1) if lexicon == "prefix"
+               else PrefixLexicon(2000, 3, max_len=16, branch=4))
+        tdp, S = prefix_tdp(lex), lex.num_states
+    tables = td.TreeTables.build(lex, tdp, 80.0)
+    T = 60 if lexicon != "scratch" else 30
+    B = len(SEARCH_LENS)
+    am = am_scores(B, T, S, seed=T + S, dtype=dtype, device=dev)
+    lens = torch.as_tensor(np.minimum(SEARCH_LENS, T), dtype=torch.int32, device=dev)
+    args = tables.device_args(dev, dtype, S)
+    before = td.tree_scan.LAUNCHES, td.tree_scan.SCRATCH_LAUNCHES
+    got = td.tree_scan(am, lens, *args, 200.0 if prune else 60.0, prune=prune)
+    ref = td.tree_scan_reference(am, lens, *args, 200.0 if prune else 60.0, prune=prune)
+    torch.cuda.synchronize()
+    assert same(got, ref)
+    assert td.tree_scan.LAUNCHES == before[0] + 1
+    assert td.tree_scan.SCRATCH_LAUNCHES == before[1] + (lexicon == "scratch")
+
+
+@pytest.mark.parametrize("case", ["pruned", "unpruned", "ties", "repetition-1", "scratch"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_j_bit_equal(dev, case, dtype):
+    """Kernel J against its plain version: SieTill with a random bigram LM
+    (pruned, unpruned, integer scores that tie across predecessors and
+    jumps), a repetition-1 lexicon, and a 200 x 24 lattice in scratch."""
+    from speechrecognition_torch.search import ngram_decoder as ng
+    from torch_search_tables import am_scores, random_lm, repetition1_lexicon, wide_linear_tables
+    if case == "scratch":
+        tables, S = wide_linear_tables(200, 8, 3)
+    else:
+        lex = repetition1_lexicon() if case == "repetition-1" else build_sietill_lexicon()
+        tdp = TdpModel(silence_state=lex.silence_state, loop=3.0, forward=0.0, skip=30.0)
+        tables, S = dec.DecoderTables.build(lex, tdp, 0.0), lex.num_states
+    W = tables.num_words
+    lm, lm_start = random_lm(W, seed=W)
+    B, T = len(SEARCH_LENS), 60
+    am = am_scores(B, T, S, seed=S, dtype=dtype, device=dev)
+    if case == "ties":
+        am = am.round() % 3
+        lm, lm_start = np.round(lm) % 2, np.round(lm_start) % 2
+    lens = torch.as_tensor(SEARCH_LENS, dtype=torch.int32, device=dev)
+    args = [torch.as_tensor(np.asarray(a, np.int32), device=dev)
+            for a in (tables.state_table, tables.last_pos, tables.word_len)]
+    args += [torch.as_tensor(a, dtype=dtype, device=dev)
+             for a in (tables.tdp_within, tables.entry_pen, lm, lm_start)]
+    before = ng.decode_scan_bigram.LAUNCHES, ng.decode_scan_bigram.SCRATCH_LAUNCHES
+    got = ng.decode_scan_bigram(am, lens, *args, 200.0, prune=case != "unpruned")
+    ref = ng.decode_scan_bigram_reference(am, lens, *args, 200.0, prune=case != "unpruned")
+    torch.cuda.synchronize()
+    assert same(got, ref)
+    assert ng.decode_scan_bigram.LAUNCHES == before[0] + 1
+    assert ng.decode_scan_bigram.SCRATCH_LAUNCHES == before[1] + (case == "scratch")
+
+
+WCTS_OPTIONS = {
+    "pruned": {},
+    "unpruned": {"prune": False},
+    "lookahead": {"use_lookahead": True},
+    "limit-48": {"state_limit": 48, "histogram_bins": 101},
+    "limit-la-17-bins": {"use_lookahead": True, "state_limit": 30, "histogram_bins": 17},
+    "limit-1e6": {"state_limit": 10 ** 6},
+    "ends-stats": {"emit_ends": True, "emit_stats": True},
+    "silence": {"transparent_silence": 0, "use_lookahead": True, "emit_stats": True},
+    "everything": {"transparent_silence": 0, "use_lookahead": True, "state_limit": 40,
+                   "emit_ends": True, "emit_stats": True},
+}
+
+
+def wcts_both(dev, lex, tdp, S, W, opts, dtype, T, chunks, lens, seed):
+    from speechrecognition_torch.search import wcts
+    from torch_search_tables import am_scores, random_lm, wcts_inputs
+    lm, lm_start = random_lm(W, seed=seed)
+    _tables, wt = wcts_inputs(lex, tdp, lm, lm_start, lookahead=opts.get("use_lookahead", False))
+    args = wt.args(dev, dtype, S)
+    am = am_scores(len(lens), T, S, seed=seed, dtype=dtype, device=dev)
+    lens = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+    results = []
+    for fn in (wcts.wcts_scan, wcts.wcts_scan_reference):
+        carry, outs, t0 = None, [], 0
+        for n in chunks:
+            carry, o = fn(am[:, t0:t0 + n].contiguous(), lens, *args, 200.0, carry_in=carry,
+                          t0=t0, **opts)
+            outs.append(o)
+            t0 += n
+        results.append(list(carry) + [torch.cat([o[k] for o in outs])
+                                      for k in range(len(outs[0]))])
+    torch.cuda.synchronize()
+    return results
+
+
+@pytest.mark.parametrize("option", sorted(WCTS_OPTIONS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_k_bit_equal_sietill(dev, option, dtype):
+    """Kernel K against its plain version on SieTill (C 13, N 212) with each
+    option, two chunks with carry: the carry and every output bit-equal."""
+    from speechrecognition_torch.search import wcts
+    lex, tdp = sietill_search()
+    before = wcts.wcts_scan.LAUNCHES
+    got, ref = wcts_both(dev, lex, tdp, lex.num_states, lex.num_words, WCTS_OPTIONS[option],
+                         dtype, 60, (23, 37), SEARCH_LENS, seed=7)
+    assert same(got, ref)
+    assert wcts.wcts_scan.LAUNCHES == before + 2
+
+
+@pytest.mark.parametrize("option", ["pruned", "lookahead", "limit-la-17-bins", "everything"])
+@pytest.mark.parametrize("size", ["prefix", "scratch"])
+def test_kernel_k_bit_equal_prefix_tree(dev, option, size):
+    """Kernel K on trees with shared prefixes: W 30 (4,650 slots, shared
+    memory) and W 200 (145,122 slots, device scratch), float32, two chunks."""
+    from speechrecognition_torch.search import wcts
+    from torch_search_tables import PrefixLexicon, prefix_tdp
+    lex = PrefixLexicon(30, 1) if size == "prefix" else PrefixLexicon(200, 2)
+    lens, T = ([60, 41, 13, 0, 59], 60) if size == "prefix" else ([20, 11], 20)
+    before = wcts.wcts_scan.SCRATCH_LAUNCHES
+    got, ref = wcts_both(dev, lex, prefix_tdp(lex), lex.num_states, lex.num_words,
+                         WCTS_OPTIONS[option], torch.float32, T, (T // 2, T - T // 2), lens,
+                         seed=3)
+    assert same(got, ref)
+    assert wcts.wcts_scan.SCRATCH_LAUNCHES == before + (2 if size == "scratch" else 0)

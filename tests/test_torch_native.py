@@ -25,17 +25,20 @@ def test_library_path_is_keyed_by_sources(tmp_path, monkeypatch):
 
 
 SOURCES = ["align_backtrack.cu", "align_scan.cu", "align_scan_df.cu", "am_scores_df.cu",
-           "decode_scan.cu", "decode_scan_df.cu", "em_pass_df.cu", "mahalanobis.cu"]
+           "decode_scan.cu", "decode_scan_bigram.cu", "decode_scan_df.cu", "em_pass_df.cu",
+           "mahalanobis.cu", "tree_scan.cu", "wcts_scan.cu"]
 
 
 def test_sources_are_the_eight_kernels_and_the_header():
     """The kernel sources (A mahalanobis, unfused and with the per-mixture
     minimum fused, B decode_scan in f32 and f64, C
     am_scores_df, D decode_scan_df, E align_scan in f32 and f64, F
-    align_scan_df, G align_backtrack, H em_pass_df), the shared
-    double-float header and the scans' order-key header; the scans' instance
-    and residency queries."""
-    assert [p.name for p in _native._sources()] == SOURCES + ["df.cuh", "keys.cuh"]
+    align_scan_df, G align_backtrack, H em_pass_df, I tree_scan, J
+    decode_scan_bigram, K wcts_scan), the shared double-float header, the
+    histogram header, the scans' order-key header and the search tier's
+    block helpers; the scans' instance, residency and scratch queries."""
+    assert [p.name for p in _native._sources()] == SOURCES + ["df.cuh", "histogram.cuh",
+                                                              "keys.cuh", "search.cuh"]
     assert "sm_90a" in " ".join(_native.NVCC_FLAGS)
     assert "--fmad=false" not in _native.NVCC_FLAGS
     assert set(_native.SIGNATURES) == {
@@ -46,7 +49,9 @@ def test_sources_are_the_eight_kernels_and_the_header():
         "sr_align_fwd", "sr_align_fwd_f64", "sr_align_fwd_warps", "sr_align_fwd_df",
         "sr_align_fwd_df_warps", "sr_align_backtrack", "sr_align_backtrack_tile",
         "sr_em_pass_df",
-        "sr_em_pass_df_scratch", "sr_error_string"}
+        "sr_em_pass_df_scratch", "sr_tree_scan", "sr_tree_scan_scratch",
+        "sr_decode_scan_bigram", "sr_decode_scan_bigram_scratch", "sr_wcts_scan",
+        "sr_wcts_scan_scratch", "sr_error_string"}
 
 
 def c_entry_points():

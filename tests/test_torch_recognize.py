@@ -135,9 +135,16 @@ def test_warmup_runs(port):
 
 @pytest.mark.parametrize("what", ["tree"])
 def test_unported_paths_raise(port, what):
+    """The tree search is ported in float32 and float64; df32 has no tree
+    path (the reference's df32 branch ignores the search type) and raises."""
     lex, _corpus = port
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_recognizer(lex, "iter-2", settings={**SETTINGS, "search-type": what})
+    path, pooling = MODELS["iter-2"]
+    model = tgmm.MixtureModel.from_raw(tio.read_mixture_set(str(path), 25),
+                                       tgmm.VarianceModel[pooling], max_approx=True)
+    tdp = ttdp.TdpModel(silence_state=lex.silence_state, loop=3.0, forward=0.0, skip=30.0)
+    with pytest.raises(ValueError, match="df32 has no tree path"):
+        tdec.Recognizer(tcfg.Configuration({**SETTINGS, "search-type": what}), lex, tdp,
+                        model.pack_df(device="cpu"), dtype="df32")
 
 
 def test_device_corpus_batch_equals_padded_batch(port):
