@@ -138,11 +138,19 @@ kernel against its plain PyTorch version on the same tensors:
      gate); the CLI's recognize with search-type=tree --device cuda: the
      golden WER line;
  24. kernel J (the bigram word-loop scan) at full width with the demo bigram
-     LM (tests/fixtures/demo_bigram_lm.json), f32 and f64: bit-equal, timed;
-     decode_batch_bigram at full width (its launch counts);
+     LM (tests/fixtures/demo_bigram_lm.json), f32 and f64: bit-equal, timed
+     in turns with its plain version; its instance (the warp instance at
+     SieTill's 12 x 24), residency, waves and barriers a frame, and the first
+     design (the block instance, forced) bit-equal and timed in turns with
+     it; decode_batch_bigram at full width (its launch counts);
  25. kernel K (WCTS) at full width with the demo bigram LM, f32 pruned, with
      lookahead, with state_limit 48 and 10^6, and f64 pruned: carry and
-     outputs bit-equal, timed; decode_batch_wcts at full width in each
+     outputs bit-equal, timed in turns with the plain version and with the
+     first design (the block instance, forced; also bit-equal); the
+     instance (the owner instance at SieTill's 13 x 212), residency, waves
+     and barriers a frame of both; a sweep of the owner instance's contexts
+     a thread (8, 16) on the pruned scans; the profiled decode's
+     kernel K device time; decode_batch_wcts at full width in each
      configuration (its launch counts; state_limit 10^6 changes no
      transcript; f64 WCTS equals kernel J's f64 decode); on the 35 demo
      utterances, f32 and f64: every output option (lattice word ends,
@@ -339,7 +347,7 @@ def f_warps(A):
 #: the scans' kernels whose machine code phase 2 counts
 SASS_KERNELS = ("decode_scan_warp_kernel", "decode_scan_df_warp_kernel",
                 "decode_scan_df_block_kernel", "align_fwd_warp_kernel", "align_fwd_df_warp_kernel",
-                "align_backtrack_kernel")
+                "align_backtrack_kernel", "bigram_scan_warp_kernel", "wcts_owner_kernel")
 
 
 def log_sass_counts(lib):
@@ -374,7 +382,11 @@ def instance(query, *shape):
     v = getattr(_native.load(), query)(*shape)
     if v <= 0:
         return f"block instance, lattice in {'device scratch' if v < 0 else 'shared memory'}"
-    unit = ("position(s) a lane" if query in ("sr_decode_scan_instance", "sr_decode_scan_df_instance")
+    if query == "sr_wcts_scan_instance":
+        return f"owner instance, {v} contexts a thread"
+    unit = ("position(s) a lane" if query in ("sr_decode_scan_instance", "sr_decode_scan_df_instance",
+                                               "sr_decode_scan_bigram_instance")
+            else "contexts a thread" if query == "sr_wcts_scan_instance"
             else "warp(s) per utterance")
     return f"warp instance, {v} {unit}"
 
@@ -2641,6 +2653,103 @@ def wcts_bound(nb, T, S, C, N, W, word, la=False, hist=False):
     return bound(nbytes, **({"fp32": ops} if word == 4 else {"fp64": ops}))
 
 
+#: __syncthreads a frame of kernel J's instances: the warp instance (one),
+#: the block instance (the first design: entries, minimum twice, word ends)
+J_BARRIERS = {"warp": 1, "block": 3}
+
+
+def j_designs(lib, card, am, lens, jargs, ref, nb, T, W, P, dt):
+    """Kernel J at full width: the instance its C entry chooses, and the
+    first design (the block instance, forced) bit-equal to the plain
+    version; both timed in turns (first, chosen, chosen, first), with their
+    residency, waves and barriers a frame."""
+    from speechrecognition_torch.search import ngram_decoder as ng
+    f64 = int(dt == torch.float64)
+    inst = lib.sr_decode_scan_bigram_instance(W, P, f64)
+    check(inst > 0, f"kernel J {dt} at {W} x {P} did not choose its warp instance")
+    first, _scratch = ng.decode_scan_bigram_cuda(am, lens, *jargs, 200.0, first_design=True)
+    torch.cuda.synchronize()
+    same, _err = bit_equal(first, ref)
+    check(same, f"kernel J's first design {dt} is not bit-equal to its plain version")
+    new_ms, first_ms, all_ = in_turns(
+        lambda: ng.decode_scan_bigram_cuda(am, lens, *jargs, 200.0, first_design=True),
+        lambda: ng.decode_scan_bigram(am, lens, *jargs, 200.0), 5, 5)
+    per_sm = lib.sr_decode_scan_bigram_residency(W, P, f64, 0)
+    per_sm_first = lib.sr_decode_scan_bigram_residency(W, P, f64, 1)
+    log(f"[24] kernel J {dt}: {instance('sr_decode_scan_bigram_instance', W, P, f64)}, "
+        f"{-(-W // 4) * 32} threads, {per_sm} utterances an SM, {waves(nb, per_sm)} wave(s), "
+        f"{J_BARRIERS['warp']} barrier a frame; first design (block instance, "
+        f"{-(-W * P // 32) * 32} threads): {per_sm_first} an SM, {waves(nb, per_sm_first)} "
+        f"wave(s), {J_BARRIERS['block']} barriers a frame, bit-equal {same}; in turns (first, "
+        f"warp, warp, first: {', '.join(f'{v:.4f}' for v in all_)} ms): first design "
+        f"{first_ms:.4f} ms ({first_ms / T * 1e3:.3f} us a frame) -> warp instance "
+        f"{new_ms:.4f} ms ({new_ms / T * 1e3:.3f} us a frame) on {card}")
+
+
+def k_barriers(first, la, hist):
+    """__syncthreads a frame of kernel K's owner instance (the minimum, the
+    word ends; one more for the lookahead's minimum and one for the
+    histogram's counts) and of its block instance (the first design)."""
+    if first:
+        return 5 + 2 * la + 2 * hist
+    return 2 + la + hist
+
+
+def k_threads(C, N, spt):
+    """Threads a block of kernel K's owner instance at ``spt`` contexts a
+    thread: a thread a node (whole warps) in each group of contexts."""
+    return -(-C // spt) * (-(-N // 32) * 32)
+
+
+#: contexts a thread of the owner instance's sweep on SieTill (its C entry
+#: chooses 16: one thread a node in all 13 contexts; 8: two threads a node)
+K_SWEEP = (8, 16)
+
+
+def k_designs(lib, card, name, am, lens, kargs, opts, ref, nb, T, C, N, W, S, dt):
+    """Kernel K at full width in one configuration: the instance its C entry
+    chooses, and the first design (the block instance, forced) bit-equal to
+    the plain version; both timed in turns (first, chosen, chosen, first),
+    with residency, waves and barriers a frame; for the pruned scans, the
+    owner instance at each of K_SWEEP's contexts a thread."""
+    from speechrecognition_torch.search import histogram
+    from speechrecognition_torch.search import wcts as wc
+    f64 = int(dt == torch.float64)
+    la, hist = bool(opts.get("use_lookahead")), bool(opts.get("state_limit"))
+    bins = histogram.DEFAULT_BINS if hist else 0
+    inst = lib.sr_wcts_scan_instance(C, N, W, S, bins, f64)
+    check(inst > 0, f"kernel K {name} at C {C} x N {N} did not choose its owner instance")
+
+    def forced(force):
+        return lambda: wc.wcts_scan_cuda(am, lens, *kargs, 200.0, force=force, **opts)
+
+    carry, outs, _scratch = forced(1)()
+    torch.cuda.synchronize()
+    same, _err = bit_equal(list(carry) + list(outs), list(ref[0]) + list(ref[1]))
+    check(same, f"kernel K's first design {name} is not bit-equal to its plain version")
+    new_ms, first_ms, all_ = in_turns(forced(1), lambda: wc.wcts_scan(am, lens, *kargs, 200.0,
+                                                                     **opts), 2, 3)
+    per_sm = lib.sr_wcts_scan_residency(C, N, W, S, bins, f64, int(la), 0)
+    per_sm_first = lib.sr_wcts_scan_residency(C, N, W, S, bins, f64, int(la), 1)
+    log(f"[25] kernel K {name}: {instance('sr_wcts_scan_instance', C, N, W, S, bins, f64)}, "
+        f"{k_threads(C, N, inst)} threads, {per_sm} utterances an SM, {waves(nb, per_sm)} wave(s), "
+        f"{k_barriers(False, la, hist)} barriers a frame; first design (block instance, "
+        f"{min(-(-C * N // 32) * 32, 512)} threads): {per_sm_first} an SM, "
+        f"{waves(nb, per_sm_first)} wave(s), {k_barriers(True, la, hist)} barriers a frame, "
+        f"bit-equal {same}; in turns (first, owner, owner, first: "
+        f"{', '.join(f'{v:.4f}' for v in all_)} ms): first design {first_ms:.4f} ms "
+        f"({first_ms / T * 1e3:.3f} us a frame) -> owner instance {new_ms:.4f} ms "
+        f"({new_ms / T * 1e3:.3f} us a frame) on {card}")
+    if name not in ("pruned", "pruned[f64]"):
+        return
+    for spt in K_SWEEP:
+        ms = cuda_ms(forced(spt), 3)
+        per = lib.sr_wcts_scan_residency(C, N, W, S, bins, f64, int(la), spt)
+        log(f"[25] kernel K owner sweep, {name} {dt}: {spt} contexts a thread, "
+            f"{k_threads(C, N, spt)} threads, {per} utterances an SM, "
+            f"{waves(nb, per)} wave(s): {ms:.4f} ms ({ms / T * 1e3:.3f} us a frame) on {card}")
+
+
 def golden_check(tag, res, golden):
     mism = [u["idx"] for u in golden["utts"] if res["hyps"][u["idx"]] != u["hyp"]]
     sid = [res["substitutions"], res["insertions"], res["deletions"]]
@@ -2660,6 +2769,7 @@ def search_phases(dev, card, lex, corpus, big, iter2, bench, tdp, wordloop_hyps)
     1,024 streams. Returns the kernels line's entries of I, J and K."""
     from speechrecognition_torch.config import Configuration
     from speechrecognition_torch.models import gmm
+    from speechrecognition_torch.ops import _native
     from speechrecognition_torch.search import decoder as dec
     from speechrecognition_torch.search import ngram_decoder as ng
     from speechrecognition_torch.search import online
@@ -2767,6 +2877,7 @@ def search_phases(dev, card, lex, corpus, big, iter2, bench, tdp, wordloop_hyps)
     t_phase = time.perf_counter()
     lm, lm_start = st.demo_bigram_lm()
     lin = dec.DecoderTables.build(lex, tdp, 0.0)
+    lib = _native.load()
     W, P = lin.state_table.shape
     j_meas, j_launches, j_scratch = {}, {}, {}
     for dt in (torch.float32, torch.float64):
@@ -2785,6 +2896,7 @@ def search_phases(dev, card, lex, corpus, big, iter2, bench, tdp, wordloop_hyps)
             lambda: ng.decode_scan_bigram(am, lens, *jargs, 200.0), 1, 5)
         bnd = bigram_bound(nb, T, S, W, P, word_of[dt])
         j_meas[dt] = (err, ms, plain_ms, bnd)
+        j_designs(lib, card, am, lens, jargs, ref, nb, T, W, P, dt)
         ng.decode_scan_bigram.LAUNCHES = ng.decode_scan_bigram.SCRATCH_LAUNCHES = 0
         t0 = time.perf_counter()
         hyps_j = ng.decode_batch_bigram(None, feats_np, lens_np, lin, lm, lm_start, 200.0,
@@ -2825,6 +2937,7 @@ def search_phases(dev, card, lex, corpus, big, iter2, bench, tdp, wordloop_hyps)
         bnd = wcts_bound(nb, T, S, C, N, lex.num_words, word_of[dt],
                          la=bool(opts.get("use_lookahead")), hist=bool(opts.get("state_limit")))
         k_meas[name] = (err, ms, plain_ms, bnd)
+        k_designs(lib, card, name, am, lens, kargs, opts, ref, nb, T, C, N, lex.num_words, S, dt)
         # the main path: decode_batch_wcts at full width with these options
         wc.wcts_scan.LAUNCHES = wc.wcts_scan.SCRATCH_LAUNCHES = 0
         t0 = time.perf_counter()
@@ -2844,6 +2957,10 @@ def search_phases(dev, card, lex, corpus, big, iter2, bench, tdp, wordloop_hyps)
                     lex.silence_idx, lookahead=la_tables, dtype=dt)
                 prof_s = time.perf_counter() - t0
             log_profile("[25] WCTS lookahead f32 from features", prof, prof_s)
+            k_dev, k_n = kernel_device_ms(prof, "wcts_owner_kernel")
+            log(f"[25] WCTS lookahead f32 from features: kernel K (owner instance) {k_dev:.4f} ms "
+                f"of device time in {k_n} launch(es), decode {prof_s:.4f} s on {card}")
+            check(k_n == 1, "the profiled WCTS decode did not run K's owner instance once")
             check(hyps_prof == hyps_k, "the profiled WCTS decode changed a transcript")
             del prof
         vs_j = ""

@@ -26,17 +26,34 @@
 //   * the utterance freezes once t > feat_len (outputs are still written).
 // Rounded adds, compares and selects only: bit-equal to the plain version.
 //
-// Design (a first, simple one): one block per utterance, threads looping
-// over the W*P slots; the lattice (scores, backpointers, predecessors)
-// double-buffered in shared memory (SieTill: 12 x 24, 9 KB in float64), or
-// past search::SHARED_LIMIT in device scratch (sr_decode_scan_bigram_scratch
-// gives the bytes an utterance); the book and each word's entry in the same
-// place. Per frame: the entries (W threads, each a serial min over the W
-// predecessors), a barrier, the slots, the block minimum, the renormalised
-// slots and the word ends, a barrier. Bound by that per-frame chain, not by
-// bytes: a 1,024-utterance, 960-frame float32 batch takes 4.9 ms (its bytes
-// bound 0.17 ms) on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase
-// 24).
+// What bounds it: the per-frame chain, not bytes (the bytes bound of a
+// 1,024-utterance, 960-frame float32 batch is 0.17 ms). Two instances,
+// chosen in the C entry from the shape alone (sr_decode_scan_bigram_instance):
+//   * the warp instance (W <= 32 and P <= 32, SieTill's 12 x 24 in
+//     both types), kernel B's layout: ceil(W/4) warps an utterance, 8 lanes
+//     a word and ceil(P/8) consecutive positions a lane, a word's
+//     neighbours by shuffles within its group; scores, backpointers and
+//     predecessors in registers; each lane prefetches the next frames'
+//     emissions into registers. One __syncthreads a frame: before it each
+//     warp publishes its exact minimum and the owner of each word end its
+//     raw score, backpointer and predecessor (double-buffered by frame
+//     parity); after it every warp folds the minima in the same order,
+//     renormalises and prunes its slots, rebuilds the books of its lanes'
+//     predecessors by the owners' operations, and forms its words' entries
+//     by the min-plus product in the 8-lane group (lane l takes the
+//     predecessors l, l + 8, ..., the group's keyed argmin keeps the first
+//     predecessor at the minimum; the LM in shared memory). Launch bounds
+//     let 8 utterances of 96 threads share an SM: 1,024 in one wave. On an
+//     NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py phase 24, B 1,024,
+//     T 960): 1.87 ms float32 (1.95 us a frame), 2.50 ms float64.
+//   * the block instance (the first design; any other shape): one
+//     block per utterance, threads looping over the W*P slots; the lattice
+//     double-buffered in shared memory, or past search::SHARED_LIMIT in
+//     device scratch (sr_decode_scan_bigram_scratch gives the bytes an
+//     utterance); per frame the entries (W threads, each a serial min over
+//     the W predecessors), the slots, the block minimum and the word ends:
+//     3 barriers. On SieTill, forced, in the same run: 4.94 ms float32, 6.02
+//     ms float64 (7 and 5 blocks an SM, 2 waves).
 
 #include <cuda_runtime.h>
 
@@ -190,29 +207,341 @@ __global__ void __launch_bounds__(search::MAX_THREADS) bigram_scan_kernel(
   }
 }
 
+// ---- the warp instance: 8 lanes a word, K positions a lane -------------------------
+
+constexpr int GROUP = 8;                    // lanes a word
+constexpr int WORDS_PER_WARP = 32 / GROUP;  // 4
+constexpr int MAX_K = 4;                    // positions a lane: P <= 32
+constexpr int MAX_WARP_WORDS = 32;          // words of the warp instance: 8 warps
+constexpr int MAX_PRED = MAX_WARP_WORDS / GROUP;  // predecessors a lane: W <= 32
+constexpr int PREFETCH = 2;                 // frames of emissions in flight
+
+// per frame parity: each warp's minimum; each word end's raw score,
+// backpointer and predecessor
+template <typename T>
+struct WarpShared {
+  T lm[MAX_WARP_WORDS * MAX_WARP_WORDS];  // lm [W, W], loaded once
+  T wmin[2][MAX_WARP_WORDS / WORDS_PER_WARP];
+  T end[2][MAX_WARP_WORDS];
+  int endb[2][MAX_WARP_WORDS];
+  int endp[2][MAX_WARP_WORDS];
+};
+
+// renormalisation by the frame's minimum (0 for a dead frame) and pruning
+template <typename T>
+__device__ __forceinline__ T renorm_prune(T v, T best, T thr, int prune) {
+  v = search::renorm(v, best);
+  if (prune && v > thr) v = big<T>();
+  return v;
+}
+
+template <typename T, int K>
+__global__ void __launch_bounds__(MAX_WARP_WORDS / WORDS_PER_WARP * 32, 3)
+    bigram_scan_warp_kernel(const T* __restrict__ am, const int* __restrict__ feat_len,
+                            const int* __restrict__ state_table,
+                            const int* __restrict__ last_pos, const int* __restrict__ word_len,
+                            const T* __restrict__ tdpw, const T* __restrict__ entp,
+                            const T* __restrict__ lm, const T* __restrict__ lm_start,
+                            T* __restrict__ book_out, int* __restrict__ bkp_out,
+                            int* __restrict__ pred_out, T* __restrict__ offset, int B, int Tn,
+                            int S, int W, int P, T thr, int prune) {
+  __shared__ WarpShared<T> s;
+  const T BIG = big<T>();
+  const T HALF = BIG * T(0.5);
+  const int b = blockIdx.x;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int l = lane & (GROUP - 1);  // lane within the word's group
+  const int w = warp * WORDS_PER_WARP + (lane >> 3);
+  const bool wv = w < W;
+  const int wc = wv ? w : 0;  // a word that exists, for loads
+
+  // per-slot constants; slot k of this lane is position p = l*K + k
+  int st[K];
+  T tw0[K], tw1[K], tw2[K], h[K];
+  int bk[K], pd[K];
+  unsigned valid = 0;  // bit k: the slot is a valid position of the word
+  const int wlen = word_len[wc];
+  const int end_k = wv ? last_pos[wc] - l * K : -1;  // the slot holding the word end
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int p = l * K + k;
+    const bool real = wv && p < P;
+    const int idx = wc * P + (real ? p : 0);
+    st[k] = state_table[idx];
+    tw0[k] = real ? tdpw[idx * 3 + 0] : BIG;
+    tw1[k] = real ? tdpw[idx * 3 + 1] : BIG;
+    tw2[k] = real ? tdpw[idx * 3 + 2] : BIG;
+    h[k] = BIG;
+    bk[k] = 0;
+    pd[k] = -1;
+    if (real && p < wlen) valid |= 1u << k;
+  }
+  // the entry penalties of this lane's slots at positions 0 and 1 (lane 0's
+  // first two slots, or lanes 0 and 1's first when K == 1)
+  constexpr int KE = K < 2 ? K : 2;
+  T ep[KE];
+#pragma unroll
+  for (int k = 0; k < KE; ++k) {
+    const int p = l * K + k;
+    ep[k] = wv && p < 2 ? entp[wc * 2 + p] : BIG;
+  }
+  // the books of this lane's predecessors v = l + GROUP*j in the min-plus
+  // product (none has ended yet); the LM in shared memory
+  T book[MAX_PRED];
+#pragma unroll
+  for (int j = 0; j < MAX_PRED; ++j) book[j] = BIG;
+  for (int k = threadIdx.x; k < W * W; k += blockDim.x) s.lm[k] = lm[k];
+  const T start_row = lm_start[wc];
+  const int len = feat_len[b];
+  __syncthreads();  // the LM is visible
+
+  // the emissions of frames i .. i+PREFETCH-1 (slot i % PREFETCH)
+  const T* amb = am + (size_t)b * Tn * S;
+  T ring[PREFETCH][K];
+#pragma unroll
+  for (int q = 0; q < PREFETCH; ++q)
+#pragma unroll
+    for (int k = 0; k < K; ++k) ring[q][k] = q < Tn ? amb[(size_t)q * S + st[k]] : T(0);
+
+  for (int i0 = 0; i0 < Tn; i0 += PREFETCH) {
+#pragma unroll
+    for (int q = 0; q < PREFETCH; ++q) {
+      const int i = i0 + q;
+      if (i < Tn) {  // the same for the whole block
+        const int t = i + 1;  // 1-based frame index
+        const bool alive = t <= len;
+        const int par = i & 1;
+        T a[K];
+        const T* row = amb + (size_t)min(i + PREFETCH, Tn - 1) * S;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          a[k] = ring[q][k];
+          ring[q][k] = row[st[k]];
+        }
+        // (a) this word's entry: the min-plus product over the predecessors,
+        // split across the group's lanes, then the group's keyed argmin
+        // (the smallest value, the first predecessor on ties)
+        T rec = search::infinity<T>();
+        int rp = INT_MAX;
+#pragma unroll
+        for (int j = 0; j < MAX_PRED; ++j) {
+          const int v = l + GROUP * j;
+          if (v < W) {
+            const T c = add(book[j], s.lm[v * W + wc]);
+            if (c < rec) {  // v grows with j: the first v at the minimum
+              rec = c;
+              rp = v;
+            }
+          }
+        }
+#pragma unroll
+        for (int o = GROUP / 2; o > 0; o >>= 1) {
+          const T orec = __shfl_xor_sync(search::FULL, rec, o);
+          const int orp = __shfl_xor_sync(search::FULL, rp, o);
+          if (search::pair_less(orec, orp, rec, rp)) {
+            rec = orec;
+            rp = orp;
+          }
+        }
+        const T start = t == 1 ? start_row : BIG;
+        const bool take_start = start < rec;
+        const T ent = take_start ? start : rec;
+        const int entp_v = take_start ? -1 : rp;
+
+        // (b) the slots: the two positions left of this lane's first slot
+        // come from the lanes below
+        const T left1 = __shfl_up_sync(search::FULL, h[K - 1], 1, GROUP);
+        const int left1b = __shfl_up_sync(search::FULL, bk[K - 1], 1, GROUP);
+        const int left1p = __shfl_up_sync(search::FULL, pd[K - 1], 1, GROUP);
+        constexpr int d2 = K >= 2 ? 1 : 2;
+        constexpr int k2 = K >= 2 ? K - 2 : 0;
+        const T left2 = __shfl_up_sync(search::FULL, h[k2], d2, GROUP);
+        const int left2b = __shfl_up_sync(search::FULL, bk[k2], d2, GROUP);
+        const int left2p = __shfl_up_sync(search::FULL, pd[k2], d2, GROUP);
+
+        T nv[K];
+        int nb[K], np[K];
+        T m = BIG;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const int p = l * K + k;
+          const T h1 = k >= 1 ? h[k - 1] : left1;
+          const int b1 = k >= 1 ? bk[k - 1] : left1b;
+          const int p1 = k >= 1 ? pd[k - 1] : left1p;
+          const T h2 = k >= 2 ? h[k - 2] : (k == 1 ? left1 : left2);
+          const int b2 = k >= 2 ? bk[k - 2] : (k == 1 ? left1b : left2b);
+          const int p2 = k >= 2 ? pd[k - 2] : (k == 1 ? left1p : left2p);
+          const T c0 = add(h[k], tw0[k]);
+          const T c1 = p >= 1 ? add(h1, tw1[k]) : BIG;
+          const T c2 = p >= 2 ? add(h2, tw2[k]) : BIG;
+          // the sequential selection (start at c2, take c1, then c0, if
+          // strictly less) with its compares made independent
+          const bool take1 = c1 < c2;
+          const bool take0 = take1 ? c0 < c1 : c0 < c2;
+          T wvs = take0 ? c0 : take1 ? c1 : c2;
+          const int wb = take0 ? bk[k] : take1 ? (p >= 1 ? b1 : 0) : (p >= 2 ? b2 : 0);
+          const int wp = take0 ? pd[k] : take1 ? (p >= 1 ? p1 : -1) : (p >= 2 ? p2 : -1);
+          wvs = add(wvs, a[k]);
+          const T entry = k < KE && p < 2 ? add(add(ent, ep[k < KE ? k : 0]), a[k]) : BIG;
+          T v;
+          if (entry <= wvs) {
+            v = entry;
+            nb[k] = t - 1;
+            np[k] = p < 2 ? entp_v : -1;
+          } else {
+            v = wvs;
+            nb[k] = wb;
+            np[k] = wp;
+          }
+          if (!((valid >> k) & 1u)) v = BIG;
+          nv[k] = tmin(v, BIG);
+          m = tmin(m, nv[k]);
+          if (k == end_k) {
+            s.end[par][w] = nv[k];
+            s.endb[par][w] = nb[k];
+            s.endp[par][w] = np[k];
+          }
+        }
+        m = keys::warp_minimum(m);
+        if (lane == 0) s.wmin[par][warp] = m;
+        __syncthreads();  // the minima and the raw word ends are visible
+
+        // (c) every warp folds the minima in the same order
+        T best = s.wmin[par][0];
+#pragma unroll
+        for (int u = 1; u < MAX_WARP_WORDS / WORDS_PER_WARP; ++u)
+          if (u < nwarps) best = tmin(best, s.wmin[par][u]);
+        if (best >= HALF) best = T(0);
+        // renormalise and prune this lane's slots; the owner of the word end
+        // writes the book
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const T v = renorm_prune(nv[k], best, thr, prune);
+          if (k == end_k) {
+            const size_t o = ((size_t)i * B + b) * W + w;
+            book_out[o] = v >= HALF ? BIG : v;
+            bkp_out[o] = nb[k];
+            pred_out[o] = np[k];
+          }
+          if (alive) {
+            h[k] = v;
+            bk[k] = nb[k];
+            pd[k] = np[k];
+          }
+        }
+        // the books of this lane's predecessors, by the owners' operations
+        if (alive) {
+#pragma unroll
+          for (int j = 0; j < MAX_PRED; ++j) {
+            const int v = l + GROUP * j;
+            if (v < W) {
+              const T e = renorm_prune(s.end[par][v], best, thr, prune);
+              book[j] = e >= HALF ? BIG : e;
+            }
+          }
+        }
+        if (threadIdx.x == 0) offset[(size_t)i * B + b] = alive ? best : T(0);
+      }
+    }
+  }
+}
+
+// positions a lane of the warp instance (1-4); for the block instance 0
+// (its lattice in shared memory) or -1 (in device scratch)
+int instance_for(int W, int P, int f64) {
+  if (W <= MAX_WARP_WORDS && P >= 2 && P <= GROUP * MAX_K) return (P + GROUP - 1) / GROUP;
+  const size_t n = f64 ? Layout::of<double>(W, P).total : Layout::of<float>(W, P).total;
+  return n <= search::SHARED_LIMIT ? 0 : -1;
+}
+
+// the warp instance's threads a block (4 words a warp), and the block
+// instance's
+int threads_for(int W, int P, int f64) {
+  if (instance_for(W, P, f64) > 0) return (W + WORDS_PER_WARP - 1) / WORDS_PER_WARP * 32;
+  return search::threads_for((long long)W * P);
+}
+
+template <typename T, int K>
+cudaError_t launch_warp(const T* am, const int* feat_len, const int* state_table,
+                        const int* last_pos, const int* word_len, const T* tdpw, const T* entp,
+                        const T* lm, const T* lm_start, T* book, int* bkp, int* pred,
+                        T* offset, int B, int Tn, int S, int W, int P, T thr, int prune,
+                        int threads, cudaStream_t stream) {
+  bigram_scan_warp_kernel<T, K><<<B, threads, 0, stream>>>(
+      am, feat_len, state_table, last_pos, word_len, tdpw, entp, lm, lm_start, book, bkp, pred,
+      offset, B, Tn, S, W, P, thr, prune);
+  return cudaGetLastError();
+}
+
 template <typename T>
 int launch(const void* am, const int* feat_len, const int* state_table, const int* last_pos,
            const int* word_len, const void* tdpw, const void* entp, const void* lm,
            const void* lm_start, void* book, int* bkp, int* pred, void* offset, void* scratch,
-           int B, int Tn, int S, int W, int P, double thr, int prune, int device, void* stream) {
+           int B, int Tn, int S, int W, int P, double thr, int prune, int first_design,
+           int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B == 0 || Tn == 0) return (int)cudaSuccess;
   if (W == 0 || P < 2) return (int)cudaErrorInvalidValue;
+  const int f64 = sizeof(T) == 8;
+  const int inst = first_design ? 0 : instance_for(W, P, f64);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (inst > 0) {
+    const int threads = threads_for(W, P, f64);
+#define SR_J_ARGS                                                                         \
+  static_cast<const T*>(am), feat_len, state_table, last_pos, word_len,                 \
+      static_cast<const T*>(tdpw), static_cast<const T*>(entp), static_cast<const T*>(lm), \
+      static_cast<const T*>(lm_start), static_cast<T*>(book), bkp, pred,                  \
+      static_cast<T*>(offset), B, Tn, S, W, P, T(thr), prune, threads, st
+    switch (inst) {
+      case 1: err = launch_warp<T, 1>(SR_J_ARGS); break;
+      case 2: err = launch_warp<T, 2>(SR_J_ARGS); break;
+      case 3: err = launch_warp<T, 3>(SR_J_ARGS); break;
+      default: err = launch_warp<T, 4>(SR_J_ARGS); break;
+    }
+#undef SR_J_ARGS
+    return (int)err;
+  }
   const Layout L = Layout::of<T>(W, P);
   const bool in_scratch = L.total > search::SHARED_LIMIT;
   if (in_scratch && scratch == nullptr) return (int)cudaErrorInvalidValue;
   const size_t smem = in_scratch ? 0 : L.total;
   err = search::allow_smem(bigram_scan_kernel<T>, smem);
   if (err != cudaSuccess) return (int)err;
-  bigram_scan_kernel<T><<<B, search::threads_for((long long)W * P), smem,
-                          (cudaStream_t)stream>>>(
+  bigram_scan_kernel<T><<<B, search::threads_for((long long)W * P), smem, st>>>(
       static_cast<const T*>(am), feat_len, state_table, last_pos, word_len,
       static_cast<const T*>(tdpw), static_cast<const T*>(entp), static_cast<const T*>(lm),
       static_cast<const T*>(lm_start), static_cast<T*>(book), bkp, pred,
       static_cast<T*>(offset), in_scratch ? static_cast<unsigned char*>(scratch) : nullptr, L,
       B, Tn, S, W, P, T(thr), prune);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int residency(int W, int P, int first_design) {
+  const int f64 = sizeof(T) == 8;
+  const int inst = first_design ? 0 : instance_for(W, P, f64);
+  int n = 0;
+  cudaError_t err;
+  if (inst > 0) {
+    const int threads = threads_for(W, P, f64);
+    switch (inst) {
+      case 1: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, bigram_scan_warp_kernel<T, 1>, threads, 0); break;
+      case 2: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, bigram_scan_warp_kernel<T, 2>, threads, 0); break;
+      case 3: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, bigram_scan_warp_kernel<T, 3>, threads, 0); break;
+      default: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, bigram_scan_warp_kernel<T, 4>, threads, 0); break;
+    }
+  } else {
+    const Layout L = Layout::of<T>(W, P);
+    const size_t smem = L.total > search::SHARED_LIMIT ? 0 : L.total;
+    err = search::allow_smem(bigram_scan_kernel<T>, smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, bigram_scan_kernel<T>, search::threads_for((long long)W * P), smem);
+  }
+  return err == cudaSuccess ? n : -1;
 }
 
 }  // namespace
@@ -226,19 +555,36 @@ extern "C" int sr_decode_scan_bigram_scratch(int W, int P, int f64) {
 }
 
 // am [B, T, S], tdp_within, entry_tdp, lm, lm_start, book [T, B, W] and
-// offset [T, B] in float (f64 == 0) or double; bkp and pred [T, B, W] int
+// offset [T, B] in float (f64 == 0) or double; bkp and pred [T, B, W] int.
+// The instance follows from the shape (sr_decode_scan_bigram_instance);
+// first_design != 0 launches the block instance whatever the shape, so that
+// the first design can be timed beside the warp instance (the wrapper
+// passes 0).
 extern "C" int sr_decode_scan_bigram(int f64, const void* am, const int* feat_len,
                                      const int* state_table, const int* last_pos,
                                      const int* word_len, const void* tdp_within,
                                      const void* entry_tdp, const void* lm,
                                      const void* lm_start, void* book, int* bkp, int* pred,
                                      void* offset, void* scratch, int B, int T, int S, int W,
-                                     int P, double am_threshold, int prune, int device,
-                                     void* stream) {
+                                     int P, double am_threshold, int prune, int first_design,
+                                     int device, void* stream) {
   return f64 ? launch<double>(am, feat_len, state_table, last_pos, word_len, tdp_within,
                               entry_tdp, lm, lm_start, book, bkp, pred, offset, scratch, B, T,
-                              S, W, P, am_threshold, prune, device, stream)
+                              S, W, P, am_threshold, prune, first_design, device, stream)
              : launch<float>(am, feat_len, state_table, last_pos, word_len, tdp_within,
                              entry_tdp, lm, lm_start, book, bkp, pred, offset, scratch, B, T,
-                             S, W, P, am_threshold, prune, device, stream);
+                             S, W, P, am_threshold, prune, first_design, device, stream);
+}
+
+// the instance the entry launches for a W x P lattice: positions a lane of
+// the warp instance (1-4: W <= 32 and 2 <= P <= 32); the block instance with
+// its lattice in shared memory (0) or in device scratch (-1)
+extern "C" int sr_decode_scan_bigram_instance(int W, int P, int f64) {
+  return instance_for(W, P, f64);
+}
+
+// blocks one SM holds of that instance's launch (with first_design != 0:
+// of the block instance's), by the occupancy calculator, or -1
+extern "C" int sr_decode_scan_bigram_residency(int W, int P, int f64, int first_design) {
+  return f64 ? residency<double>(W, P, first_design) : residency<float>(W, P, first_design);
 }

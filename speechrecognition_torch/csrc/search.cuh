@@ -104,11 +104,13 @@ __device__ __forceinline__ void block_argmin(T& v, int& idx, T* s_v, int* s_i) {
 template <typename T>
 __device__ __forceinline__ T infinity() { return T(__int_as_float(0x7f800000)); }
 
-// raises `kernel`'s dynamic shared memory limit to `smem` bytes where that is
-// past the default 48 KB (before its launch)
+// sets `kernel`'s dynamic shared memory limit to `smem` bytes (before its
+// launch): the default 48 KB holds static and dynamic shared memory
+// together, so a launch with less than 48 KB of dynamic shared memory can
+// still need it
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
+  if (smem == 0) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 

@@ -113,21 +113,37 @@ SIGNATURES = {
     "sr_tree_scan_scratch": ((_I, _I), _I),
     # f64, am, feat_len, state_table, last_pos, word_len, tdp_within,
     # entry_tdp, lm, lm_start, book, bkp, pred, offset, scratch (or NULL), B,
-    # T, S, W, P, am_threshold, prune, device, stream
-    "sr_decode_scan_bigram": ((_I,) + (_P,) * 14 + (_I,) * 5 + (_D, _I, _I, _P), _I),
+    # T, S, W, P, am_threshold, prune, first_design (0: the instance the
+    # shape chooses; 1: the block instance), device, stream
+    "sr_decode_scan_bigram": ((_I,) + (_P,) * 14 + (_I,) * 5 + (_D, _I, _I, _I, _P), _I),
     # W, P, f64 → kernel J's scratch bytes an utterance (0: shared memory)
     "sr_decode_scan_bigram_scratch": ((_I, _I, _I), _I),
+    # W, P, f64 → kernel J's instance (1-4: positions a lane of the warp
+    # instance; 0: block instance, its lattice in shared memory; -1: in
+    # device scratch)
+    "sr_decode_scan_bigram_instance": ((_I, _I, _I), _I),
+    # W, P, f64, first_design → blocks per SM of kernel J's launch (-1: error)
+    "sr_decode_scan_bigram_residency": ((_I, _I, _I, _I), _I),
     # f64, am, feat_len, state, parent, grand, tdp, loop_allowed,
     # entry_state, entry_pen, end_node, lm_ext, la; the carry in (hyp, bkp,
     # book, silp, silb) and out; book, bkp, pred, offset; cand, ebkp (or
     # NULL); active states, trees, word ends (or NULL); via_sil, silb_prev,
     # silp, silb (or NULL); scratch (or NULL); B, T, S, C, N, W, t0,
     # am_threshold, prune, use_lookahead, state_limit, bins, silence (-1:
-    # none), device, stream
-    "sr_wcts_scan": ((_I,) + (_P,) * 36 + (_I,) * 7 + (_D,) + (_I,) * 6 + (_P,), _I),
-    # C, N, W, bins, f64 → kernel K's scratch bytes an utterance (0: shared
-    # memory)
-    "sr_wcts_scan_scratch": ((_I,) * 5, _I),
+    # none), force (0: the instance the shape chooses; 1: the block
+    # instance; 8, 16: the owner instance with that many contexts a thread),
+    # device, stream
+    "sr_wcts_scan": ((_I,) + (_P,) * 36 + (_I,) * 7 + (_D,) + (_I,) * 7 + (_P,), _I),
+    # C, N, W, S, bins, f64 → kernel K's scratch bytes an utterance (0: none,
+    # the state stays in shared memory)
+    "sr_wcts_scan_scratch": ((_I,) * 6, _I),
+    # C, N, W, S, bins, f64 → kernel K's instance (8, 16: contexts a thread
+    # of the owner instance; 0: block instance, its state in shared memory;
+    # -1: in device scratch)
+    "sr_wcts_scan_instance": ((_I,) * 6, _I),
+    # C, N, W, S, bins, f64, use_lookahead, force → blocks per SM of kernel
+    # K's launch (-1: error, or a forced instance that does not take it)
+    "sr_wcts_scan_residency": ((_I,) * 8, _I),
     "sr_error_string": ((_I,), ctypes.c_char_p),
 }
 

@@ -150,14 +150,36 @@ def decode_scan_bigram(am: torch.Tensor, feat_len: torch.Tensor, state_table: to
 
     CPU tensors take the plain version; CUDA tensors launch kernel J
     (float32 or float64; counted in ``decode_scan_bigram.LAUNCHES``), whose C
-    entry keeps the lattice in shared memory up to its limit and past it in
-    device scratch (counted in ``SCRATCH_LAUNCHES``). Any [W, P] with P >= 2
+    entry chooses its instance from the shape (``sr_decode_scan_bigram_instance``):
+    the warp instance for W <= 32 and P <= 32 with every slot in registers,
+    else the block instance with the lattice in shared memory up to its limit
+    and past it in device scratch (counted in ``SCRATCH_LAUNCHES``). Any [W, P] with P >= 2
     is taken, as the reference takes it. The indices are not range-checked
     here (``check_decoder_tables`` does that once, on the host)."""
     if am.device.type == "cpu":
         return decode_scan_bigram_reference(am, feat_len, state_table, last_pos, word_len,
                                             tdp_within, entry_tdp, lm, lm_start,
                                             am_threshold, prune=prune)
+    outs, in_scratch = decode_scan_bigram_cuda(am, feat_len, state_table, last_pos, word_len,
+                                               tdp_within, entry_tdp, lm, lm_start,
+                                               am_threshold, prune=prune)
+    decode_scan_bigram.LAUNCHES += 1
+    decode_scan_bigram.SCRATCH_LAUNCHES += in_scratch
+    return outs
+
+
+decode_scan_bigram.LAUNCHES = decode_scan_bigram.SCRATCH_LAUNCHES = 0
+
+
+def decode_scan_bigram_cuda(am: torch.Tensor, feat_len: torch.Tensor,
+                            state_table: torch.Tensor, last_pos: torch.Tensor,
+                            word_len: torch.Tensor, tdp_within: torch.Tensor,
+                            entry_tdp: torch.Tensor, lm: torch.Tensor, lm_start: torch.Tensor,
+                            am_threshold, prune: bool = True, first_design: bool = False):
+    """Kernel J's launch on CUDA tensors, as ``decode_scan_bigram`` makes it
+    but not counted: returns (outs, whether the lattice lived in device
+    scratch). ``first_design`` launches the block instance whatever the
+    shape, so that it can be timed beside the warp instance."""
     if am.device.type != "cuda":
         raise ValueError(f"decode_scan_bigram: unsupported device {am.device}")
     if am.dtype not in (torch.float32, torch.float64):
@@ -190,14 +212,10 @@ def decode_scan_bigram(am: torch.Tensor, feat_len: torch.Tensor, state_table: to
         fl["tdp_within"].data_ptr(), fl["entry_tdp"].data_ptr(), fl["lm"].data_ptr(),
         fl["lm_start"].data_ptr(), book.data_ptr(), bkp.data_ptr(), pred.data_ptr(),
         offset.data_ptr(), _native.ptr(scratch), B, T, S, W, P, float(am_threshold),
-        int(bool(prune)), device.index, torch.cuda.current_stream(device).cuda_stream)
+        int(bool(prune)), int(bool(first_design)), device.index,
+        torch.cuda.current_stream(device).cuda_stream)
     _native.check(err, "decode_scan_bigram")
-    decode_scan_bigram.LAUNCHES += 1
-    decode_scan_bigram.SCRATCH_LAUNCHES += scratch is not None
-    return book, bkp, pred, offset
-
-
-decode_scan_bigram.LAUNCHES = decode_scan_bigram.SCRATCH_LAUNCHES = 0
+    return (book, bkp, pred, offset), scratch is not None
 
 
 def check_decoder_tables(tables: DecoderTables, num_states: int) -> None:

@@ -298,8 +298,13 @@ def wcts_scan(am: torch.Tensor, feat_len: torch.Tensor, state: torch.Tensor,
 
     CPU tensors take the plain version; CUDA tensors launch kernel K
     (float32 or float64; counted in ``wcts_scan.LAUNCHES``), whose C entry
-    keeps every tree copy, double-buffered, in shared memory up to its limit
-    and past it in device scratch (counted in ``SCRATCH_LAUNCHES``). The
+    chooses its instance from the shape (``sr_wcts_scan_instance``): the
+    owner instance, a thread a node with its scores in every context in
+    registers, for up to 32 contexts and 256 threads (512 at 8 contexts a
+    thread) whose state fits in shared memory; else the block
+    instance with every tree copy, double-buffered, in shared memory up to
+    its limit and past it in device scratch (counted in
+    ``SCRATCH_LAUNCHES``). The
     indices are not range-checked here (``WctsTables.build`` does that once,
     on the host)."""
     if am.device.type == "cpu":
@@ -310,6 +315,35 @@ def wcts_scan(am: torch.Tensor, feat_len: torch.Tensor, state: torch.Tensor,
                                    emit_ends=emit_ends, emit_stats=emit_stats,
                                    transparent_silence=transparent_silence,
                                    carry_in=carry_in, t0=t0)
+    out, result, in_scratch = wcts_scan_cuda(
+        am, feat_len, state, parent, grand, tdp, loop_allowed, entry_state, entry_pen, end_node,
+        lm_ext, la, am_threshold, prune=prune, use_lookahead=use_lookahead,
+        state_limit=state_limit, histogram_bins=histogram_bins, emit_ends=emit_ends,
+        emit_stats=emit_stats, transparent_silence=transparent_silence, carry_in=carry_in,
+        t0=t0)
+    wcts_scan.LAUNCHES += 1
+    wcts_scan.SCRATCH_LAUNCHES += in_scratch
+    return out, result
+
+
+wcts_scan.LAUNCHES = wcts_scan.SCRATCH_LAUNCHES = 0
+
+
+def wcts_scan_cuda(am: torch.Tensor, feat_len: torch.Tensor, state: torch.Tensor,
+                   parent: torch.Tensor, grand: torch.Tensor, tdp: torch.Tensor,
+                   loop_allowed: torch.Tensor, entry_state: torch.Tensor,
+                   entry_pen: torch.Tensor, end_node: torch.Tensor, lm_ext: torch.Tensor,
+                   la: torch.Tensor, am_threshold, prune: bool = True,
+                   use_lookahead: bool = False, state_limit: int = 0, histogram_bins: int = 0,
+                   emit_ends: bool = False, emit_stats: bool = False,
+                   transparent_silence: int = -1, carry_in: Optional[WctsCarry] = None,
+                   t0: int = 0, force: int = 0):
+    """Kernel K's launch on CUDA tensors, as ``wcts_scan`` makes it but not
+    counted: returns (carry_out, outs, whether the state lived in device
+    scratch). ``force`` 0 takes the instance the C entry chooses from the
+    shape; 1 the block instance (the first design), 8 or 16 the owner
+    instance with that many contexts a thread, so that instances can be
+    timed beside one another."""
     if am.device.type != "cuda":
         raise ValueError(f"wcts_scan: unsupported device {am.device}")
     if am.dtype not in (torch.float32, torch.float64):
@@ -356,7 +390,7 @@ def wcts_scan(am: torch.Tensor, feat_len: torch.Tensor, state: torch.Tensor,
             if transparent_silence >= 0 else [None] * 4)
     lib = _native.load()
     f64 = int(dtype == torch.float64)
-    scratch = _native.scratch(B, lib.sr_wcts_scan_scratch(C, N, W, bins, f64), device)
+    scratch = _native.scratch(B, lib.sr_wcts_scan_scratch(C, N, W, S, bins, f64), device)
     err = lib.sr_wcts_scan(
         f64, am.data_ptr(), ints["feat_len"].data_ptr(), ints["state"].data_ptr(),
         ints["parent"].data_ptr(), ints["grand"].data_ptr(), fl["tdp"].data_ptr(),
@@ -366,11 +400,9 @@ def wcts_scan(am: torch.Tensor, feat_len: torch.Tensor, state: torch.Tensor,
         *(x.data_ptr() for x in outs), *map(_native.ptr, ends), *map(_native.ptr, stats),
         *map(_native.ptr, silo), _native.ptr(scratch), B, T, S, C, N, W, int(t0),
         float(am_threshold), int(bool(prune)), int(bool(use_lookahead)), int(state_limit),
-        bins, transparent_silence, device.index,
+        bins, transparent_silence, int(force), device.index,
         torch.cuda.current_stream(device).cuda_stream)
     _native.check(err, "wcts_scan")
-    wcts_scan.LAUNCHES += 1
-    wcts_scan.SCRATCH_LAUNCHES += scratch is not None
     result = outs
     if emit_ends:
         result += ends
@@ -378,10 +410,7 @@ def wcts_scan(am: torch.Tensor, feat_len: torch.Tensor, state: torch.Tensor,
         result += stats
     if transparent_silence >= 0:
         result += silo
-    return out, tuple(result)
-
-
-wcts_scan.LAUNCHES = wcts_scan.SCRATCH_LAUNCHES = 0
+    return out, tuple(result), scratch is not None
 
 
 @dataclass

@@ -840,16 +840,24 @@ WCTS_OPTIONS = {
 }
 
 
-def wcts_both(dev, lex, tdp, S, W, opts, dtype, T, chunks, lens, seed):
+def wcts_both(dev, lex, tdp, S, W, opts, dtype, T, chunks, lens, seed, kernel=None,
+              ties=False):
+    """(kernel, plain) carries and outputs over the chunks; ``kernel`` is
+    wcts_scan unless given; ``ties``: integer scores and LM rows of 0 and 1,
+    so contexts, predecessors and histogram bins tie."""
     from speechrecognition_torch.search import wcts
     from torch_search_tables import am_scores, random_lm, wcts_inputs
     lm, lm_start = random_lm(W, seed=seed)
+    if ties:
+        lm, lm_start = np.round(lm) % 2, np.round(lm_start) % 2
     _tables, wt = wcts_inputs(lex, tdp, lm, lm_start, lookahead=opts.get("use_lookahead", False))
     args = wt.args(dev, dtype, S)
     am = am_scores(len(lens), T, S, seed=seed, dtype=dtype, device=dev)
+    if ties:
+        am = am.round() % 3
     lens = torch.as_tensor(lens, dtype=torch.int32, device=dev)
     results = []
-    for fn in (wcts.wcts_scan, wcts.wcts_scan_reference):
+    for fn in (kernel or wcts.wcts_scan, wcts.wcts_scan_reference):
         carry, outs, t0 = None, [], 0
         for n in chunks:
             carry, o = fn(am[:, t0:t0 + n].contiguous(), lens, *args, 200.0, carry_in=carry,
@@ -891,3 +899,139 @@ def test_kernel_k_bit_equal_prefix_tree(dev, option, size):
                          seed=3)
     assert same(got, ref)
     assert wcts.wcts_scan.SCRATCH_LAUNCHES == before + (2 if size == "scratch" else 0)
+
+
+#: kernel J's instance at each lattice of its tests, in both types
+#: (sr_decode_scan_bigram_instance): positions a lane of the warp instance,
+#: 0 for the block instance with its lattice in shared memory
+J_INSTANCES = {(1, 2): 1, (4, 3): 1, (5, 9): 2, (12, 24): 3, (32, 32): 4, (33, 8): 0,
+               (4, 33): 0}
+
+
+@pytest.mark.parametrize("W,P", list(J_INSTANCES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["pruned", "unpruned", "ties"])
+def test_kernel_j_every_instance(dev, W, P, dtype, case):
+    """Kernel J's warp instance at its edges (one word; P at, one past and
+    far past a lane's 8 positions; 32 x 32) and the block instance past it,
+    on repetition-1 lexica, utterances of 0 frames and ending early; ties on
+    integer scores, zero TDPs and LM scores of 0 and 1. The block instance
+    (the first design) is also forced at every shape: both bit-equal to the
+    plain version."""
+    from speechrecognition_torch.ops import _native
+    from speechrecognition_torch.search import ngram_decoder as ng
+    from torch_search_tables import random_lm
+    f64 = int(dtype == torch.float64)
+    assert _native.load().sr_decode_scan_bigram_instance(W, P, f64) == J_INSTANCES[W, P]
+    tables, S = random_lexicon_tables(W, P, seed=W * 5 + P, flat=case == "ties")
+    rng = np.random.default_rng(W + P + len(case))
+    lm, lm_start = random_lm(W, seed=W + P)
+    if case == "ties":
+        lm, lm_start = np.round(lm) % 2, np.round(lm_start) % 2
+    B, T = 4, 40
+    am = (rng.integers(0, 3, size=(B, T, S)).astype(np.float64) if case == "ties"
+          else rng.uniform(0.0, 40.0, size=(B, T, S)))
+    am = torch.as_tensor(am, dtype=dtype, device=dev)
+    lens = torch.as_tensor([40, 23, 0, 39], dtype=torch.int32, device=dev)
+    args = [torch.as_tensor(np.asarray(a, np.int32), device=dev)
+            for a in (tables.state_table, tables.last_pos, tables.word_len)]
+    args += [torch.as_tensor(a, dtype=dtype, device=dev)
+             for a in (tables.tdp_within, tables.entry_pen, lm, lm_start)]
+    thr = 4.0 if case == "ties" else 60.0
+    prune = case != "unpruned"
+    before = ng.decode_scan_bigram.LAUNCHES
+    got = ng.decode_scan_bigram(am, lens, *args, thr, prune=prune)
+    first, _scratch = ng.decode_scan_bigram_cuda(am, lens, *args, thr, prune=prune,
+                                                 first_design=True)
+    ref = ng.decode_scan_bigram_reference(am, lens, *args, thr, prune=prune)
+    torch.cuda.synchronize()
+    assert same(got, ref)
+    assert same(first, ref)
+    assert ng.decode_scan_bigram.LAUNCHES == before + 1
+
+
+def test_kernel_j_queries(dev):
+    """The instance query (the warp instance up to 32 x 32, then the block
+    instance, its lattice in scratch past 96 KB) and the residency query:
+    the launch bounds promise 768 threads an SM, so 8 SieTill utterances of
+    96 threads share one (1,024 in one wave on 132 SMs)."""
+    from speechrecognition_torch.ops import _native
+    lib = _native.load()
+    for f64 in (0, 1):
+        for (W, P), k in {**J_INSTANCES, (32, 33): 0, (33, 32): 0, (200, 24): -1}.items():
+            assert lib.sr_decode_scan_bigram_instance(W, P, f64) == k, (W, P, f64)
+        assert lib.sr_decode_scan_bigram_residency(12, 24, f64, 0) >= 8
+        assert lib.sr_decode_scan_bigram_residency(12, 24, f64, 1) >= 1
+
+
+#: kernel K's instance at SieTill's shape and at the owner instance's edges
+#: (C, N, W, S, bins) → sr_wcts_scan_instance in both types: contexts a
+#: thread of the owner instance (a thread a node), 0 for the block instance
+#: in shared memory, -1 in device scratch
+K_INSTANCES = {(13, 212, 12, 106, 0): 16, (13, 212, 12, 106, 101): 16, (5, 37, 4, 40, 0): 8,
+               (8, 300, 7, 40, 0): 8, (13, 300, 12, 40, 0): 0, (32, 32, 31, 40, 101): 16,
+               (32, 64, 31, 40, 0): 16, (17, 129, 16, 40, 0): 8, (33, 100, 32, 40, 0): 0,
+               (201, 722, 200, 37, 0): -1}
+
+
+def test_kernel_k_queries(dev):
+    """The instance query at 8 / 13 / 32 / 33 contexts and at the owner
+    instance's thread bounds, and the residency query: SieTill's owner
+    instance runs what its launch bounds promise (256 threads; 4 blocks an
+    SM in float32, 2 in float64) with every option; the block instance (the
+    first design) 1 or more; a forced configuration that does not exist -1."""
+    from speechrecognition_torch.ops import _native
+    lib = _native.load()
+    for f64 in (0, 1):
+        for shape, k in K_INSTANCES.items():
+            assert lib.sr_wcts_scan_instance(*shape, f64) == k, (shape, f64)
+        promised = 2 if f64 else 4
+        for bins in (0, 101):
+            for la in (0, 1):
+                assert lib.sr_wcts_scan_residency(13, 212, 12, 106, bins, f64, la, 0) >= promised
+                assert lib.sr_wcts_scan_residency(13, 212, 12, 106, bins, f64, la, 1) >= 1
+        assert lib.sr_wcts_scan_residency(13, 212, 12, 106, 0, f64, 0, 12) == -1
+
+
+@pytest.mark.parametrize("force", [1, 8, 16])
+@pytest.mark.parametrize("option", ["pruned", "everything"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_k_every_configuration(dev, force, option, dtype):
+    """Kernel K on SieTill with each instance forced: the block instance
+    (the first design) and the owner instance at 8 and 16 contexts a thread
+    (two threads a node, or one), bit-equal to the plain version over two
+    chunks."""
+    from speechrecognition_torch.search import wcts
+
+    def kernel(*a, **kw):
+        out, outs, _scratch = wcts.wcts_scan_cuda(*a, force=force, **kw)
+        return out, outs
+
+    lex, tdp = sietill_search()
+    got, ref = wcts_both(dev, lex, tdp, lex.num_states, lex.num_words, WCTS_OPTIONS[option],
+                         dtype, 60, (23, 37), SEARCH_LENS, seed=11, kernel=kernel)
+    assert same(got, ref)
+
+
+@pytest.mark.parametrize("words", [4, 12, 31, 32])
+@pytest.mark.parametrize("option", ["pruned", "everything", "limit-la-17-bins"])
+@pytest.mark.parametrize("ties", [False, True])
+def test_kernel_k_owner_edges(dev, words, option, ties):
+    """Kernel K on prefix trees of 4, 12, 31 and 32 words (C 5 to 33 and N
+    27 to 135: the owner instance at 8 and 16 contexts a thread and past
+    its edges, node counts that are no multiple of 32, word ends inside the
+    tree and homophones) in float32; with ties, integer
+    scores and LM rows of 0 and 1, so that contexts tie in the
+    recombination and slots at histogram bin edges."""
+    from speechrecognition_torch.ops import _native
+    from torch_search_tables import PrefixLexicon, prefix_tdp, wcts_inputs
+    lex = PrefixLexicon(words, 4)
+    tables, _wt = wcts_inputs(lex, prefix_tdp(lex), np.zeros((words, words)), np.zeros(words),
+                              False)
+    C, N = words + 1, tables.num_nodes
+    inst = _native.load().sr_wcts_scan_instance(C, N, words, lex.num_states, 0, 0)
+    assert inst == {4: 8, 12: 16, 31: 0, 32: 0}[words]
+    got, ref = wcts_both(dev, lex, prefix_tdp(lex), lex.num_states, words,
+                         WCTS_OPTIONS[option], torch.float32, 60, (23, 37), SEARCH_LENS,
+                         seed=words, ties=ties)
+    assert same(got, ref)
