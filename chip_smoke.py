@@ -130,7 +130,11 @@ kernel against its plain PyTorch version on the same tensors:
      features and offsets bit-equal to the pure-Python path;
  23. kernel I (the prefix-tree scan) in f32 and f64 on bench/model.mix's
      scores of the 1024-utterance batch (T 960, N 212): bit-equal to its
-     plain version, timed in turns beside its bound; the golden demo tree
+     plain version, timed in turns beside its bound; the instance its C
+     entry chooses (the owner instance, 4 nodes a lane) and the first design
+     (the block instance, forced) bit-equal and timed in turns, with their
+     registers, spills, residency, waves and barriers a frame (the owner
+     instance must be the faster, or the C entry's choice is wrong); the golden demo tree
      runs (Recognizer with search-type=tree, f32 "pallas" and f64); the
      full-width tree Recognizer in both types (launch counts are read from
      these runs): transcripts equal to the plain run and to the 35-utterance
@@ -158,13 +162,18 @@ kernel against its plain PyTorch version on the same tensors:
      two chunks with carry, uniform-LM WCTS gives the golden transcripts,
      WCTS equals the bigram decode pruned and unpruned (a gate in f64), the
      lattices' best paths equal the 1-best; kernels I, J and K in device
-     scratch (a 9,499-node tree, a 200 x 24 lattice, 145,122 WCTS slots; B
-     4, T 40): bit-equal, timed; no search main path kept its lattice in
-     scratch;
+     scratch (a 9,499-node tree, on kernel I's block instance, a 200 x 24
+     lattice, 145,122 WCTS slots; B 4, T 40): bit-equal, timed; no search
+     main path kept its lattice in scratch;
  26. streaming with 1,024 streams fed 160 frames at a time, partial()
      after each feed: OnlineRecognizer in f32 "pallas", f64 and df32 equals
      the offline Recognizer, OnlineWctsRecognizer (chunk 64, lookahead)
-     equals decode_batch_wcts; commit and partial latencies.
+     equals decode_batch_wcts; commit and partial latencies;
+ 27. the batched feature front end (features.extract_features_batch) on the
+     card in float64 on 1,024 synthetic utterances (from a seed) with the
+     full-width batch's frame counts: finite, [1024, T, 12], within 1e-9
+     relative of the CPU port on the same samples; its time beside its
+     products' bound (float64 at the tensor cores' 67 TFLOP/s).
 
 Kernels B, D and G are timed by their device time (torch.profiler), since
 B and D's wrappers synchronise on a range check and a call timed by events
@@ -222,6 +231,9 @@ PLAIN_TRAIN_CUT = 256
 HBM_BYTES_S = 3.35e12
 FP32_OPS_S = 67e12
 FP64_OPS_S = 34e12
+#: the FP64 tensor cores' peak (the same data sheet), which cuBLAS's float64
+#: products reach
+FP64_MMA_OPS_S = 67e12
 #: FP32 instructions the card issues per second: 132 SMs x 128 lanes x
 #: 1.98 GHz (the clock at which 67 TFLOP/s counts an FMA as two operations)
 FP32_ISSUE_S = 132 * 128 * 1.98e9
@@ -322,11 +334,13 @@ def scan_frame_ops(W, cmp):
     return (W - 1) * cmp + 2 - cmp
 
 
-def bound(nbytes, fp32=0.0, fp64=0.0):
+def bound(nbytes, fp32=0.0, fp64=0.0, fp64_mma=0.0):
     """(bound_ms, bound_by): the least time the card could take, the larger
-    of the bytes over the memory rate and the operations over their peaks."""
+    of the bytes over the memory rate and the operations over their peaks
+    (``fp64_mma``: float64 matrix-product operations, at the tensor cores'
+    peak)."""
     mem = nbytes / HBM_BYTES_S
-    ops = fp32 / FP32_OPS_S + fp64 / FP64_OPS_S
+    ops = fp32 / FP32_OPS_S + fp64 / FP64_OPS_S + fp64_mma / FP64_MMA_OPS_S
     return max(mem, ops) * 1e3, ("bytes" if mem >= ops else "operations")
 
 
@@ -347,7 +361,8 @@ def f_warps(A):
 #: the scans' kernels whose machine code phase 2 counts
 SASS_KERNELS = ("decode_scan_warp_kernel", "decode_scan_df_warp_kernel",
                 "decode_scan_df_block_kernel", "align_fwd_warp_kernel", "align_fwd_df_warp_kernel",
-                "align_backtrack_kernel", "bigram_scan_warp_kernel", "wcts_owner_kernel")
+                "align_backtrack_kernel", "bigram_scan_warp_kernel", "wcts_owner_kernel",
+                "tree_scan_owner_kernel", "tree_scan_kernel")
 
 
 def log_sass_counts(lib):
@@ -1112,6 +1127,7 @@ def main():
     log(f"[18] phase seconds {time.perf_counter() - t_phase:.1f}")
     nn = nn_phases(dev, card, lex, corpus, big)
     search = search_phases(dev, card, lex, corpus, big, iter2, bench, tdp, wordloop_hyps)
+    features_phase(dev, card, big)
     check("jax" not in sys.modules, "the port imported jax")
 
     kernels = [
@@ -2653,6 +2669,63 @@ def wcts_bound(nb, T, S, C, N, W, word, la=False, hist=False):
     return bound(nbytes, **({"fp32": ops} if word == 4 else {"fp64": ops}))
 
 
+#: __syncthreads a frame of kernel I's instances: the owner instance (one),
+#: the block instance (the first design: the minimum twice, the argmin
+#: twice, the book)
+I_BARRIERS = {"owner": 1, "block": 5}
+
+
+def ptxas_usage(fragment):
+    """Registers and spills of the kernel whose mangled name holds
+    ``fragment``, as -Xptxas -v printed them in this run's build."""
+    from speechrecognition_torch.ops import _native
+    name, found = "", []
+    for line in _native.build_log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif fragment in name and ("Used" in line or "spill stores" in line):
+            found.append(line.split(":", 1)[-1].strip() if "Used" in line else line.strip())
+    return "; ".join(found) or "not reported"
+
+
+def i_designs(lib, card, am, lens, args, ref, nb, T, N, dt):
+    """Kernel I at full width: the instance its C entry chooses (the owner
+    instance), and the first design (the block instance, forced) bit-equal to
+    the plain version; both timed in turns (first, owner, owner, first), with
+    their registers and spills, residency, waves and barriers a frame.
+    Returns (first design ms, its max abs error against the plain version)."""
+    from speechrecognition_torch.search import tree_decoder as td
+    f64 = int(dt == torch.float64)
+    k = lib.sr_tree_scan_instance(N, f64)
+    check(k > 0, f"kernel I {dt} at N {N} did not choose its owner instance")
+    first, scratch = td.tree_scan_cuda(am, lens, *args, 200.0, first_design=True)
+    torch.cuda.synchronize()
+    same, err = bit_equal(first, ref)
+    check(same and not scratch, f"kernel I's first design {dt} is not bit-equal to its plain "
+          f"version")
+    new_ms, first_ms, all_ = in_turns(
+        lambda: td.tree_scan_cuda(am, lens, *args, 200.0, first_design=True),
+        lambda: td.tree_scan(am, lens, *args, 200.0), 5, 5)
+    per_sm = lib.sr_tree_scan_residency(N, f64, 0)
+    per_sm_first = lib.sr_tree_scan_residency(N, f64, 1)
+    lanes = -(-N // k)
+    threads = -(-lanes // 32) * 32
+    ty = "d" if f64 else "f"
+    log(f"[23] kernel I {dt}: owner instance, {k} nodes a lane, {threads} threads "
+        f"({ptxas_usage(f'tree_scan_owner_kernelI{ty}Li{k}E')}), {per_sm} utterances an SM, "
+        f"{waves(nb, per_sm)} wave(s), {I_BARRIERS['owner']} barrier a frame; first design "
+        f"(block instance, {-(-N // 32) * 32} threads, "
+        f"{ptxas_usage(f'tree_scan_kernelI{ty}E')}): {per_sm_first} an SM, "
+        f"{waves(nb, per_sm_first)} wave(s), {I_BARRIERS['block']} barriers a frame, bit-equal "
+        f"{same}; in turns (first, owner, owner, first: {', '.join(f'{v:.4f}' for v in all_)} "
+        f"ms): first design {first_ms:.4f} ms ({first_ms / T * 1e3:.3f} us a frame) -> owner "
+        f"instance {new_ms:.4f} ms ({new_ms / T * 1e3:.3f} us a frame) on {card}")
+    # the C entry launches the owner instance at this size: it must be the faster
+    check(new_ms < first_ms, f"kernel I {dt}: the owner instance ({new_ms:.4f} ms) is not "
+          f"faster than the first design ({first_ms:.4f} ms)")
+    return first_ms, err
+
+
 #: __syncthreads a frame of kernel J's instances: the warp instance (one),
 #: the block instance (the first design: entries, minimum twice, word ends)
 J_BARRIERS = {"warp": 1, "block": 3}
@@ -2800,7 +2873,8 @@ def search_phases(dev, card, lex, corpus, big, iter2, bench, tdp, wordloop_hyps)
     t_phase = time.perf_counter()
     tree = td.TreeTables.build(lex, tdp, SETTINGS["word-penalty"])
     N = tree.num_nodes
-    i_meas = {}
+    lib = _native.load()
+    i_meas, i_first = {}, {}
     for dt in (torch.float32, torch.float64):
         args = tree.device_args(dev, dt, S)
         am = ams[dt]
@@ -2817,6 +2891,7 @@ def search_phases(dev, card, lex, corpus, big, iter2, bench, tdp, wordloop_hyps)
             f"{err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (plain, kernel, kernel, "
             f"plain: {', '.join(f'{v:.4f}' for v in all_)}); bound {bnd[0]:.4f} ms ({bnd[1]}); "
             f"per frame {ms / T * 1e3:.3f} us on {card}")
+        i_first[dt] = i_designs(lib, card, am, lens, args, ref, nb, T, N, dt)
     del got, ref
 
     tree_launches = {}
@@ -2877,7 +2952,6 @@ def search_phases(dev, card, lex, corpus, big, iter2, bench, tdp, wordloop_hyps)
     t_phase = time.perf_counter()
     lm, lm_start = st.demo_bigram_lm()
     lin = dec.DecoderTables.build(lex, tdp, 0.0)
-    lib = _native.load()
     W, P = lin.state_table.shape
     j_meas, j_launches, j_scratch = {}, {}, {}
     for dt in (torch.float32, torch.float64):
@@ -3048,6 +3122,8 @@ def search_phases(dev, card, lex, corpus, big, iter2, bench, tdp, wordloop_hyps)
         # kernel I
         am = st.am_scores(sb, sT, big_lex.num_states, seed=1, dtype=dt, device=dev)
         args = big_tree.device_args(dev, dt, big_lex.num_states)
+        check(lib.sr_tree_scan_instance(big_tree.num_nodes, int(dt == torch.float64)) == -1,
+              f"kernel I {dt} at N {big_tree.num_nodes}: not the block instance in scratch")
         before = td.tree_scan.SCRATCH_LAUNCHES
         same, err = bit_equal(td.tree_scan(am, slens, *args, 60.0),
                               td.tree_scan_reference(am, slens, *args, 60.0))
@@ -3176,6 +3252,11 @@ def search_phases(dev, card, lex, corpus, big, iter2, bench, tdp, wordloop_hyps)
         main_entries.append(entry(f"tree_scan{tag_of[dt]}", "tree_scan.cu",
                                   "speechrecognition_tpu/search/tree_decoder.py:124",
                                   tree_launches[dt], err, ms, plain_ms, bnd))
+        # the first design (the block instance), forced beside it: not on a main path
+        main_entries.append(entry(
+            f"tree_scan[{'f64, ' if dt == torch.float64 else ''}first design]", "tree_scan.cu",
+            "speechrecognition_tpu/search/tree_decoder.py:124", 0, i_first[dt][1],
+            i_first[dt][0], plain_ms, bnd))
     for dt in (torch.float32, torch.float64):
         err, ms, plain_ms, bnd = j_meas[dt]
         main_entries.append(entry(f"decode_scan_bigram{tag_of[dt]}", "decode_scan_bigram.cu",
@@ -3188,6 +3269,84 @@ def search_phases(dev, card, lex, corpus, big, iter2, bench, tdp, wordloop_hyps)
                                   "speechrecognition_tpu/search/histogram.py:55",
                                   k_launches[name][0], err, ms, plain_ms, bnd))
     return main_entries + entries
+
+
+#: phase 27: the card's float64 cepstra against the CPU port's, relative
+#: to 1 + |CPU|: the products sum in another order (cuBLAS against the CPU's
+#: BLAS), nothing else differs
+FEATURES_REL = 1e-9
+#: utterances of the CPU comparison a call (bounds its host memory)
+FEATURES_CPU_CHUNK = 128
+
+
+def synthetic_audio(lengths, seed):
+    """int16 [B, max(lengths)] from a seed, zero past each length: two tones
+    and noise an utterance, made in chunks of FEATURES_CPU_CHUNK rows."""
+    rng = np.random.default_rng(seed)
+    S = int(max(lengths))
+    t = np.arange(S) / 8000.0
+    out = np.zeros((len(lengths), S), np.int16)
+    for c in range(0, len(lengths), FEATURES_CPU_CHUNK):
+        rows = range(c, min(c + FEATURES_CPU_CHUNK, len(lengths)))
+        f = rng.uniform(100.0, 3500.0, size=(len(rows), 2, 1))
+        x = (6000 * np.sin(2 * np.pi * f[:, 0] * t) + 2500 * np.sin(2 * np.pi * f[:, 1] * t)
+             + rng.normal(0.0, 400.0, size=(len(rows), S)))
+        x = np.clip(np.round(x), -32768, 32767).astype(np.int16)
+        x[np.arange(S)[None, :] >= np.asarray(lengths)[list(rows), None]] = 0
+        out[c:c + len(rows)] = x
+    return out
+
+
+def features_phase(dev, card, big):
+    """Phase 27: the batched feature front end (extract_features_batch) on the
+    card in float64, on 1,024 synthetic utterances with the full-width
+    batch's frame counts: finite, of the expected shape, within FEATURES_REL
+    of the CPU port on the same samples; its time beside its products'
+    bound."""
+    from speechrecognition_torch.features import SignalAnalysisConfig, extract_features_batch
+    t_phase = time.perf_counter()
+    cfg = SignalAnalysisConfig()
+    frames = np.asarray(big.lengths, np.int64)
+    rng = np.random.default_rng(27)
+    lengths = np.maximum(frames * cfg.window_shift
+                         - rng.integers(0, cfg.window_shift, size=len(frames)), 0)
+    samples = synthetic_audio(lengths, seed=28)
+    B, S = samples.shape
+    T = -(-S // cfg.window_shift)
+    s_dev = torch.as_tensor(samples, device=dev)
+    n_dev = torch.as_tensor(lengths, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = extract_features_batch(s_dev, n_dev, cfg, device=dev)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    check(out.dtype == torch.float64 and out.device == dev and tuple(out.shape) == (B, T, 12),
+          f"features on the card: {out.dtype} {tuple(out.shape)} on {out.device}")
+    check(bool(torch.isfinite(out).all()), "features on the card are not finite")
+    rel = 0.0
+    for c in range(0, B, FEATURES_CPU_CHUNK):
+        cpu = extract_features_batch(samples[c:c + FEATURES_CPU_CHUNK],
+                                     lengths[c:c + FEATURES_CPU_CHUNK], cfg, device="cpu")
+        got = out[c:c + FEATURES_CPU_CHUNK].cpu()
+        rel = max(rel, ((got - cpu).abs() / (1.0 + cpu.abs())).max().item())
+    ms = cuda_ms(lambda: extract_features_batch(s_dev, n_dev, cfg, device=dev), 3)
+    bins = cfg.dft_length // 2 + 1
+    frames_all = B * T
+    ops = frames_all * 2 * (2 * cfg.window_size * bins + bins * cfg.n_mel_filters
+                            + cfg.n_mel_filters * cfg.n_features_in_file)
+    nbytes = (2 * B * S + 8 * B + 8 * frames_all * cfg.n_features_in_file
+              + 8 * (2 * cfg.window_size * bins + bins * cfg.n_mel_filters
+                     + cfg.n_mel_filters * cfg.n_features_in_file))
+    bnd = bound(nbytes, fp64_mma=ops)
+    log(f"[27] feature front end float64, B={B} S={S} T={T} ({frames.sum()} valid frames): "
+        f"max rel vs the CPU port {rel:.3e} (limit {FEATURES_REL:g}); {ms:.4f} ms a call "
+        f"({ms / B * 1e3:.3f} us an utterance); bound of its products {bnd[0]:.4f} ms "
+        f"({bnd[1]}, {ops / 1e9:.1f} GFLOP); the call's peak device memory {peak / 2 ** 30:.2f} "
+        f"GiB on {card}")
+    check(rel < FEATURES_REL, f"features on the card vs the CPU port: {rel} >= {FEATURES_REL}")
+    log(f"[27] phase seconds {time.perf_counter() - t_phase:.1f}")
 
 
 def repeat_corpus(corpus, n, corpus_cls):

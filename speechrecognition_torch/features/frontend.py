@@ -7,9 +7,13 @@ including its idiosyncrasies — int16-saturated pre-emphasis (::120-131),
 1e-10 floor (::241-285), the unscaled DCT-II (::307-316), the clamped Δ
 windows (::320-336) and the two-step float32 rounding of CMVN (::390-392).
 
-This is the numpy float64 path of speechrecognition_tpu/features/frontend.py
-(bit-parity with the C++ within f32 rounding); the batched device front-end
-is not ported yet.
+Two implementations, as in speechrecognition_tpu/features/frontend.py:
+  * the numpy float64 reference path (bit-parity with the C++ within f32
+    rounding);
+  * a batched device path, ``extract_features_batch``, where the whole frame
+    loop is an index gather and the DFT, the mel filterbank and the DCT are
+    three matrix products (``torch.matmul``; no hand kernel: the reference
+    leaves them to XLA outside any Pallas kernel).
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ from dataclasses import dataclass
 from typing import Tuple
 
 import numpy as np
-
+import torch
 
 
 @dataclass(frozen=True)
@@ -132,6 +136,66 @@ def extract_features(samples: np.ndarray,
     fb = 1e-10 + spec @ mel_filterbank_matrix(cfg)
     cepstra = np.log(fb) @ dct_matrix(cfg)
     return cepstra.astype(np.float32)
+
+
+def extract_features_batch(samples, num_samples,
+                           cfg: SignalAnalysisConfig = SignalAnalysisConfig(),
+                           dtype: torch.dtype = torch.float64,
+                           device="cuda") -> torch.Tensor:
+    """Batched device path: int16 [B, S_max] (+ valid lengths [B]) →
+    [B, T_max, 12] cepstra in ``dtype`` on ``device``; the counterpart of
+    ``extract_features_batch_jax``, step for step.
+
+    The pre-emphasis takes the int32 difference clipped to int16's range,
+    zeroed past each signal's length; frames are an index gather, windowed
+    by the Hamming window; the DFT is two [window, bins] products with cos
+    and sin matrices scaled by 1/√dft_length (built in numpy float64), then
+    the magnitude, 1e-10 + the mel product, the log and the DCT product.
+    float64 (the default) reproduces the reference's double pipeline to
+    ~1e-9; float32 runs its products in full float32 (never TF32), set for
+    this call only, and loses the low-energy bins to cancellation (~1e-2 in
+    the cepstra). Frames past a signal's ``ceil(num_samples / window_shift)``
+    hold garbage that callers mask.
+
+    ``samples`` and ``num_samples`` are numpy arrays or tensors. Runs on the
+    card unless ``device="cpu"``; a CUDA device that is not there raises."""
+    from ..models.gmm import _full_f32_matmul, pack_device
+    dev = pack_device(device, "extract_features_batch")
+    s = torch.as_tensor(samples, device=dev).to(torch.int32)
+    n = torch.as_tensor(num_samples, device=dev)
+    if s.dim() != 2 or n.shape != (s.shape[0],):
+        raise ValueError(f"extract_features_batch: samples [B, S] and num_samples [B], got "
+                         f"{tuple(s.shape)} and {tuple(n.shape)}")
+    d = torch.clamp(s[:, 1:] - s[:, :-1], -32768, 32767)
+    # zero the differences past each signal so that padded tails stay silent
+    pos = torch.arange(1, s.shape[1], device=dev)[None, :]
+    d = torch.where(pos < n[:, None], d, torch.zeros_like(d))
+    emph = torch.cat([s[:, :1], d], dim=1).to(dtype)
+
+    B, S = emph.shape
+    num_frames_max = (S + cfg.window_shift - 1) // cfg.window_shift
+    pad = num_frames_max * cfg.window_shift + cfg.window_size - S
+    emph = torch.nn.functional.pad(emph, (0, pad))
+    idx = (torch.arange(num_frames_max, device=dev)[:, None] * cfg.window_shift
+           + torch.arange(cfg.window_size, device=dev)[None, :])
+    frames = emph[:, idx] * torch.as_tensor(hamming_window(cfg.window_size), dtype=dtype,
+                                            device=dev)
+
+    n_bins = cfg.dft_length // 2 + 1
+    t = np.arange(cfg.window_size, dtype=np.float64)[:, None]
+    k = np.arange(n_bins, dtype=np.float64)[None, :]
+    ang = 2.0 * np.pi * t * k / cfg.dft_length
+    scale = 1.0 / np.sqrt(cfg.dft_length)
+
+    def const(a):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+
+    with _full_f32_matmul():
+        re = frames @ const(np.cos(ang) * scale)
+        im = frames @ const(np.sin(ang) * scale)
+        spec = torch.sqrt(re * re + im * im)
+        fb = 1e-10 + spec @ const(mel_filterbank_matrix(cfg))
+        return torch.log(fb) @ const(dct_matrix(cfg))
 
 
 # -- load-path processing (12 cepstra → 25-dim normalized features) ----------

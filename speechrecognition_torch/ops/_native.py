@@ -106,11 +106,17 @@ SIGNATURES = {
     "sr_em_pass_df_scratch": ((_I, _I, _I, _I), _I),
     # f64, am, feat_len, state, parent, grand, depth, tdp, loop_allowed,
     # end_word, exit_penalty, score, word, bkp, scratch (or NULL), B, T, S, N,
-    # am_threshold, prune, device, stream
-    "sr_tree_scan": ((_I,) + (_P,) * 14 + (_I,) * 4 + (_D, _I, _I, _P), _I),
+    # am_threshold, prune, first_design (0: the instance the shape chooses;
+    # 1: the block instance), device, stream
+    "sr_tree_scan": ((_I,) + (_P,) * 14 + (_I,) * 4 + (_D, _I, _I, _I, _P), _I),
     # N, f64 → bytes of device scratch an utterance of kernel I needs (0: the
     # tree in shared memory; -1: too large)
     "sr_tree_scan_scratch": ((_I, _I), _I),
+    # N, f64 → kernel I's instance (1-4: nodes a lane of the owner instance;
+    # 0: block instance, its lattice in shared memory; -1: in device scratch)
+    "sr_tree_scan_instance": ((_I, _I), _I),
+    # N, f64, first_design → blocks per SM of kernel I's launch (-1: error)
+    "sr_tree_scan_residency": ((_I, _I, _I), _I),
     # f64, am, feat_len, state_table, last_pos, word_len, tdp_within,
     # entry_tdp, lm, lm_start, book, bkp, pred, offset, scratch (or NULL), B,
     # T, S, W, P, am_threshold, prune, first_design (0: the instance the

@@ -220,14 +220,37 @@ def tree_scan(am: torch.Tensor, feat_len: torch.Tensor, state: torch.Tensor,
 
     CPU tensors take the plain version; CUDA tensors launch kernel I
     (float32 or float64; counted in ``tree_scan.LAUNCHES``), whose C entry
-    keeps the tree's double-buffered scores in shared memory up to
-    ``sr_tree_scan_instance``'s limit and past it in device scratch (also
+    chooses its instance from the tree's size (``sr_tree_scan_instance``):
+    the owner instance up to 1,024 nodes, each node's tables, score and
+    backpointer in registers, else the block instance with the tree's
+    double-buffered scores in shared memory up to its limit
+    (``sr_tree_scan_scratch`` gives 0) and past it in device scratch (also
     counted in ``SCRATCH_LAUNCHES``). The indices are not range-checked
     here: a launch does not synchronise."""
     if am.device.type == "cpu":
         return tree_scan_reference(am, feat_len, state, parent, grand, depth, tdp,
                                    loop_allowed, end_word, exit_penalty, am_threshold,
                                    prune=prune)
+    outs, in_scratch = tree_scan_cuda(am, feat_len, state, parent, grand, depth, tdp,
+                                      loop_allowed, end_word, exit_penalty, am_threshold,
+                                      prune=prune)
+    tree_scan.LAUNCHES += 1
+    tree_scan.SCRATCH_LAUNCHES += in_scratch
+    return outs
+
+
+tree_scan.LAUNCHES = tree_scan.SCRATCH_LAUNCHES = 0
+
+
+def tree_scan_cuda(am: torch.Tensor, feat_len: torch.Tensor, state: torch.Tensor,
+                   parent: torch.Tensor, grand: torch.Tensor, depth: torch.Tensor,
+                   tdp: torch.Tensor, loop_allowed: torch.Tensor, end_word: torch.Tensor,
+                   exit_penalty: torch.Tensor, am_threshold, prune: bool = True,
+                   first_design: bool = False):
+    """Kernel I's launch on CUDA tensors, as ``tree_scan`` makes it but not
+    counted: returns (outs, whether the lattice lived in device scratch).
+    ``first_design`` launches the block instance whatever the tree's size,
+    so that it can be timed beside the owner instance."""
     if am.device.type != "cuda":
         raise ValueError(f"tree_scan: unsupported device {am.device}")
     if am.dtype not in (torch.float32, torch.float64):
@@ -248,21 +271,18 @@ def tree_scan(am: torch.Tensor, feat_len: torch.Tensor, state: torch.Tensor,
     wbkp = torch.empty((T, B), dtype=torch.int32, device=device)
     lib = _native.load()
     f64 = int(dtype == torch.float64)
+    # 0 for every tree the owner instance takes: only the block instance's
+    # lattice ever passes shared memory
     scratch = _native.scratch(B, lib.sr_tree_scan_scratch(N, f64), device)
     err = lib.sr_tree_scan(
         f64, am.data_ptr(), ints["feat_len"].data_ptr(), ints["state"].data_ptr(),
         ints["parent"].data_ptr(), ints["grand"].data_ptr(), ints["depth"].data_ptr(),
         fl["tdp"].data_ptr(), ints["loop_allowed"].data_ptr(), ints["end_word"].data_ptr(),
         fl["exit_penalty"].data_ptr(), score.data_ptr(), word.data_ptr(), wbkp.data_ptr(),
-        _native.ptr(scratch), B, T, S, N, float(am_threshold), int(bool(prune)), device.index,
-        torch.cuda.current_stream(device).cuda_stream)
+        _native.ptr(scratch), B, T, S, N, float(am_threshold), int(bool(prune)),
+        int(bool(first_design)), device.index, torch.cuda.current_stream(device).cuda_stream)
     _native.check(err, "tree_scan")
-    tree_scan.LAUNCHES += 1
-    tree_scan.SCRATCH_LAUNCHES += scratch is not None
-    return score, word, wbkp
-
-
-tree_scan.LAUNCHES = tree_scan.SCRATCH_LAUNCHES = 0
+    return (score, word, wbkp), scratch is not None
 
 
 def decode_batch_tree(pack, feats, feat_len: np.ndarray, tables: TreeTables,

@@ -24,7 +24,8 @@ relative and two launches bit-identical; the golden demo trainer in df32
 and f64 on the card; the search tier's kernels I (tree scan), J (bigram
 scan) and K (word-conditioned tree search, every option, two chunks with
 carry) bit-equal in float32 and float64, also on prefix-sharing trees and
-past shared memory (tests/torch_search_tables.py's inputs).
+past shared memory (tests/torch_search_tables.py's inputs), I's owner
+instance and first design at the owner instance's edges.
 """
 
 import json
@@ -789,6 +790,62 @@ def test_kernel_i_bit_equal(dev, lexicon, prune, dtype):
     assert same(got, ref)
     assert td.tree_scan.LAUNCHES == before[0] + 1
     assert td.tree_scan.SCRATCH_LAUNCHES == before[1] + (lexicon == "scratch")
+
+
+#: kernel I's instance at each tree size of its edge tests, in both types
+#: (sr_tree_scan_instance): nodes a lane of the owner instance, 0 for the
+#: block instance with its lattice in shared memory
+I_INSTANCES = {2: 1, 31: 1, 32: 1, 33: 1, 212: 4, 224: 4, 225: 4, 1024: 4, 1025: 0}
+
+
+@pytest.mark.parametrize("N", list(I_INSTANCES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["pruned", "unpruned", "ties"])
+def test_kernel_i_every_instance(dev, N, dtype, case):
+    """Kernel I's owner instance at its edges (a warp's edges, SieTill's 212,
+    7 warps full and one node past them, 1,024 nodes) and the block instance
+    past it, on trees built from a seed (tests/torch_search_tables.py::
+    random_tree: word ends inside the tree, homophones), utterances of 0 and
+    1 frames and ending early; ties on integer scores, zero TDPs and exit
+    penalties of 0 or 1. The block instance (the first design) is also
+    forced at every size: both bit-equal to the plain version."""
+    from speechrecognition_torch.ops import _native
+    from speechrecognition_torch.search import tree_decoder as td
+    from torch_search_tables import random_tree, tree_scores
+    f64 = int(dtype == torch.float64)
+    assert _native.load().sr_tree_scan_instance(N, f64) == I_INSTANCES[N]
+    ties = case == "ties"
+    tree = random_tree(N, seed=N + 1000 * ties, ties=ties)
+    am = tree_scores(5, 40, seed=N + 7, ties=ties, dtype=dtype, device=dev)
+    lens = torch.as_tensor([40, 23, 0, 1, 37], dtype=torch.int32, device=dev)
+    args = tree.device_args(dev, dtype, am.shape[2])
+    thr = 4.0 if ties else 45.0
+    prune = case != "unpruned"
+    before = td.tree_scan.LAUNCHES, td.tree_scan.SCRATCH_LAUNCHES
+    got = td.tree_scan(am, lens, *args, thr, prune=prune)
+    first, scratch = td.tree_scan_cuda(am, lens, *args, thr, prune=prune, first_design=True)
+    ref = td.tree_scan_reference(am, lens, *args, thr, prune=prune)
+    torch.cuda.synchronize()
+    assert same(got, ref)
+    assert same(first, ref)
+    assert not scratch
+    assert td.tree_scan.LAUNCHES == before[0] + 1
+    assert td.tree_scan.SCRATCH_LAUNCHES == before[1]
+
+
+def test_kernel_i_queries(dev):
+    """The instance query (the owner instance up to 1,024 nodes, then the
+    block instance, its lattice in scratch past 96 KB) and the residency
+    query: SieTill's 212 nodes run 4 nodes a lane, 2 warps, and the launch
+    bounds let 8 utterances share an SM (1,024 in one wave on 132 SMs)."""
+    from speechrecognition_torch.ops import _native
+    lib = _native.load()
+    for f64 in (0, 1):
+        for N, k in {**I_INSTANCES, 0: 0, 9499: -1}.items():
+            assert lib.sr_tree_scan_instance(N, f64) == k, (N, f64)
+        assert lib.sr_tree_scan_residency(212, f64, 0) >= 8
+        assert lib.sr_tree_scan_residency(212, f64, 1) >= 1
+        assert lib.sr_tree_scan_residency(1024, f64, 0) >= 1
 
 
 @pytest.mark.parametrize("case", ["pruned", "unpruned", "ties", "repetition-1", "scratch"])

@@ -50,6 +50,7 @@ def test_sources_are_the_eight_kernels_and_the_header():
         "sr_align_fwd_df_warps", "sr_align_backtrack", "sr_align_backtrack_tile",
         "sr_em_pass_df",
         "sr_em_pass_df_scratch", "sr_tree_scan", "sr_tree_scan_scratch",
+        "sr_tree_scan_instance", "sr_tree_scan_residency",
         "sr_decode_scan_bigram", "sr_decode_scan_bigram_scratch",
         "sr_decode_scan_bigram_instance", "sr_decode_scan_bigram_residency", "sr_wcts_scan",
         "sr_wcts_scan_scratch", "sr_wcts_scan_instance", "sr_wcts_scan_residency",

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from speechrecognition_torch.lexicon import Lexicon
-from speechrecognition_torch.search.decoder import DecoderTables
+from speechrecognition_torch.search.decoder import BIG, DecoderTables
 from speechrecognition_torch.search.tree_decoder import TreeTables
 from speechrecognition_torch.search.wcts import LookaheadTables, WctsTables
 from speechrecognition_torch.tdp import TdpModel
@@ -107,6 +107,63 @@ def wide_linear_tables(words: int, states: int, reps: int):
         lex.add_word(f"w{w}", states, reps)
     tdp = TdpModel(silence_state=lex.silence_state, loop=3.0, forward=0.0, skip=30.0)
     return DecoderTables.build(lex, tdp, 0.0), lex.num_states
+
+
+#: states of random_tree's scores
+TREE_STATES = 23
+
+
+def random_tree(N: int, seed: int, ties: bool = False) -> TreeTables:
+    """An N-node prefix tree built directly as arrays from a seed (kernel I's
+    edge cases; node 0 the root). A node's parent is mostly the node before
+    it (chains), else an earlier node; depth, grandparent and the root's row
+    follow TreeTables.build's rules (the root BIG and never looping). Leaves
+    and every seventh inner node end a word; every ninth node from 5 on is a
+    homophone: a copy of the node before it (same parent, state, TDPs and
+    exit penalty), both ending words, so the two always tie and the first
+    node must win. ``ties``: zero TDPs and exit penalties of 0 or 1
+    (integer scores then tie across skip, forward and loop)."""
+    rng = np.random.default_rng(seed)
+    parent = np.zeros(N, np.int32)
+    depth = np.zeros(N, np.int32)
+    state = rng.integers(0, TREE_STATES, size=N).astype(np.int32)
+    state[0] = 0
+    tdp = np.zeros((N, 3)) if ties else rng.uniform(0.0, 6.0, size=(N, 3))
+    loop_allowed = rng.random(N) < 0.8
+    copy = np.zeros(N, bool)
+    for n in range(1, N):
+        if n % 9 == 5:
+            copy[n] = True
+            parent[n], state[n], tdp[n] = parent[n - 1], state[n - 1], tdp[n - 1]
+            loop_allowed[n] = loop_allowed[n - 1]
+        else:
+            parent[n] = n - 1 if rng.random() < 0.7 else int(rng.integers(0, n))
+        depth[n] = depth[parent[n]] + 1
+    tdp[0] = BIG
+    loop_allowed[0] = False
+    has_children = np.zeros(N, bool)
+    has_children[parent[1:]] = True
+    ends = np.flatnonzero(~has_children | (np.arange(N) % 7 == 3) | copy | np.roll(copy, -1))
+    ends = ends[ends > 0]
+    end_word = np.full(N, -1, np.int32)
+    end_word[ends] = np.arange(len(ends), dtype=np.int32)
+    pen = (rng.integers(0, 2, size=N).astype(np.float64) if ties
+           else rng.uniform(0.0, 20.0, size=N))
+    pen[copy] = pen[np.flatnonzero(copy) - 1]
+    exit_penalty = np.where(end_word >= 0, pen, 0.0)
+    return TreeTables(state=state, parent=parent, grand=parent[parent], depth=depth, tdp=tdp,
+                      loop_allowed=loop_allowed, end_word=end_word, exit_penalty=exit_penalty,
+                      num_nodes=N, num_words=max(len(ends), 1))
+
+
+def tree_scores(B: int, T: int, seed: int, ties: bool = False, dtype=torch.float64,
+                device="cpu"):
+    """Scores [B, T, TREE_STATES] for random_tree: uniform in [0, 40), or
+    with ``ties`` integers 0, 1 and 2."""
+    rng = np.random.default_rng(seed)
+    am = (rng.integers(0, 3, size=(B, T, TREE_STATES)).astype(np.float64) if ties
+          else rng.uniform(0.0, 40.0, size=(B, T, TREE_STATES)))
+    return torch.as_tensor(am, dtype=dtype, device=device)
 
 
 def am_scores(B: int, T: int, S: int, seed: int, dtype=torch.float64, device="cpu"):
