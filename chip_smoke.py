@@ -173,7 +173,34 @@ kernel against its plain PyTorch version on the same tensors:
      card in float64 on 1,024 synthetic utterances (from a seed) with the
      full-width batch's frame counts: finite, [1024, T, 12], within 1e-9
      relative of the CPU port on the same samples; its time beside its
-     products' bound (float64 at the tensor cores' 67 TFLOP/s).
+     products' bound (float64 at the tensor cores' 67 TFLOP/s);
+ 28. kernel L (the forward-backward scan) at B=256, T=960, A=70 on
+     bench/model.mix scores of the 1024-utterance corpus's segment
+     automata, float32 and float64: gamma within 1e-5 / 1e-12 absolute and
+     log_z within 1e-5 / 1e-12 relative of its plain version (and whether
+     bit-equal), timed in turns beside its bound, per frame, its residency
+     and waves; a sweep at B=4, T=40 over every instance edge
+     (tests/torch_fb_tables.py's L_INSTANCES: 1 to 3 positions a lane, the
+     block instance in shared memory and in device scratch at 1,025);
+ 29. Baum-Welch at full width: baum_welch_posteriors and
+     accumulate_baum_welch over the 1024 utterances in batches of 256,
+     float64 with an "mxu" pack and float32 with a "pallas" pack (kernel
+     A's fused and unfused entries and kernel L on the path; launch counts
+     read from these runs): equal best paths and statistics within L's
+     tolerance of the run with L's plain version; the frames whose
+     posterior best path differs from the forced alignment (not a gate);
+ 30. MMI and MPE at full width, tools/mpe_run.py's recipe (bench/model.mix,
+     model.mix.json's pooling, TDP, word penalty and threshold, E 2, tau
+     50, posterior threshold 5, batch 256, float32 statistics; the
+     numerator alignment from the df32 trainer's realignment): one
+     MpeTrainer.iterate(compute_after=True) and one profiled
+     EbwTrainer.iterate on a fresh model, seconds split into lattices, arc
+     alignment, accumulation, update and criterion, launches of J, E and
+     G, peak memory; the first 64 utterances through the kernels and
+     through their plain versions: identical lattices and arc alignments,
+     equal statistics and updated parameters; the 35 demo utterances in
+     float64 (iter-2.mix): the card's MPE and MMI iterations within 1e-9 of
+     the CPU port's.
 
 Kernels B, D and G are timed by their device time (torch.profiler), since
 B and D's wrappers synchronise on a range check and a call timed by events
@@ -400,7 +427,8 @@ def instance(query, *shape):
     if query == "sr_wcts_scan_instance":
         return f"owner instance, {v} contexts a thread"
     unit = ("position(s) a lane" if query in ("sr_decode_scan_instance", "sr_decode_scan_df_instance",
-                                               "sr_decode_scan_bigram_instance")
+                                               "sr_decode_scan_bigram_instance",
+                                               "sr_forward_backward_instance")
             else "contexts a thread" if query == "sr_wcts_scan_instance"
             else "warp(s) per utterance")
     return f"warp instance, {v} {unit}"
@@ -872,7 +900,7 @@ def main():
     # the FMA product of df.cuh against the plain version's Dekker product:
     # magnitudes 1e-6 .. 1e6 across the dimensions, and frames equal to a
     # density's mu.hi (diff = -mu.lo), on synthetic and real tables
-    tables_mod = shared_inputs()
+    tables_mod = tables_module("torch_df_tables")
     wide, x_wide = tables_mod.wide_magnitude_pack_df(106, 16, 25, seed=4, n=4133, device=dev)
     J_b = packdf_bench.mu.hi.shape[0]
     x_hit = packdf_bench.mu.hi[(torch.arange(4133, device=dev) * 7) % J_b].contiguous()
@@ -1128,6 +1156,7 @@ def main():
     nn = nn_phases(dev, card, lex, corpus, big)
     search = search_phases(dev, card, lex, corpus, big, iter2, bench, tdp, wordloop_hyps)
     features_phase(dev, card, big)
+    disc = discriminative_phases(dev, card, lex, corpus, big, bench, iter2)
     check("jax" not in sys.modules, "the port imported jax")
 
     kernels = [
@@ -1149,6 +1178,7 @@ def main():
         *large,
         *nn,
         *search,
+        *disc,
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1156,11 +1186,11 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
-def shared_inputs():
-    """tests/torch_df_tables.py, the inputs the card tests also use, loaded
-    by path (tests/ is not a package)."""
-    spec = importlib.util.spec_from_file_location("torch_df_tables",
-                                                  REPO / "tests" / "torch_df_tables.py")
+def tables_module(name):
+    """tests/<name>.py, inputs the tests also use (torch_df_tables,
+    torch_search_tables, torch_fb_tables), loaded by path (tests/ is not a
+    package)."""
+    spec = importlib.util.spec_from_file_location(name, REPO / "tests" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -1798,7 +1828,7 @@ def g_cases(dev, card, vit):
     to Tp) and at Tp 3,000, A 1,025, on 9 utterances (not a multiple of a
     block's): states and final positions bit-equal to the plain version;
     the largest timed."""
-    mod = shared_inputs()
+    mod = tables_module("torch_df_tables")
     cases = [*mod.BACKTRACK_CASES, (3000, 1025, "dp", True, "Tp"),
              (3000, 1025, "random", False, "Tp-7")]
     for Tp, A, jumps, tie, which in cases:
@@ -2621,16 +2651,6 @@ STREAM_FEED = 160
 WCTS_CHUNK = 64
 
 
-def search_tables():
-    """tests/torch_search_tables.py, the inputs the search tier's tests also
-    use, loaded by path (tests/ is not a package)."""
-    spec = importlib.util.spec_from_file_location("torch_search_tables",
-                                                  REPO / "tests" / "torch_search_tables.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def bit_equal(got, ref):
     """Every tensor the same dtype, shape and bits; and the largest float
     difference."""
@@ -2849,7 +2869,7 @@ def search_phases(dev, card, lex, corpus, big, iter2, bench, tdp, wordloop_hyps)
     from speechrecognition_torch.search import tree_decoder as td
     from speechrecognition_torch.search import wcts as wc
 
-    st = search_tables()
+    st = tables_module("torch_search_tables")
     entries = []
     with open(FIX / "demo_recognition.json") as f:
         golden = json.load(f)
@@ -3347,6 +3367,440 @@ def features_phase(dev, card, big):
         f"GiB on {card}")
     check(rel < FEATURES_REL, f"features on the card vs the CPU port: {rel} >= {FEATURES_REL}")
     log(f"[27] phase seconds {time.perf_counter() - t_phase:.1f}")
+
+
+#: kernel L per utterance, frame and position, the operations its function
+#: needs (an exponential or a logarithm counted as one): the forward step 22
+#: (three candidate adds; lse3's 14: three maxima, three subtractions, three
+#: exponentials, two adds, a logarithm, an add and a compare; the emission's
+#: add, the mask, a step of the row maximum, the shift's compare and
+#: subtraction), the backward step 22 likewise, the posterior 7 (alpha +
+#: beta, a step of the maximum, a subtraction, an exponential, a compare, a
+#: step of the sum, a division)
+L_POS_OPS = 22 + 22 + 7
+#: kernel L against its plain version: gamma absolute, log_z relative
+L_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+#: utterances a Baum-Welch batch (kernel E's phase-13 batch)
+L_BATCH = 256
+#: utterances of phase 30's plain comparison
+PLAIN_DISC_CUT = 64
+#: phase 30's demo run on the card against the CPU port (float64)
+DISC_CPU_TOL = 1e-9
+
+
+def fb_bound(B, T, A, word):
+    """Kernel L: the emissions read once, gamma written once, the TDP, valid
+    and length tables read once, log_z written; the operations per position
+    and frame."""
+    nbytes = 2 * B * T * A * word + B * A * (3 * word + 1) + 8 * B + B * word
+    ops = B * T * A * L_POS_OPS
+    return bound(nbytes, **({"fp32": ops} if word == 4 else {"fp64": ops}))
+
+
+def max_rel(got, ref):
+    """max |got - ref| / |ref| over the elements (0 where both are 0)."""
+    got, ref = got.double(), ref.double()
+    return ((got - ref).abs() / ref.abs().clamp(min=1e-300)).max().item()
+
+
+def discriminative_phases(dev, card, lex, corpus, big, bench, iter2):
+    """Phases 28-30: kernel L (the forward-backward scan) against its plain
+    version at full width and across its instances, Baum-Welch at full width
+    (posteriors and accumulation, float64 "mxu" and float32 "pallas"), and
+    the MMI and MPE iterations of tools/mpe_run.py's recipe at full width.
+    Returns the kernels line's entries of kernel L."""
+    import contextlib
+    import copy
+    from speechrecognition_torch.align import baumwelch as bw
+    from speechrecognition_torch.align import viterbi as vit
+    from speechrecognition_torch.io import read_mixture_set
+    from speechrecognition_torch.lexicon import build_segment_automaton
+    from speechrecognition_torch.models import gmm
+    from speechrecognition_torch.ops import _native
+    from speechrecognition_torch.ops import mahalanobis as maha
+    from speechrecognition_torch.search import ngram_decoder as ng
+    from speechrecognition_torch.tdp import TdpModel
+    from speechrecognition_torch.train import ebw as ebw_mod
+    from speechrecognition_torch.train.ebw import EbwConfig, EbwTrainer
+    from speechrecognition_torch.train.em import Trainer, TrainerConfig
+    from speechrecognition_torch.train.mpe import MpeTrainer
+
+    lib = _native.load()
+    fbt = tables_module("torch_fb_tables")
+    torch.cuda.empty_cache()
+    tdp = TdpModel(silence_state=lex.silence_state, loop=3.0, forward=0.0, skip=30.0)
+    T = 3 * vit.ALIGN_CHUNK
+    check(int(big.lengths.max()) <= T, "the Baum-Welch batches fit 960 frames")
+    tables_all = vit.AlignerTables.build([build_segment_automaton(lex, o) for o in big.orths],
+                                         tdp)
+    word_of = {torch.float32: 4, torch.float64: 8}
+    tag_of = {torch.float32: "", torch.float64: "[f64]"}
+
+    # -- 28. kernel L against its plain version -------------------------------------------
+    t_phase = time.perf_counter()
+    ids = list(range(L_BATCH))
+    feats_np, lens_np = big.padded_batch(ids, pad_to=T)
+    tables = tables_all.rows(ids)
+    A = tables.states.shape[1]
+    feats = torch.as_tensor(feats_np, device=dev)
+    lens = torch.as_tensor(np.asarray(lens_np), dtype=torch.int32, device=dev)
+    states = torch.as_tensor(tables.states, dtype=torch.long, device=dev)
+    aut = torch.as_tensor(tables.lengths, dtype=torch.int32, device=dev)
+    valid = torch.arange(A, device=dev)[None, :] < aut[:, None]
+    res = {}
+    for dt in (torch.float32, torch.float64):
+        pack = bench.pack(dtype=dt, device=dev)
+        am = gmm.am_scores(pack, feats.reshape(-1, 25)).reshape(L_BATCH, T, -1).to(dt)
+        lams = (-am.gather(2, states[:, None, :].expand(L_BATCH, T, A))).contiguous()
+        ltdp = (-torch.as_tensor(tables.tdp, dtype=dt, device=dev)).contiguous()
+        args = (lams, ltdp, valid, lens, aut)
+        g, z = bw.forward_backward(*args)
+        gr, zr = bw.forward_backward_reference(*args)
+        torch.cuda.synchronize()
+        g_err = (g - gr).abs().max().item()
+        z_err = ((z - zr).abs() / zr.abs().clamp(min=1.0)).max().item()
+        bits = torch.equal(g, gr) and torch.equal(z, zr)
+        sums = g.sum(dim=2)
+        live = torch.arange(T, device=dev)[None, :] < lens[:, None]
+        sum_err = (sums[live] - 1.0).abs().max().item()
+        ms, plain_ms, all_ = in_turns(lambda: bw.forward_backward_reference(*args),
+                                      lambda: bw.forward_backward(*args), 1, 5)
+        bnd = fb_bound(L_BATCH, T, A, word_of[dt])
+        per_sm = lib.sr_forward_backward_residency(A, int(dt == torch.float64))
+        log(f"[28] kernel L {dt} B={L_BATCH} T={T} A={A} (warp instance, "
+            f"{lib.sr_forward_backward_instance(A)} positions a lane) on bench/model.mix "
+            f"scores of the corpus's segment automata: gamma max abs {g_err:.3e}, log_z max rel "
+            f"{z_err:.3e} (limit {L_TOL[dt]:g}), bit-equal {bits}, rows sum to 1 within "
+            f"{sum_err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (plain, kernel, kernel, "
+            f"plain: {', '.join(f'{v:.4f}' for v in all_)}); bound {bnd[0]:.4f} ms ({bnd[1]}); "
+            f"per frame (a forward and a backward step) {ms / T * 1e3:.3f} us; {per_sm} blocks "
+            f"an SM, {waves(L_BATCH, per_sm)} wave(s) on {card}")
+        check(bool(torch.isfinite(g).all() and torch.isfinite(z).all()), "kernel L: not finite")
+        check(g_err <= L_TOL[dt] and z_err <= L_TOL[dt],
+              f"kernel L ({dt}) against its plain version: {g_err}, {z_err}")
+        res[dt] = (g_err, ms, plain_ms, bnd)
+        del am, lams, g, gr
+    scratch_res = None
+    for A_s, inst in fbt.L_INSTANCES.items():
+        got = lib.sr_forward_backward_instance(A_s)
+        check(got == inst, f"kernel L's instance at A={A_s}: {got}, expected {inst}")
+        for dt in (torch.float32, torch.float64):
+            lams, ltdp, pv, fl, al = fbt.fb_inputs(4, 40, A_s, seed=A_s)
+            args = (torch.as_tensor(lams, dtype=dt, device=dev),
+                    torch.as_tensor(ltdp, dtype=dt, device=dev), torch.as_tensor(pv, device=dev),
+                    torch.as_tensor(fl, device=dev), torch.as_tensor(al, device=dev))
+            g, z = bw.forward_backward(*args)
+            gr, zr = bw.forward_backward_reference(*args)
+            torch.cuda.synchronize()
+            g_err = (g - gr).abs().max().item()
+            z_err = ((z - zr).abs() / zr.abs().clamp(min=1.0)).max().item()
+            ms, plain_ms, _ = in_turns(lambda: bw.forward_backward_reference(*args),
+                                       lambda: bw.forward_backward(*args), 1, 10)
+            bnd = fb_bound(4, 40, A_s, word_of[dt])
+            log(f"[28] kernel L sweep {dt} B=4 T=40 A={A_s} ({instance('sr_forward_backward_instance', A_s).replace('warp(s) per utterance', 'position(s) a lane')}): "
+                f"gamma {g_err:.3e}, log_z {z_err:.3e}, bit-equal "
+                f"{torch.equal(g, gr) and torch.equal(z, zr)}; kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}), per frame "
+                f"{ms / 40 * 1e3:.2f} us")
+            check(g_err <= L_TOL[dt] and z_err <= L_TOL[dt],
+                  f"kernel L ({dt}, A={A_s}) against its plain version: {g_err}, {z_err}")
+            if inst < 0 and dt == torch.float32:
+                scratch_res = (A_s, (g_err, ms, plain_ms, bnd))
+    del feats
+    log(f"[28] phase seconds {time.perf_counter() - t_phase:.1f}")
+
+    # -- 29. Baum-Welch at full width -----------------------------------------------------
+    t_phase = time.perf_counter()
+    runs = {"f64 mxu": (torch.float64, bench.pack(dtype=torch.float64, device=dev)),
+            "f32 pallas": (torch.float32, bench.pack(method="pallas", device=dev))}
+
+    def bw_pass(pack, dt):
+        """Posteriors and statistics over the corpus in batches of L_BATCH:
+        (summed w, xs, x2s; log_z; best paths per batch)."""
+        stats, log_z, paths = None, [], []
+        for i in range(0, big.num_segments, L_BATCH):
+            b_ids = list(range(i, min(i + L_BATCH, big.num_segments)))
+            f_np, l_np = big.padded_batch(b_ids, pad_to=T)
+            tb = tables_all.rows(b_ids)
+            g, z = bw.baum_welch_posteriors(pack, f_np, l_np, tb, dtype=dt)
+            s = bw.accumulate_baum_welch(pack, f_np, g, torch.as_tensor(tb.states, device=dev))
+            stats = s if stats is None else tuple(a + b for a, b in zip(stats, s))
+            log_z.append(z)
+            paths.append(bw.best_path_from_posteriors(g, tb))
+            del g
+        return stats, torch.cat(log_z), paths
+
+    l_launches = {}
+    for label, (dt, pack) in runs.items():
+        bw.forward_backward.LAUNCHES = bw.forward_backward.SCRATCH_LAUNCHES = 0
+        maha.mahalanobis_scores.LAUNCHES = maha.mahalanobis_min_scores.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats, log_z, paths = bw_pass(pack, dt)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n_l, n_scratch = bw.forward_backward.LAUNCHES, bw.forward_backward.SCRATCH_LAUNCHES
+        n_a = (maha.mahalanobis_min_scores.LAUNCHES, maha.mahalanobis_scores.LAUNCHES)
+        l_launches[dt] = (n_l, n_scratch)
+        with mock.patch.object(bw, "forward_backward", bw.forward_backward_reference):
+            t0 = time.perf_counter()
+            p_stats, p_log_z, p_paths = bw_pass(pack, dt)
+            torch.cuda.synchronize()
+            p_secs = time.perf_counter() - t0
+        same_paths = all(np.array_equal(a, b) for a, b in zip(paths, p_paths))
+        errs = [max_rel(a, b) for a, b in zip(stats, p_stats)]
+        z_err = max_rel(log_z, p_log_z)
+        # the frames where the posterior's best path leaves the forced (full
+        # DP, final position forced) Viterbi alignment
+        differ = 0
+        for k, i in enumerate(range(0, big.num_segments, L_BATCH)):
+            b_ids = list(range(i, min(i + L_BATCH, big.num_segments)))
+            f_np, l_np = big.padded_batch(b_ids, pad_to=T)
+            vs, _ = vit.align_batch(pack, f_np, l_np, tables_all.rows(b_ids),
+                                    pruning_threshold=None, tie_pruned=False, dtype=dt)
+            live_np = np.arange(T)[None, :] < np.asarray(l_np)[:, None]
+            differ += int(((vs != paths[k]) & live_np).sum())
+        rtol = L_TOL[dt]
+        log(f"[29] Baum-Welch {label}, {big.num_segments} utterances in batches of {L_BATCH}: "
+            f"{secs:.3f} s (the plain run {p_secs:.3f} s); launches of L {n_l} (in scratch "
+            f"{n_scratch}), of A's fused / unfused entries {n_a[0]} / {n_a[1]}; against the "
+            f"run with L's plain version: best paths equal {same_paths}, w / xs / x2s max rel "
+            f"{errs[0]:.3e} / {errs[1]:.3e} / {errs[2]:.3e}, log_z {z_err:.3e} (limit {rtol:g}); "
+            f"occupancy {stats[0].sum().item():.1f} of {int(big.lengths.sum())} frames; "
+            f"frames whose posterior best path differs from the forced alignment: {differ} of "
+            f"{int(big.lengths.sum())} on {card}")
+        check(n_l == -(-big.num_segments // L_BATCH) and n_scratch == 0,
+              f"Baum-Welch {label} launched kernel L {n_l} times ({n_scratch} in scratch)")
+        if pack.method == "pallas":
+            check(min(n_a) > 0, f"the pallas Baum-Welch skipped an entry of kernel A: {n_a}")
+        check(same_paths and max(errs) <= rtol and z_err <= rtol,
+              f"Baum-Welch {label} differs from its plain run: {errs}, {z_err}")
+        del stats, p_stats
+    # accumulate_baum_welch's products on one batch (cuBLAS, no hand kernel)
+    pack64 = runs["f64 mxu"][1]
+    b_ids = list(range(L_BATCH))
+    f_np, l_np = big.padded_batch(b_ids, pad_to=T)
+    tb = tables_all.rows(b_ids)
+    g0, _ = bw.baum_welch_posteriors(pack64, f_np, l_np, tb, dtype=torch.float64)
+    f_dev, st_dev = torch.as_tensor(f_np, device=dev), torch.as_tensor(tb.states, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    acc_ms = cuda_ms(lambda: bw.accumulate_baum_welch(pack64, f_dev, g0, st_dev), 3)
+    acc_peak = torch.cuda.max_memory_allocated(dev)
+    n, S, D, K = L_BATCH * T, pack64.num_mixtures, pack64.density_cap, 2 * 25 + 1
+    acc_bnd = bound(4 * n * 25 + 8 * n * A + 8 * L_BATCH * A + 8 * S * D * (1 + 2 * 25),
+                    fp64_mma=2 * n * K * S * D + 2 * 2 * n * S * D * 25)
+    log(f"[29] accumulate_baum_welch float64 \"mxu\", one batch ({L_BATCH} x {T} frames, "
+        f"cuBLAS products, no hand kernel): {acc_ms:.4f} ms a call; bound {acc_bnd[0]:.4f} ms "
+        f"({acc_bnd[1]}: its density-score and statistics products at the FP64 tensor cores' "
+        f"67 TFLOP/s); peak device memory {acc_peak / 2 ** 30:.2f} GiB on {card}")
+    del g0, f_dev
+    log(f"[29] phase seconds {time.perf_counter() - t_phase:.1f}")
+
+    # -- 30. MMI and MPE at full width: tools/mpe_run.py's recipe -------------------------
+    t_phase = time.perf_counter()
+    with open(REPO / "bench" / "model.mix.json") as f:
+        meta = json.load(f)
+
+    def bench_model():
+        return gmm.MixtureModel.from_raw(read_mixture_set(str(REPO / "bench" / "model.mix"), 25),
+                                         gmm.VarianceModel.from_string(meta["pooling"]),
+                                         max_approx=True)
+
+    tdp_b = TdpModel(silence_state=lex.silence_state, loop=meta["tdp"][0],
+                     forward=meta["tdp"][1], skip=meta["tdp"][2])
+    cfg_kw = dict(e_constant=2.0, i_smoothing_tau=50.0, posterior_threshold=5.0,
+                  word_penalty=float(meta["word_penalty"]),
+                  am_threshold=float(meta["am_threshold"]), batch_size=256)
+    # the numerator alignment: the df32 trainer's realignment (mpe_run.py:136-143)
+    t0 = time.perf_counter()
+    tables_b = vit.AlignerTables.build([build_segment_automaton(lex, o) for o in big.orths],
+                                       tdp_b)
+    alignment = np.zeros(big.total_frames, np.int32)
+    Trainer(TrainerConfig(pruning_threshold=200.0, batch_size=256), lex, bench_model(), tdp_b,
+            dtype="df32", log=lambda *a: None, device=dev)._realign(big, tables_b, alignment)
+    log(f"[30] numerator alignment (df32 realignment): {time.perf_counter() - t0:.2f} s, "
+        f"silence {100.0 * (alignment == lex.silence_state).mean():.1f} % of "
+        f"{big.total_frames} frames")
+    # accumulate_chunk on one chunk of the numerator's frames (cuBLAS, no hand
+    # kernel), float32 "mxu" as the recipe runs it
+    pack32 = bench_model().pack(dtype=torch.float32, device=dev)
+    C = min(EbwConfig().chunk_frames, big.total_frames)
+    ch = (torch.as_tensor(big.features[:C], device=dev),
+          torch.as_tensor(alignment[:C].astype(np.int64), device=dev),
+          torch.ones(C, device=dev))
+    ch_ms = cuda_ms(lambda: gmm.accumulate_chunk(pack32, *ch, first_pass=False), 10)
+    S, D, K = pack32.num_mixtures, pack32.density_cap, 2 * 25 + 1
+    ch_bnd = bound(C * (4 * 25 + 8 + 4) + 8 * S * D * (1 + 2 * 25),
+                   fp32=2 * C * K * D, fp64_mma=2 * S * C * D * (1 + 2 * 25))
+    log(f"[30] accumulate_chunk float32 \"mxu\", {C} frames (the aligned mixture's "
+        f"product and one-hot float64 products on cuBLAS, no hand kernel): {ch_ms:.4f} ms a "
+        f"call; bound {ch_bnd[0]:.4f} ms ({ch_bnd[1]}) on {card}")
+    del ch
+    counters = {"decode_scan_bigram": ng.decode_scan_bigram, "align_fwd": vit.align_fwd_chunk,
+                "align_backtrack": vit.align_backtrack, "forward_backward": bw.forward_backward}
+
+    def zero():
+        for fn in counters.values():
+            fn.LAUNCHES = 0
+
+    def launches():
+        return {k: fn.LAUNCHES for k, fn in counters.items()}
+
+    zero()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    mpe = MpeTrainer(EbwConfig(**cfg_kw), lex, bench_model(), tdp_b, dtype=torch.float32,
+                     device=dev)
+    t0 = time.perf_counter()
+    out = mpe.iterate(big, alignment, compute_after=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    n_mpe = launches()
+    log(f"[30] MPE iteration (E 2, tau 50, posterior threshold 5, batch 256, float32 "
+        f"statistics) on {big.num_segments} utterances: {secs:.2f} s "
+        f"({', '.join(f'{k} {v:.2f}' for k, v in mpe.phase_seconds.items())} s); expected "
+        f"accuracy {out['expected_accuracy_before'] / big.num_segments:.4f} -> "
+        f"{out['expected_accuracy_after'] / big.num_segments:.4f} an utterance, masses num "
+        f"{out['num_mass']:.3f} den {out['den_mass']:.3f}; launches {n_mpe}; peak device "
+        f"memory {peak / 2 ** 30:.2f} GiB on {card}")
+    check(all(np.isfinite(v) for v in out.values()), f"MPE diagnostics not finite: {out}")
+    check(min(n_mpe[k] for k in ("decode_scan_bigram", "align_fwd", "align_backtrack")) > 0,
+          f"the MPE iteration skipped a kernel: {n_mpe}")
+    zero()
+    torch.cuda.reset_peak_memory_stats(dev)
+    mmi = EbwTrainer(EbwConfig(**cfg_kw), lex, bench_model(), tdp_b, dtype=torch.float32,
+                     device=dev)
+    decoded = []
+    decode = mmi.decode_lattices
+    mmi.decode_lattices = lambda c: decoded.append(decode(c)) or decoded[-1]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = mmi.iterate(big, alignment)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    n_mmi = launches()
+    log(f"[30] MMI iteration (the same settings, a fresh model; profiled) on "
+        f"{big.num_segments} utterances: {secs:.2f} s "
+        f"({', '.join(f'{k} {v:.2f}' for k, v in mmi.phase_seconds.items())} s); criterion "
+        f"{out['criterion_before']:.6f} -> {out['criterion_after']:.6f}, masses num "
+        f"{out['num_frames_mass']:.1f} den {out['den_frames_mass']:.1f}; launches {n_mmi}; "
+        f"peak device memory {peak / 2 ** 30:.2f} GiB on {card}")
+    log_profile("[30] MMI iteration", prof, secs)
+    # the criterion is -inf where an updated model's lattice has no complete
+    # path (the reference's mmi_criterion sums such a lattice's +inf total)
+    dead = [s for s, lat in enumerate(decoded[-1])
+            if not np.isfinite(lat.forward_backward()[0][lat.num_frames])]
+    log(f"[30] lattices without a complete path after the update: {len(dead)} (utterances "
+        f"{dead[:8]}{' ...' if len(dead) > 8 else ''}; demo utterances "
+        f"{sorted({s % corpus.num_segments for s in dead})})")
+    check(np.isfinite(out["criterion_before"]) and np.isfinite(out["num_frames_mass"])
+          and np.isfinite(out["den_frames_mass"]), f"MMI diagnostics not finite: {out}")
+    check(np.isfinite(out["criterion_after"]) == (not dead),
+          f"the MMI criterion after the update is {out['criterion_after']} with {len(dead)} "
+          f"lattices without a complete path")
+    check(min(n_mmi[k] for k in ("decode_scan_bigram", "align_fwd", "align_backtrack")) > 0,
+          f"the MMI iteration skipped a kernel: {n_mmi}")
+    del prof
+
+    # the kernels' run against the plain versions' on the first PLAIN_DISC_CUT utterances
+    cut = repeat_corpus(big, PLAIN_DISC_CUT, type(big))
+    ali_cut = alignment[:cut.total_frames]
+
+    def disc_steps(plain):
+        """Lattices, the arcs' alignments, the MPE and MMI statistics and
+        the updated model on the cut, through the kernels or their plain
+        versions."""
+        aligned = []
+
+        def recording(*a, **k):
+            st, c = vit.align_batch(*a, **k)
+            aligned.append(st)
+            return st, c
+
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(mock.patch.object(ebw_mod, "align_batch", recording))
+            if plain:
+                for mod, name, fn in ((ebw_mod, "decode_scan_bigram", ng.decode_scan_bigram_reference),
+                                      (vit, "align_fwd_chunk", vit.align_fwd_chunk_reference),
+                                      (vit, "align_backtrack", vit.align_backtrack_reference)):
+                    stack.enter_context(mock.patch.object(mod, name, fn))
+            tr = MpeTrainer(EbwConfig(**cfg_kw), lex, bench_model(), tdp_b, dtype=torch.float32,
+                            device=dev)
+            lats = tr.decode_lattices(cut)
+            num, den, acc = tr.mpe_statistics(cut, ali_cut, lats)
+            mmi_den = tr.denominator_statistics(cut, lats)
+            tr.ebw_update(num, den)
+        return lats, aligned, (*num, *den, *mmi_den), acc, tr.model
+
+    t0 = time.perf_counter()
+    k_run = disc_steps(False)
+    p_run = disc_steps(True)
+    p_secs = time.perf_counter() - t0
+    same_lats = all([(a.start, a.end, a.word, a.score) for a in x.arcs]
+                    == [(a.start, a.end, a.word, a.score) for a in y.arcs]
+                    for x, y in zip(k_run[0], p_run[0]))
+    same_align = (len(k_run[1]) == len(p_run[1])
+                  and all(np.array_equal(a, b) for a, b in zip(k_run[1], p_run[1])))
+    stat_err = max(float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300)))
+                   for a, b in zip(k_run[2], p_run[2]))
+    par_err = max(float(np.max(np.abs(getattr(k_run[4], n) - getattr(p_run[4], n))
+                            / np.maximum(np.abs(getattr(p_run[4], n)), 1e-300)))
+                  for n in ("means", "vars", "mean_weights"))
+    log(f"[30] kernels against plain versions on the first {PLAIN_DISC_CUT} utterances "
+        f"({sum(len(l.arcs) for l in k_run[0])} lattice arcs, {len(k_run[1])} alignment "
+        f"batches; {p_secs:.1f} s both): lattices identical {same_lats}, arc alignments "
+        f"identical {same_align}, statistics max rel {stat_err:.3e}, expected accuracy "
+        f"{k_run[3]:.6f} / {p_run[3]:.6f}, updated means / variances / weights max rel "
+        f"{par_err:.3e}")
+    check(same_lats and same_align, "phase 30's lattices or arc alignments differ from the plain run")
+    check(stat_err <= 1e-12 and par_err <= 1e-12 and k_run[3] == p_run[3],
+          f"phase 30's statistics or parameters differ from the plain run: {stat_err}, {par_err}")
+    del k_run, p_run
+
+    # the demo utterances in float64: the card against the CPU port
+    from speechrecognition_torch.io import read_alignment
+    demo = corpus
+    demo_ali = read_alignment(str(FIX / "demo_alignments" / "alignment-2-0.dump"))[0]
+    demo_kw = dict(e_constant=2.0, i_smoothing_tau=10.0, word_penalty=80.0, am_threshold=200.0,
+                   batch_size=demo.num_segments)
+    diag, models_ = {}, {}
+    for where in (dev, "cpu"):
+        t0 = time.perf_counter()
+        mp = MpeTrainer(EbwConfig(**demo_kw), lex, copy.deepcopy(iter2), tdp,
+                        dtype=torch.float64, device=where)
+        d_mpe = mp.iterate(demo, demo_ali.astype(np.int64))
+        mm = EbwTrainer(EbwConfig(**demo_kw), lex, copy.deepcopy(iter2), tdp,
+                        dtype=torch.float64, device=where)
+        d_mmi = mm.iterate(demo, demo_ali.astype(np.int64))
+        diag[str(where)] = {**d_mpe, **d_mmi}
+        models_[str(where)] = (mp.model, mm.model)
+        log(f"[30] demo MPE + MMI iterations in float64 on {where}: "
+            f"{time.perf_counter() - t0:.1f} s")
+    worst = max(abs(diag[str(dev)][k] - diag["cpu"][k]) / max(abs(diag["cpu"][k]), 1e-300)
+                for k in diag["cpu"])
+    for a, b in zip(models_[str(dev)], models_["cpu"]):
+        for n in ("means", "vars", "mean_weights"):
+            x, y = getattr(a, n), getattr(b, n)
+            worst = max(worst, float(np.max(np.abs(x - y) / np.maximum(np.abs(y), 1e-300))))
+    log(f"[30] demo (35 utterances, iter-2.mix, float64): the card's diagnostics and updated "
+        f"models against the CPU port's, max rel {worst:.3e} (limit {DISC_CPU_TOL:g}); "
+        f"MPE expected accuracy {diag[str(dev)]['expected_accuracy_before']:.6f} -> "
+        f"{diag[str(dev)]['expected_accuracy_after']:.6f}, MMI criterion "
+        f"{diag[str(dev)]['criterion_before']:.6f} -> {diag[str(dev)]['criterion_after']:.6f}")
+    check(worst <= DISC_CPU_TOL, f"phase 30's demo run on the card differs from the CPU: {worst}")
+    log(f"[30] phase seconds {time.perf_counter() - t_phase:.1f}")
+
+    replaces = "speechrecognition_tpu/align/baumwelch.py:44"
+    entries = [entry(f"forward_backward{tag_of[dt]}", "forward_backward.cu", replaces,
+                     l_launches[dt][0], *res[dt]) for dt in (torch.float32, torch.float64)]
+    A_s, r = scratch_res
+    entries.append(entry(f"forward_backward[A={A_s}]", "forward_backward.cu", replaces,
+                         sum(n for _, n in l_launches.values()), *r))
+    return entries
 
 
 def repeat_corpus(corpus, n, corpus_cls):

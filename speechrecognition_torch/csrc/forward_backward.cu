@@ -1,0 +1,501 @@
+// Kernel L: the Baum-Welch forward-backward scan over the banded 0-1-2
+// position lattice.
+//
+// Replaces speechrecognition_tpu/align/baumwelch.py::_forward_backward (:44),
+// two lax.scans over T with a three-way logsumexp (_lse3, :34) that XLA
+// fuses; written op by op in PyTorch it takes about 20 small launches a
+// frame in each of the two passes. Same inputs and outputs: the emissions
+// lams [B, T, A] (-score), the transitions ltdp [B, A, 3] (into position a
+// by jump j, -penalty), pos_valid [B, A] (uint8), feat_len [B] and aut_len
+// [B]; it writes the posteriors gamma [B, T, A] and log_z [B]. A template
+// on the score type: float or double. NEG_BIG = -1e30 and its half are in
+// the score type, as the plain version (align/baumwelch.py) keeps them.
+//
+// Per utterance, the reference's recursions (len = min(feat_len, T)):
+//   * forward: alpha_0 = lams[0, 0] at position 0 (if valid), NEG_BIG
+//     elsewhere; each frame t < len: lse3(alpha[a] + ltdp[a,0],
+//     alpha[a-1] + ltdp[a,1], alpha[a-2] + ltdp[a,2]) + lams[t, a], invalid
+//     positions NEG_BIG, then the row shifted by its maximum (0 for a dead
+//     row) with cells <= NEG_BIG/2 set to NEG_BIG; frames past len keep
+//     the row, so only frames < len are computed;
+//   * log_z = alpha[len-1][aut_len-1] (a negative index wraps once, as the
+//     reference's take_along_axis does) + the shifts of frames 1..len-1,
+//     summed in frame order;
+//   * backward: beta at frame len-1 is 0 at aut_len-1 and NEG_BIG elsewhere;
+//     frame t < len-1: lse3(term[a] + ltdp[a,0], term[a+1] + ltdp[a+1,1],
+//     term[a+2] + ltdp[a+2,2]) with term = beta[t+1] + lams[t+1], masked and
+//     shifted as the forward row;
+//   * posteriors: post = alpha + beta, p = exp(post - max(rowmax,
+//     NEG_BIG/2)), 0 where post <= NEG_BIG/2, divided by max(sum p, 1e-30);
+//     rows t >= len are 0. The row sum is taken in one fixed order, which
+//     the plain version spells out: the row is cut into 32 chunks of
+//     K = ceil(A/32) positions, each chunk summed in position order, then
+//     the 32 chunk sums by the butterfly of offsets 16, 8, 4, 2, 1.
+// lse3 sums its three exponentials in order and every other step is an
+// add, compare, select, max or division in the score type, so on the card
+// the kernel repeats its plain version's operations; exp and log are the
+// CUDA math library's (built without --use_fast_math), not the
+// intrinsics.
+//
+// What bounds it: the chain of dependent work a frame, not bytes or
+// operations. Each frame needs the whole previous row through its maximum,
+// 2 x (len - 1) frames in turn. At the full-width shape (B 256, T 960,
+// A 70) the bytes (lams read twice, alpha written and read, gamma written)
+// take 0.10 ms in float32 at 3.35 TB/s; 256 utterances on one warp each
+// leave most of the card's 528 sub-partitions idle, and a frame's chain
+// (three exponentials and a logarithm, the neighbours' shuffles, a warp
+// maximum; in the backward pass also the posterior row's maximum and sum)
+// sets the time. Two instances, chosen in the C entry from A alone
+// (sr_forward_backward_instance):
+//   * A <= 96 (every SieTill automaton): one warp an utterance, a block a
+//     warp, K = ceil(A/32) consecutive positions a lane; positions a-1, a-2
+//     (forward) and a+1, a+2 (backward) of a lane's first or last
+//     positions come from the neighbouring lanes by shuffles; row maxima
+//     by butterfly shuffles (exact); the next frame's emissions are loaded
+//     a frame ahead. The forward pass writes each alpha row into gamma and
+//     the backward pass reads it back and overwrites it with the
+//     posterior; beta lives in registers.
+//   * A > 96: one block of min(ceil(A/32)*32, 1024) threads an utterance,
+//     each looping over the positions a = threadIdx.x + k*blockDim.x; the
+//     alpha / beta row double-buffered and a row of the posterior's
+//     exponentials in shared memory up to A = 1024 (instance 0), beyond in
+//     device scratch [B, 3, A] that the wrapper allocates (-1); warp 0
+//     forms the row sum in the order above. Simple, not tuned; no SieTill
+//     automaton reaches it.
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int WARP_POSITIONS = 96;      // the warp instance's longest automaton (3 a lane)
+constexpr int SHARED_POSITIONS = 1024;  // the longest row the block instance keeps in shared memory
+constexpr int BLOCK_THREADS = 1024;     // threads an utterance of the block instance, at most
+
+template <typename T>
+__device__ __forceinline__ T neg_big() { return T(-1e30); }
+template <typename T>
+__device__ __forceinline__ T half_neg_big() { return T(-1e30) * T(0.5); }
+template <typename T>
+__device__ __forceinline__ T minus_inf() { return -T(INFINITY); }
+
+__device__ __forceinline__ float t_exp(float x) { return expf(x); }
+__device__ __forceinline__ double t_exp(double x) { return exp(x); }
+__device__ __forceinline__ float t_log(float x) { return logf(x); }
+__device__ __forceinline__ double t_log(double x) { return log(x); }
+__device__ __forceinline__ float t_max(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double t_max(double a, double b) { return fmax(a, b); }
+
+// the reference's _lse3: NaN-free at NEG_BIG, NEG_BIG for an all-dead triple
+template <typename T>
+__device__ __forceinline__ T lse3(T a, T b, T c) {
+  const T m = t_max(t_max(a, b), c);
+  const T safe = t_max(m, half_neg_big<T>());
+  const T out = safe + t_log(t_exp(a - safe) + t_exp(b - safe) + t_exp(c - safe));
+  return m <= half_neg_big<T>() ? neg_big<T>() : out;
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_max(T v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = t_max(v, __shfl_xor_sync(FULL, v, off));
+  return v;
+}
+
+// the butterfly of the fixed row-sum order; every lane ends with the sum
+template <typename T>
+__device__ __forceinline__ T warp_tree_sum(T v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = v + __shfl_xor_sync(FULL, v, off);
+  return v;
+}
+
+// the row's shift: its maximum, or 0 for a dead row
+template <typename T>
+__device__ __forceinline__ T row_shift(T m) {
+  return m <= half_neg_big<T>() ? T(0) : m;
+}
+
+template <typename T>
+__device__ __forceinline__ T renorm(T v, T shift) {
+  return v <= half_neg_big<T>() ? neg_big<T>() : v - shift;
+}
+
+// the posterior row of the warp instance from alpha and beta in registers,
+// written to g (the row of gamma)
+template <typename T, int K>
+__device__ __forceinline__ void warp_posterior(const T (&alpha)[K], const T (&beta)[K], T* g,
+                                               int lane, int A) {
+  const T HALF = half_neg_big<T>();
+  T post[K];
+  T m = minus_inf<T>();
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    post[k] = alpha[k] + beta[k];
+    if (lane * K + k < A) m = t_max(m, post[k]);
+  }
+  const T safe = t_max(warp_max(m), HALF);
+  T p[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    p[k] = (lane * K + k < A && post[k] > HALF) ? t_exp(post[k] - safe) : T(0);
+  T s = p[0];
+#pragma unroll
+  for (int k = 1; k < K; ++k) s = s + p[k];
+  const T den = t_max(warp_tree_sum(s), T(1e-30));
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int a = lane * K + k;
+    if (a < A) g[a] = p[k] / den;
+  }
+}
+
+// one warp an utterance, K consecutive positions a lane
+template <typename T, int K>
+__global__ void __launch_bounds__(32)
+fb_warp_kernel(const T* __restrict__ lams, const T* __restrict__ ltdp,
+               const unsigned char* __restrict__ pos_valid, const int* __restrict__ feat_len,
+               const int* __restrict__ aut_len, T* __restrict__ gamma, T* __restrict__ log_z,
+               int Tn, int A) {
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const T NB = neg_big<T>();
+  const int len = min(max(feat_len[b], 0), Tn);
+  const int al = aut_len[b];
+  const size_t urow = (size_t)b * A;
+  const T* lam_b = lams + (size_t)b * Tn * A;
+  T* g_b = gamma + (size_t)b * Tn * A;
+
+  T tw0[K], tw1[K], tw2[K];
+  bool valid[K];
+  int col[K];  // the position's column, the last one standing in past A
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int a = lane * K + k;
+    col[k] = min(a, A - 1);
+    const size_t r = urow + col[k];
+    valid[k] = a < A && pos_valid[r] != 0;
+    tw0[k] = ltdp[r * 3 + 0];
+    tw1[k] = ltdp[r * 3 + 1];
+    tw2[k] = ltdp[r * 3 + 2];
+  }
+
+  // -- forward ----------------------------------------------------------------
+  T alpha[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    alpha[k] = (lane * K + k == 0 && valid[k]) ? lam_b[0] : NB;
+    if (len > 0 && lane * K + k < A) g_b[lane * K + k] = alpha[k];
+  }
+  T shift_sum = T(0);
+  T lam_nx[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) lam_nx[k] = len > 1 ? lam_b[(size_t)A + col[k]] : T(0);
+  for (int t = 1; t < len; ++t) {
+    T lam_t[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      lam_t[k] = lam_nx[k];
+      lam_nx[k] = lam_b[(size_t)min(t + 1, len - 1) * A + col[k]];
+    }
+    // positions a-1 and a-2 of the lane's first positions: the lanes below
+    const T up1 = __shfl_up_sync(FULL, alpha[K - 1], 1);
+    const T up2 = K >= 2 ? __shfl_up_sync(FULL, alpha[K >= 2 ? K - 2 : 0], 1)
+                         : __shfl_up_sync(FULL, alpha[0], 2);
+    T nw[K];
+    T m = minus_inf<T>();
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int a = lane * K + k;
+      const T p1 = k >= 1 ? alpha[k >= 1 ? k - 1 : 0] : up1;
+      const T p2 = k >= 2 ? alpha[k >= 2 ? k - 2 : 0] : (k == 1 ? up1 : up2);
+      const T c0 = alpha[k] + tw0[k];
+      const T c1 = a >= 1 ? p1 + tw1[k] : NB;
+      const T c2 = a >= 2 ? p2 + tw2[k] : NB;
+      const T v = lse3(c0, c1, c2) + lam_t[k];
+      nw[k] = valid[k] ? v : NB;
+      if (a < A) m = t_max(m, nw[k]);
+    }
+    const T shift = row_shift(warp_max(m));
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      alpha[k] = renorm(nw[k], shift);
+      if (lane * K + k < A) g_b[(size_t)t * A + lane * K + k] = alpha[k];
+    }
+    shift_sum = shift_sum + shift;
+  }
+
+  // log_z: alpha at (len-1, aut_len-1) plus the shifts
+  const int fz = min(max(al - 1 < 0 ? al - 1 + A : al - 1, 0), A - 1);
+  T az = NB;
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    if (lane * K + k == fz) az = alpha[k];
+  az = __shfl_sync(FULL, az, fz / K);
+  if (lane == 0) log_z[b] = az + shift_sum;
+
+  // -- backward and posteriors -------------------------------------------------
+  if (len > 0) {
+    T beta[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) beta[k] = (lane * K + k == al - 1 && lane * K + k < A) ? T(0) : NB;
+    warp_posterior<T, K>(alpha, beta, g_b + (size_t)(len - 1) * A, lane, A);
+    T lam1[K];  // the emissions of frame t+1
+#pragma unroll
+    for (int k = 0; k < K; ++k) lam1[k] = len > 1 ? lam_b[(size_t)(len - 1) * A + col[k]] : T(0);
+    for (int t = len - 2; t >= 0; --t) {
+      T term[K], v1[K], v2[K], arow[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        term[k] = beta[k] + lam1[k];
+        v1[k] = term[k] + tw1[k];
+        v2[k] = term[k] + tw2[k];
+        lam1[k] = lam_b[(size_t)t * A + col[k]];  // frame t's, for the next step
+        // alpha of frame t, which this lane wrote in the forward pass
+        arow[k] = lane * K + k < A ? g_b[(size_t)t * A + lane * K + k] : NB;
+      }
+      // positions a+1 and a+2 of the lane's last positions: the lanes above
+      const T dn1 = __shfl_down_sync(FULL, v1[0], 1);
+      const T dn2_first = __shfl_down_sync(FULL, v2[0], 1);
+      const T dn2 = K >= 2 ? __shfl_down_sync(FULL, v2[K >= 2 ? 1 : 0], 1)
+                           : __shfl_down_sync(FULL, v2[0], 2);
+      T nb[K];
+      T m = minus_inf<T>();
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int a = lane * K + k;
+        const T n1 = k + 1 < K ? v1[k + 1 < K ? k + 1 : 0] : dn1;
+        const T n2 = k + 2 < K ? v2[k + 2 < K ? k + 2 : 0] : (k + 2 == K ? dn2_first : dn2);
+        const T b0 = term[k] + tw0[k];
+        const T b1 = a + 1 < A ? n1 : NB;
+        const T b2 = a + 2 < A ? n2 : NB;
+        nb[k] = valid[k] ? lse3(b0, b1, b2) : NB;
+        if (a < A) m = t_max(m, nb[k]);
+      }
+      const T shift = row_shift(warp_max(m));
+#pragma unroll
+      for (int k = 0; k < K; ++k) beta[k] = renorm(nb[k], shift);
+      warp_posterior<T, K>(arow, beta, g_b + (size_t)t * A, lane, A);
+    }
+  }
+  // frames past the utterance
+  for (int t = len; t < Tn; ++t)
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (lane * K + k < A) g_b[(size_t)t * A + lane * K + k] = T(0);
+}
+
+// the block's maximum of v; red holds a value a warp (at least 32)
+template <typename T>
+__device__ __forceinline__ T block_max(T v, T* red) {
+  v = warp_max(v);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  T r = red[0];
+  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) r = t_max(r, red[w]);
+  return r;
+}
+
+// the posterior row of the block instance: beta in row, alpha in g (the row
+// of gamma, each thread's own positions), the exponentials staged in prow
+template <typename T>
+__device__ void block_posterior(const T* row, T* prow, T* g, int A, T* red, T* sum) {
+  const T HALF = half_neg_big<T>();
+  T m = minus_inf<T>();
+  for (int a = threadIdx.x; a < A; a += blockDim.x) {
+    const T post = g[a] + row[a];
+    prow[a] = post;
+    m = t_max(m, post);
+  }
+  const T safe = t_max(block_max(m, red), HALF);
+  for (int a = threadIdx.x; a < A; a += blockDim.x) {
+    const T post = prow[a];
+    prow[a] = post > HALF ? t_exp(post - safe) : T(0);
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {  // the fixed order: 32 chunks of K positions, then the butterfly
+    const int K = (A + 31) / 32;
+    const int a0 = threadIdx.x * K;
+    T s = a0 < A ? prow[a0] : T(0);
+    for (int k = 1; k < K; ++k) s = s + (a0 + k < A ? prow[a0 + k] : T(0));
+    s = warp_tree_sum(s);
+    if (threadIdx.x == 0) *sum = s;
+  }
+  __syncthreads();
+  const T den = t_max(*sum, T(1e-30));
+  for (int a = threadIdx.x; a < A; a += blockDim.x) g[a] = prow[a] / den;
+}
+
+// one block an utterance; lat [3][A]: the alpha / beta row double-buffered
+// by frame parity and the posterior's row, in shared memory where scratch
+// is null, else the utterance's part of the device scratch [B][3][A] (not
+// restrict: the threads read one another's writes after __syncthreads)
+template <typename T>
+__global__ void __launch_bounds__(BLOCK_THREADS)
+fb_block_kernel(const T* __restrict__ lams, const T* __restrict__ ltdp,
+                const unsigned char* __restrict__ pos_valid, const int* __restrict__ feat_len,
+                const int* __restrict__ aut_len, T* gamma, T* __restrict__ log_z, T* scratch,
+                int Tn, int A) {
+  extern __shared__ __align__(8) unsigned char smem_raw[];
+  __shared__ T s_red[2][BLOCK_THREADS / 32];
+  __shared__ T s_sum;
+  const int b = blockIdx.x;
+  const T NB = neg_big<T>();
+  const int len = min(max(feat_len[b], 0), Tn);
+  const int al = aut_len[b];
+  const size_t urow = (size_t)b * A;
+  const T* lam_b = lams + (size_t)b * Tn * A;
+  T* g_b = gamma + (size_t)b * Tn * A;
+  T* lat = scratch != nullptr ? scratch + 3 * urow : reinterpret_cast<T*>(smem_raw);
+  T* prow = lat + 2 * (size_t)A;
+  auto valid = [&](int a) { return pos_valid[urow + a] != 0; };
+  auto tw = [&](int a, int j) { return ltdp[(urow + a) * 3 + j]; };
+
+  for (int a = threadIdx.x; a < A; a += blockDim.x) {
+    const T v = (a == 0 && valid(a)) ? lam_b[0] : NB;
+    lat[a] = v;
+    if (len > 0) g_b[a] = v;
+  }
+  __syncthreads();
+  T shift_sum = T(0);  // the same in every thread
+  int buf = 0;
+  for (int t = 1; t < len; ++t) {
+    const T* cur = lat + (size_t)buf * A;
+    T* nxt = lat + (size_t)(buf ^ 1) * A;
+    T m = minus_inf<T>();
+    for (int a = threadIdx.x; a < A; a += blockDim.x) {
+      const T c0 = cur[a] + tw(a, 0);
+      const T c1 = a >= 1 ? cur[a - 1] + tw(a, 1) : NB;
+      const T c2 = a >= 2 ? cur[a - 2] + tw(a, 2) : NB;
+      const T v = lse3(c0, c1, c2) + lam_b[(size_t)t * A + a];
+      nxt[a] = valid(a) ? v : NB;
+      m = t_max(m, nxt[a]);
+    }
+    const T shift = row_shift(block_max(m, s_red[0]));
+    for (int a = threadIdx.x; a < A; a += blockDim.x) {
+      const T v = renorm(nxt[a], shift);
+      nxt[a] = v;
+      g_b[(size_t)t * A + a] = v;
+    }
+    shift_sum = shift_sum + shift;
+    __syncthreads();  // the new row is visible; the maxima may be rewritten
+    buf ^= 1;
+  }
+  if (threadIdx.x == 0) {
+    const int fz = min(max(al - 1 < 0 ? al - 1 + A : al - 1, 0), A - 1);
+    log_z[b] = lat[(size_t)buf * A + fz] + shift_sum;
+  }
+  __syncthreads();  // the last alpha row is read before beta overwrites it
+
+  if (len > 0) {
+    T* last = lat + (size_t)buf * A;
+    for (int a = threadIdx.x; a < A; a += blockDim.x) last[a] = a == al - 1 ? T(0) : NB;
+    block_posterior(last, prow, g_b + (size_t)(len - 1) * A, A, s_red[1], &s_sum);
+    for (int t = len - 2; t >= 0; --t) {
+      const T* cur = lat + (size_t)buf * A;
+      T* nxt = lat + (size_t)(buf ^ 1) * A;
+      const T* lam1 = lam_b + (size_t)(t + 1) * A;
+      T m = minus_inf<T>();
+      for (int a = threadIdx.x; a < A; a += blockDim.x) {
+        const T b0 = (cur[a] + lam1[a]) + tw(a, 0);
+        const T b1 = a + 1 < A ? (cur[a + 1] + lam1[a + 1]) + tw(a + 1, 1) : NB;
+        const T b2 = a + 2 < A ? (cur[a + 2] + lam1[a + 2]) + tw(a + 2, 2) : NB;
+        nxt[a] = valid(a) ? lse3(b0, b1, b2) : NB;
+        m = t_max(m, nxt[a]);
+      }
+      const T shift = row_shift(block_max(m, s_red[0]));
+      for (int a = threadIdx.x; a < A; a += blockDim.x) nxt[a] = renorm(nxt[a], shift);
+      // its barriers also make the new row visible to the next frame
+      block_posterior(nxt, prow, g_b + (size_t)t * A, A, s_red[1], &s_sum);
+      buf ^= 1;
+    }
+  }
+  for (int t = len; t < Tn; ++t)
+    for (int a = threadIdx.x; a < A; a += blockDim.x) g_b[(size_t)t * A + a] = T(0);
+}
+
+// K positions a lane of the warp instance (1-3) for A positions; for the
+// block instance 0 (its rows in shared memory) or -1 (in device scratch)
+int instance_for(int A) {
+  if (A <= WARP_POSITIONS) return (A + 31) / 32;
+  return A <= SHARED_POSITIONS ? 0 : -1;
+}
+
+template <typename T>
+int launch(const T* lams, const T* ltdp, const unsigned char* pos_valid, const int* feat_len,
+           const int* aut_len, T* gamma, T* log_z, T* scratch, int B, int Tn, int A,
+           int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (B == 0 || Tn == 0 || A == 0) return (int)cudaSuccess;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int inst = instance_for(A);
+  switch (inst) {
+    case 1:
+      fb_warp_kernel<T, 1><<<B, 32, 0, st>>>(lams, ltdp, pos_valid, feat_len, aut_len, gamma,
+                                             log_z, Tn, A);
+      break;
+    case 2:
+      fb_warp_kernel<T, 2><<<B, 32, 0, st>>>(lams, ltdp, pos_valid, feat_len, aut_len, gamma,
+                                             log_z, Tn, A);
+      break;
+    case 3:
+      fb_warp_kernel<T, 3><<<B, 32, 0, st>>>(lams, ltdp, pos_valid, feat_len, aut_len, gamma,
+                                             log_z, Tn, A);
+      break;
+    default: {
+      if (inst < 0 && scratch == nullptr) return (int)cudaErrorInvalidValue;
+      const int threads = A < BLOCK_THREADS ? (A + 31) / 32 * 32 : BLOCK_THREADS;
+      const size_t smem = inst < 0 ? 0 : 3 * (size_t)A * sizeof(T);
+      fb_block_kernel<T><<<B, threads, smem, st>>>(lams, ltdp, pos_valid, feat_len, aut_len,
+                                                   gamma, log_z, inst < 0 ? scratch : nullptr,
+                                                   Tn, A);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+// blocks per SM of the launch for A positions (-1: error)
+template <typename T>
+int residency(int A) {
+  int n = 0;
+  cudaError_t err;
+  switch (instance_for(A)) {
+    case 1: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fb_warp_kernel<T, 1>, 32, 0); break;
+    case 2: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fb_warp_kernel<T, 2>, 32, 0); break;
+    case 3: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fb_warp_kernel<T, 3>, 32, 0); break;
+    default: {
+      const int threads = A < BLOCK_THREADS ? (A + 31) / 32 * 32 : BLOCK_THREADS;
+      const size_t smem = instance_for(A) < 0 ? 0 : 3 * (size_t)A * sizeof(T);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fb_block_kernel<T>, threads, smem);
+    }
+  }
+  return err == cudaSuccess ? n : -1;
+}
+
+}  // namespace
+
+// blocks per SM of kernel L's launch for A positions in float (f64 = 0) or
+// double (-1: error)
+extern "C" int sr_forward_backward_residency(int A, int f64) {
+  return f64 ? residency<double>(A) : residency<float>(A);
+}
+
+// the instance sr_forward_backward launches for A positions: positions a
+// lane of the warp instance (1-3); the block instance with its rows in
+// shared memory (0), or in device scratch of 3*B*A scores (-1)
+extern "C" int sr_forward_backward_instance(int A) { return instance_for(A); }
+
+// f64 selects double (else float) for lams, ltdp, gamma, log_z and scratch
+extern "C" int sr_forward_backward(int f64, const void* lams, const void* ltdp,
+                                   const unsigned char* pos_valid, const int* feat_len,
+                                   const int* aut_len, void* gamma, void* log_z, void* scratch,
+                                   int B, int T, int A, int device, void* stream) {
+  if (f64)
+    return launch<double>((const double*)lams, (const double*)ltdp, pos_valid, feat_len, aut_len,
+                          (double*)gamma, (double*)log_z, (double*)scratch, B, T, A, device,
+                          stream);
+  return launch<float>((const float*)lams, (const float*)ltdp, pos_valid, feat_len, aut_len,
+                       (float*)gamma, (float*)log_z, (float*)scratch, B, T, A, device, stream);
+}

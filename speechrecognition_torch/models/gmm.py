@@ -724,6 +724,45 @@ def _state_sums(gamma: torch.Tensor, f64: torch.Tensor, states: torch.Tensor,
             (onehot @ gx2).reshape(S, D, -1))
 
 
+def accumulate_chunk(pack: ScorePack, feats: torch.Tensor, states: torch.Tensor,
+                     frame_mask: torch.Tensor, first_pass: bool,
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Sufficient statistics for one chunk of weighted aligned frames, on
+    the pack's device.
+
+    feats [N, dim], states int [N] (aligned mixture per frame), frame_mask
+    [N] (each frame's weight: 0 for padding, 1 for a hard alignment, an arc
+    posterior in discriminative training). Returns (w [S, D], xs [S, D, dim],
+    x2s [S, D, dim]) in float64. Membership over the aligned mixture's
+    densities: one-hot first minimum for max-approx (Mixtures.cpp:296-305),
+    normalized exp(−score) with the 1e-8 cutoff, not renormalized, for sum
+    (::307-336); it is weighted in the pack's dtype and then widened, as the
+    reference rounds it. Only the aligned mixture is scored
+    (``aligned_density_scores``; a "pallas" pack takes kernel A's scores of
+    every mixture and gathers the aligned one, as the reference does)."""
+    S, D = pack.num_mixtures, pack.density_cap
+    device = pack.device
+    feats = torch.as_tensor(feats, device=device)
+    states = torch.as_tensor(states, device=device).long()
+    N = feats.shape[0]
+    if first_pass:
+        gamma = torch.zeros((N, D), dtype=pack.dtype, device=device)
+        gamma[:, 0] = 1.0
+    else:
+        if pack.method == "pallas":
+            sc = density_scores(pack, feats)[torch.arange(N, device=device), states]
+        else:
+            sc = aligned_density_scores(pack, feats, states)        # [N, D]
+        if pack.max_approx:
+            gamma = torch.nn.functional.one_hot(sc.argmin(dim=-1), D).to(pack.dtype)
+        else:
+            p = torch.exp(-(sc - sc.amin(dim=-1, keepdim=True)))
+            p = p / p.sum(dim=-1, keepdim=True)
+            gamma = torch.where(p < MEMBERSHIP_EPS, 0.0, p)
+    gamma = gamma * torch.as_tensor(frame_mask, device=device).to(pack.dtype)[:, None]
+    return _state_sums(gamma.to(torch.float64), feats.to(torch.float64), states, S)
+
+
 def _sum_mode_steps(feats_chunks, states_chunks, mask_chunks):
     """(features, states, mask) of SUM_ROWS frames at a time, in order."""
     K, C, _ = feats_chunks.shape

@@ -25,7 +25,14 @@ and f64 on the card; the search tier's kernels I (tree scan), J (bigram
 scan) and K (word-conditioned tree search, every option, two chunks with
 carry) bit-equal in float32 and float64, also on prefix-sharing trees and
 past shared memory (tests/torch_search_tables.py's inputs), I's owner
-instance and first design at the owner instance's edges.
+instance and first design at the owner instance's edges; kernel L
+(forward-backward, float32 and float64, every instance: 1 to 3 positions a
+lane, the block instance with its rows in shared memory and past A = 1,024
+in device scratch; tests/torch_fb_tables.py's inputs with ragged lengths,
+T = 1 and unreachable final positions) within 1e-12 (float64) or 1e-5
+(float32) of its plain version, gamma absolute and log_z relative, and
+baum_welch_posteriors / accumulate_baum_welch on the card within 1e-12 of
+the same calls on the CPU.
 """
 
 import json
@@ -47,6 +54,7 @@ from speechrecognition_torch.search import decoder as dec
 from speechrecognition_torch.tdp import TdpModel
 from torch_df_tables import (BACKTRACK_CASES, backtrack_frames, backtrack_inputs,
                              wide_magnitude_pack_df)
+from torch_fb_tables import L_INSTANCES, fb_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -1092,3 +1100,59 @@ def test_kernel_k_owner_edges(dev, words, option, ties):
                          WCTS_OPTIONS[option], torch.float32, 60, (23, 37), SEARCH_LENS,
                          seed=words, ties=ties)
     assert same(got, ref)
+
+
+L_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+@pytest.mark.parametrize("A", list(L_INSTANCES))
+@pytest.mark.parametrize("T", [1, 40])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_l_matches_plain(dev, A, T, dtype):
+    """Every instance of kernel L against its plain version on the card."""
+    from speechrecognition_torch.align import baumwelch as bw
+    from speechrecognition_torch.ops import _native
+    assert _native.load().sr_forward_backward_instance(A) == L_INSTANCES[A]
+    lams, ltdp, pv, fl, al = fb_inputs(5, T, A, seed=A * 7 + T)
+    args = (torch.as_tensor(lams, dtype=dtype, device=dev),
+            torch.as_tensor(ltdp, dtype=dtype, device=dev), torch.as_tensor(pv, device=dev),
+            torch.as_tensor(fl, device=dev), torch.as_tensor(al, device=dev))
+    n0, s0 = bw.forward_backward.LAUNCHES, bw.forward_backward.SCRATCH_LAUNCHES
+    g, z = bw.forward_backward(*args)
+    gr, zr = bw.forward_backward_reference(*args)
+    torch.cuda.synchronize()
+    assert bw.forward_backward.LAUNCHES == n0 + 1
+    assert bw.forward_backward.SCRATCH_LAUNCHES == s0 + (L_INSTANCES[A] < 0)
+    assert g.dtype == dtype and torch.isfinite(g).all() and torch.isfinite(z).all()
+    assert (g - gr).abs().max().item() <= L_TOL[dtype]
+    assert ((z - zr).abs() / zr.abs().clamp(min=1.0)).max().item() <= L_TOL[dtype]
+    assert (g >= 0).all()
+
+
+def test_kernel_l_on_the_main_path_equals_the_cpu(dev):
+    """baum_welch_posteriors and accumulate_baum_welch on iter-2.mix and ten
+    demo utterances, float64 "mxu" pack: the card (kernel L) within 1e-12 of
+    the CPU (the plain version)."""
+    from speechrecognition_torch.align import baumwelch as bw
+    from speechrecognition_torch.align.viterbi import AlignerTables
+    from speechrecognition_torch.lexicon import build_segment_automaton
+    lex = build_sietill_lexicon()
+    desc = CorpusDescription.read(str(FIX / "demo_corpus.json"), lex)
+    corpus = Corpus.read(desc, str(FIX / "demo_features") + "/", SignalAnalysisConfig(),
+                         normalization_path=str(FIX / "normalization-demo.bin"))
+    model = gmm.MixtureModel.from_raw(read_mixture_set(str(FIX / "iter-2.mix"), 25),
+                                      gmm.VarianceModel.MIXTURE_POOLING, max_approx=True)
+    ids = list(range(10))
+    feats, lens = corpus.padded_batch(ids, pad_to=int(corpus.lengths[ids].max()))
+    tables = AlignerTables.build([build_segment_automaton(lex, corpus.orths[s]) for s in ids],
+                                 TdpModel(silence_state=lex.silence_state, loop=3.0,
+                                          forward=0.0, skip=30.0))
+    out = {}
+    for where in ("cpu", dev):
+        pack = model.pack(dtype=torch.float64, device=where)
+        g, z = bw.baum_welch_posteriors(pack, feats, lens, tables, dtype=torch.float64)
+        stats = bw.accumulate_baum_welch(pack, feats, g,
+                                         torch.as_tensor(tables.states, device=where))
+        out[str(where)] = [t.cpu() for t in (g, z, *stats)]
+    for got, ref in zip(out[str(dev)], out["cpu"]):
+        assert ((got - ref).abs() / (1.0 + ref.abs())).max().item() <= 1e-12
