@@ -10,8 +10,12 @@ Viterbi minimum, each row shifted by its maximum.
 ``forward_backward`` runs the two scans: its plain PyTorch version
 ``forward_backward_reference`` for CPU tensors, kernel L
 (``csrc/forward_backward.cu``) for CUDA tensors, with no fallback from one to
-the other. Both follow the reference's ``_forward_backward`` step for step,
-with two choices the reference leaves open:
+the other. The plain version is three phases, as the kernel's instance for
+A <= 96 runs them: the forward rows and log_z (``forward_reference``), the
+backward rows (``backward_reference``), both independent of each other,
+and the posterior rows from the two (``posterior_reference``). Both follow
+the reference's ``_forward_backward`` step for step, with two choices the
+reference leaves open:
 
   * every constant is in the score type. The reference's NEG_BIG is a
     float64 numpy scalar, which promotes a float32 scan's carry to float64,
@@ -91,41 +95,93 @@ def _renorm(x: torch.Tensor, neg_big: torch.Tensor,
     return torch.where(x <= half, neg_big, x - shift), shift[:, 0]
 
 
-def forward_backward_reference(lams: torch.Tensor, ltdp: torch.Tensor,
-                               pos_valid: torch.Tensor, feat_len: torch.Tensor,
-                               aut_len: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of ``forward_backward``, one frame per loop step
-    (any float dtype, any device). Same contract."""
-    B, T, A = lams.shape
+def order_key_max(x: torch.Tensor) -> torch.Tensor:
+    """[..., n] → [...]: the maximum over the last axis as kernel L's two
+    chains and posterior pass take it (``keys::warp_maximum`` in
+    ``csrc/keys.cuh``). Each value becomes its order-preserving unsigned key
+    (formed from x + 0, so −0 counts as +0), the keys' maximum is taken and
+    mapped back; in float64 the high 32 bits first, then the low 32 bits
+    among the values whose high half is the largest, as redux.sync takes
+    32-bit operands. Exact, so equal to ``amax`` wherever no −0 is the
+    maximum (which comes back as +0). A plain version for the tests: the
+    plain recursions take ``amax``."""
+    x = x + 0.0
+    if x.dtype == torch.float32:
+        u = x.view(torch.int32).long() & 0xFFFFFFFF
+        key = torch.where(u >= 1 << 31, ~u & 0xFFFFFFFF, u | 1 << 31)
+        km = key.amax(dim=-1)
+        v = torch.where(km >= 1 << 31, km & 0x7FFFFFFF, ~km & 0xFFFFFFFF)
+        return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32).view(torch.float32)
+    if x.dtype != torch.float64:
+        raise TypeError(f"order_key_max: float32 or float64, got {x.dtype}")
+    u = x.view(torch.int64)
+    key = torch.where(u < 0, ~u, u | -(1 << 63))      # as unsigned 64-bit bits
+    hi, lo = (key >> 32) & 0xFFFFFFFF, key & 0xFFFFFFFF
+    hi_max = hi.amax(dim=-1, keepdim=True)
+    lo_max = torch.where(hi == hi_max, lo, torch.zeros_like(lo)).amax(dim=-1, keepdim=True)
+    km = ((hi_max << 32) | lo_max)[..., 0]
+    return torch.where(km < 0, km & ~(-(1 << 63)), ~km).view(torch.float64)
+
+
+def _fb_tables(lams: torch.Tensor, ltdp: torch.Tensor, pos_valid: torch.Tensor,
+               feat_len: torch.Tensor, aut_len: torch.Tensor):
+    """The plain phases' shared inputs on the emissions' device and type:
+    (NEG_BIG, its half, ltdp, invalid positions, feat_len, aut_len, the
+    position index)."""
     dtype, device = lams.dtype, lams.device
     neg_big = torch.tensor(NEG_BIG, dtype=dtype, device=device)
-    half = neg_big * 0.5
-    ltdp = ltdp.to(device=device, dtype=dtype)
-    invalid = ~pos_valid.to(device=device, dtype=torch.bool)
-    fl = feat_len.to(device=device, dtype=torch.long)
-    al = aut_len.to(device=device, dtype=torch.long)
-    pos = torch.arange(A, device=device)
+    return (neg_big, neg_big * 0.5, ltdp.to(device=device, dtype=dtype),
+            ~pos_valid.to(device=device, dtype=torch.bool),
+            feat_len.to(device=device, dtype=torch.long),
+            aut_len.to(device=device, dtype=torch.long), torch.arange(lams.shape[2],
+                                                                      device=device))
 
-    def mask(x):
-        return torch.where(invalid, neg_big, x)
 
-    # -- forward
-    alpha = mask(torch.where(pos[None, :] == 0, lams[:, 0, :], neg_big))
+def forward_reference(lams: torch.Tensor, ltdp: torch.Tensor, pos_valid: torch.Tensor,
+                      feat_len: torch.Tensor, aut_len: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward phase, one frame per loop step: (alpha rows [B, T, A],
+    each row shifted by its maximum and kept from feat_len on; log_z [B],
+    alpha at the forced final position of the last frame, a negative index
+    wrapping once as take_along_axis does, plus the shifts summed in frame
+    order). Kernel L's forward chain computes the rows below feat_len."""
+    B, T, A = lams.shape
+    neg_big, half, ltdp, invalid, fl, al, pos = _fb_tables(lams, ltdp, pos_valid, feat_len,
+                                                           aut_len)
+    alpha = torch.where(invalid, neg_big, torch.where(pos[None, :] == 0, lams[:, 0, :],
+                                                      neg_big))
     alphas = [alpha]
-    shift_sum = torch.zeros(B, dtype=dtype, device=device)
+    shift_sum = torch.zeros(B, dtype=lams.dtype, device=lams.device)
     for t in range(1, T):
         c0 = alpha + ltdp[:, :, 0]
         c1 = _from_below(alpha, ltdp[:, :, 1], 1, neg_big)
         c2 = _from_below(alpha, ltdp[:, :, 2], 2, neg_big)
-        new, shift = _renorm(mask(_lse3(c0, c1, c2, neg_big, half) + lams[:, t]), neg_big, half)
+        new, shift = _renorm(torch.where(invalid, neg_big,
+                                         _lse3(c0, c1, c2, neg_big, half) + lams[:, t]),
+                             neg_big, half)
         alive = t < fl
         alpha = torch.where(alive[:, None], new, alpha)
         shift_sum = shift_sum + torch.where(alive, shift, torch.zeros_like(shift))
         alphas.append(alpha)
+    alphas = torch.stack(alphas, dim=1)
+    last_t = torch.where(fl - 1 < 0, fl - 1 + T, fl - 1).clamp(0, T - 1)
+    fz = torch.where(al - 1 < 0, al - 1 + A, al - 1).clamp(0, A - 1)
+    log_z = alphas[torch.arange(B, device=lams.device), last_t, fz] + shift_sum
+    return alphas, log_z
 
-    # -- backward: beta at the last real frame allows only the final position
-    beta_T = torch.where(pos[None, :] == (al - 1)[:, None], torch.zeros((), dtype=dtype,
-                                                                        device=device), neg_big)
+
+def backward_reference(lams: torch.Tensor, ltdp: torch.Tensor, pos_valid: torch.Tensor,
+                       feat_len: torch.Tensor, aut_len: torch.Tensor) -> torch.Tensor:
+    """The backward phase, one frame per loop step: beta rows [B, T, A], 0
+    at the final position aut_len - 1 and NEG_BIG elsewhere from frame
+    feat_len - 1 on, below it masked and shifted by its maximum as the
+    forward rows. Kernel L's backward chain computes the rows up to
+    feat_len - 1."""
+    T = lams.shape[1]
+    neg_big, half, ltdp, invalid, fl, al, pos = _fb_tables(lams, ltdp, pos_valid, feat_len,
+                                                           aut_len)
+    beta_T = torch.where(pos[None, :] == (al - 1)[:, None],
+                         torch.zeros((), dtype=lams.dtype, device=lams.device), neg_big)
     betas = [beta_T]
     beta = beta_T
     for t in range(T - 2, -1, -1):
@@ -133,29 +189,43 @@ def forward_backward_reference(lams: torch.Tensor, ltdp: torch.Tensor,
         b0 = term + ltdp[:, :, 0]
         b1 = _from_above(term + ltdp[:, :, 1], 1, neg_big)
         b2 = _from_above(term + ltdp[:, :, 2], 2, neg_big)
-        new, _ = _renorm(mask(_lse3(b0, b1, b2, neg_big, half)), neg_big, half)
+        new, _ = _renorm(torch.where(invalid, neg_big, _lse3(b0, b1, b2, neg_big, half)),
+                         neg_big, half)
         beta = torch.where((t >= fl - 1)[:, None], beta_T, new)
         betas.append(beta)
     betas.reverse()
+    return torch.stack(betas, dim=1)
 
-    # -- posteriors
-    alphas = torch.stack(alphas, dim=1)                     # [B, T, A]
-    post = alphas + torch.stack(betas, dim=1)
+
+def posterior_reference(alphas: torch.Tensor, betas: torch.Tensor,
+                        feat_len: torch.Tensor) -> torch.Tensor:
+    """The posterior rows [B, T, A] from the alpha and beta rows: post =
+    alpha + beta, shifted by its maximum floored at NEG_BIG/2,
+    exponentiated (0 at or below NEG_BIG/2), divided by max(the row sum in
+    ``_row_sum``'s order, 1e-30); rows at or past feat_len are 0. Kernel
+    L's posterior pass computes the same rows."""
+    dtype, device = alphas.dtype, alphas.device
+    T = alphas.shape[1]
+    half = torch.tensor(NEG_BIG, dtype=dtype, device=device) * 0.5
+    zero = torch.zeros((), dtype=dtype, device=device)
+    post = alphas + betas
     safe = torch.maximum(post.amax(dim=2, keepdim=True), half)
-    p = torch.where(post <= half, torch.zeros((), dtype=dtype, device=device),
-                    torch.exp(post - safe))
+    p = torch.where(post <= half, zero, torch.exp(post - safe))
     gamma = p / torch.clamp(_row_sum(p), min=1e-30)
+    fl = feat_len.to(device=device, dtype=torch.long)
     frame_valid = torch.arange(T, device=device)[None, :] < fl[:, None]
-    gamma = torch.where(frame_valid[:, :, None], gamma, torch.zeros((), dtype=dtype,
-                                                                    device=device))
-    # total log-probability: alpha at the forced final position of the last
-    # frame (a negative index wraps once, as take_along_axis does) plus the
-    # shifts
-    last_t = torch.where(fl - 1 < 0, fl - 1 + T, fl - 1).clamp(0, T - 1)
-    fz = torch.where(al - 1 < 0, al - 1 + A, al - 1).clamp(0, A - 1)
-    rows = torch.arange(B, device=device)
-    log_z = alphas[rows, last_t, fz] + shift_sum
-    return gamma, log_z
+    return torch.where(frame_valid[:, :, None], gamma, zero)
+
+
+def forward_backward_reference(lams: torch.Tensor, ltdp: torch.Tensor,
+                               pos_valid: torch.Tensor, feat_len: torch.Tensor,
+                               aut_len: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of ``forward_backward`` (any float dtype, any
+    device): the forward phase, the backward phase and the posterior rows
+    from their rows. Same contract."""
+    alphas, log_z = forward_reference(lams, ltdp, pos_valid, feat_len, aut_len)
+    betas = backward_reference(lams, ltdp, pos_valid, feat_len, aut_len)
+    return posterior_reference(alphas, betas, feat_len), log_z
 
 
 def forward_backward(lams: torch.Tensor, ltdp: torch.Tensor, pos_valid: torch.Tensor,
@@ -172,15 +242,32 @@ def forward_backward(lams: torch.Tensor, ltdp: torch.Tensor, pos_valid: torch.Te
     position aut_len - 1 (src/sietill/Alignment.cpp:60-66,139).
 
     CPU tensors take the plain version; CUDA tensors launch kernel L
-    (float32 or float64; counted in ``forward_backward.LAUNCHES``), whose C
-    entry chooses its instance from A alone
-    (``sr_forward_backward_instance``): any A is taken. Launches whose rows
-    live in device scratch (A > 1024) are also counted in
-    ``SCRATCH_LAUNCHES``. The lengths are not range-checked here
-    (``baum_welch_posteriors`` does that once, on the host)."""
+    (float32 or float64, ``forward_backward_cuda``), whose C entry chooses
+    its instance from A alone (``sr_forward_backward_instance``): any A is
+    taken. ``forward_backward.LAUNCHES`` counts the calls that launch it,
+    one a call, though the instance of A <= 96 makes two launches (its
+    chains, then its posterior pass); calls whose rows live in device
+    scratch (A > 1024) are also counted in ``SCRATCH_LAUNCHES``. The
+    lengths are not range-checked here (``baum_welch_posteriors`` does
+    that once, on the host)."""
     device = lams.device
     if device.type == "cpu":
         return forward_backward_reference(lams, ltdp, pos_valid, feat_len, aut_len)
+    gamma, log_z, in_scratch = forward_backward_cuda(lams, ltdp, pos_valid, feat_len, aut_len)
+    forward_backward.LAUNCHES += 1
+    forward_backward.SCRATCH_LAUNCHES += in_scratch
+    return gamma, log_z
+
+
+forward_backward.LAUNCHES = forward_backward.SCRATCH_LAUNCHES = 0
+
+
+def _cuda_args(lams: torch.Tensor, ltdp: torch.Tensor, pos_valid: torch.Tensor,
+               feat_len: torch.Tensor, aut_len: torch.Tensor):
+    """Kernel L's checked arguments: (pos_valid as uint8, feat_len and
+    aut_len as int32) on the emissions' card; raises on what it does not
+    take."""
+    device = lams.device
     if device.type != "cuda":
         raise ValueError(f"forward_backward: unsupported device {device}")
     dtype = lams.dtype
@@ -197,24 +284,59 @@ def forward_backward(lams: torch.Tensor, ltdp: torch.Tensor, pos_valid: torch.Te
                             pos_valid=(pos_valid, (B, A)))["pos_valid"]
     ints = _native.typed_args("forward_backward", device, torch.int32,
                               feat_len=(feat_len, (B,)), aut_len=(aut_len, (B,)))
+    return pv, ints["feat_len"], ints["aut_len"]
+
+
+def forward_backward_cuda(lams: torch.Tensor, ltdp: torch.Tensor, pos_valid: torch.Tensor,
+                          feat_len: torch.Tensor, aut_len: torch.Tensor,
+                          first_design: bool = False):
+    """Kernel L's launch on CUDA tensors, as ``forward_backward`` makes it
+    but not counted: returns (gamma, log_z, whether the rows lived in device
+    scratch). For A <= 96 the wrapper allocates the backward chain's rows
+    ([B, T, A] in the score type); ``first_design`` launches the first
+    design there instead (a warp an utterance, the posterior on the backward
+    chain), so that the two can be timed in turns."""
+    pv, fl, al = _cuda_args(lams, ltdp, pos_valid, feat_len, aut_len)
+    B, T, A = lams.shape
+    dtype, device = lams.dtype, lams.device
     gamma = torch.empty((B, T, A), dtype=dtype, device=device)
     log_z = torch.empty((B,), dtype=dtype, device=device)
     lib = _native.load()
+    inst = lib.sr_forward_backward_instance(A)
     # the block instance keeps its rows in device scratch past A = 1024
-    scratch = (torch.empty(3 * B * A, dtype=dtype, device=device)
-               if lib.sr_forward_backward_instance(A) < 0 else None)
+    scratch = torch.empty(3 * B * A, dtype=dtype, device=device) if inst < 0 else None
+    beta = (torch.empty((B, T, A), dtype=dtype, device=device)
+            if inst > 0 and not first_design else None)
     err = lib.sr_forward_backward(
         int(dtype == torch.float64), lams.data_ptr(), ltdp.data_ptr(), pv.data_ptr(),
-        ints["feat_len"].data_ptr(), ints["aut_len"].data_ptr(), gamma.data_ptr(),
-        log_z.data_ptr(), _native.ptr(scratch), B, T, A, device.index,
+        fl.data_ptr(), al.data_ptr(), gamma.data_ptr(), log_z.data_ptr(), _native.ptr(scratch),
+        _native.ptr(beta), B, T, A, int(bool(first_design)), device.index,
         torch.cuda.current_stream(device).cuda_stream)
     _native.check(err, "forward_backward")
-    forward_backward.LAUNCHES += 1
-    forward_backward.SCRATCH_LAUNCHES += scratch is not None
-    return gamma, log_z
+    return gamma, log_z, scratch is not None
 
 
-forward_backward.LAUNCHES = forward_backward.SCRATCH_LAUNCHES = 0
+def forward_backward_chain_cuda(chain: int, lams: torch.Tensor, ltdp: torch.Tensor,
+                                pos_valid: torch.Tensor, feat_len: torch.Tensor,
+                                aut_len: torch.Tensor) -> torch.Tensor:
+    """One chain of kernel L's A <= 96 instance alone, a warp an utterance,
+    not counted, for timing the two chains apart: chain 0 returns the
+    forward rows ([B, T, A], as ``forward_reference``'s below feat_len) and
+    log_z in a tuple, chain 1 the backward rows (as
+    ``backward_reference``'s up to feat_len - 1). Rows past those are not
+    written."""
+    pv, fl, al = _cuda_args(lams, ltdp, pos_valid, feat_len, aut_len)
+    B, T, A = lams.shape
+    dtype, device = lams.dtype, lams.device
+    rows = torch.empty((B, T, A), dtype=dtype, device=device)
+    log_z = torch.empty((B,), dtype=dtype, device=device)
+    err = _native.load().sr_forward_backward_chain(
+        int(dtype == torch.float64), int(chain), lams.data_ptr(), ltdp.data_ptr(), pv.data_ptr(),
+        fl.data_ptr(), al.data_ptr(), rows.data_ptr() if chain == 0 else None,
+        log_z.data_ptr(), rows.data_ptr() if chain == 1 else None, B, T, A, device.index,
+        torch.cuda.current_stream(device).cuda_stream)
+    _native.check(err, "forward_backward_chain")
+    return (rows, log_z) if chain == 0 else rows
 
 
 def _check_lengths(feat_len: np.ndarray, T: int, tables: AlignerTables) -> None:

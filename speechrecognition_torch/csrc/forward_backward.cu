@@ -38,23 +38,41 @@
 // intrinsics.
 //
 // What bounds it: the chain of dependent work a frame, not bytes or
-// operations. Each frame needs the whole previous row through its maximum,
-// 2 x (len - 1) frames in turn. At the full-width shape (B 256, T 960,
-// A 70) the bytes (lams read twice, alpha written and read, gamma written)
-// take 0.10 ms in float32 at 3.35 TB/s; 256 utterances on one warp each
-// leave most of the card's 528 sub-partitions idle, and a frame's chain
-// (three exponentials and a logarithm, the neighbours' shuffles, a warp
-// maximum; in the backward pass also the posterior row's maximum and sum)
-// sets the time. Two instances, chosen in the C entry from A alone
-// (sr_forward_backward_instance):
-//   * A <= 96 (every SieTill automaton): one warp an utterance, a block a
-//     warp, K = ceil(A/32) consecutive positions a lane; positions a-1, a-2
-//     (forward) and a+1, a+2 (backward) of a lane's first or last
-//     positions come from the neighbouring lanes by shuffles; row maxima
-//     by butterfly shuffles (exact); the next frame's emissions are loaded
-//     a frame ahead. The forward pass writes each alpha row into gamma and
-//     the backward pass reads it back and overwrites it with the
-//     posterior; beta lives in registers.
+// operations. Each frame needs the whole previous row through its maximum.
+// At the full-width shape (B 256, T 960, A 70) the function's bytes (lams
+// read, gamma written) take 0.04 ms in float32 at 3.35 TB/s, and a frame's
+// chain (the neighbours' shuffles, three exponentials and a logarithm, the
+// row maximum, the renorm) sets the time. Instances, chosen in the C entry
+// from A alone (sr_forward_backward_instance):
+//   * A <= 96 (every SieTill automaton): two concurrent chains, then the
+//     posterior rows off the chains; two launches on the caller's stream.
+//     - fb_chain_kernel: a block of two warps an utterance, K = ceil(A/32)
+//       consecutive positions a lane. Warp 0 runs the forward recursion,
+//       writes the alpha rows into gamma and writes log_z; warp 1 runs the
+//       backward recursion and writes the beta rows into beta [B, T, A], a
+//       buffer the wrapper allocates. Beta never reads alpha, so the serial
+//       chain is the longer of the two recursions, not their sum, and
+//       neither carries a posterior. Positions a-1, a-2 (forward) and a+1,
+//       a+2 (backward) of a lane's edge positions come from the
+//       neighbouring lanes by shuffles; a row's maximum is one redux.sync on
+//       order-preserving keys (two in double; keys.cuh), exact; each chain
+//       keeps the emissions of its next 4 frames (2 in double) in flight in
+//       registers.
+//     - fb_posterior_kernel: the posterior rows from alpha (in gamma) and
+//       beta, gamma overwritten in place, rows past the utterance written 0.
+//       A block takes POST_TILE consecutive rows of one utterance (its
+//       feat_len read once), a warp POST_ROWS of them, all loaded before
+//       any is reduced. The loads are independent of one another, so it is
+//       bound by its bytes (alpha and beta read, gamma written). A launch
+//       of its own rather than a phase after a barrier of the first: the
+//       chains hold two warps an utterance, 512 at B 256, and only a launch
+//       of its own spreads the rows over the whole card.
+//   * the first design for A <= 96 (fb_warp_kernel, launched only when the
+//     caller asks for it, so that the two can be timed in turns): one warp
+//     an utterance, the forward pass and then the backward pass, each
+//     backward frame forming its posterior row on the chain from beta in
+//     registers and alpha read back from gamma; maxima by butterfly
+//     shuffles.
 //   * A > 96: one block of min(ceil(A/32)*32, 1024) threads an utterance,
 //     each looping over the positions a = threadIdx.x + k*blockDim.x; the
 //     alpha / beta row double-buffered and a row of the posterior's
@@ -66,12 +84,22 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "keys.cuh"
+
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int WARP_POSITIONS = 96;      // the warp instance's longest automaton (3 a lane)
 constexpr int SHARED_POSITIONS = 1024;  // the longest row the block instance keeps in shared memory
 constexpr int BLOCK_THREADS = 1024;     // threads an utterance of the block instance, at most
+constexpr int POST_ROWS = 2;    // rows a warp of the posterior pass has in flight
+constexpr int POST_THREADS = 256;
+constexpr int POST_TILE = POST_ROWS * (POST_THREADS / 32);  // rows of one utterance a block
+
+// frames of emissions a chain has in flight: 4, and 2 in double, whose chain
+// kernel spills at 4 (128 registers)
+template <typename T>
+__host__ __device__ constexpr int prefetch() { return sizeof(T) == 4 ? 4 : 2; }
 
 template <typename T>
 __device__ __forceinline__ T neg_big() { return T(-1e30); }
@@ -286,6 +314,253 @@ fb_warp_kernel(const T* __restrict__ lams, const T* __restrict__ ltdp,
       if (lane * K + k < A) g_b[(size_t)t * A + lane * K + k] = T(0);
 }
 
+// -- the two chains and the posterior pass (A <= 96) ---------------------------
+
+// a lane's K positions: their transitions into them, validity and emission
+// columns (the last column standing in past A)
+template <typename T, int K>
+__device__ __forceinline__ void lane_tables(const T* ltdp, const unsigned char* pos_valid,
+                                            size_t urow, int lane, int A, T (&tw0)[K],
+                                            T (&tw1)[K], T (&tw2)[K], bool (&valid)[K],
+                                            int (&col)[K]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int a = lane * K + k;
+    col[k] = min(a, A - 1);
+    const size_t r = urow + col[k];
+    valid[k] = a < A && pos_valid[r] != 0;
+    tw0[k] = ltdp[r * 3 + 0];
+    tw1[k] = ltdp[r * 3 + 1];
+    tw2[k] = ltdp[r * 3 + 2];
+  }
+}
+
+// the forward recursion of one utterance on one warp: alpha rows 0..len-1
+// into g_b, log_z into *z; frame t's emissions are loaded PREFETCH frames
+// ahead into a ring of registers (the frame loop is unrolled by PREFETCH so
+// that every ring index is static)
+template <typename T, int K>
+__device__ __forceinline__ void forward_chain(const T* __restrict__ lam_b, const T (&tw0)[K],
+                                              const T (&tw1)[K], const T (&tw2)[K],
+                                              const bool (&valid)[K], const int (&col)[K],
+                                              int lane, int len, int al, int A, T* g_b, T* z) {
+  const T NB = neg_big<T>();
+  T alpha[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    alpha[k] = (lane * K + k == 0 && valid[k]) ? lam_b[0] : NB;
+    if (len > 0 && lane * K + k < A) g_b[lane * K + k] = alpha[k];
+  }
+  T shift_sum = T(0);
+  constexpr int PREFETCH = prefetch<T>();
+  T ring[PREFETCH][K];  // ring[d]: the emissions of frame t0 + d
+#pragma unroll
+  for (int d = 0; d < PREFETCH; ++d)
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      ring[d][k] = len > 1 ? lam_b[(size_t)min(1 + d, len - 1) * A + col[k]] : T(0);
+  for (int t0 = 1; t0 < len; t0 += PREFETCH) {
+#pragma unroll
+    for (int d = 0; d < PREFETCH; ++d) {
+      const int t = t0 + d;
+      if (t >= len) break;
+      T lam_t[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        lam_t[k] = ring[d][k];
+        ring[d][k] = lam_b[(size_t)min(t + PREFETCH, len - 1) * A + col[k]];
+      }
+      // positions a-1 and a-2 of the lane's first positions: the lanes below
+      const T up1 = __shfl_up_sync(FULL, alpha[K - 1], 1);
+      const T up2 = K >= 2 ? __shfl_up_sync(FULL, alpha[K >= 2 ? K - 2 : 0], 1)
+                           : __shfl_up_sync(FULL, alpha[0], 2);
+      T nw[K];
+      T m = minus_inf<T>();
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int a = lane * K + k;
+        const T p1 = k >= 1 ? alpha[k >= 1 ? k - 1 : 0] : up1;
+        const T p2 = k >= 2 ? alpha[k >= 2 ? k - 2 : 0] : (k == 1 ? up1 : up2);
+        const T c0 = alpha[k] + tw0[k];
+        const T c1 = a >= 1 ? p1 + tw1[k] : NB;
+        const T c2 = a >= 2 ? p2 + tw2[k] : NB;
+        const T v = lse3(c0, c1, c2) + lam_t[k];
+        nw[k] = valid[k] ? v : NB;
+        if (a < A) m = t_max(m, nw[k]);
+      }
+      const T shift = row_shift(keys::warp_maximum(m));
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        alpha[k] = renorm(nw[k], shift);
+        if (lane * K + k < A) g_b[(size_t)t * A + lane * K + k] = alpha[k];
+      }
+      shift_sum = shift_sum + shift;
+    }
+  }
+  // log_z: alpha at (len-1, aut_len-1) plus the shifts
+  const int fz = min(max(al - 1 < 0 ? al - 1 + A : al - 1, 0), A - 1);
+  T az = NB;
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    if (lane * K + k == fz) az = alpha[k];
+  az = __shfl_sync(FULL, az, fz / K);
+  if (lane == 0) *z = az + shift_sum;
+}
+
+// the backward recursion of one utterance on one warp: beta rows len-1..0
+// into be_b; step t takes the emissions of frame t+1, loaded PREFETCH steps
+// ahead as in forward_chain
+template <typename T, int K>
+__device__ __forceinline__ void backward_chain(const T* __restrict__ lam_b, const T (&tw0)[K],
+                                               const T (&tw1)[K], const T (&tw2)[K],
+                                               const bool (&valid)[K], const int (&col)[K],
+                                               int lane, int len, int al, int A, T* be_b) {
+  if (len <= 0) return;
+  const T NB = neg_big<T>();
+  T beta[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    beta[k] = (lane * K + k == al - 1 && lane * K + k < A) ? T(0) : NB;
+    if (lane * K + k < A) be_b[(size_t)(len - 1) * A + lane * K + k] = beta[k];
+  }
+  constexpr int PREFETCH = prefetch<T>();
+  T ring[PREFETCH][K];  // ring[d]: the emissions of step s0 + d, frame len-1 - (s0 + d)
+#pragma unroll
+  for (int d = 0; d < PREFETCH; ++d)
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      ring[d][k] = len > 1 ? lam_b[(size_t)max(len - 1 - d, 0) * A + col[k]] : T(0);
+  for (int s0 = 0; s0 < len - 1; s0 += PREFETCH) {
+#pragma unroll
+    for (int d = 0; d < PREFETCH; ++d) {
+      const int t = len - 2 - (s0 + d);
+      if (t < 0) break;
+      T term[K], v1[K], v2[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        term[k] = beta[k] + ring[d][k];
+        v1[k] = term[k] + tw1[k];
+        v2[k] = term[k] + tw2[k];
+        ring[d][k] = lam_b[(size_t)max(t + 1 - PREFETCH, 0) * A + col[k]];
+      }
+      // positions a+1 and a+2 of the lane's last positions: the lanes above
+      const T dn1 = __shfl_down_sync(FULL, v1[0], 1);
+      const T dn2_first = __shfl_down_sync(FULL, v2[0], 1);
+      const T dn2 = K >= 2 ? __shfl_down_sync(FULL, v2[K >= 2 ? 1 : 0], 1)
+                           : __shfl_down_sync(FULL, v2[0], 2);
+      T nb[K];
+      T m = minus_inf<T>();
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int a = lane * K + k;
+        const T n1 = k + 1 < K ? v1[k + 1 < K ? k + 1 : 0] : dn1;
+        const T n2 = k + 2 < K ? v2[k + 2 < K ? k + 2 : 0] : (k + 2 == K ? dn2_first : dn2);
+        const T b0 = term[k] + tw0[k];
+        const T b1 = a + 1 < A ? n1 : NB;
+        const T b2 = a + 2 < A ? n2 : NB;
+        // formed for every position and then selected, as in forward_chain:
+        // `valid ? lse3(...) : NB` compiles to a branch a position, which
+        // runs a lane's K positions one after another
+        const T v = lse3(b0, b1, b2);
+        nb[k] = valid[k] ? v : NB;
+        if (a < A) m = t_max(m, nb[k]);
+      }
+      const T shift = row_shift(keys::warp_maximum(m));
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        beta[k] = renorm(nb[k], shift);
+        if (lane * K + k < A) be_b[(size_t)t * A + lane * K + k] = beta[k];
+      }
+    }
+  }
+}
+
+// two warps an utterance: chain0 + warp index selects the recursion (0
+// forward, 1 backward); the production launch has both warps and chain0 0,
+// sr_forward_backward_chain one warp and the chain it times. A minimum of
+// one block an SM lets ptxas pass 128 registers (it holds the double
+// instance there otherwise); B 256 needs two an SM
+template <typename T, int K>
+__global__ void __launch_bounds__(64, 1)
+fb_chain_kernel(const T* __restrict__ lams, const T* __restrict__ ltdp,
+                const unsigned char* __restrict__ pos_valid, const int* __restrict__ feat_len,
+                const int* __restrict__ aut_len, T* __restrict__ gamma, T* __restrict__ log_z,
+                T* __restrict__ beta, int Tn, int A, int chain0) {
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int len = min(max(feat_len[b], 0), Tn);
+  const int al = aut_len[b];
+  const size_t urow = (size_t)b * A;
+  T tw0[K], tw1[K], tw2[K];
+  bool valid[K];
+  int col[K];
+  lane_tables<T, K>(ltdp, pos_valid, urow, lane, A, tw0, tw1, tw2, valid, col);
+  const T* lam_b = lams + (size_t)b * Tn * A;
+  if (chain0 + (int)(threadIdx.x >> 5) == 0)
+    forward_chain<T, K>(lam_b, tw0, tw1, tw2, valid, col, lane, len, al, A,
+                        gamma + (size_t)b * Tn * A, log_z + b);
+  else
+    backward_chain<T, K>(lam_b, tw0, tw1, tw2, valid, col, lane, len, al, A,
+                         beta + (size_t)b * Tn * A);
+}
+
+// the posterior rows: block (x, y) takes POST_TILE consecutive rows of
+// utterance y (and of y + gridDim.y, ...), a warp POST_ROWS of them, all
+// loaded before any is reduced; feat_len is read once a block and
+// utterance, and rows at or past it load nothing. Row t of utterance b
+// holds alpha in gamma, which it overwrites, and beta in beta. Per row the
+// operations and order of the plain version (and of warp_posterior): post
+// = alpha + beta, its maximum floored at NEG_BIG/2, the exponentials, the
+// fixed-order sum, the division; 0 for rows at or past feat_len
+template <typename T, int K>
+__global__ void __launch_bounds__(POST_THREADS)
+fb_posterior_kernel(T* __restrict__ gamma, const T* __restrict__ beta,
+                    const int* __restrict__ feat_len, int B, int Tn, int A) {
+  const T HALF = half_neg_big<T>();
+  const int lane = threadIdx.x & 31;
+  const int t0 = blockIdx.x * POST_TILE + (int)(threadIdx.x >> 5) * POST_ROWS;
+  for (int b = blockIdx.y; b < B; b += gridDim.y) {
+    const int len = min(max(feat_len[b], 0), Tn);
+    T* g_b = gamma + (size_t)b * Tn * A;
+    const T* be_b = beta + (size_t)b * Tn * A;
+    T post[POST_ROWS][K];
+#pragma unroll
+    for (int i = 0; i < POST_ROWS; ++i)
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int a = lane * K + k;
+        const size_t x = (size_t)(t0 + i) * A + a;
+        post[i][k] = (t0 + i < len && a < A) ? g_b[x] + be_b[x] : minus_inf<T>();
+      }
+#pragma unroll
+    for (int i = 0; i < POST_ROWS; ++i) {
+      const int t = t0 + i;
+      if (t >= Tn) break;
+      T* g = g_b + (size_t)t * A;
+      if (t >= len) {
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          if (lane * K + k < A) g[lane * K + k] = T(0);
+        continue;
+      }
+      T m = minus_inf<T>();
+#pragma unroll
+      for (int k = 0; k < K; ++k) m = t_max(m, post[i][k]);
+      const T safe = t_max(keys::warp_maximum(m), HALF);
+      T p[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) p[k] = post[i][k] > HALF ? t_exp(post[i][k] - safe) : T(0);
+      T s = p[0];
+#pragma unroll
+      for (int k = 1; k < K; ++k) s = s + p[k];
+      const T den = t_max(warp_tree_sum(s), T(1e-30));
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        if (lane * K + k < A) g[lane * K + k] = p[k] / den;
+    }
+  }
+}
+
 // the block's maximum of v; red holds a value a warp (at least 32)
 template <typename T>
 __device__ __forceinline__ T block_max(T v, T* red) {
@@ -422,15 +697,40 @@ int instance_for(int A) {
   return A <= SHARED_POSITIONS ? 0 : -1;
 }
 
+// the two chains, then the posterior pass over every row, on one stream
+template <typename T, int K>
+cudaError_t launch_chains(const T* lams, const T* ltdp, const unsigned char* pos_valid,
+                          const int* feat_len, const int* aut_len, T* gamma, T* log_z, T* beta,
+                          int B, int Tn, int A, cudaStream_t st) {
+  fb_chain_kernel<T, K><<<B, 64, 0, st>>>(lams, ltdp, pos_valid, feat_len, aut_len, gamma, log_z,
+                                          beta, Tn, A, 0);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Tn + POST_TILE - 1) / POST_TILE, B < 65535 ? B : 65535);
+  fb_posterior_kernel<T, K><<<grid, POST_THREADS, 0, st>>>(gamma, beta, feat_len, B, Tn, A);
+  return cudaGetLastError();
+}
+
 template <typename T>
 int launch(const T* lams, const T* ltdp, const unsigned char* pos_valid, const int* feat_len,
-           const int* aut_len, T* gamma, T* log_z, T* scratch, int B, int Tn, int A,
-           int device, void* stream) {
+           const int* aut_len, T* gamma, T* log_z, T* scratch, T* beta, int B, int Tn, int A,
+           int first_design, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B == 0 || Tn == 0 || A == 0) return (int)cudaSuccess;
   const cudaStream_t st = (cudaStream_t)stream;
   const int inst = instance_for(A);
+  if (inst > 0 && !first_design) {
+    if (beta == nullptr) return (int)cudaErrorInvalidValue;
+    switch (inst) {
+      case 1: return (int)launch_chains<T, 1>(lams, ltdp, pos_valid, feat_len, aut_len, gamma,
+                                              log_z, beta, B, Tn, A, st);
+      case 2: return (int)launch_chains<T, 2>(lams, ltdp, pos_valid, feat_len, aut_len, gamma,
+                                              log_z, beta, B, Tn, A, st);
+      default: return (int)launch_chains<T, 3>(lams, ltdp, pos_valid, feat_len, aut_len, gamma,
+                                               log_z, beta, B, Tn, A, st);
+    }
+  }
   switch (inst) {
     case 1:
       fb_warp_kernel<T, 1><<<B, 32, 0, st>>>(lams, ltdp, pos_valid, feat_len, aut_len, gamma,
@@ -456,12 +756,50 @@ int launch(const T* lams, const T* ltdp, const unsigned char* pos_valid, const i
   return (int)cudaGetLastError();
 }
 
-// blocks per SM of the launch for A positions (-1: error)
+// one chain (0 forward, 1 backward) of the A <= 96 instance alone, a warp an
+// utterance, for timing the chains apart
 template <typename T>
-int residency(int A) {
+int launch_chain(int chain, const T* lams, const T* ltdp, const unsigned char* pos_valid,
+                 const int* feat_len, const int* aut_len, T* gamma, T* log_z, T* beta, int B,
+                 int Tn, int A, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int inst = instance_for(A);
+  if (inst <= 0 || (chain != 0 && chain != 1)) return (int)cudaErrorInvalidValue;
+  if (B == 0 || Tn == 0) return (int)cudaSuccess;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (inst) {
+    case 1:
+      fb_chain_kernel<T, 1><<<B, 32, 0, st>>>(lams, ltdp, pos_valid, feat_len, aut_len, gamma,
+                                              log_z, beta, Tn, A, chain);
+      break;
+    case 2:
+      fb_chain_kernel<T, 2><<<B, 32, 0, st>>>(lams, ltdp, pos_valid, feat_len, aut_len, gamma,
+                                              log_z, beta, Tn, A, chain);
+      break;
+    default:
+      fb_chain_kernel<T, 3><<<B, 32, 0, st>>>(lams, ltdp, pos_valid, feat_len, aut_len, gamma,
+                                              log_z, beta, Tn, A, chain);
+  }
+  return (int)cudaGetLastError();
+}
+
+// blocks per SM of the launch for A positions (-1: error): for A <= 96 the
+// chains' launch, or with first_design the first design's
+template <typename T>
+int residency(int A, int first_design) {
   int n = 0;
   cudaError_t err;
-  switch (instance_for(A)) {
+  const int inst = instance_for(A);
+  if (inst > 0 && !first_design) {
+    switch (inst) {
+      case 1: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fb_chain_kernel<T, 1>, 64, 0); break;
+      case 2: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fb_chain_kernel<T, 2>, 64, 0); break;
+      default: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fb_chain_kernel<T, 3>, 64, 0);
+    }
+    return err == cudaSuccess ? n : -1;
+  }
+  switch (inst) {
     case 1: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fb_warp_kernel<T, 1>, 32, 0); break;
     case 2: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fb_warp_kernel<T, 2>, 32, 0); break;
     case 3: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fb_warp_kernel<T, 3>, 32, 0); break;
@@ -477,25 +815,49 @@ int residency(int A) {
 }  // namespace
 
 // blocks per SM of kernel L's launch for A positions in float (f64 = 0) or
-// double (-1: error)
-extern "C" int sr_forward_backward_residency(int A, int f64) {
-  return f64 ? residency<double>(A) : residency<float>(A);
+// double (-1: error); for A <= 96 the two chains' launch (two warps a
+// block), or the first design's with first_design != 0
+extern "C" int sr_forward_backward_residency(int A, int f64, int first_design) {
+  return f64 ? residency<double>(A, first_design) : residency<float>(A, first_design);
 }
 
 // the instance sr_forward_backward launches for A positions: positions a
-// lane of the warp instance (1-3); the block instance with its rows in
-// shared memory (0), or in device scratch of 3*B*A scores (-1)
+// lane of the two chains (1-3); the block instance with its rows in shared
+// memory (0), or in device scratch of 3*B*A scores (-1)
 extern "C" int sr_forward_backward_instance(int A) { return instance_for(A); }
 
-// f64 selects double (else float) for lams, ltdp, gamma, log_z and scratch
+// f64 selects double (else float) for lams, ltdp, gamma, log_z, scratch and
+// beta. beta [B, T, A] holds the backward chain's rows for A <= 96 (NULL
+// otherwise, or with first_design != 0, which launches the first design
+// for A <= 96 and changes nothing past it); scratch as
+// sr_forward_backward_instance says.
 extern "C" int sr_forward_backward(int f64, const void* lams, const void* ltdp,
                                    const unsigned char* pos_valid, const int* feat_len,
                                    const int* aut_len, void* gamma, void* log_z, void* scratch,
-                                   int B, int T, int A, int device, void* stream) {
+                                   void* beta, int B, int T, int A, int first_design, int device,
+                                   void* stream) {
   if (f64)
     return launch<double>((const double*)lams, (const double*)ltdp, pos_valid, feat_len, aut_len,
-                          (double*)gamma, (double*)log_z, (double*)scratch, B, T, A, device,
-                          stream);
+                          (double*)gamma, (double*)log_z, (double*)scratch, (double*)beta, B, T,
+                          A, first_design, device, stream);
   return launch<float>((const float*)lams, (const float*)ltdp, pos_valid, feat_len, aut_len,
-                       (float*)gamma, (float*)log_z, (float*)scratch, B, T, A, device, stream);
+                       (float*)gamma, (float*)log_z, (float*)scratch, (float*)beta, B, T, A,
+                       first_design, device, stream);
+}
+
+// chain 0 (the forward recursion: alpha rows into gamma, log_z) or 1 (the
+// backward: beta rows into beta) of the A <= 96 instance alone, a warp an
+// utterance, without the posterior pass: for timing the two chains apart
+extern "C" int sr_forward_backward_chain(int f64, int chain, const void* lams, const void* ltdp,
+                                         const unsigned char* pos_valid, const int* feat_len,
+                                         const int* aut_len, void* gamma, void* log_z,
+                                         void* beta, int B, int T, int A, int device,
+                                         void* stream) {
+  if (f64)
+    return launch_chain<double>(chain, (const double*)lams, (const double*)ltdp, pos_valid,
+                                feat_len, aut_len, (double*)gamma, (double*)log_z,
+                                (double*)beta, B, T, A, device, stream);
+  return launch_chain<float>(chain, (const float*)lams, (const float*)ltdp, pos_valid, feat_len,
+                             aut_len, (float*)gamma, (float*)log_z, (float*)beta, B, T, A,
+                             device, stream);
 }

@@ -1,13 +1,17 @@
 // Order-preserving unsigned keys of float and double, and the exact warp
-// minimum by redux.sync on them (kernels B, D, E and F).
+// minimum (kernels B, D, E and F) and maximum (kernel L) by redux.sync on
+// them.
 //
 // A key's unsigned order is the value's order, with -0 taken as +0 as the
 // float compare takes it: the key is formed from f + 0, which turns -0 into
 // +0 and changes nothing else. key_value maps a key back, so a minimum of -0
 // comes back as +0, which no score of the scans produces (their inputs carry
-// no -0). redux.sync takes 32-bit operands only, so the double minimum takes
-// two: the high halves of the keys, then the low halves of the lanes that
-// hold the smallest high half.
+// no -0), and a maximum of -0 as +0, which kernel L never takes (its maxima
+// are of lse3 results, alone or plus an emission, never -0, and of alpha +
+// beta, where beta (lse3 results shifted by v - shift) is never -0).
+// redux.sync takes 32-bit operands only, so the double minimum and maximum
+// take two: the high halves of the keys, then the low halves of the lanes
+// that hold the smallest (largest) high half.
 
 #pragma once
 
@@ -45,6 +49,19 @@ __device__ __forceinline__ double warp_minimum(double m) {
   const unsigned hi = (unsigned)(k >> 32);
   const unsigned key_hi = __reduce_min_sync(FULL, hi);
   const unsigned key_lo = __reduce_min_sync(FULL, hi == key_hi ? (unsigned)k : FULL);
+  return key_value(((unsigned long long)key_hi << 32) | key_lo);
+}
+
+// the exact maximum over the full warp
+__device__ __forceinline__ float warp_maximum(float m) {
+  return key_value(__reduce_max_sync(FULL, order_key(m)));
+}
+
+__device__ __forceinline__ double warp_maximum(double m) {
+  const unsigned long long k = order_key(m);
+  const unsigned hi = (unsigned)(k >> 32);
+  const unsigned key_hi = __reduce_max_sync(FULL, hi);
+  const unsigned key_lo = __reduce_max_sync(FULL, hi == key_hi ? (unsigned)k : 0u);
   return key_value(((unsigned long long)key_hi << 32) | key_lo);
 }
 

@@ -151,13 +151,19 @@ SIGNATURES = {
     # K's launch (-1: error, or a forced instance that does not take it)
     "sr_wcts_scan_residency": ((_I,) * 8, _I),
     # f64, lams, ltdp, pos_valid, feat_len, aut_len, gamma, log_z, scratch (or
-    # NULL), B, T, A, device, stream
-    "sr_forward_backward": ((_I,) + (_P,) * 8 + (_I, _I, _I, _I, _P), _I),
-    # A → kernel L's instance (1-3: positions a lane of the warp instance; 0:
+    # NULL), beta (the backward chain's rows, or NULL), B, T, A, first_design
+    # (0: the instance the shape chooses; 1: the first design for A <= 96),
+    # device, stream
+    "sr_forward_backward": ((_I,) + (_P,) * 9 + (_I, _I, _I, _I, _I, _P), _I),
+    # f64, chain (0 forward, 1 backward), lams, ltdp, pos_valid, feat_len,
+    # aut_len, gamma, log_z, beta, B, T, A, device, stream: one chain of
+    # kernel L's A <= 96 instance alone, for timing the chains apart
+    "sr_forward_backward_chain": ((_I, _I) + (_P,) * 8 + (_I, _I, _I, _I, _P), _I),
+    # A → kernel L's instance (1-3: positions a lane of the two chains; 0:
     # block instance, its rows in shared memory; -1: in device scratch)
     "sr_forward_backward_instance": ((_I,), _I),
-    # A, f64 → blocks per SM of kernel L's launch (-1: error)
-    "sr_forward_backward_residency": ((_I, _I), _I),
+    # A, f64, first_design → blocks per SM of kernel L's launch (-1: error)
+    "sr_forward_backward_residency": ((_I, _I, _I), _I),
     "sr_error_string": ((_I,), ctypes.c_char_p),
 }
 

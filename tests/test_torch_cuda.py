@@ -28,9 +28,10 @@ past shared memory (tests/torch_search_tables.py's inputs), I's owner
 instance and first design at the owner instance's edges; kernel L
 (forward-backward, float32 and float64, every instance: 1 to 3 positions a
 lane, the block instance with its rows in shared memory and past A = 1,024
-in device scratch; tests/torch_fb_tables.py's inputs with ragged lengths,
-T = 1 and unreachable final positions) within 1e-12 (float64) or 1e-5
-(float32) of its plain version, gamma absolute and log_z relative, and
+in device scratch, and the first design of the A <= 96 instance;
+tests/torch_fb_tables.py's inputs with ragged lengths, T = 1 and
+unreachable final positions) bit-equal to its plain version, gamma and
+log_z, each of its two chains alone bit-equal to its plain phase, and
 baum_welch_posteriors / accumulate_baum_welch on the card within 1e-12 of
 the same calls on the CPU.
 """
@@ -1102,31 +1103,58 @@ def test_kernel_k_owner_edges(dev, words, option, ties):
     assert same(got, ref)
 
 
-L_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+def fb_args(dev, A, T, dtype, seed, B=5):
+    lams, ltdp, pv, fl, al = fb_inputs(B, T, A, seed=seed)
+    return (torch.as_tensor(lams, dtype=dtype, device=dev),
+            torch.as_tensor(ltdp, dtype=dtype, device=dev), torch.as_tensor(pv, device=dev),
+            torch.as_tensor(fl, device=dev), torch.as_tensor(al, device=dev))
 
 
 @pytest.mark.parametrize("A", list(L_INSTANCES))
 @pytest.mark.parametrize("T", [1, 40])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_kernel_l_matches_plain(dev, A, T, dtype):
-    """Every instance of kernel L against its plain version on the card."""
+    """Every instance of kernel L bit-equal to its plain version on the
+    card, gamma and log_z; for A <= 96 the two chains with the posterior
+    pass and the first design (forced) both. forward_backward.LAUNCHES
+    counts the wrapper's call once, though the chains' instance launches
+    twice; the forced first design is not counted."""
     from speechrecognition_torch.align import baumwelch as bw
     from speechrecognition_torch.ops import _native
     assert _native.load().sr_forward_backward_instance(A) == L_INSTANCES[A]
-    lams, ltdp, pv, fl, al = fb_inputs(5, T, A, seed=A * 7 + T)
-    args = (torch.as_tensor(lams, dtype=dtype, device=dev),
-            torch.as_tensor(ltdp, dtype=dtype, device=dev), torch.as_tensor(pv, device=dev),
-            torch.as_tensor(fl, device=dev), torch.as_tensor(al, device=dev))
+    args = fb_args(dev, A, T, dtype, seed=A * 7 + T)
     n0, s0 = bw.forward_backward.LAUNCHES, bw.forward_backward.SCRATCH_LAUNCHES
     g, z = bw.forward_backward(*args)
+    gf, zf, _scratch = bw.forward_backward_cuda(*args, first_design=True)
     gr, zr = bw.forward_backward_reference(*args)
     torch.cuda.synchronize()
     assert bw.forward_backward.LAUNCHES == n0 + 1
     assert bw.forward_backward.SCRATCH_LAUNCHES == s0 + (L_INSTANCES[A] < 0)
     assert g.dtype == dtype and torch.isfinite(g).all() and torch.isfinite(z).all()
-    assert (g - gr).abs().max().item() <= L_TOL[dtype]
-    assert ((z - zr).abs() / zr.abs().clamp(min=1.0)).max().item() <= L_TOL[dtype]
+    assert torch.equal(g, gr) and torch.equal(z, zr)
+    assert torch.equal(gf, gr) and torch.equal(zf, zr)
     assert (g >= 0).all()
+
+
+@pytest.mark.parametrize("A", [a for a, inst in L_INSTANCES.items() if inst > 0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_l_chains_match_the_plain_phases(dev, A, dtype):
+    """Each chain of kernel L's A <= 96 instance alone, bit-equal to its
+    plain phase: the forward rows below feat_len and log_z
+    (forward_reference), the backward rows up to feat_len - 1
+    (backward_reference)."""
+    from speechrecognition_torch.align import baumwelch as bw
+    args = fb_args(dev, A, 40, dtype, seed=A + 500)
+    n0 = bw.forward_backward.LAUNCHES
+    alphas, z = bw.forward_backward_chain_cuda(0, *args)
+    betas = bw.forward_backward_chain_cuda(1, *args)
+    ar, zr = bw.forward_reference(*args)
+    br = bw.backward_reference(*args)
+    torch.cuda.synchronize()
+    assert bw.forward_backward.LAUNCHES == n0
+    assert torch.equal(z, zr)
+    for b, n in enumerate(args[3].tolist()):
+        assert torch.equal(alphas[b, :n], ar[b, :n]) and torch.equal(betas[b, :n], br[b, :n])
 
 
 def test_kernel_l_on_the_main_path_equals_the_cpu(dev):

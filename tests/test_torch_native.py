@@ -54,7 +54,7 @@ def test_sources_are_the_eight_kernels_and_the_header():
         "sr_decode_scan_bigram", "sr_decode_scan_bigram_scratch",
         "sr_decode_scan_bigram_instance", "sr_decode_scan_bigram_residency", "sr_wcts_scan",
         "sr_wcts_scan_scratch", "sr_wcts_scan_instance", "sr_wcts_scan_residency",
-        "sr_forward_backward", "sr_forward_backward_instance",
+        "sr_forward_backward", "sr_forward_backward_chain", "sr_forward_backward_instance",
         "sr_forward_backward_residency", "sr_error_string"}
 
 
