@@ -9,8 +9,10 @@ path (Corpus.read → MixtureModel.from_raw → pack(method="pallas") →
 Recognizer.recognize_corpus), the production double-float path
 (pack_df() → Recognizer(dtype="df32")), the NN hybrid (Recognizer with an
 NNScorer), the tree search (Recognizer with search-type=tree), the bigram
-and word-conditioned tree searches (decode_batch_bigram, decode_batch_wcts)
-and the streaming recognizers, each at full width — its EM trainer (Trainer(..., dtype="df32")
+and word-conditioned tree searches (decode_batch_bigram, decode_batch_wcts),
+the streaming recognizers and the LVCSR tier's 1-best decode
+(tools.an4_system.decode: the int8 quantized scorer, the linear-lexicon scan
+and its device traceback), each at full width — its EM trainer (Trainer(..., dtype="df32")
 .train) and its NN trainer (NnTrainer.train), and holds each hand-written
 kernel against its plain PyTorch version on the same tensors:
 
@@ -207,7 +209,35 @@ kernel against its plain PyTorch version on the same tensors:
      through their plain versions: identical lattices and arc alignments,
      equal statistics and updated parameters; the 35 demo utterances in
      float64 (iter-2.mix): the card's MPE and MMI iterations within 1e-9 of
-     the CPU port's.
+     the CPU port's;
+ 31. the LVCSR tier at AN4 width (bench/an4/am.mix: 501 mixtures, 4,623
+     densities padded to 16 a mixture, dim 45, global pooling; a seeded
+     lexicon of 130 words of whole phones, 3 to 30 positions, and a
+     3-state silence with classes of its own; the AN4 config's TDP block
+     through TransitionModel.from_config; a seeded bigram ARPA file under
+     build/lvcsr/ through an4_system.build_lm_matrices at lm-scale 6,
+     word-exit 30, sil-exit 10; 130 utterances of seeded words, 35,570
+     frames near their states' means): the quantized packs (k-means on
+     the host timed), kernel O without and with preselection (32 of 256
+     clusters) on every chunk torch.equal to its plain version, the share
+     of backoff cells, a 32,768-frame launch timed in turns beside its
+     bound, and torch._int_mm's [32768, 48] x [48, J] int8 product as the
+     library's context;
+ 32. kernel M on the int8 scores (float32) and on float64 "mxu" scores,
+     pruned at 200 (all 130 utterances, timed in turns with the plain
+     version) and unpruned (the first PLAIN_LIN_CUT): its eight outputs
+     torch.equal; kernel N's words torch.equal on all 130, timed; M with
+     its state in device scratch (299 words x 30 positions), bit-equal and
+     timed; the main paths (launch counts read from these runs):
+     an4_system.decode linear-q8, linear-q8-preselect and linear, pruned
+     at 200 (WER, RTF, peak memory), and decode_batch_linear_lvcsr in
+     float32 and float64, three wall times each with their RTF over the
+     355.7 s;
+ 33. the silence-copy oracle of tests/test_linear_lvcsr.py on the card
+     (7 seeds; the extended lexicon through kernel J, the linear decode
+     through kernels M and N); an4_system.decode linear and f32 (the
+     exact WCTS, kernel K, transparent silence) unpruned: the count of
+     transcripts that differ (not a gate).
 
 Kernels B, D and G are timed by their device time (torch.profiler), since
 B and D's wrappers synchronise on a range check and a call timed by events
@@ -217,8 +247,9 @@ built, and do not synchronise).
 
 Every kernel's time is printed beside its bound: the larger of the bytes it
 must move over 3.35 TB/s and the operations its function needs (an FMA as
-two) over 67 TFLOP/s in float32 or 34 TFLOP/s in float64; for the
-sequential scans also per frame. Every check that fails raises, so the
+two) over 67 TFLOP/s in float32 or 34 TFLOP/s in float64 (kernel O's int8
+operations over the tensor cores' 1,979 TOP/s); for the sequential scans
+also per frame. Every check that fails raises, so the
 script exits non-zero. It exits non-zero without a result when no CUDA
 device is present. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it is the per-kernel JSON
@@ -268,6 +299,8 @@ FP64_OPS_S = 34e12
 #: the FP64 tensor cores' peak (the same data sheet), which cuBLAS's float64
 #: products reach
 FP64_MMA_OPS_S = 67e12
+#: the int8 tensor cores' dense peak (the same data sheet)
+INT8_OPS_S = 1979e12
 #: FP32 instructions the card issues per second: 132 SMs x 128 lanes x
 #: 1.98 GHz (the clock at which 67 TFLOP/s counts an FMA as two operations)
 FP32_ISSUE_S = 132 * 128 * 1.98e9
@@ -368,13 +401,14 @@ def scan_frame_ops(W, cmp):
     return (W - 1) * cmp + 2 - cmp
 
 
-def bound(nbytes, fp32=0.0, fp64=0.0, fp64_mma=0.0):
+def bound(nbytes, fp32=0.0, fp64=0.0, fp64_mma=0.0, int8=0.0):
     """(bound_ms, bound_by): the least time the card could take, the larger
     of the bytes over the memory rate and the operations over their peaks
     (``fp64_mma``: float64 matrix-product operations, at the tensor cores'
-    peak)."""
+    peak; ``int8``: int8 operations, at the tensor cores' int8 peak)."""
     mem = nbytes / HBM_BYTES_S
-    ops = fp32 / FP32_OPS_S + fp64 / FP64_OPS_S + fp64_mma / FP64_MMA_OPS_S
+    ops = (fp32 / FP32_OPS_S + fp64 / FP64_OPS_S + fp64_mma / FP64_MMA_OPS_S
+           + int8 / INT8_OPS_S)
     return max(mem, ops) * 1e3, ("bytes" if mem >= ops else "operations")
 
 
@@ -1165,6 +1199,7 @@ def main():
     search = search_phases(dev, card, lex, corpus, big, iter2, bench, tdp, wordloop_hyps)
     features_phase(dev, card, big)
     disc = discriminative_phases(dev, card, lex, corpus, big, bench, iter2)
+    lvcsr = lvcsr_phases(dev, card)
     check("jax" not in sys.modules, "the port imported jax")
 
     kernels = [
@@ -1187,6 +1222,7 @@ def main():
         *nn,
         *search,
         *disc,
+        *lvcsr,
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -3852,6 +3888,343 @@ def discriminative_phases(dev, card, lex, corpus, big, bench, iter2):
     A_s, r = scratch_res
     entries.append(entry(f"forward_backward[A={A_s}]", "forward_backward.cu", replaces,
                          sum(n for _, n in l_launches.values()), *r))
+    return entries
+
+
+#: utterances of phases 32's plain comparisons of the unpruned scans
+PLAIN_LIN_CUT = 16
+#: kernel M, per utterance and frame: per live (word, position) slot (a
+#: slot past its word's length is a constant BIG) and per silence-copy slot
+#: five adds (three transitions, the score, the renormalisation's
+#: subtraction) and seven compares (the two within-word takes, the entry's
+#: take, the cap at BIG, the frame's minimum, the renormalisation's and the
+#: pruning's tests); per (predecessor, word) pair the min-plus product's add
+#: and compare; per word and silence-copy end the book's test, the exit, the
+#: entry's add and the frozen utterance's select
+LIN_SLOT_OPS = 12
+LIN_PAIR_OPS = 2
+LIN_END_OPS = 4
+#: the AN4 test corpus's audio: 35,570 frames of 10 ms
+AN4_AUDIO_S = 355.7
+
+
+def linear_bound(B, T, S, word_len, Ps, word):
+    """Kernel M over a batch: the scores read once, the eight per-frame
+    outputs written, the tables read; the operations of every frame (the
+    scan's outputs are defined for every frame, finished utterances too)
+    over the lexicon's live slots, sum(word_len), and the V·Ps silence
+    copies."""
+    W, P = len(word_len), int(max(word_len))
+    V = W + 1
+    nbytes = (B * T * S * word + T * B * W * (word + 4 + 4 + 1) + T * B * V * (4 + word + 4)
+              + T * B * word + V * W * word + W * P * (4 + 3 * word) + Ps * (4 + 3 * word))
+    ops = B * T * ((int(np.sum(word_len)) + V * Ps) * LIN_SLOT_OPS + V * W * LIN_PAIR_OPS
+                   + (W + V) * LIN_END_OPS)
+    return bound(nbytes, **({"fp32": ops} if word == 4 else {"fp64": ops}))
+
+
+def traceback_bound(B, W, word, steps):
+    """Kernel N: per utterance the last frame's W word ends and W + 1
+    silence ends, three ints a step of the walk, the words written."""
+    return bound(B * ((2 * W + 1) * word + steps * 3 * 4 + steps * 4))
+
+
+def quantized_bound(N, S, J, dim, C=0):
+    """Kernel O over N frames: the features read and the scores written
+    once, the tables read; 2·N·(J + C)·dim int8 operations (the products
+    with the means and the centers) at the tensor cores' int8 peak."""
+    nbytes = N * dim * 4 + N * S * 4 + J * (dim + 8) + (C * (dim + 4) + J * 4 if C else 0)
+    return bound(nbytes, int8=2.0 * N * (J + C) * dim)
+
+
+def lvcsr_phases(dev, card):
+    """Phases 31-33: the LVCSR tier's 1-best path at AN4 width."""
+    from speechrecognition_torch.corpus import Corpus
+    from speechrecognition_torch.io import read_mixture_set
+    from speechrecognition_torch.models import gmm
+    from speechrecognition_torch.models import quantized as tq
+    from speechrecognition_torch.ops import _native
+    from speechrecognition_torch.search import linear_lvcsr as tl
+    from speechrecognition_torch.search.decoder import DecoderTables
+    from speechrecognition_torch.search.ngram_decoder import decode_batch_bigram
+    from speechrecognition_torch.sprint import SprintConfig, TransitionModel
+    from speechrecognition_torch.tdp import TdpModel
+    from speechrecognition_torch.tools import an4_system
+    lin = tables_module("torch_linear_tables")
+    t_phase = time.perf_counter()
+    work = REPO / "build" / "lvcsr"
+    work.mkdir(parents=True, exist_ok=True)
+
+    # -- 31. set-up at AN4 width, and kernel O ---------------------------------------
+    model = gmm.MixtureModel.from_raw(read_mixture_set(str(REPO / "bench" / "an4" / "am.mix"), 45),
+                                      gmm.VarianceModel.GLOBAL_POOLING, max_approx=True)
+    S, D, dim = model.num_mixtures, model.max_densities_per_mixture, model.dim
+    J = S * D
+    lex = lin.an4_lexicon(0, S)
+    (work / "an4.config").write_text(lin.AN4_TDP_CONFIG)
+    tm = TransitionModel.from_config(SprintConfig.read(str(work / "an4.config")))
+    check(tm == lin.AN4_TDP, "TransitionModel.from_config of the AN4 TDP block")
+    (work / "an4.arpa").write_text(lin.arpa_text(lex.orth[1:], seed=0))
+    lm, lm_start = an4_system.build_lm_matrices(lex, tm, **lin.AN4_TUNED,
+                                                arpa_path=str(work / "an4.arpa"))
+    rng = np.random.default_rng(2026)
+    lengths = lin.utterance_lengths(rng, lin.AN4_UTTERANCES, lin.AN4_FRAMES)
+    spoken = [lin.utterance_states(rng, lex, int(n)) for n in lengths]
+    corpus = Corpus(features=np.concatenate([lin.features_near_means(rng, model, s)
+                                             for s, _w in spoken]),
+                    feature_offsets=np.concatenate([[0], np.cumsum(lengths)]).astype(np.int64),
+                    orths=[w for _s, w in spoken],
+                    names=[f"an4-{i:03d}" for i in range(len(lengths))],
+                    frame_duration=0.01, dim=dim)
+    feats, lens = corpus.padded_batch(range(corpus.num_segments))
+    B, T = feats.shape[:2]
+    tables = tm.decoder_tables(lex)
+    lt = tl.LinearTables.build(tables, lm, lm_start, lex.silence_idx)
+    W, P = lt.state_table.shape
+    Ps = len(lt.sil_states)
+    audio_s = float(lens.sum()) * corpus.frame_duration
+    log(f"[31] LVCSR set-up: bench/an4/am.mix (S {S}, J {J} = {model.num_densities()} densities "
+        f"padded to {D}, dim {dim}, global pooling, max-approximation); a seeded lexicon of "
+        f"{W} words ({lt.word_len.min()}-{P} positions, mean {lt.word_len.mean():.2f}) and a "
+        f"{Ps}-state silence; TDPs from the AN4 config block; a seeded bigram ARPA LM at lm-scale "
+        f"{lin.AN4_TUNED['lm_scale']:g}, word-exit {lin.AN4_TUNED['word_exit']:g}, sil-exit "
+        f"{lin.AN4_TUNED['sil_exit']:g}; B {B}, T {T}, {int(lens.sum())} frames ({audio_s:.1f} s); "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    check(int(lens.sum()) == lin.AN4_FRAMES and B == lin.AN4_UTTERANCES, "the AN4 corpus's size")
+
+    flat = torch.as_tensor(feats.reshape(B * T, dim), device=dev)
+    N, chunk = B * T, 1 << 15
+    real_rows = torch.as_tensor((np.arange(T)[None, :] < lens[:, None]).reshape(-1), device=dev)
+    t0 = time.perf_counter()
+    qp = tq.build_quant_pack(model, device=dev)
+    t1 = time.perf_counter()
+    qps = tq.build_quant_pack(model, preselection=True, device=dev)
+    log(f"[31] quantized packs: {t1 - t0:.2f} s; with preselection (k-means of {J} slots into "
+        f"{qps.qcenters.shape[0]} clusters on the host, {qps.n_selected} selected) "
+        f"{time.perf_counter() - t1:.2f} s")
+    o_res, q8_am = {}, None
+    x = flat[:chunk]
+    for tag, pack in (("", qp), ("[preselect]", qps)):
+        got = torch.cat([tq.am_scores_q_cuda(pack, flat[i:i + chunk]) for i in range(0, N, chunk)])
+        ref = torch.cat([tq.am_scores_q_reference(pack, flat[i:i + chunk])
+                         for i in range(0, N, chunk)])
+        torch.cuda.synchronize()
+        same, err = bit_equal([got], [ref])
+        backoff = (got[real_rows] == pack.backoff).double().mean().item()
+        ms, plain_ms, turns = in_turns(lambda: tq.am_scores_q_reference(pack, x),
+                                       lambda: tq.am_scores_q_cuda(pack, x), 2, 10)
+        C = 0 if pack.qcenters is None else pack.qcenters.shape[0]
+        bnd = quantized_bound(chunk, S, J, dim, C)
+        o_res[tag] = (err, ms, plain_ms, bnd)
+        log(f"[31] kernel O{tag} on {N} frames ({-(-N // chunk)} chunks of {chunk}): "
+            f"{'torch.equal' if same else 'DIFFERS'} to the plain version (max abs err {err:g}); "
+            f"backoff cells {backoff:.4f} of the live frames'; a {chunk}-frame launch "
+            f"{ms:.4f} ms, plain {plain_ms:.2f} ms (in turns {[round(t, 4) for t in turns]}), "
+            f"bound {bnd[0]:.4f} ms ({bnd[1]}), {ms / bnd[0]:.1f}x; {card}")
+        check(same, f"kernel O{tag} differs from its plain version")
+        if not tag:
+            q8_am = got.reshape(B, T, S)
+    # the library's context, a different function: one int8 product of the
+    # [chunk, 48] quantized frames and the [48, J] means, no minimum, no mask
+    a8 = torch.nn.functional.pad(tq.quantize_features(qp, x), (0, 48 - dim)).contiguous()
+    b8 = torch.nn.functional.pad(qp.qmeans, (0, 48 - dim)).t().contiguous()
+    cross = torch._int_mm(a8, b8)
+    check(torch.equal(cross[:64], (a8[:64].double() @ b8.double()).to(torch.int32)),
+          "torch._int_mm's cross product")
+    int_mm_ms = cuda_ms(lambda: torch._int_mm(a8, b8), 20)
+    log(f"[31] library context: torch._int_mm [{chunk}, 48] x [48, {J}] int8 -> int32 "
+        f"{int_mm_ms:.4f} ms ({2.0 * chunk * 48 * J / int_mm_ms / 1e9:.1f} TOP/s); {card}")
+
+    # -- 32. kernels M and N, and the decode ---------------------------------------
+    pack64 = model.pack(dtype=torch.float64, device=dev)
+    am64 = gmm.am_scores(pack64, flat).reshape(B, T, S).contiguous()
+    lens_t = torch.as_tensor(lens, device=dev)
+    lib = _native.load()
+
+    def walk_args(outs):
+        return tuple(outs[i] for i in (0, 1, 2, 4, 5, 6))
+
+    m_res, n_res, cut = {}, None, PLAIN_LIN_CUT
+    for dt, am in ((torch.float32, q8_am.contiguous()), (torch.float64, am64)):
+        word = 4 if dt == torch.float32 else 8
+        args = lt.args(dev, dt, S)
+        for prune, thr in ((True, 200.0), (False, 1e9)):
+            held = {}
+
+            def kernel():
+                held["k"] = tl.decode_scan_linear_cuda(am, lens_t, *args, thr, prune=prune)
+
+            def plain():
+                held["p"] = tl.decode_scan_linear_reference(am, lens_t, *args, thr, prune=prune)
+
+            if prune:       # timed in turns on the whole batch
+                ms, plain_ms, turns = in_turns(plain, kernel, 1, 5)
+                ref = held["p"]
+            else:
+                kernel()
+                ref = tl.decode_scan_linear_reference(am[:cut].contiguous(), lens_t[:cut], *args,
+                                                      thr, prune=prune)
+            outs, in_scratch = held["k"]
+            n = ref[0].shape[1]
+            same, err = bit_equal([o[:, :n] for o in outs], ref)
+            words = tl.traceback_linear_cuda(*walk_args(outs), lens_t)
+            words_ref = tl.traceback_linear_reference(*walk_args(outs), lens_t)
+            torch.cuda.synchronize()
+            same_n = torch.equal(words, words_ref)
+            log(f"[32] kernel M {dt} {'pruned at 200' if prune else 'unpruned'}: eight outputs "
+                f"{'torch.equal' if same else 'DIFFER'} to the plain version over "
+                f"{'all' if prune else f'the first {cut}'} utterances; kernel N's words "
+                f"{'torch.equal' if same_n else 'DIFFER'} on all {B}; in scratch {in_scratch}")
+            check(same and same_n and not in_scratch,
+                  f"kernels M / N differ from their plain versions ({dt}, prune {prune})")
+            if prune:
+                bnd = linear_bound(B, T, S, lt.word_len, Ps, word)
+                m_res[dt] = (err, ms, plain_ms, bnd)
+                log(f"[32] kernel M {dt}: {ms:.4f} ms ({ms / T * 1e3:.2f} us a frame of T {T}), "
+                    f"plain {plain_ms:.1f} ms (in turns {[round(t, 4) for t in turns]}), bound "
+                    f"{bnd[0]:.4f} ms ({bnd[1]}), {ms / bnd[0]:.1f}x; "
+                    f"{min(512, -(-(W + 1) // 32) * 32)} threads, "
+                    f"{lib.sr_linear_scan_residency(W, P, Ps, S, int(word == 8))} blocks an SM, "
+                    f"shared memory {lib.sr_linear_scan_scratch(W, P, Ps, S, int(word == 8))} "
+                    f"(0: fits); {card}")
+                if dt == torch.float32:
+                    walked = int((words >= 0).sum().item())
+                    n_ms, n_plain_ms, n_turns = in_turns(
+                        lambda: tl.traceback_linear_reference(*walk_args(outs), lens_t),
+                        lambda: tl.traceback_linear_cuda(*walk_args(outs), lens_t), 3, 20)
+                    n_res = (0.0, n_ms, n_plain_ms,
+                             traceback_bound(B, W, word, tl.MAX_TRACE_WORDS))
+                    log(f"[32] kernel N: {n_ms:.4f} ms, plain {n_plain_ms:.2f} ms (in turns "
+                        f"{[round(t, 4) for t in n_turns]}), bound {n_res[3][0]:.6f} ms "
+                        f"({n_res[3][1]}); {walked} words walked over {B} utterances, "
+                        f"{tl.MAX_TRACE_WORDS} steps each; {card}")
+
+    # kernel M with its state in device scratch (300 words of 30 positions)
+    srng = np.random.default_rng(7)
+    slex = lin.tied_lexicon([30] * 299 + [3], 3, 40, srng)
+    slm, slm_start = lin.random_lm(srng, slex.num_words, 0, 10.0)
+    slt = tl.LinearTables.build(tm.decoder_tables(slex), slm, slm_start, 0)
+    sam = torch.as_tensor(srng.uniform(0.0, 6.0, (4, 40, 40)), dtype=torch.float32, device=dev)
+    slens = torch.as_tensor([40, 31, 17, 40], dtype=torch.int32, device=dev)
+    sargs = (sam, slens, *slt.args(dev, torch.float32, 40), 200.0)
+    souts, s_in = tl.decode_scan_linear_cuda(*sargs)
+    sref = tl.decode_scan_linear_reference(*sargs)
+    check(s_in and all(torch.equal(o, r) for o, r in zip(souts, sref)),
+          "kernel M in device scratch differs from its plain version")
+    s_ms, s_plain, _ = in_turns(lambda: tl.decode_scan_linear_reference(*sargs),
+                                lambda: tl.decode_scan_linear_cuda(*sargs), 1, 5)
+    s_bnd = linear_bound(4, 40, 40, slt.word_len, 3, 4)
+    log(f"[32] kernel M in device scratch (299 words x 30 positions, B 4, T 40): torch.equal; "
+        f"{s_ms:.4f} ms ({s_ms / 40 * 1e3:.1f} us a frame), plain {s_plain:.1f} ms, bound "
+        f"{s_bnd[0]:.6f} ms; {card}")
+
+    # the main paths: an4_system.decode (the user's entry point) on the
+    # int8 scores (the production scorer) with and without preselection and
+    # on the float "mxu" scores, pruned at 200; the float64 linear decode
+    counters = {"O": tq.am_scores_q, "M": tl.decode_scan_linear, "N": tl.traceback_linear}
+
+    def run_path(fn):
+        for f in counters.values():
+            f.LAUNCHES = 0
+        tl.decode_scan_linear.SCRATCH_LAUNCHES = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = {k: f.LAUNCHES for k, f in counters.items()}
+        n["M in scratch"] = tl.decode_scan_linear.SCRATCH_LAUNCHES
+        return out, n, wall, torch.cuda.max_memory_allocated() / 2 ** 30
+
+    launches, hyps = {}, {}
+    for name in ("linear-q8", "linear-q8-preselect", "linear"):
+        r, n, wall, peak = run_path(lambda: an4_system.decode(
+            model, corpus, corpus.orths, lex, tm, lm, lm_start, 200.0, True, False, name,
+            device=dev))
+        launches[name], hyps[name] = n, r["hyps"]
+        log(f"[32] an4_system.decode {name} (pruned at 200): WER {r['wer']:.2f} % SER "
+            f"{r['ser']:.2f} % S/I/D {r['errors']} over {r['n_words']} words; decode "
+            f"{r['decode_s']:.4f} s, RTF {r['rtf']:.6f}; call {wall:.2f} s (packs built "
+            f"inside); peak {peak:.2f} GiB; launches {n}; {card}")
+        check(n["M"] == 1 and n["N"] == 1 and n["M in scratch"] == 0
+              and n["O"] == (-(-N // chunk) if "q8" in name else 0),
+              f"the {name} decode's launches: {n}")
+    walls = []
+    for _ in range(3):
+        h64, n64, wall, peak64 = run_path(lambda: tl.decode_batch_linear_lvcsr(
+            pack64, feats, lens, tables, lm, lm_start, 200.0, lex.silence_idx, prune=True,
+            dtype=torch.float64))
+        walls.append(wall)
+    launches["f64"] = n64
+    check(n64["M"] == 1 and n64["N"] == 1 and n64["M in scratch"] == 0,
+          f"the float64 decode's launches: {n64}")
+    pack32 = model.pack(dtype=torch.float32, device=dev)
+    walls32 = []
+    for _ in range(3):
+        h32, n32, wall, peak32 = run_path(lambda: tl.decode_batch_linear_lvcsr(
+            pack32, feats, lens, tables, lm, lm_start, 200.0, lex.silence_idx, prune=True))
+        walls32.append(wall)
+    check(h32 == hyps["linear"], "decode_batch_linear_lvcsr equals an4_system.decode's linear")
+    log(f"[32] decode_batch_linear_lvcsr (\"mxu\" scores, kernels M and N), wall around the call "
+        f"over {B} utterances: float32 {[round(w, 4) for w in walls32]} s (RTF "
+        f"{[round(w / audio_s, 6) for w in walls32]}, peak {peak32:.2f} GiB), float64 "
+        f"{[round(w, 4) for w in walls]} s (RTF {[round(w / audio_s, 6) for w in walls]}, peak "
+        f"{peak64:.2f} GiB), transcripts float64 vs float32 differing "
+        f"{sum(a != b for a, b in zip(h64, h32))}, q8 vs float32 "
+        f"{sum(a != b for a, b in zip(hyps['linear-q8'], h32))}, q8 preselection vs q8 "
+        f"{sum(a != b for a, b in zip(hyps['linear-q8-preselect'], hyps['linear-q8']))}; {card}")
+
+    # -- 33. cross-checks ---------------------------------------------------------
+    tdp = TdpModel(silence_state=0, loop=1.0, forward=0.0, skip=4.0)
+    for seed in range(7):
+        base, olm, olm_start, oam, ext, ext_lm, ext_start, oam_ext = lin.oracle_case(seed)
+        To = oam.shape[1]
+        ofeats, olens = np.zeros((1, To, 1), np.float32), np.asarray([To])
+        want = decode_batch_bigram(None, ofeats, olens, DecoderTables.build(ext, tdp, 0.0),
+                                   ext_lm, ext_start, 1e9, silence_idx=-1, prune=False,
+                                   dtype=torch.float64, am=torch.as_tensor(oam_ext, device=dev))
+        got = tl.decode_batch_linear_lvcsr(None, ofeats, olens, DecoderTables.build(base, tdp, 0.0),
+                                           olm, olm_start, 1e9, 0, prune=False,
+                                           dtype=torch.float64, am=torch.as_tensor(oam, device=dev))
+        check(got[0] == [w for w in want[0] if w in (1, 2)],
+              f"the silence-copy oracle, seed {seed}: {got[0]} against {want[0]}")
+    log("[33] the silence-copy oracle (tests/test_linear_lvcsr.py's, 7 seeds, float64): kernel "
+        "J's decode of the extended lexicon equals kernels M + N's linear decode")
+    exact = {}
+    for name in ("linear", "f32"):
+        r = an4_system.decode(model, corpus, corpus.orths, lex, tm, lm, lm_start, 1e9, False,
+                              False, name, device=dev)
+        exact[name] = r
+        log(f"[33] an4_system.decode {name} unpruned{' (WCTS, kernel K, transparent silence)' if name == 'f32' else ''}: "
+            f"WER {r['wer']:.2f} % S/I/D {r['errors']}, decode {r['decode_s']:.4f} s, RTF "
+            f"{r['rtf']:.6f}, mean active states {r['mean_active_states']:.1f}; {card}")
+    differ = [i for i, (a, b) in enumerate(zip(exact["linear"]["hyps"], exact["f32"]["hyps"]))
+              if a != b]
+    log(f"[33] exact linear against exact WCTS: {len(differ)} of {B} transcripts differ "
+        f"{differ[:10]}; pruned linear against exact linear: "
+        f"{sum(a != b for a, b in zip(hyps['linear'], exact['linear']['hyps']))}")
+    log(f"[31-33] phase seconds {time.perf_counter() - t_phase:.1f}")
+
+    rep_m = "speechrecognition_tpu/search/linear_lvcsr.py:54"
+    rep_o = "speechrecognition_tpu/models/quantized.py:257"
+    entries = [
+        entry("linear_scan", "linear_lvcsr_scan.cu", rep_m, launches["linear-q8"]["M"],
+              *m_res[torch.float32]),
+        entry("linear_scan[f64]", "linear_lvcsr_scan.cu", rep_m, launches["f64"]["M"],
+              *m_res[torch.float64]),
+        entry("linear_scan in scratch", "linear_lvcsr_scan.cu", rep_m,
+              sum(n["M in scratch"] for n in launches.values()), 0.0, s_ms, s_plain, s_bnd),
+        entry("linear_traceback", "linear_traceback.cu",
+              "speechrecognition_tpu/search/linear_lvcsr.py:313", launches["linear-q8"]["N"],
+              *n_res),
+        entry("quantized_scores", "quantized_scores.cu", rep_o, launches["linear-q8"]["O"],
+              *o_res[""]),
+        entry("quantized_scores[preselect]", "quantized_scores.cu", rep_o,
+              launches["linear-q8-preselect"]["O"], *o_res["[preselect]"]),
+    ]
+    for e in entries[-2:]:
+        e["library_ms"] = int_mm_ms
     return entries
 
 

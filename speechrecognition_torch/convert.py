@@ -92,3 +92,23 @@ def nn_scorer_from_jax(scorer, device="cuda"):
     mlp.set_params(mlp_params_from_jax(scorer.params, "cpu"))
     return NNScorer(mlp, _tensor(scorer.log_prior, device, torch.float32),
                     int(scorer.context_frames))
+
+
+def quant_pack_from_jax(qp, device="cuda"):
+    """A port QuantPack on ``device`` (the card unless the caller asks for
+    the CPU) holding the JAX QuantPack's integer tables, scale, selection
+    tables and backoff as they are."""
+    from .models.quantized import QuantPack
+    device = pack_device(device, "quantized scoring pack")
+    return QuantPack(qmeans=_tensor(qp.qmeans, device, torch.int8),
+                     qmeans_sq=_tensor(qp.qmeans_sq, device, torch.int32),
+                     consts=_tensor(qp.consts, device, torch.int32),
+                     inv_sqrt_var=_tensor(qp.inv_sqrt_var, device, torch.float32),
+                     scale2x=float(qp.scale2x),
+                     active=_tensor(qp.active, device, torch.bool),
+                     num_mixtures=int(qp.num_mixtures), density_cap=int(qp.density_cap),
+                     dim=int(qp.dim),
+                     qcenters=_tensor(qp.qcenters, device, torch.int8),
+                     qcenters_sq=_tensor(qp.qcenters_sq, device, torch.int32),
+                     cluster_of=_tensor(qp.cluster_of, device, torch.int32),
+                     n_selected=int(qp.n_selected), backoff=float(qp.backoff))

@@ -164,6 +164,23 @@ SIGNATURES = {
     "sr_forward_backward_instance": ((_I,), _I),
     # A, f64, first_design → blocks per SM of kernel L's launch (-1: error)
     "sr_forward_backward_residency": ((_I, _I, _I), _I),
+    # f64, am, feat_len, state_table, last_pos, word_len, tdp_within,
+    # entry_pen, sil_states, sil_tdp, sil_entry_pen, lm_ext, book, bkp, pred,
+    # via, origin, silend, silorg, offset, scratch (or NULL), B, T, S, W, P,
+    # Ps, sil_exit, am_threshold, prune, device, stream
+    "sr_linear_scan": ((_I,) + (_P,) * 20 + (_I,) * 6 + (_D, _D, _I, _I, _P), _I),
+    # W, P, Ps, S, f64 → kernel M's scratch bytes an utterance (0: shared
+    # memory; -1: too large)
+    "sr_linear_scan_scratch": ((_I,) * 5, _I),
+    # W, P, Ps, S, f64 → blocks per SM of kernel M's launch (-1: error)
+    "sr_linear_scan_residency": ((_I,) * 5, _I),
+    # f64, book, bkp, pred, origin, silend, silorg, feat_len, words, B, T, W,
+    # max_words, device, stream
+    "sr_linear_traceback": ((_I,) + (_P,) * 8 + (_I,) * 5 + (_P,), _I),
+    # x, isv, qmeans, qmeans_sq, consts, qcenters, qcenters_sq, cluster_of
+    # (the last three NULL without preselection), out, N, S, D, dim, dim4, C,
+    # n_selected, scale2x, backoff, device, stream
+    "sr_quantized_scores": ((_P,) * 9 + (_I,) * 7 + (_F, _F, _I, _P), _I),
     "sr_error_string": ((_I,), ctypes.c_char_p),
 }
 

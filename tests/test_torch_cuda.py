@@ -1184,3 +1184,204 @@ def test_kernel_l_on_the_main_path_equals_the_cpu(dev):
         out[str(where)] = [t.cpu() for t in (g, z, *stats)]
     for got, ref in zip(out[str(dev)], out["cpu"]):
         assert ((got - ref).abs() / (1.0 + ref.abs())).max().item() <= 1e-12
+
+
+# -- the LVCSR tier's 1-best path: kernels M, N and O ------------------------------
+
+
+def linear_inputs(name, dtype, where):
+    from speechrecognition_torch.search import linear_lvcsr as tl
+    from torch_linear_tables import linear_case
+    lex, tm, lm, lm_start, am, lens, thr = linear_case(name)
+    lt = tl.LinearTables.build(tm.decoder_tables(lex), lm, lm_start, 0)
+    return (torch.as_tensor(am, device=where).to(dtype).contiguous(),
+            torch.as_tensor(lens, device=where), *lt.args(where, dtype, am.shape[2])), thr
+
+
+@pytest.mark.parametrize("prune", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["lengths-1-2-3", "silence-1", "silence-2", "ties",
+                                  "all-silence", "exit-off-float32"])
+def test_kernel_m_and_n_bit_equal(dev, name, dtype, prune):
+    """Kernel M's eight outputs and kernel N's words equal their plain
+    versions on the same card tensors (tests/torch_linear_tables.py's
+    cases: zero-length and all-silence utterances, words of 1-3 positions,
+    silences of 1-3 positions, forced ties, a silence exit off float32)."""
+    from speechrecognition_torch.search import linear_lvcsr as tl
+    args, thr = linear_inputs(name, dtype, dev)
+    before = (tl.decode_scan_linear.LAUNCHES, tl.traceback_linear.LAUNCHES)
+    got = tl.decode_scan_linear(*args, thr, prune=prune)
+    ref = tl.decode_scan_linear_reference(*args, thr, prune=prune)
+    words = tl.traceback_linear(*(got[i] for i in (0, 1, 2, 4, 5, 6)), args[1])
+    ref_words = tl.traceback_linear_reference(*(ref[i] for i in (0, 1, 2, 4, 5, 6)), args[1])
+    torch.cuda.synchronize()
+    assert (tl.decode_scan_linear.LAUNCHES, tl.traceback_linear.LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    for key, g, r in zip(tl.OUTPUTS, got, ref):
+        assert g.dtype == r.dtype and torch.equal(g, r), key
+    assert torch.equal(words, ref_words)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("words,positions", [(299, 30), (600, 2), (600, 4)])
+def test_kernel_m_large_lexica(dev, dtype, words, positions):
+    """A lattice past the kernel's shared memory (299 words of 30
+    positions: the state in device scratch) and more words than a block's
+    512 threads (600 words: a thread takes two words and two silence
+    copies; of 2 positions in shared memory, of 4 in scratch in float64),
+    bit-equal; the launches in scratch are those the library's query
+    names."""
+    from speechrecognition_torch.ops import _native
+    from speechrecognition_torch.search import linear_lvcsr as tl
+    from torch_linear_tables import AN4_TDP, random_lm, tied_lexicon
+    rng = np.random.default_rng(words)
+    lex = tied_lexicon([positions] * words + [3], 3, 40, rng)
+    lm, lm_start = random_lm(rng, lex.num_words, 0, 10.0)
+    lt = tl.LinearTables.build(AN4_TDP.decoder_tables(lex), lm, lm_start, 0)
+    am = torch.as_tensor(rng.uniform(0.0, 6.0, (2, 12, 40)), device=dev).to(dtype)
+    lens = torch.as_tensor([12, 9], dtype=torch.int32, device=dev)
+    args = (am, lens, *lt.args(dev, dtype, 40))
+    in_scratch = _native.load().sr_linear_scan_scratch(
+        words + 1, positions, 3, 40, int(dtype == torch.float64)) > 0
+    assert in_scratch == (words == 299 or (positions == 4 and dtype == torch.float64))
+    before = tl.decode_scan_linear.SCRATCH_LAUNCHES
+    got = tl.decode_scan_linear(*args, 200.0, prune=True)
+    ref = tl.decode_scan_linear_reference(*args, 200.0, prune=True)
+    torch.cuda.synchronize()
+    assert tl.decode_scan_linear.SCRATCH_LAUNCHES == before + in_scratch
+    for key, g, r in zip(tl.OUTPUTS, got, ref):
+        assert torch.equal(g, r), key
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_kernel_n_random_books(dev, seed, dtype):
+    """Walks past MAX_TRACE_WORDS words, one ending at the sentence start,
+    one empty utterance."""
+    from speechrecognition_torch.search import linear_lvcsr as tl
+    from torch_linear_tables import traceback_books
+    book, bkp, pred, origin, silend, silorg, lens = traceback_books(seed)
+    fl = {torch.float32: np.float32, torch.float64: np.float64}[dtype]
+    args = [torch.as_tensor(a, device=dev) for a in (book.astype(fl), bkp, pred, origin,
+                                                      silend.astype(fl), silorg, lens)]
+    got = tl.traceback_linear(*args)
+    ref = tl.traceback_linear_reference(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref) and (got[:, 0] >= 0).all()
+
+
+@pytest.fixture(scope="module")
+def an4_model():
+    return gmm.MixtureModel.from_raw(read_mixture_set("bench/an4/am.mix", 45),
+                                     gmm.VarianceModel.GLOBAL_POOLING, max_approx=True)
+
+
+@pytest.mark.parametrize("n", [1, 64, 1000, 4133])
+def test_kernel_o_bit_equal_an4(dev, an4_model, n):
+    """The AN4 model (501 x 16 slots, dim 45 padded to 48 bytes), frames near
+    its means, no preselection: the same float32 scores as the plain
+    version, N not a multiple of the kernel's 32-frame tile."""
+    from speechrecognition_torch.models import quantized as tq
+    from torch_linear_tables import features_near_means
+    rng = np.random.default_rng(n)
+    x = torch.as_tensor(features_near_means(rng, an4_model, rng.integers(0, 501, n)),
+                        device=dev)
+    qp = tq.build_quant_pack(an4_model, device=dev)
+    before = tq.am_scores_q.LAUNCHES
+    got = tq.am_scores_q(qp, x)
+    ref = tq.am_scores_q_reference(qp, x)
+    torch.cuda.synchronize()
+    assert tq.am_scores_q.LAUNCHES == before + 1
+    assert got.dtype == torch.float32 and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("dim", [4, 13, 45, 100, 128])
+@pytest.mark.parametrize("clusters,selected", [(0, 0), (16, 4), (24, 1), (32, 32), (256, 32)])
+def test_kernel_o_bit_equal_synthetic(dev, dim, clusters, selected):
+    """Synthetic pooled models at every padded width (dim 4 to 128), with
+    and without preselection (1 to 256 clusters, ties at the threshold from
+    a palette of means, select-all), inactive densities; frames drawn near
+    their means, NaN where the mean is an inactive density's (both quantize
+    NaN to 0)."""
+    from speechrecognition_torch.models import quantized as tq
+    from torch_linear_tables import pooled_model, pooled_raw
+    rng = np.random.default_rng(dim + clusters)
+    raw = pooled_raw(rng, 300 if clusters == 256 else 40, 6, dim, empty_share=0.2,
+                     palette=5 if clusters == 24 else 0)
+    model = pooled_model(raw)
+    qp = tq.build_quant_pack(model, preselection=clusters > 0, num_clusters=max(clusters, 1),
+                             n_selected=max(selected, 1), device=dev)
+    mi = rng.integers(0, model.means.shape[0], 300)
+    x = model.means[mi] + rng.standard_normal((300, dim)) * np.sqrt(model.vars[0])
+    x = torch.as_tensor(x.astype(np.float32), device=dev)
+    got = tq.am_scores_q(qp, x)
+    ref = tq.am_scores_q_reference(qp, x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("preselection", [False, True])
+def test_kernel_o_non_finite_and_half_way_frames(dev, preselection):
+    """NaN, ±inf and products half way between integers: kernel O quantizes
+    them as the plain version does (NaN to 0, ±inf clipped, halves to even),
+    so the scores are the same bits."""
+    from speechrecognition_torch.models import quantized as tq
+    from torch_linear_tables import pooled_model, pooled_raw
+    rng = np.random.default_rng(8)
+    model = pooled_model(pooled_raw(rng, 40, 6, 13, empty_share=0.3))
+    kw = dict(preselection=True, num_clusters=8, n_selected=2) if preselection else {}
+    qp = tq.build_quant_pack(model, device=dev, **kw)
+    x = (model.means[rng.integers(0, model.means.shape[0], 40)]
+         + rng.standard_normal((40, 13)) * np.sqrt(model.vars[0])).astype(np.float32)
+    x[3, 2], x[5, :], x[7, 0] = np.inf, -np.inf, np.nan
+    x[9] = ((np.arange(13) - 6.5) / qp.inv_sqrt_var.cpu().numpy()).astype(np.float32)
+    x = torch.as_tensor(x, device=dev)
+    got = tq.am_scores_q(qp, x)
+    ref = tq.am_scores_q_reference(qp, x)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(x).any()) and torch.equal(got, ref)
+
+
+def test_linear_decode_on_the_card_equals_the_cpu(dev):
+    """decode_batch_linear_lvcsr on the same float32 scores on the card
+    (kernels M and N) and on the CPU (the plain versions): the same
+    transcripts."""
+    from speechrecognition_torch.search import linear_lvcsr as tl
+    from torch_linear_tables import (AN4_TDP, features_near_means, pooled_model, pooled_raw,
+                                     random_lm, tied_lexicon, utterance_states)
+    rng = np.random.default_rng(11)
+    model = pooled_model(pooled_raw(rng, 30, 4, 13))
+    lex = tied_lexicon(3 * np.clip(1 + rng.poisson(1.5, 12), 1, 4), 3, 30, rng,
+                       own_silence=True)
+    lens = rng.integers(20, 60, 6).astype(np.int32)
+    feats = np.zeros((6, int(lens.max()), 13), np.float32)
+    for b, n in enumerate(lens):
+        feats[b, :n] = features_near_means(rng, model, utterance_states(rng, lex, int(n))[0])
+    lm, lm_start = random_lm(rng, lex.num_words, 0, 10.0, low=2.0, high=12.0)
+    tables = AN4_TDP.decoder_tables(lex)
+    am = gmm.am_scores(model.pack(dtype=torch.float32, device="cpu"),
+                       torch.as_tensor(feats.reshape(-1, 13))).reshape(6, -1, 30)
+    out = [tl.decode_batch_linear_lvcsr(None, feats, lens, tables, lm, lm_start, 200.0, 0,
+                                        am=am.to(where))
+           for where in (dev, "cpu")]
+    assert out[0] == out[1] and any(out[0])
+
+
+@pytest.mark.parametrize("seed", range(7))
+def test_silence_copy_oracle_on_the_card(dev, seed):
+    """The reference's oracle on the card: the extended lexicon through
+    kernel J, the linear decode through kernels M and N, float64."""
+    from speechrecognition_torch.search.linear_lvcsr import decode_batch_linear_lvcsr
+    from speechrecognition_torch.search.ngram_decoder import decode_batch_bigram
+    from torch_linear_tables import oracle_case
+    base, lm, lm_start, am, ext, ext_lm, ext_start, am_ext = oracle_case(seed)
+    tdp = TdpModel(silence_state=0, loop=1.0, forward=0.0, skip=4.0)
+    T = am.shape[1]
+    feats, lens = np.zeros((1, T, 1), np.float32), np.asarray([T])
+    want = decode_batch_bigram(None, feats, lens, dec.DecoderTables.build(ext, tdp, 0.0), ext_lm,
+                               ext_start, 1e9, silence_idx=-1, prune=False,
+                               dtype=torch.float64, am=torch.as_tensor(am_ext, device=dev))
+    got = decode_batch_linear_lvcsr(None, feats, lens, dec.DecoderTables.build(base, tdp, 0.0),
+                                    lm, lm_start, 1e9, 0, prune=False, dtype=torch.float64,
+                                    am=torch.as_tensor(am, device=dev))
+    assert got[0] == [w for w in want[0] if w in (1, 2)]

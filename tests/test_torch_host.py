@@ -194,6 +194,10 @@ def test_port_imports_no_jax():
         "import speechrecognition_torch.train.nn_training\n"
         "import speechrecognition_torch.tools.tsne\n"
         "import speechrecognition_torch.native.loader\n"
+        "import speechrecognition_torch.sprint.config, speechrecognition_torch.sprint.am\n"
+        "import speechrecognition_torch.lm.arpa, speechrecognition_torch.tools.an4_system\n"
+        "import speechrecognition_torch.models.quantized\n"
+        "import speechrecognition_torch.search.linear_lvcsr\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m.startswith('speechrecognition_tpu'))\n"
         "assert not bad, bad\n"

@@ -26,7 +26,8 @@ def test_library_path_is_keyed_by_sources(tmp_path, monkeypatch):
 
 SOURCES = ["align_backtrack.cu", "align_scan.cu", "align_scan_df.cu", "am_scores_df.cu",
            "decode_scan.cu", "decode_scan_bigram.cu", "decode_scan_df.cu", "em_pass_df.cu",
-           "forward_backward.cu", "mahalanobis.cu", "tree_scan.cu", "wcts_scan.cu"]
+           "forward_backward.cu", "linear_lvcsr_scan.cu", "linear_traceback.cu",
+           "mahalanobis.cu", "quantized_scores.cu", "tree_scan.cu", "wcts_scan.cu"]
 
 
 def test_sources_are_the_eight_kernels_and_the_header():
@@ -34,7 +35,8 @@ def test_sources_are_the_eight_kernels_and_the_header():
     minimum fused, B decode_scan in f32 and f64, C
     am_scores_df, D decode_scan_df, E align_scan in f32 and f64, F
     align_scan_df, G align_backtrack, H em_pass_df, I tree_scan, J
-    decode_scan_bigram, K wcts_scan, L forward_backward), the shared double-float header, the
+    decode_scan_bigram, K wcts_scan, L forward_backward, M linear_lvcsr_scan, N
+    linear_traceback, O quantized_scores), the shared double-float header, the
     histogram header, the scans' order-key header and the search tier's
     block helpers; the scans' instance, residency and scratch queries."""
     assert [p.name for p in _native._sources()] == SOURCES + ["df.cuh", "histogram.cuh",
@@ -55,7 +57,9 @@ def test_sources_are_the_eight_kernels_and_the_header():
         "sr_decode_scan_bigram_instance", "sr_decode_scan_bigram_residency", "sr_wcts_scan",
         "sr_wcts_scan_scratch", "sr_wcts_scan_instance", "sr_wcts_scan_residency",
         "sr_forward_backward", "sr_forward_backward_chain", "sr_forward_backward_instance",
-        "sr_forward_backward_residency", "sr_error_string"}
+        "sr_forward_backward_residency", "sr_linear_scan", "sr_linear_scan_scratch",
+        "sr_linear_scan_residency", "sr_linear_traceback", "sr_quantized_scores",
+        "sr_error_string"}
 
 
 def c_entry_points():
