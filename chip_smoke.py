@@ -219,20 +219,29 @@ kernel against its plain PyTorch version on the same tensors:
      word-exit 30, sil-exit 10; 130 utterances of seeded words, 35,570
      frames near their states' means): the quantized packs (k-means on
      the host timed), kernel O without and with preselection (32 of 256
-     clusters) on every chunk torch.equal to its plain version, the share
-     of backoff cells, a 32,768-frame launch timed in turns beside its
-     bound, and torch._int_mm's [32768, 48] x [48, J] int8 product as the
-     library's context;
+     clusters) on every chunk, its tensor-core design and its first design
+     (forced) torch.equal to the plain version, the share of backoff
+     cells, a 32,768-frame launch timed in turns (plain, new, first,
+     first, new, plain; the phase fails unless the tensor-core design is
+     the faster) beside its bound, registers and blocks an SM; O
+     past the first design's limits (a synthetic pooled model at dim 200,
+     without preselection and with 512 clusters, the selection in device
+     scratch) torch.equal and timed; torch._int_mm's [32768, 48] x
+     [48, J] int8 product as the library's context;
  32. kernel M on the int8 scores (float32) and on float64 "mxu" scores,
-     pruned at 200 (all 130 utterances, timed in turns with the plain
-     version) and unpruned (the first PLAIN_LIN_CUT): its eight outputs
-     torch.equal; kernel N's words torch.equal on all 130, timed; M with
-     its state in device scratch (299 words x 30 positions), bit-equal and
-     timed; the main paths (launch counts read from these runs):
-     an4_system.decode linear-q8, linear-q8-preselect and linear, pruned
-     at 200 (WER, RTF, peak memory), and decode_batch_linear_lvcsr in
-     float32 and float64, three wall times each with their RTF over the
-     355.7 s;
+     pruned at 200 (all 130 utterances; the warp instance and the first
+     design timed in turns with the plain version: plain, new, first,
+     first, new, plain; the phase fails unless the warp instance is the
+     faster) and unpruned (the first PLAIN_LIN_CUT): the eight
+     outputs of both designs torch.equal; their registers and blocks an
+     SM; kernel N's words torch.equal on all 130, timed; M with its state
+     in device scratch (299 words x 30 positions, the first design),
+     bit-equal and timed; the main paths (launch counts read from these
+     runs): an4_system.decode linear-q8, linear-q8-preselect and linear,
+     pruned at 200 (WER, RTF, peak memory), and decode_batch_linear_lvcsr
+     in float32 and float64, three wall times each with their RTF over the
+     355.7 s; the same four decodes with the first designs of M and O
+     forced: the same transcripts;
  33. the silence-copy oracle of tests/test_linear_lvcsr.py on the card
      (7 seeds; the extended lexicon through kernel J, the linear decode
      through kernels M and N); an4_system.decode linear and f32 (the
@@ -258,6 +267,7 @@ plain_ms, bound_ms, bound_by, library_ms).
 """
 
 import ctypes
+import functools
 import importlib.util
 import json
 import os
@@ -431,7 +441,8 @@ SASS_KERNELS = ("decode_scan_warp_kernel", "decode_scan_df_warp_kernel",
                 "decode_scan_df_block_kernel", "align_fwd_warp_kernel", "align_fwd_df_warp_kernel",
                 "align_backtrack_kernel", "bigram_scan_warp_kernel", "wcts_owner_kernel",
                 "tree_scan_owner_kernel", "tree_scan_kernel", "fb_chain_kernel",
-                "fb_posterior_kernel", "fb_warp_kernel")
+                "fb_posterior_kernel", "fb_warp_kernel", "linear_scan_warp_kernel",
+                "linear_scan_kernel")
 
 
 def log_sass_counts(lib):
@@ -500,6 +511,18 @@ def align_bound(nb, C, A, word, df=False):
     nbytes = nb * C * A * (word + 1) + 2 * nb * A * word + nb * A * (3 * word + 1)
     ops = nb * C * A * (F_POS_OPS if df else E_POS_OPS)
     return bound(nbytes, **({"fp32": ops} if word == 4 or df else {"fp64": ops}))
+
+
+def designs_in_turns(plain, new, first, reps_plain, reps):
+    """Time plain, new design, first design, first design, new design,
+    plain; return (new ms, first ms, plain ms, all six)."""
+    p1 = cuda_ms(plain, reps_plain)
+    n1 = cuda_ms(new, reps)
+    f1 = cuda_ms(first, reps)
+    f2 = cuda_ms(first, reps)
+    n2 = cuda_ms(new, reps)
+    p2 = cuda_ms(plain, reps_plain)
+    return (n1 + n2) / 2, (f1 + f2) / 2, (p1 + p2) / 2, [p1, n1, f1, f2, n2, p2]
 
 
 def in_turns(plain, kernel, reps_plain, reps_kernel):
@@ -4002,28 +4025,71 @@ def lvcsr_phases(dev, card):
     log(f"[31] quantized packs: {t1 - t0:.2f} s; with preselection (k-means of {J} slots into "
         f"{qps.qcenters.shape[0]} clusters on the host, {qps.n_selected} selected) "
         f"{time.perf_counter() - t1:.2f} s")
-    o_res, q8_am = {}, None
+    o_res, o_first, q8_am = {}, {}, None
     x = flat[:chunk]
+    lib = _native.load()
     for tag, pack in (("", qp), ("[preselect]", qps)):
+        C = 0 if pack.qcenters is None else pack.qcenters.shape[0]
         got = torch.cat([tq.am_scores_q_cuda(pack, flat[i:i + chunk]) for i in range(0, N, chunk)])
+        first = torch.cat([tq.am_scores_q_cuda(pack, flat[i:i + chunk], first_design=True)
+                           for i in range(0, N, chunk)])
         ref = torch.cat([tq.am_scores_q_reference(pack, flat[i:i + chunk])
                          for i in range(0, N, chunk)])
         torch.cuda.synchronize()
         same, err = bit_equal([got], [ref])
+        same_f, err_f = bit_equal([first], [ref])
         backoff = (got[real_rows] == pack.backoff).double().mean().item()
-        ms, plain_ms, turns = in_turns(lambda: tq.am_scores_q_reference(pack, x),
-                                       lambda: tq.am_scores_q_cuda(pack, x), 2, 10)
-        C = 0 if pack.qcenters is None else pack.qcenters.shape[0]
+        ms, first_ms, plain_ms, turns = designs_in_turns(
+            lambda: tq.am_scores_q_reference(pack, x), lambda: tq.am_scores_q_cuda(pack, x),
+            lambda: tq.am_scores_q_cuda(pack, x, first_design=True), 2, 10)
         bnd = quantized_bound(chunk, S, J, dim, C)
         o_res[tag] = (err, ms, plain_ms, bnd)
-        log(f"[31] kernel O{tag} on {N} frames ({-(-N // chunk)} chunks of {chunk}): "
-            f"{'torch.equal' if same else 'DIFFERS'} to the plain version (max abs err {err:g}); "
-            f"backoff cells {backoff:.4f} of the live frames'; a {chunk}-frame launch "
-            f"{ms:.4f} ms, plain {plain_ms:.2f} ms (in turns {[round(t, 4) for t in turns]}), "
-            f"bound {bnd[0]:.4f} ms ({bnd[1]}), {ms / bnd[0]:.1f}x; {card}")
-        check(same, f"kernel O{tag} differs from its plain version")
+        o_first[tag] = (err_f, first_ms, plain_ms, bnd)
+        rb = tq.kernel_row_bytes(dim)
+        log(f"[31] kernel O{tag} on {N} frames ({-(-N // chunk)} chunks of {chunk}): tensor-core "
+            f"design {'torch.equal' if same else 'DIFFERS'}, first design "
+            f"{'torch.equal' if same_f else 'DIFFERS'} to the plain version (max abs err {err:g}, "
+            f"{err_f:g}); backoff cells {backoff:.4f} of the live frames'; a {chunk}-frame launch "
+            f"{ms:.4f} ms, first design {first_ms:.4f} ms ({first_ms / ms:.2f}x), plain "
+            f"{plain_ms:.2f} ms (in turns plain, new, first, first, new, plain "
+            f"{[round(t, 4) for t in turns]}), bound {bnd[0]:.4f} ms ({bnd[1]}), "
+            f"{ms / bnd[0]:.1f}x; rows of {rb} bytes, {lib.sr_quantized_scores_tile(rb)} frames a "
+            f"block, {lib.sr_quantized_scores_residency(rb, C, D, 0)} blocks an SM (first design "
+            f"{lib.sr_quantized_scores_residency(tq.kernel_dim4(dim) * 4, C, D, 1)}); {card}")
+        check(same and same_f, f"kernel O{tag} differs from its plain version")
+        check(ms < first_ms, f"kernel O{tag}'s tensor-core design is not faster than its first "
+              f"design in turns ({ms:.4f} against {first_ms:.4f} ms)")
         if not tag:
             q8_am = got.reshape(B, T, S)
+    log(f"[31] kernel O registers: tensor-core design {ptxas_usage('quantized_mma_kernel')}; "
+        f"first design {ptxas_usage('quantized_scores_kernel')}")
+    # past the first design's limits: dim 200 (256-byte rows) and 512
+    # clusters (the selection in device scratch), a synthetic pooled model
+    wrng = np.random.default_rng(200)
+    wide = gmm.MixtureModel.from_raw(lin.pooled_raw(wrng, 200, 6, 200, empty_share=0.1),
+                                     gmm.VarianceModel.GLOBAL_POOLING, max_approx=True)
+    xw = torch.as_tensor(lin.features_near_means(wrng, wide, wrng.integers(0, 200, chunk)),
+                         device=dev)
+    wide_res = {}
+    for tag, pack in (("[dim 200]", tq.build_quant_pack(wide, device=dev)),
+                      ("[dim 200, preselect]", tq.build_quant_pack(
+                          wide, preselection=True, num_clusters=512, device=dev))):
+        C = 0 if pack.qcenters is None else pack.qcenters.shape[0]
+        got = tq.am_scores_q_cuda(pack, xw)
+        ref = tq.am_scores_q_reference(pack, xw)
+        torch.cuda.synchronize()
+        same, err = bit_equal([got], [ref])
+        ms, plain_ms, turns = in_turns(lambda: tq.am_scores_q_reference(pack, xw),
+                                       lambda: tq.am_scores_q_cuda(pack, xw), 2, 10)
+        bnd = quantized_bound(chunk, 200, 200 * pack.density_cap, 200, C)
+        wide_res[tag] = (err, ms, plain_ms, bnd)
+        scratch = lib.sr_quantized_scores_scratch(tq.kernel_row_bytes(200), C)
+        log(f"[31] kernel O{tag} ({C} clusters, {pack.n_selected if C else 0} selected; scratch "
+            f"{scratch} bytes a block): {'torch.equal' if same else 'DIFFERS'} to the plain version "
+            f"on {chunk} frames; {ms:.4f} ms, plain {plain_ms:.2f} ms (in turns "
+            f"{[round(t, 4) for t in turns]}), bound {bnd[0]:.4f} ms ({bnd[1]}); {card}")
+        check(same and (not C or (C > 256 and scratch > 0)),
+              f"kernel O{tag} past the first design's limits")
     # the library's context, a different function: one int8 product of the
     # [chunk, 48] quantized frames and the [48, J] means, no minimum, no mask
     a8 = torch.nn.functional.pad(tq.quantize_features(qp, x), (0, 48 - dim)).contiguous()
@@ -4039,14 +4105,14 @@ def lvcsr_phases(dev, card):
     pack64 = model.pack(dtype=torch.float64, device=dev)
     am64 = gmm.am_scores(pack64, flat).reshape(B, T, S).contiguous()
     lens_t = torch.as_tensor(lens, device=dev)
-    lib = _native.load()
 
     def walk_args(outs):
         return tuple(outs[i] for i in (0, 1, 2, 4, 5, 6))
 
-    m_res, n_res, cut = {}, None, PLAIN_LIN_CUT
+    m_res, m_first, n_res, cut = {}, {}, None, PLAIN_LIN_CUT
     for dt, am in ((torch.float32, q8_am.contiguous()), (torch.float64, am64)):
-        word = 4 if dt == torch.float32 else 8
+        word = 8 if dt == torch.float64 else 4
+        f64 = int(word == 8)
         args = lt.args(dev, dt, S)
         for prune, thr in ((True, 200.0), (False, 1e9)):
             held = {}
@@ -4054,39 +4120,55 @@ def lvcsr_phases(dev, card):
             def kernel():
                 held["k"] = tl.decode_scan_linear_cuda(am, lens_t, *args, thr, prune=prune)
 
+            def first():
+                held["f"] = tl.decode_scan_linear_cuda(am, lens_t, *args, thr, prune=prune,
+                                                       first_design=True)
+
             def plain():
                 held["p"] = tl.decode_scan_linear_reference(am, lens_t, *args, thr, prune=prune)
 
             if prune:       # timed in turns on the whole batch
-                ms, plain_ms, turns = in_turns(plain, kernel, 1, 5)
+                ms, first_ms, plain_ms, turns = designs_in_turns(plain, kernel, first, 1, 5)
                 ref = held["p"]
             else:
                 kernel()
+                first()
                 ref = tl.decode_scan_linear_reference(am[:cut].contiguous(), lens_t[:cut], *args,
                                                       thr, prune=prune)
             outs, in_scratch = held["k"]
+            fouts, f_in_scratch = held["f"]
             n = ref[0].shape[1]
             same, err = bit_equal([o[:, :n] for o in outs], ref)
+            same_f, err_f = bit_equal([o[:, :n] for o in fouts], ref)
             words = tl.traceback_linear_cuda(*walk_args(outs), lens_t)
             words_ref = tl.traceback_linear_reference(*walk_args(outs), lens_t)
             torch.cuda.synchronize()
             same_n = torch.equal(words, words_ref)
-            log(f"[32] kernel M {dt} {'pruned at 200' if prune else 'unpruned'}: eight outputs "
-                f"{'torch.equal' if same else 'DIFFER'} to the plain version over "
+            log(f"[32] kernel M {dt} {'pruned at 200' if prune else 'unpruned'}: eight outputs of the "
+                f"warp instance {'torch.equal' if same else 'DIFFER'}, of the first design "
+                f"{'torch.equal' if same_f else 'DIFFER'} to the plain version over "
                 f"{'all' if prune else f'the first {cut}'} utterances; kernel N's words "
-                f"{'torch.equal' if same_n else 'DIFFER'} on all {B}; in scratch {in_scratch}")
-            check(same and same_n and not in_scratch,
+                f"{'torch.equal' if same_n else 'DIFFER'} on all {B}; in scratch {in_scratch}, "
+                f"{f_in_scratch}")
+            check(same and same_f and same_n and not in_scratch and not f_in_scratch,
                   f"kernels M / N differ from their plain versions ({dt}, prune {prune})")
             if prune:
                 bnd = linear_bound(B, T, S, lt.word_len, Ps, word)
                 m_res[dt] = (err, ms, plain_ms, bnd)
-                log(f"[32] kernel M {dt}: {ms:.4f} ms ({ms / T * 1e3:.2f} us a frame of T {T}), "
-                    f"plain {plain_ms:.1f} ms (in turns {[round(t, 4) for t in turns]}), bound "
-                    f"{bnd[0]:.4f} ms ({bnd[1]}), {ms / bnd[0]:.1f}x; "
+                m_first[dt] = (err_f, first_ms, plain_ms, bnd)
+                check(ms < first_ms, f"kernel M's warp instance is not faster than its first "
+                      f"design in turns ({dt}: {ms:.4f} against {first_ms:.4f} ms)")
+                log(f"[32] kernel M {dt}: warp instance "
+                    f"(sr_linear_scan_instance {lib.sr_linear_scan_instance(W, P, Ps, S, T, f64)}) "
+                    f"{ms:.4f} ms ({ms / T * 1e3:.2f} us a frame of T {T}), first design "
+                    f"{first_ms:.4f} ms ({first_ms / T * 1e3:.2f} us), {first_ms / ms:.2f}x; plain "
+                    f"{plain_ms:.1f} ms (in turns plain, new, first, first, new, plain "
+                    f"{[round(t, 4) for t in turns]}), bound {bnd[0]:.4f} ms ({bnd[1]}), "
+                    f"{ms / bnd[0]:.1f}x (first design {first_ms / bnd[0]:.1f}x); 512 threads, "
+                    f"{lib.sr_linear_scan_residency(W, P, Ps, S, f64, 0)} blocks an SM (first design "
                     f"{min(512, -(-(W + 1) // 32) * 32)} threads, "
-                    f"{lib.sr_linear_scan_residency(W, P, Ps, S, int(word == 8))} blocks an SM, "
-                    f"shared memory {lib.sr_linear_scan_scratch(W, P, Ps, S, int(word == 8))} "
-                    f"(0: fits); {card}")
+                    f"{lib.sr_linear_scan_residency(W, P, Ps, S, f64, 1)} an SM, its shared memory "
+                    f"{lib.sr_linear_scan_scratch(W, P, Ps, S, f64)} (0: fits)); {card}")
                 if dt == torch.float32:
                     walked = int((words >= 0).sum().item())
                     n_ms, n_plain_ms, n_turns = in_turns(
@@ -4098,6 +4180,8 @@ def lvcsr_phases(dev, card):
                         f"{[round(t, 4) for t in n_turns]}), bound {n_res[3][0]:.6f} ms "
                         f"({n_res[3][1]}); {walked} words walked over {B} utterances, "
                         f"{tl.MAX_TRACE_WORDS} steps each; {card}")
+    log(f"[32] kernel M registers: warp instance {ptxas_usage('linear_scan_warp_kernel')}; first "
+        f"design {ptxas_usage('linear_scan_kernel')}")
 
     # kernel M with its state in device scratch (300 words of 30 positions)
     srng = np.random.default_rng(7)
@@ -4174,6 +4258,23 @@ def lvcsr_phases(dev, card):
         f"{sum(a != b for a, b in zip(h64, h32))}, q8 vs float32 "
         f"{sum(a != b for a, b in zip(hyps['linear-q8'], h32))}, q8 preselection vs q8 "
         f"{sum(a != b for a, b in zip(hyps['linear-q8-preselect'], hyps['linear-q8']))}; {card}")
+    # the same decodes with M's and O's first designs forced: the same
+    # transcripts (the main paths' launch counts above are not these runs')
+    with mock.patch.object(tl, "decode_scan_linear_cuda",
+                           functools.partial(tl.decode_scan_linear_cuda, first_design=True)), \
+            mock.patch.object(tq, "am_scores_q_cuda",
+                              functools.partial(tq.am_scores_q_cuda, first_design=True)):
+        first_hyps = {name: an4_system.decode(model, corpus, corpus.orths, lex, tm, lm, lm_start,
+                                              200.0, True, False, name, device=dev)["hyps"]
+                      for name in ("linear-q8", "linear-q8-preselect", "linear")}
+        first_hyps["f64"] = tl.decode_batch_linear_lvcsr(
+            pack64, feats, lens, tables, lm, lm_start, 200.0, lex.silence_idx, prune=True,
+            dtype=torch.float64)
+    new_hyps = dict(hyps, f64=h64)
+    differ = {k: sum(a != b for a, b in zip(new_hyps[k], first_hyps[k])) for k in first_hyps}
+    log(f"[32] the decodes with the first designs of M and O forced: transcripts that differ from "
+        f"the new designs' {differ} (q8, q8 with preselection, float32 \"mxu\", float64)")
+    check(not any(differ.values()), f"the first designs' transcripts differ: {differ}")
 
     # -- 33. cross-checks ---------------------------------------------------------
     tdp = TdpModel(silence_state=0, loop=1.0, forward=0.0, skip=4.0)
@@ -4213,6 +4314,11 @@ def lvcsr_phases(dev, card):
               *m_res[torch.float32]),
         entry("linear_scan[f64]", "linear_lvcsr_scan.cu", rep_m, launches["f64"]["M"],
               *m_res[torch.float64]),
+        # the first design, forced beside the warp instance: no main path launches it
+        entry("linear_scan[first design]", "linear_lvcsr_scan.cu", rep_m, 0,
+              *m_first[torch.float32]),
+        entry("linear_scan[first design, f64]", "linear_lvcsr_scan.cu", rep_m, 0,
+              *m_first[torch.float64]),
         entry("linear_scan in scratch", "linear_lvcsr_scan.cu", rep_m,
               sum(n["M in scratch"] for n in launches.values()), 0.0, s_ms, s_plain, s_bnd),
         entry("linear_traceback", "linear_traceback.cu",
@@ -4222,9 +4328,16 @@ def lvcsr_phases(dev, card):
               *o_res[""]),
         entry("quantized_scores[preselect]", "quantized_scores.cu", rep_o,
               launches["linear-q8-preselect"]["O"], *o_res["[preselect]"]),
+        # the first design, forced beside the tensor-core design
+        entry("quantized_scores[first design]", "quantized_scores.cu", rep_o, 0, *o_first[""]),
+        entry("quantized_scores[first design, preselect]", "quantized_scores.cu", rep_o, 0,
+              *o_first["[preselect]"]),
     ]
-    for e in entries[-2:]:
+    for e in entries[-4:]:
         e["library_ms"] = int_mm_ms
+    # past the first design's limits: no main path meets them
+    entries += [entry(f"quantized_scores{tag}", "quantized_scores.cu", rep_o, 0, *r)
+                for tag, r in wide_res.items()]
     return entries
 
 

@@ -17,8 +17,7 @@
 //     at frame 1 only; origin is t - 1 when the book wins and the silence
 //     copy's carried origin when it wins;
 //   * every word's entry: the min-plus product min_v ebook[v] + lm[v, w],
-//     the first v at the minimum (a thread a word loops over v in order and
-//     takes a candidate only when strictly smaller);
+//     the first v at the minimum;
 //   * within-word candidates from s, s-1, s-2 (start at the jump-2 one, take
 //     jump 1 if strictly less, then jump 0 if strictly less), carrying the
 //     backpointer and the predecessor (0 and W left of position 0), plus the
@@ -34,22 +33,67 @@
 //   * the utterance freezes once t > feat_len (outputs are still written).
 // Rounded adds, compares and selects only: bit-equal to the plain version.
 //
-// Design: one block an utterance (B 130 on AN4 fills one wave of the 132
-// SMs), a thread a word and a silence copy. The lattice is updated in place:
-// a thread walks its word's positions from the last to the first, so each
-// position reads its own and its two left neighbours' scores before they
-// are overwritten; the raw scores are stored in the first pass and
-// renormalised in the second, once the block's minimum is known. The
-// lattice, the silence copies, the frame's emissions and the books live in
-// shared memory (AN4's 130 x 30 lattice: about 57 KB in float32, 73 KB in
+// Two designs, both one block an utterance (B 130 on AN4 fills one wave of
+// the 132 SMs); the C entry chooses from the shape (sr_linear_scan_instance)
+// unless asked for the first design (first_design), which stays for timing
+// in turns and for every lexicon past the warp instance's limits.
+//
+// The warp instance: 16 warps. Warp k owns a contiguous range of the words
+// (8 or 9 of AN4's 130) and the silence copies of the same predecessors
+// (the last warp also the start context's), its entities, and every
+// lattice slot of them: a word's max(word_len, last_pos + 1) positions (the
+// last is its end), a copy's Ps; a lane takes every 32nd of the warp's
+// slots. Per frame:
+//   (a) the min-plus product: G = 32 / (words a warp) lanes a word (3 at
+//       AN4), lane k of a group folds the predecessors v = k (mod G) in
+//       order by a strict < (lm_ext transposed into shared memory once,
+//       conflict-free rows; the effective books ebk from shared memory),
+//       then the group's first lane takes the least (value, v) of its lanes
+//       by shuffles (search::pair_less): the reference's first argmin, and
+//       its value (a warp-wide fold by redux.sync on order keys, a word at a
+//       time, was slower: its reductions, not its adds, set the pace);
+//   (b) the slots in rounds of 32 from the warp's last slot to its first: a
+//       round reads its cells and their two left neighbours, then (after a
+//       __syncwarp) writes its new raw scores and packed backpointers in
+//       place. No later round reads a cell that a round writes, so the next
+//       round's reads are issued before this round's writes, and neither a
+//       30-step walk nor a second buffer is needed. Cells hold raw scores; a
+//       reader renormalises and prunes by the last live frame's minimum, so
+//       there is no renormalisation pass either;
+//   (c) the warp's minimum; a barrier; the joint minimum from the 16
+//       warps' by one redux; a lane an entity renormalises its end into the
+//       frame's book and outputs; a lane a silence copy forms the next
+//       frame's effective book, via and origin of its predecessor (word v's
+//       book and copy v's end are the same warp's; by frame parity); a
+//       barrier publishes them and the next frame's emissions (cp.async, in
+//       flight during the frame).
+// Two barriers a frame. lm_ext (68 KB in float32, 136 KB in float64), the
+// cells (raw score and packed backpointers, 8 or 12 bytes a slot over
+// W x P + V x Ps) and the descriptors stay in shared memory: 129 / 220 KB
+// of the 227 KB a block may hold at AN4's 130 x 30 (float32 / float64);
+// the TDPs come through L1 (float32) or L2 (float64). Limits: at most 64
+// entities a warp, P and Ps <= 256, S <= 65,536, T < 2^22, V < 1,024 and
+// the state in shared memory (W up to 189 / 135 at P 30).
+//
+// What bounds it: the frame chain, two barriers and the dependent work
+// between them ((a) a 44-step fold a lane at AN4, (b) four or five rounds
+// of a slot's loads and compare-selects, (c) the ends); the bytes' bound
+// (am read, the outputs written) is the floor. The first design's 131-step
+// loop of dependent loads a frame is gone.
+//
+// The first design: a thread a word and a silence copy; a thread loops over
+// the predecessors in order and takes a candidate only when strictly
+// smaller. The lattice
+// is updated in place: a thread walks its word's positions from the last to
+// the first, so each position reads its own and its two left neighbours'
+// scores before they are overwritten; the raw scores are stored in the first
+// pass and renormalised in the second, once the block's minimum is known.
+// The lattice, the silence copies, the frame's emissions and the books live
+// in shared memory (AN4's 130 x 30 lattice: about 57 KB in float32, 73 KB in
 // float64), past search::SHARED_LIMIT in device scratch
 // (sr_linear_scan_scratch gives the bytes an utterance). lm_ext is read
-// through the read-only cache, coalesced over the words; at 68 KB (136 KB
-// in double) it stays in L1 and L2 for every block.
-//
-// What bounds it: the per-frame chain of each utterance, not bytes or
-// operations. A frame is a V-step min-plus loop, a P-step walk and three
-// barriers; the longest utterance sets the time.
+// through the read-only cache, coalesced over the words. A frame is a
+// V-step min-plus loop, a P-step walk and three barriers.
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -324,17 +368,447 @@ __global__ void __launch_bounds__(search::MAX_THREADS) linear_scan_kernel(
   }
 }
 
+
+// -- the warp instance ----------------------------------------------------------------
+
+constexpr int NW = 16;                  // warps a block
+constexpr int WARP_THREADS = NW * 32;
+constexpr int MAX_ENT = 64;             // entities (words, silence copies) a warp
+constexpr int BKP_BITS = 22;            // a cell's entry frame; its predecessor above
+constexpr unsigned BKP_MASK = (1u << BKP_BITS) - 1u;
+constexpr size_t MAX_SMEM = 227 * 1024;
+
+// per utterance, in shared memory: lm_ext transposed [W][V]; the cells of
+// every slot (the live positions of the words, max(word_len, last_pos + 1)
+// each, and the V silence copies' Ps), their raw scores h and packed
+// backpointers bp (entry frame | predecessor << 22; a silence cell's
+// origin), and their descriptors desc; the emissions of two frames; the
+// books book [W], silend, silorg [V]; the effective books ebk, via and
+// origin [V] of two frames (by parity); the words' entries recv, recp [W];
+// the raw word ends endv, endb, endp [W] and silence ends silv, silo [V];
+// the warps' minima part and slot counts base
+struct WarpLayout {
+  size_t lm, h, bp, desc, em, book, silend, silorg, ebk, via, origin, recv, recp, endv, endb,
+      endp, silv, silo, part, base, total;
+  template <typename T>
+  static WarpLayout of(int W, int P, int Ps, int S) {
+    const size_t V = (size_t)W + 1, slots = (size_t)W * P + V * Ps;
+    WarpLayout L;
+    size_t o = 0;
+    auto put = [&o](size_t& field, size_t bytes) {
+      field = o;
+      o += search::align16(bytes);
+    };
+    put(L.lm, (size_t)W * V * sizeof(T));
+    put(L.h, slots * sizeof(T));
+    put(L.bp, slots * sizeof(int));
+    put(L.desc, slots * sizeof(unsigned));
+    put(L.em, 2 * (size_t)S * sizeof(T));
+    put(L.book, W * sizeof(T));
+    put(L.silend, V * sizeof(T));
+    put(L.silorg, V * sizeof(int));
+    put(L.ebk, 2 * V * sizeof(T));
+    put(L.via, 2 * V * sizeof(int));
+    put(L.origin, 2 * V * sizeof(int));
+    put(L.recv, W * sizeof(T));
+    put(L.recp, W * sizeof(int));
+    put(L.endv, W * sizeof(T));
+    put(L.endb, W * sizeof(int));
+    put(L.endp, W * sizeof(int));
+    put(L.silv, V * sizeof(T));
+    put(L.silo, V * sizeof(int));
+    put(L.part, NW * sizeof(T));
+    put(L.base, NW * sizeof(int));
+    L.total = o;
+    return L;
+  }
+};
+
+// the warp instance takes the shape: the state in shared memory, at most 64
+// entities a warp, descriptors of 16 state bits and 8 position bits, entry
+// frames in 22 bits and predecessors in 10
+template <typename T>
+bool warp_instance_fits(int W, int P, int Ps, int S, int Tn) {
+  const int ent = 2 * ((W + NW - 1) / NW) + 1;
+  return W >= 1 && W + 1 < (1 << (32 - BKP_BITS)) && ent <= MAX_ENT && P >= 2 && P <= 256 &&
+         Ps >= 1 && Ps <= 256 && S >= 1 && S <= 65536 && Tn < (1 << BKP_BITS) &&
+         WarpLayout::of<T>(W, P, Ps, S).total <= MAX_SMEM;
+}
+
+__device__ __forceinline__ unsigned pack_bp(int bkp, int pred) {
+  return (unsigned)bkp | ((unsigned)pred << BKP_BITS);
+}
+
+// copies of 4 or 8 bytes from device to shared memory, in flight until
+// cp_async_wait
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if (sizeof(T) == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// the exclusive prefix of x over the warp's lanes, and the total
+__device__ __forceinline__ int warp_scan(int x, int lane, int& total) {
+  int incl = x;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(search::FULL, incl, o);
+    if (lane >= o) incl += y;
+  }
+  total = __shfl_sync(search::FULL, incl, 31);
+  return incl - x;
+}
+
+// a lane's reads for one slot of a round: descriptor, its cell and its two
+// left neighbours (raw), emission, transitions, the entry's score before the
+// emission (BIG past position 1) and what an entry carries (predecessor or
+// origin)
+template <typename T>
+struct SlotIn {
+  bool act;
+  unsigned d, b0, b1, b2;
+  int o;
+  T h0, h1, h2, a, t0, t1, t2, e;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(WARP_THREADS, 1) linear_scan_warp_kernel(
+    const T* __restrict__ am, const int* __restrict__ feat_len,
+    const int* __restrict__ state_table, const int* __restrict__ last_pos,
+    const int* __restrict__ word_len, const T* __restrict__ tdpw, const T* __restrict__ entp,
+    const int* __restrict__ sil_states, const T* __restrict__ stdp,
+    const T* __restrict__ sentp, const T* __restrict__ lm, T* __restrict__ book_out,
+    int* __restrict__ bkp_out, int* __restrict__ pred_out, bool* __restrict__ via_out,
+    int* __restrict__ origin_out, T* __restrict__ silend_out, int* __restrict__ silorg_out,
+    T* __restrict__ offset_out, WarpLayout L, int B, int Tn, int S, int W, int P, int Ps,
+    T sexit, T thr, int prune) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const T BIG = big<T>();
+  const T HALF = BIG * T(0.5);
+  const int b = blockIdx.x;
+  const int V = W + 1;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  T* lmT = reinterpret_cast<T*>(smem + L.lm);
+  T* h = reinterpret_cast<T*>(smem + L.h);
+  unsigned* bp = reinterpret_cast<unsigned*>(smem + L.bp);
+  unsigned* desc = reinterpret_cast<unsigned*>(smem + L.desc);
+  T* em = reinterpret_cast<T*>(smem + L.em);
+  T* book = reinterpret_cast<T*>(smem + L.book);
+  T* silend = reinterpret_cast<T*>(smem + L.silend);
+  int* silorg = reinterpret_cast<int*>(smem + L.silorg);
+  T* ebk = reinterpret_cast<T*>(smem + L.ebk);
+  int* via = reinterpret_cast<int*>(smem + L.via);
+  int* origin = reinterpret_cast<int*>(smem + L.origin);
+  T* recv = reinterpret_cast<T*>(smem + L.recv);
+  int* recp = reinterpret_cast<int*>(smem + L.recp);
+  T* endv = reinterpret_cast<T*>(smem + L.endv);
+  int* endb = reinterpret_cast<int*>(smem + L.endb);
+  int* endp = reinterpret_cast<int*>(smem + L.endp);
+  T* silv = reinterpret_cast<T*>(smem + L.silv);
+  int* silo = reinterpret_cast<int*>(smem + L.silo);
+  T* part = reinterpret_cast<T*>(smem + L.part);
+  int* base = reinterpret_cast<int*>(smem + L.base);
+
+  // this warp's entities: words [w0, w1) (8 or 9 of AN4's 130), then the
+  // silence copies of the same predecessors (the last warp also the start
+  // context's, v = W); entity j is word w0 + j or copy w0 + j - nw
+  const int w0 = warp * W / NW, w1 = (warp + 1) * W / NW;
+  const int nw = w1 - w0, nv = nw + (warp == NW - 1);
+  const int ne = nw + nv;
+  auto slots_of = [&](int j) {
+    if (j >= ne) return 0;
+    if (j >= nw) return Ps;
+    const int w = w0 + j;
+    return min(P, max(word_len[w], last_pos[w] + 1));
+  };
+
+  // set-up: lm_ext transposed, the books and the first frame's effective
+  // books (the start context 0), its emissions in flight, the slot counts
+  for (int e = threadIdx.x; e < V * W; e += WARP_THREADS) {
+    const int v = e / W, w = e - v * W;
+    lmT[w * V + v] = lm[e];
+  }
+  for (int v = threadIdx.x; v < V; v += WARP_THREADS) {
+    if (v < W) book[v] = BIG;
+    silend[v] = BIG;
+    silorg[v] = 0;
+    ebk[v] = v < W ? BIG : T(0);
+    via[v] = 0;
+    origin[v] = 0;
+  }
+  if (Tn > 0) {
+    for (int s = threadIdx.x; s < S; s += WARP_THREADS) cp_async(em + s, am + (size_t)b * Tn * S + s);
+    cp_async_commit();
+  }
+  int n0 = slots_of(lane), n1 = slots_of(lane + 32), tot0, tot1;
+  const int off0 = warp_scan(n0, lane, tot0);
+  const int off1 = tot0 + warp_scan(n1, lane, tot1);
+  if (lane == 0) base[warp] = tot0 + tot1;
+  cp_async_wait();
+  __syncthreads();
+  int start = 0;
+  for (int k = 0; k < warp; ++k) start += base[k];
+  const int nslots = base[warp];
+  // the descriptors (state 16 bits | position 8 | entity 6 | end | invalid)
+  // and the first cells: BIG, entered at 0 from the sentence start
+  for (int q = 0; q < 2; ++q) {
+    const int j = lane + 32 * q, n = q ? n1 : n0, off = start + (q ? off1 : off0);
+    for (int p = 0; p < n; ++p) {
+      unsigned st, flags;
+      if (j < nw) {
+        const int w = w0 + j;
+        st = (unsigned)state_table[w * P + p];
+        flags = (p == last_pos[w] ? 1u << 30 : 0u) | (p >= word_len[w] ? 1u << 31 : 0u);
+      } else {
+        st = (unsigned)sil_states[p];
+        flags = p == Ps - 1 ? 1u << 30 : 0u;
+      }
+      desc[off + p] = st | ((unsigned)p << 16) | ((unsigned)j << 24) | flags;
+      h[off + p] = BIG;
+      bp[off + p] = j < nw ? pack_bp(0, W) : 0u;
+    }
+  }
+  // the min-plus product's lanes: G lanes a word, lane k of a group the
+  // predecessors v = k (mod G)
+  const int G = max(1, 32 / ((W + NW - 1) / NW));
+  const int gj = lane / G, gk = lane - gj * G;
+  const int len = feat_len[b];
+  T best_state = T(0);  // the last live frame's minimum: the cells hold raw scores
+  __syncwarp();
+
+  for (int i = 0; i < Tn; ++i) {
+    const int t = i + 1;  // 1-based frame index
+    const bool alive = t <= len;
+    const T* em_t = em + (size_t)(i & 1) * S;
+    const T* ebk_t = ebk + (i & 1) * V;
+    const int* via_t = via + (i & 1) * V;
+    const int* org_t = origin + (i & 1) * V;
+    const size_t ow = ((size_t)i * B + b) * W;
+    const size_t ov = ((size_t)i * B + b) * V;
+    if (i + 1 < Tn) {
+      T* next = em + (size_t)((i + 1) & 1) * S;
+      const T* src = am + ((size_t)b * Tn + i + 1) * S;
+      for (int s = threadIdx.x; s < S; s += WARP_THREADS) cp_async(next + s, src + s);
+      cp_async_commit();
+    }
+    for (int j = lane; j < nv; j += 32) origin_out[ov + w0 + j] = org_t[w0 + j];
+
+    // (a) the warp's words' entries, min_v ebook[v] + lm[v, w] and the first
+    // v at the minimum: a lane folds its predecessors in order by a strict <,
+    // then the group's first lane takes the least (value, v) of its lanes
+    {
+      T pv = search::infinity<T>();
+      int pi = INT_MAX;
+      if (gj < nw && gk < V) {
+        const T* row = lmT + (size_t)(w0 + gj) * V;
+        pv = add(ebk_t[gk], row[gk]);
+        pi = gk;
+#pragma unroll 4
+        for (int v = gk + G; v < V; v += G) {
+          const T c = add(ebk_t[v], row[v]);
+          if (c < pv) {
+            pv = c;
+            pi = v;
+          }
+        }
+      }
+      T bv = pv;
+      int bi = pi;
+      for (int s = 1; s < G; ++s) {
+        const T sv = __shfl_down_sync(search::FULL, pv, s);
+        const int oi = __shfl_down_sync(search::FULL, pi, s);
+        if (search::pair_less(sv, oi, bv, bi)) {
+          bv = sv;
+          bi = oi;
+        }
+      }
+      if (gj < nw && gk == 0) {
+        recv[w0 + gj] = bv;
+        recp[w0 + gj] = bi;
+      }
+    }
+    __syncwarp();
+
+    // (b) the warp's slots, a lane every 32nd, rounds from the last to the
+    // first: a round reads its cells and their two left neighbours (raw,
+    // renormalised and pruned by the last live frame's minimum as they are
+    // read), then writes its new raw cells. A round writes no cell that a
+    // later round reads, nor one that the round after it reads, so the next
+    // round's reads are issued before this round's writes.
+    auto ren = [&](T v) {
+      v = search::renorm(v, best_state);
+      return prune && v > thr ? BIG : v;
+    };
+    auto load = [&](int r, SlotIn<T>& x) {
+      x.act = r >= 0 && 32 * r + lane < nslots;
+      if (!x.act) return;
+      const int gi = start + 32 * r + lane;
+      x.d = desc[gi];
+      const int p = (int)((x.d >> 16) & 0xffu), j = (int)((x.d >> 24) & 63u);
+      x.h0 = h[gi];
+      x.b0 = bp[gi];
+      x.h1 = p >= 1 ? h[gi - 1] : BIG;
+      x.b1 = p >= 1 ? bp[gi - 1] : 0u;
+      x.h2 = p >= 2 ? h[gi - 2] : BIG;
+      x.b2 = p >= 2 ? bp[gi - 2] : 0u;
+      x.a = em_t[x.d & 0xffffu];
+      if (j < nw) {
+        const int w = w0 + j, sl = w * P + p;
+        x.t0 = tdpw[3 * sl];
+        x.t1 = tdpw[3 * sl + 1];
+        x.t2 = tdpw[3 * sl + 2];
+        x.e = p < 2 ? add(recv[w], entp[2 * w + p]) : BIG;
+        x.o = p < 2 ? recp[w] : W;
+      } else {
+        const int v = w0 + j - nw;
+        x.t0 = stdp[3 * p];
+        x.t1 = stdp[3 * p + 1];
+        x.t2 = stdp[3 * p + 2];
+        x.e = p < 2 ? add(ebk_t[v], sentp[p]) : BIG;
+        x.o = org_t[v];
+      }
+    };
+    T m = BIG;
+    SlotIn<T> cur;
+    load((nslots + 31) / 32 - 1, cur);
+    for (int r = (nslots + 31) / 32 - 1; r >= 0; --r) {
+      SlotIn<T> nxt;
+      load(r - 1, nxt);
+      T nh = BIG;
+      unsigned nbp = 0;
+      if (cur.act) {
+        const unsigned d = cur.d;
+        const int p = (int)((d >> 16) & 0xffu), j = (int)((d >> 24) & 63u);
+        const bool word = j < nw;
+        const unsigned none = word ? pack_bp(0, W) : 0u;
+        const T c0 = add(ren(cur.h0), cur.t0);
+        const T c1 = p >= 1 ? add(ren(cur.h1), cur.t1) : BIG;
+        const T c2 = p >= 2 ? add(ren(cur.h2), cur.t2) : BIG;
+        T wv = c2;
+        unsigned wbp = p >= 2 ? cur.b2 : none;
+        if (c1 < wv) {
+          wv = c1;
+          wbp = p >= 1 ? cur.b1 : none;
+        }
+        if (c0 < wv) {
+          wv = c0;
+          wbp = cur.b0;
+        }
+        wv = add(wv, cur.a);
+        const T entry = p < 2 ? add(cur.e, cur.a) : BIG;
+        if (entry <= wv) {
+          nh = entry;
+          nbp = word ? pack_bp(t - 1, cur.o) : (unsigned)cur.o;
+        } else {
+          nh = wv;
+          nbp = wbp;
+        }
+        if ((d >> 31) & 1u) nh = BIG;
+        nh = tmin(nh, BIG);
+        if ((d >> 30) & 1u) {
+          if (word) {
+            const int w = w0 + j;
+            endv[w] = nh;
+            endb[w] = (int)(nbp & BKP_MASK);
+            endp[w] = (int)(nbp >> BKP_BITS);
+          } else {
+            const int v = w0 + j - nw;
+            silv[v] = nh;
+            silo[v] = (int)nbp;
+          }
+        }
+        m = tmin(m, nh);
+      }
+      __syncwarp();
+      if (cur.act && alive) {
+        const int gi = start + 32 * r + lane;
+        h[gi] = nh;
+        bp[gi] = nbp;
+      }
+      cur = nxt;
+    }
+    m = keys::warp_minimum(m);
+    if (lane == 0) part[warp] = m;
+    __syncthreads();  // the warps' minima and the raw ends are visible
+
+    // (c) the joint minimum; a lane an entity: the frame's books and outputs;
+    // then a lane a silence copy the next frame's effective book, via and
+    // origin of its predecessor (word w's book and copy w's end are this
+    // warp's)
+    T best = keys::warp_minimum(lane < NW ? part[lane] : BIG);
+    if (best >= HALF) best = T(0);
+    for (int j = lane; j < ne; j += 32) {
+      if (j < nw) {
+        const int w = w0 + j;
+        T e = search::renorm(endv[w], best);
+        if (prune && e > thr) e = BIG;
+        e = e >= HALF ? BIG : e;
+        const int np = endp[w];
+        book_out[ow + w] = e;
+        bkp_out[ow + w] = endb[w];
+        pred_out[ow + w] = np;
+        via_out[ow + w] = via_t[np] != 0;
+        if (alive) book[w] = e;
+      } else {
+        const int v = w0 + j - nw;
+        T e = search::renorm(silv[v], best);
+        if (prune && e > thr) e = BIG;
+        e = e >= HALF ? BIG : add(e, sexit);
+        silend_out[ov + v] = e;
+        silorg_out[ov + v] = silo[v];
+        if (alive) {
+          silend[v] = e;
+          silorg[v] = silo[v];
+        }
+      }
+    }
+    __syncwarp();
+    for (int j = lane; j < nv; j += 32) {
+      const int v = w0 + j, nx = ((i + 1) & 1) * V + v;
+      const T bk = v < W ? book[v] : BIG;  // the start context from frame 2 on
+      const T se = silend[v];
+      const bool vp = se < bk;
+      ebk[nx] = tmin(bk, se);
+      via[nx] = vp;
+      origin[nx] = vp ? silorg[v] : t;
+    }
+    if (threadIdx.x == 0) offset_out[(size_t)i * B + b] = alive ? best : T(0);
+    if (alive) best_state = best;
+    cp_async_wait();
+    __syncthreads();  // the books and the next frame's emissions are visible
+  }
+}
+
 template <typename T>
 int launch(const void* am, const int* feat_len, const int* state_table, const int* last_pos,
            const int* word_len, const void* tdpw, const void* entp, const int* sil_states,
            const void* stdp, const void* sentp, const void* lm, void* book, int* bkp,
            int* pred, bool* via, int* origin, void* silend, int* silorg, void* offset,
            void* scratch, int B, int Tn, int S, int W, int P, int Ps, double sexit, double thr,
-           int prune, int device, void* stream) {
+           int prune, int first_design, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B == 0 || Tn == 0) return (int)cudaSuccess;
   if (W == 0 || P < 2 || Ps < 1) return (int)cudaErrorInvalidValue;
+  if (!first_design && warp_instance_fits<T>(W, P, Ps, S, Tn)) {
+    const WarpLayout L = WarpLayout::of<T>(W, P, Ps, S);
+    err = search::allow_smem(linear_scan_warp_kernel<T>, L.total);
+    if (err != cudaSuccess) return (int)err;
+    linear_scan_warp_kernel<T><<<B, WARP_THREADS, L.total, (cudaStream_t)stream>>>(
+        static_cast<const T*>(am), feat_len, state_table, last_pos, word_len,
+        static_cast<const T*>(tdpw), static_cast<const T*>(entp), sil_states,
+        static_cast<const T*>(stdp), static_cast<const T*>(sentp), static_cast<const T*>(lm),
+        static_cast<T*>(book), bkp, pred, via, origin, static_cast<T*>(silend), silorg,
+        static_cast<T*>(offset), L, B, Tn, S, W, P, Ps, T(sexit), T(thr), prune);
+    return (int)cudaGetLastError();
+  }
   const Layout L = Layout::of<T>(W, P, Ps, S);
   const bool in_scratch = L.total > search::SHARED_LIMIT;
   if (in_scratch && scratch == nullptr) return (int)cudaErrorInvalidValue;
@@ -352,11 +826,26 @@ int launch(const void* am, const int* feat_len, const int* state_table, const in
 }
 
 template <typename T>
-int residency(int W, int P, int Ps, int S) {
+int instance(int W, int P, int Ps, int S, int Tn) {
+  if (warp_instance_fits<T>(W, P, Ps, S, Tn)) return 1;
+  return Layout::of<T>(W, P, Ps, S).total > search::SHARED_LIMIT ? -1 : 0;
+}
+
+template <typename T>
+int residency(int W, int P, int Ps, int S, int first_design) {
+  int n = 0;
+  cudaError_t err;
+  if (!first_design && warp_instance_fits<T>(W, P, Ps, S, 1)) {
+    const size_t smem = WarpLayout::of<T>(W, P, Ps, S).total;
+    err = search::allow_smem(linear_scan_warp_kernel<T>, smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, linear_scan_warp_kernel<T>,
+                                                          WARP_THREADS, smem);
+    return err == cudaSuccess ? n : -1;
+  }
   const Layout L = Layout::of<T>(W, P, Ps, S);
   const size_t smem = L.total > search::SHARED_LIMIT ? 0 : L.total;
-  int n = 0;
-  cudaError_t err = search::allow_smem(linear_scan_kernel<T>, smem);
+  err = search::allow_smem(linear_scan_kernel<T>, smem);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, linear_scan_kernel<T>,
                                                         search::threads_for(W + 1), smem);
@@ -365,8 +854,8 @@ int residency(int W, int P, int Ps, int S) {
 
 }  // namespace
 
-// bytes of device scratch an utterance needs (0: its state stays in shared
-// memory; -1: too large); f64 != 0 for the float64 scan
+// bytes of device scratch an utterance of the first design needs (0: its
+// state stays in shared memory; -1: too large); f64 != 0 for the float64 scan
 extern "C" int sr_linear_scan_scratch(int W, int P, int Ps, int S, int f64) {
   const size_t n =
       f64 ? Layout::of<double>(W, P, Ps, S).total : Layout::of<float>(W, P, Ps, S).total;
@@ -374,9 +863,18 @@ extern "C" int sr_linear_scan_scratch(int W, int P, int Ps, int S, int f64) {
   return n > (size_t)INT_MAX ? -1 : (int)n;
 }
 
+// kernel M's instance for that shape: 1 the warp instance; the first design
+// with its state in shared memory (0) or in device scratch (-1)
+extern "C" int sr_linear_scan_instance(int W, int P, int Ps, int S, int T, int f64) {
+  return f64 ? instance<double>(W, P, Ps, S, T) : instance<float>(W, P, Ps, S, T);
+}
+
 // am [B, T, S], tdp_within, entry_pen, sil_tdp, sil_entry_pen, lm_ext, book,
 // silend [T, B, ...] and offset in float (f64 == 0) or double; the rest int
-// (via bool). sexit and thr are already in the score type.
+// (via bool). sexit and thr are already in the score type. first_design 0:
+// the instance sr_linear_scan_instance names (scratch, of
+// sr_linear_scan_scratch bytes an utterance, only for -1); 1: the first
+// design (in scratch where that query says so).
 extern "C" int sr_linear_scan(int f64, const void* am, const int* feat_len,
                               const int* state_table, const int* last_pos, const int* word_len,
                               const void* tdp_within, const void* entry_pen,
@@ -385,19 +883,20 @@ extern "C" int sr_linear_scan(int f64, const void* am, const int* feat_len,
                               int* bkp, int* pred, bool* via, int* origin, void* silend,
                               int* silorg, void* offset, void* scratch, int B, int T, int S,
                               int W, int P, int Ps, double sil_exit, double am_threshold,
-                              int prune, int device, void* stream) {
+                              int prune, int first_design, int device, void* stream) {
   return f64 ? launch<double>(am, feat_len, state_table, last_pos, word_len, tdp_within,
                               entry_pen, sil_states, sil_tdp, sil_entry_pen, lm_ext, book, bkp,
                               pred, via, origin, silend, silorg, offset, scratch, B, T, S, W, P,
-                              Ps, sil_exit, am_threshold, prune, device, stream)
+                              Ps, sil_exit, am_threshold, prune, first_design, device, stream)
              : launch<float>(am, feat_len, state_table, last_pos, word_len, tdp_within,
                              entry_pen, sil_states, sil_tdp, sil_entry_pen, lm_ext, book, bkp,
                              pred, via, origin, silend, silorg, offset, scratch, B, T, S, W, P,
-                             Ps, sil_exit, am_threshold, prune, device, stream);
+                             Ps, sil_exit, am_threshold, prune, first_design, device, stream);
 }
 
-// blocks one SM holds of kernel M's launch for that shape, by the occupancy
-// calculator, or -1
-extern "C" int sr_linear_scan_residency(int W, int P, int Ps, int S, int f64) {
-  return f64 ? residency<double>(W, P, Ps, S) : residency<float>(W, P, Ps, S);
+// blocks one SM holds of kernel M's launch for that shape (first_design 0:
+// the instance the shape chooses), by the occupancy calculator, or -1
+extern "C" int sr_linear_scan_residency(int W, int P, int Ps, int S, int f64, int first_design) {
+  return f64 ? residency<double>(W, P, Ps, S, first_design)
+             : residency<float>(W, P, Ps, S, first_design);
 }

@@ -52,9 +52,11 @@ SELECT_CLUSTERS = 32
 CLUSTER_ITERATIONS = 5
 BACKOFF_SCORE = 40000.0
 
-#: kernel O's limits: feature dim (bytes a quantized frame) and clusters
-MAX_DIM = 128
-MAX_CLUSTERS = 256
+#: the limits of kernel O's first design (forced with first_design=True):
+#: feature dim (bytes a quantized frame) and clusters; its tensor-core
+#: design takes any dim and any cluster count
+FIRST_DESIGN_MAX_DIM = 128
+FIRST_DESIGN_MAX_CLUSTERS = 256
 
 
 def _quantize(x: np.ndarray) -> np.ndarray:
@@ -82,9 +84,9 @@ class QuantPack:
     cluster_of: Optional[torch.Tensor] = None    # int32 [S·D] (padded → 0)
     n_selected: int = SELECT_CLUSTERS
     backoff: float = BACKOFF_SCORE
-    #: kernel O's tables, zero-padded to its dim (built at first launch)
-    kernel_tables: Dict[str, torch.Tensor] = field(default_factory=dict, repr=False,
-                                                   compare=False)
+    #: kernel O's tables a design ("mma", "first"), padded to its widths
+    #: (built at first launch)
+    kernel_tables: Dict[str, Dict] = field(default_factory=dict, repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:
@@ -272,11 +274,13 @@ def am_scores_q(pack: QuantPack, feats: torch.Tensor) -> torch.Tensor:
     minimum over densities exactly like the reference's SSE loop, then the
     single float division by 2·scale² (fillScoreCacheTpl:529-531).
 
-    CPU tensors take the plain version; CUDA tensors launch kernel O
-    (counted in ``am_scores_q.LAUNCHES``): a block a tile of frames, the
-    frames quantized into shared memory, __dp4a products over the dim padded
-    to 16, 48 or 128 bytes, the cluster selection a warp a frame, the
-    minimum in registers and one division."""
+    CPU tensors take the plain version; CUDA tensors launch kernel O's
+    tensor-core design (counted in ``am_scores_q.LAUNCHES``): a block a tile
+    of frames quantized into shared memory, the products on the s8 tensor
+    cores (mma.sync m16n8k32) over the dim padded to 64, 128 or a multiple
+    of 256 bytes, the cluster selection through the same product, the
+    minimum over each mixture's densities in registers and one division a
+    score. Any dim and any cluster count."""
     if feats.device.type == "cpu":
         return am_scores_q_reference(pack, feats)
     out = am_scores_q_cuda(pack, feats)
@@ -288,71 +292,133 @@ am_scores_q.LAUNCHES = 0
 
 
 def kernel_dim4(dim: int) -> int:
-    """The int32 words a quantized frame takes in kernel O, one of its
-    instances' widths: 4, 12 or 32 (dim up to 16, 48 or 128 bytes)."""
+    """The int32 words a quantized frame takes in kernel O's first design,
+    one of its instances' widths: 4, 12 or 32 (dim up to 16, 48 or 128)."""
     return next(w for w in (4, 12, 32) if 4 * w >= dim)
 
 
-def _kernel_tables(pack: QuantPack) -> Dict[str, torch.Tensor]:
-    """Kernel O's operands: the int8 means (and centers) zero-padded to
-    kernel_dim4 words, viewed as int32, built (and the cluster map
-    range-checked) once a pack."""
-    kt = pack.kernel_tables
-    if not kt:
-        J = pack.num_mixtures * pack.density_cap
-        if (tuple(pack.qmeans.shape) != (J, pack.dim) or pack.qmeans_sq.shape != (J,)
-                or pack.consts.shape != (J,) or pack.inv_sqrt_var.shape != (pack.dim,)):
-            raise ValueError("QuantPack: the tables' shapes disagree with its mixtures, "
-                             "density cap and dim")
-        pad = kernel_dim4(pack.dim) * 4 - pack.dim
+def kernel_row_bytes(dim: int) -> int:
+    """The bytes a quantized frame and a mean take in kernel O's tensor-core
+    design, one of its instances' widths: 64, 128 or a multiple of 256 (two,
+    four or eight k32 steps of the product a chunk)."""
+    if dim <= 64:
+        return 64
+    if dim <= 128:
+        return 128
+    return -(-dim // 256) * 256
+
+
+def _padded(t: torch.Tensor, rows: int, cols: Optional[int] = None) -> torch.Tensor:
+    """``t`` zero-padded to ``rows`` rows (and ``cols`` columns), contiguous."""
+    pad = (0, 0) if cols is None else (0, cols - t.shape[1])
+    return torch.nn.functional.pad(t, pad + (0, rows - t.shape[0])).contiguous()
+
+
+def _kernel_tables(pack: QuantPack, first_design: bool = False) -> Dict:
+    """Kernel O's operands, built (and the shapes and cluster map checked) once
+    a pack and design. The tensor-core design: the int8 means zero-padded to
+    D8 (D rounded up to 8) densities a mixture and to ``kernel_row_bytes``
+    bytes a row, qmeans_sq, consts and cluster_of padded alike (0), the
+    centers padded to a multiple of 8 rows; all viewed as int32 words. The
+    first design (dim <= 128, at most 256 clusters): the means and centers
+    padded to ``kernel_dim4`` words a row, the rest as they are."""
+    key = "first" if first_design else "mma"
+    if key in pack.kernel_tables:
+        return pack.kernel_tables[key]
+    S, D, dim = pack.num_mixtures, pack.density_cap, pack.dim
+    J = S * D
+    if D < 1 or dim < 1:
+        raise ValueError(f"QuantPack: {D} densities a mixture and dim {dim}; the kernel "
+                         f"needs 1 or more of each")
+    if (tuple(pack.qmeans.shape) != (J, dim) or pack.qmeans_sq.shape != (J,)
+            or pack.consts.shape != (J,) or pack.inv_sqrt_var.shape != (dim,)):
+        raise ValueError("QuantPack: the tables' shapes disagree with its mixtures, "
+                         "density cap and dim")
+    C = 0 if pack.qcenters is None else pack.qcenters.shape[0]
+    if pack.qcenters is not None:
+        if (tuple(pack.qcenters.shape) != (C, dim) or pack.qcenters_sq.shape != (C,)
+                or pack.cluster_of.shape != (J,)):
+            raise ValueError("QuantPack: the preselection tables' shapes disagree with its "
+                             "clusters, densities and dim")
+        if J and not 0 <= int(pack.cluster_of.min()) <= int(pack.cluster_of.max()) < C:
+            raise ValueError(f"QuantPack.cluster_of outside [0, {C})")
+        if not 1 <= pack.n_selected <= C:
+            raise ValueError(f"QuantPack: {pack.n_selected} of {C} clusters selected; the "
+                             f"kernel needs 1 <= selected <= clusters")
+    if first_design and (dim > FIRST_DESIGN_MAX_DIM or C > FIRST_DESIGN_MAX_CLUSTERS):
+        raise ValueError(f"am_scores_q: kernel O's first design takes dim <= "
+                         f"{FIRST_DESIGN_MAX_DIM} and <= {FIRST_DESIGN_MAX_CLUSTERS} "
+                         f"clusters, got dim {dim} and {C}")
+
+    def ints(t):
+        return t.to(torch.int32).contiguous()
+
+    kt = {"isv": pack.inv_sqrt_var.to(torch.float32).contiguous()}
+    if first_design:
+        width = kernel_dim4(dim) * 4
 
         def words(t):
-            return torch.nn.functional.pad(t, (0, pad)).contiguous().view(torch.int32)
+            return _padded(t, t.shape[0], width).view(torch.int32)
 
-        kt["qmeans"] = words(pack.qmeans)
-        kt["qmeans_sq"] = pack.qmeans_sq.to(torch.int32).contiguous()
-        kt["consts"] = pack.consts.to(torch.int32).contiguous()
-        kt["isv"] = pack.inv_sqrt_var.to(torch.float32).contiguous()
-        if pack.qcenters is not None:
-            C = pack.qcenters.shape[0]
-            if pack.cluster_of.shape != (J,) or (J and not 0 <= int(pack.cluster_of.min())
-                                                  <= int(pack.cluster_of.max()) < C):
-                raise ValueError(f"QuantPack.cluster_of outside [0, {C})")
-            kt["qcenters"] = words(pack.qcenters)
-            kt["qcenters_sq"] = pack.qcenters_sq.to(torch.int32).contiguous()
-            kt["cluster_of"] = pack.cluster_of.to(torch.int32).contiguous()
+        kt.update(qmeans=words(pack.qmeans), qmeans_sq=ints(pack.qmeans_sq),
+                  consts=ints(pack.consts), row_bytes=width)
+        if C:
+            kt.update(qcenters=words(pack.qcenters), qcenters_sq=ints(pack.qcenters_sq),
+                      cluster_of=ints(pack.cluster_of))
+    else:
+        width = kernel_row_bytes(dim)
+        D8 = -(-D // 8) * 8
+
+        def per_density(t):     # [J, ...] → [S * D8, ...], padding densities 0
+            t = t.reshape(S, D, *t.shape[1:])
+            pad = (0, 0) * (t.dim() - 2) + (0, D8 - D)
+            return torch.nn.functional.pad(t, pad).reshape(S * D8, *t.shape[2:])
+
+        kt.update(qmeans=_padded(per_density(pack.qmeans), S * D8, width).view(torch.int32),
+                  qmeans_sq=ints(per_density(pack.qmeans_sq)),
+                  consts=ints(per_density(pack.consts)), row_bytes=width)
+        if C:
+            C8 = -(-C // 8) * 8
+            kt.update(qcenters=_padded(pack.qcenters, C8, width).view(torch.int32),
+                      qcenters_sq=ints(_padded(pack.qcenters_sq[:, None], C8)[:, 0]),
+                      cluster_of=ints(per_density(pack.cluster_of)))
+    pack.kernel_tables[key] = kt
     return kt
 
 
-def am_scores_q_cuda(pack: QuantPack, feats: torch.Tensor) -> torch.Tensor:
+def am_scores_q_cuda(pack: QuantPack, feats: torch.Tensor,
+                     first_design: bool = False) -> torch.Tensor:
     """Kernel O's launch on a CUDA tensor, as ``am_scores_q`` makes it but
-    not counted."""
+    not counted; ``first_design=True`` launches the first design (a thread a
+    mixture, ``__dp4a`` products; dim <= 128, at most 256 clusters) for
+    timing in turns."""
     if feats.device.type != "cuda" or pack.device != feats.device:
         raise ValueError(f"am_scores_q: features on {feats.device}, pack on {pack.device}; "
                          f"the kernel needs both on one CUDA device")
     if feats.dim() != 2 or feats.shape[1] != pack.dim:
         raise ValueError(f"am_scores_q: features must be [N, {pack.dim}], "
                          f"got {tuple(feats.shape)}")
-    if pack.dim > MAX_DIM:
-        raise ValueError(f"am_scores_q: dim {pack.dim} is past the kernel's {MAX_DIM}")
-    S, D = pack.num_mixtures, pack.density_cap
+    S = pack.num_mixtures
     C = 0 if pack.qcenters is None else pack.qcenters.shape[0]
-    if C > MAX_CLUSTERS or (C and not 1 <= pack.n_selected <= C):
-        raise ValueError(f"am_scores_q: {C} clusters with {pack.n_selected} selected; the "
-                         f"kernel takes at most {MAX_CLUSTERS} and 1 <= selected <= clusters")
+    kt = _kernel_tables(pack, first_design)
     x = feats.to(torch.float32).contiguous()
     N = x.shape[0]
-    kt = _kernel_tables(pack)
     out = torch.empty((N, S), dtype=torch.float32, device=x.device)
     if N == 0:
         return out
-    err = _native.load().sr_quantized_scores(
-        x.data_ptr(), kt["isv"].data_ptr(), kt["qmeans"].data_ptr(), kt["qmeans_sq"].data_ptr(),
-        kt["consts"].data_ptr(), _native.ptr(kt.get("qcenters")),
+    lib = _native.load()
+    scratch = None
+    if C and not first_design:
+        per_block = lib.sr_quantized_scores_scratch(kt["row_bytes"], C)
+        blocks = -(-N // lib.sr_quantized_scores_tile(kt["row_bytes"]))
+        scratch = _native.scratch(blocks, per_block, x.device)
+    err = lib.sr_quantized_scores(
+        int(first_design), x.data_ptr(), kt["isv"].data_ptr(), kt["qmeans"].data_ptr(),
+        kt["qmeans_sq"].data_ptr(), kt["consts"].data_ptr(), _native.ptr(kt.get("qcenters")),
         _native.ptr(kt.get("qcenters_sq")), _native.ptr(kt.get("cluster_of")), out.data_ptr(),
-        N, S, D, pack.dim, kernel_dim4(pack.dim), C, int(pack.n_selected),
-        float(np.float32(pack.scale2x)), float(np.float32(pack.backoff)), x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        _native.ptr(scratch), N, S, pack.density_cap, pack.dim, kt["row_bytes"], C,
+        int(pack.n_selected), float(np.float32(pack.scale2x)), float(np.float32(pack.backoff)),
+        x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     _native.check(err, "am_scores_q")
     return out
 

@@ -167,20 +167,34 @@ SIGNATURES = {
     # f64, am, feat_len, state_table, last_pos, word_len, tdp_within,
     # entry_pen, sil_states, sil_tdp, sil_entry_pen, lm_ext, book, bkp, pred,
     # via, origin, silend, silorg, offset, scratch (or NULL), B, T, S, W, P,
-    # Ps, sil_exit, am_threshold, prune, device, stream
-    "sr_linear_scan": ((_I,) + (_P,) * 20 + (_I,) * 6 + (_D, _D, _I, _I, _P), _I),
-    # W, P, Ps, S, f64 → kernel M's scratch bytes an utterance (0: shared
-    # memory; -1: too large)
+    # Ps, sil_exit, am_threshold, prune, first_design (0: the instance the
+    # shape chooses; 1: the first design, a thread a word), device, stream
+    "sr_linear_scan": ((_I,) + (_P,) * 20 + (_I,) * 6 + (_D, _D, _I, _I, _I, _P), _I),
+    # W, P, Ps, S, f64 → kernel M's first design's scratch bytes an
+    # utterance (0: shared memory; -1: too large)
     "sr_linear_scan_scratch": ((_I,) * 5, _I),
-    # W, P, Ps, S, f64 → blocks per SM of kernel M's launch (-1: error)
-    "sr_linear_scan_residency": ((_I,) * 5, _I),
+    # W, P, Ps, S, T, f64 → kernel M's instance (1: the warp instance; the
+    # first design with its state in shared memory, 0, or in scratch, -1)
+    "sr_linear_scan_instance": ((_I,) * 6, _I),
+    # W, P, Ps, S, f64, first_design → blocks per SM of kernel M's launch
+    # (-1: error)
+    "sr_linear_scan_residency": ((_I,) * 6, _I),
     # f64, book, bkp, pred, origin, silend, silorg, feat_len, words, B, T, W,
     # max_words, device, stream
     "sr_linear_traceback": ((_I,) + (_P,) * 8 + (_I,) * 5 + (_P,), _I),
-    # x, isv, qmeans, qmeans_sq, consts, qcenters, qcenters_sq, cluster_of
-    # (the last three NULL without preselection), out, N, S, D, dim, dim4, C,
-    # n_selected, scale2x, backoff, device, stream
-    "sr_quantized_scores": ((_P,) * 9 + (_I,) * 7 + (_F, _F, _I, _P), _I),
+    # first_design (0: the tensor-core design; 1: the first design), x, isv,
+    # qmeans, qmeans_sq, consts, qcenters, qcenters_sq, cluster_of (the last
+    # three NULL without preselection), out, scratch (or NULL), N, S, D, dim,
+    # row_bytes, C, n_selected, scale2x, backoff, device, stream
+    "sr_quantized_scores": ((_I,) + (_P,) * 10 + (_I,) * 7 + (_F, _F, _I, _P), _I),
+    # row_bytes → frames a block of kernel O's tensor-core design (0: a width
+    # it does not take)
+    "sr_quantized_scores_tile": ((_I,), _I),
+    # row_bytes, C → kernel O's scratch bytes a block (0: none; -1: too large)
+    "sr_quantized_scores_scratch": ((_I, _I), _I),
+    # row_bytes, C, D, first_design → blocks per SM of kernel O's launch (-1:
+    # error)
+    "sr_quantized_scores_residency": ((_I,) * 4, _I),
     "sr_error_string": ((_I,), ctypes.c_char_p),
 }
 

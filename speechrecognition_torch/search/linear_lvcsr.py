@@ -230,8 +230,11 @@ def decode_scan_linear(am: torch.Tensor, feat_len: torch.Tensor, state_table: to
 
     CPU tensors take the plain version; CUDA tensors launch kernel M (float32
     or float64; counted in ``decode_scan_linear.LAUNCHES``): one block an
-    utterance, its lattice in shared memory, past the kernel's limit in
-    device scratch (counted in ``SCRATCH_LAUNCHES``). The indices are not
+    utterance. Its warp instance (the lexicon's predecessors over a warp's
+    lanes, the positions in parallel, two barriers a frame) takes every
+    lexicon whose state fits in shared memory (AN4's 130 words); past it
+    the first design, its lattice in shared memory or, past that, in device
+    scratch (counted in ``SCRATCH_LAUNCHES``). The indices are not
     range-checked here (``LinearTables.args`` does that once, on the host)."""
     if am.device.type == "cpu":
         return decode_scan_linear_reference(am, feat_len, state_table, last_pos, word_len,
@@ -255,10 +258,11 @@ def decode_scan_linear_cuda(am: torch.Tensor, feat_len: torch.Tensor, state_tabl
                             tdp_within: torch.Tensor, entry_pen: torch.Tensor,
                             sil_states: torch.Tensor, sil_tdp: torch.Tensor,
                             sil_entry_pen: torch.Tensor, sil_exit, lm_ext: torch.Tensor,
-                            am_threshold, prune: bool = True):
+                            am_threshold, prune: bool = True, first_design: bool = False):
     """Kernel M's launch on CUDA tensors, as ``decode_scan_linear`` makes it
     but not counted: returns (outs, whether the lattice lived in device
-    scratch)."""
+    scratch). ``first_design=True`` launches the first design (a thread a
+    word, the lattice updated in place) for timing in turns."""
     if am.device.type != "cuda":
         raise ValueError(f"decode_scan_linear: unsupported device {am.device}")
     if am.dtype not in (torch.float32, torch.float64):
@@ -294,7 +298,9 @@ def decode_scan_linear_cuda(am: torch.Tensor, feat_len: torch.Tensor, state_tabl
     }
     lib = _native.load()
     f64 = int(dtype == torch.float64)
-    scratch = _native.scratch(B, lib.sr_linear_scan_scratch(W, P, Ps, S, f64), device)
+    warp = not first_design and lib.sr_linear_scan_instance(W, P, Ps, S, T, f64) == 1
+    scratch = (None if warp else
+               _native.scratch(B, lib.sr_linear_scan_scratch(W, P, Ps, S, f64), device))
     # the cast to the score type, as the plain version's
     sexit = float(torch.tensor(float(sil_exit), dtype=torch.float64).to(dtype))
     thr = float(torch.tensor(float(am_threshold), dtype=torch.float64).to(dtype))
@@ -304,7 +310,7 @@ def decode_scan_linear_cuda(am: torch.Tensor, feat_len: torch.Tensor, state_tabl
         fl["entry_pen"].data_ptr(), ints["sil_states"].data_ptr(), fl["sil_tdp"].data_ptr(),
         fl["sil_entry_pen"].data_ptr(), fl["lm_ext"].data_ptr(),
         *(outs[k].data_ptr() for k in OUTPUTS), _native.ptr(scratch), B, T, S, W, P, Ps,
-        sexit, thr, int(bool(prune)), device.index,
+        sexit, thr, int(bool(prune)), int(bool(first_design)), device.index,
         torch.cuda.current_stream(device).cuda_stream)
     _native.check(err, "decode_scan_linear")
     return tuple(outs[k] for k in OUTPUTS), scratch is not None

@@ -1206,19 +1206,27 @@ def test_kernel_m_and_n_bit_equal(dev, name, dtype, prune):
     """Kernel M's eight outputs and kernel N's words equal their plain
     versions on the same card tensors (tests/torch_linear_tables.py's
     cases: zero-length and all-silence utterances, words of 1-3 positions,
-    silences of 1-3 positions, forced ties, a silence exit off float32)."""
+    silences of 1-3 positions, forced ties, a silence exit off float32), in
+    both of M's designs: the warp instance the shape chooses and the first
+    design, forced."""
+    from speechrecognition_torch.ops import _native
     from speechrecognition_torch.search import linear_lvcsr as tl
     args, thr = linear_inputs(name, dtype, dev)
+    (B, T, S), (W, P), Ps = args[0].shape, args[2].shape, args[7].shape[0]
+    assert _native.load().sr_linear_scan_instance(W, P, Ps, S, T,
+                                                  int(dtype == torch.float64)) == 1
     before = (tl.decode_scan_linear.LAUNCHES, tl.traceback_linear.LAUNCHES)
     got = tl.decode_scan_linear(*args, thr, prune=prune)
+    first, _scratch = tl.decode_scan_linear_cuda(*args, thr, prune=prune, first_design=True)
     ref = tl.decode_scan_linear_reference(*args, thr, prune=prune)
     words = tl.traceback_linear(*(got[i] for i in (0, 1, 2, 4, 5, 6)), args[1])
     ref_words = tl.traceback_linear_reference(*(ref[i] for i in (0, 1, 2, 4, 5, 6)), args[1])
     torch.cuda.synchronize()
     assert (tl.decode_scan_linear.LAUNCHES, tl.traceback_linear.LAUNCHES) == (
         before[0] + 1, before[1] + 1)
-    for key, g, r in zip(tl.OUTPUTS, got, ref):
+    for key, g, f, r in zip(tl.OUTPUTS, got, first, ref):
         assert g.dtype == r.dtype and torch.equal(g, r), key
+        assert torch.equal(f, r), f"{key} (first design)"
     assert torch.equal(words, ref_words)
 
 
@@ -1230,7 +1238,8 @@ def test_kernel_m_large_lexica(dev, dtype, words, positions):
     512 threads (600 words: a thread takes two words and two silence
     copies; of 2 positions in shared memory, of 4 in scratch in float64),
     bit-equal; the launches in scratch are those the library's query
-    names."""
+    names. Every such lexicon is past the warp instance, so the shape's
+    choice and the forced first design are the same launch."""
     from speechrecognition_torch.ops import _native
     from speechrecognition_torch.search import linear_lvcsr as tl
     from torch_linear_tables import AN4_TDP, random_lm, tied_lexicon
@@ -1241,16 +1250,52 @@ def test_kernel_m_large_lexica(dev, dtype, words, positions):
     am = torch.as_tensor(rng.uniform(0.0, 6.0, (2, 12, 40)), device=dev).to(dtype)
     lens = torch.as_tensor([12, 9], dtype=torch.int32, device=dev)
     args = (am, lens, *lt.args(dev, dtype, 40))
-    in_scratch = _native.load().sr_linear_scan_scratch(
-        words + 1, positions, 3, 40, int(dtype == torch.float64)) > 0
+    lib = _native.load()
+    f64 = int(dtype == torch.float64)
+    in_scratch = lib.sr_linear_scan_scratch(words + 1, positions, 3, 40, f64) > 0
     assert in_scratch == (words == 299 or (positions == 4 and dtype == torch.float64))
+    assert lib.sr_linear_scan_instance(words + 1, positions, 3, 40, 12, f64) < 1
     before = tl.decode_scan_linear.SCRATCH_LAUNCHES
     got = tl.decode_scan_linear(*args, 200.0, prune=True)
+    first, first_in_scratch = tl.decode_scan_linear_cuda(*args, 200.0, prune=True,
+                                                         first_design=True)
     ref = tl.decode_scan_linear_reference(*args, 200.0, prune=True)
     torch.cuda.synchronize()
     assert tl.decode_scan_linear.SCRATCH_LAUNCHES == before + in_scratch
-    for key, g, r in zip(tl.OUTPUTS, got, ref):
-        assert torch.equal(g, r), key
+    assert first_in_scratch == in_scratch
+    for key, g, f, r in zip(tl.OUTPUTS, got, first, ref):
+        assert torch.equal(g, r) and torch.equal(f, r), key
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("positions", [3, 30])
+def test_kernel_m_warp_instance_edge(dev, dtype, positions):
+    """The largest lexicon the warp instance takes (its state just fits in
+    shared memory) and one word more, where the C entry falls back to the
+    first design: both bit-equal to the plain version, in either design."""
+    from speechrecognition_torch.ops import _native
+    from speechrecognition_torch.search import linear_lvcsr as tl
+    from torch_linear_tables import AN4_TDP, random_lm, tied_lexicon
+    lib = _native.load()
+    f64 = int(dtype == torch.float64)
+    edge = max(W for W in range(2, 400) if lib.sr_linear_scan_instance(W, positions, 3, 40, 12,
+                                                                       f64) == 1)
+    assert edge >= 130 and lib.sr_linear_scan_instance(edge + 1, positions, 3, 40, 12, f64) < 1
+    for W in (edge, edge + 1):
+        rng = np.random.default_rng(W + positions)
+        lex = tied_lexicon([positions] * W, 3, 40, rng)
+        lm, lm_start = random_lm(rng, lex.num_words, 0, 10.0)
+        lt = tl.LinearTables.build(AN4_TDP.decoder_tables(lex), lm, lm_start, 0)
+        assert lt.state_table.shape == (W, positions)
+        am = torch.as_tensor(rng.uniform(0.0, 6.0, (2, 12, 40)), device=dev).to(dtype)
+        lens = torch.as_tensor([12, 9], dtype=torch.int32, device=dev)
+        args = (am, lens, *lt.args(dev, dtype, 40))
+        got, _ = tl.decode_scan_linear_cuda(*args, 200.0, prune=True)
+        first, _ = tl.decode_scan_linear_cuda(*args, 200.0, prune=True, first_design=True)
+        ref = tl.decode_scan_linear_reference(*args, 200.0, prune=True)
+        torch.cuda.synchronize()
+        for key, g, f, r in zip(tl.OUTPUTS, got, first, ref):
+            assert torch.equal(g, r) and torch.equal(f, r), (W, key)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -1278,9 +1323,10 @@ def an4_model():
 
 @pytest.mark.parametrize("n", [1, 64, 1000, 4133])
 def test_kernel_o_bit_equal_an4(dev, an4_model, n):
-    """The AN4 model (501 x 16 slots, dim 45 padded to 48 bytes), frames near
+    """The AN4 model (501 x 16 slots, dim 45 padded to 64 bytes), frames near
     its means, no preselection: the same float32 scores as the plain
-    version, N not a multiple of the kernel's 32-frame tile."""
+    version, N not a multiple of the kernel's 64-frame tile (nor of the
+    first design's 32, whose scores are the same)."""
     from speechrecognition_torch.models import quantized as tq
     from torch_linear_tables import features_near_means
     rng = np.random.default_rng(n)
@@ -1289,35 +1335,44 @@ def test_kernel_o_bit_equal_an4(dev, an4_model, n):
     qp = tq.build_quant_pack(an4_model, device=dev)
     before = tq.am_scores_q.LAUNCHES
     got = tq.am_scores_q(qp, x)
+    first = tq.am_scores_q_cuda(qp, x, first_design=True)
     ref = tq.am_scores_q_reference(qp, x)
     torch.cuda.synchronize()
     assert tq.am_scores_q.LAUNCHES == before + 1
-    assert got.dtype == torch.float32 and torch.equal(got, ref)
+    assert got.dtype == torch.float32 and torch.equal(got, ref) and torch.equal(first, ref)
 
 
-@pytest.mark.parametrize("dim", [4, 13, 45, 100, 128])
-@pytest.mark.parametrize("clusters,selected", [(0, 0), (16, 4), (24, 1), (32, 32), (256, 32)])
+@pytest.mark.parametrize("dim", [4, 13, 45, 100, 128, 129, 200, 256])
+@pytest.mark.parametrize("clusters,selected", [(0, 0), (16, 4), (24, 1), (32, 32), (256, 32),
+                                               (257, 32), (512, 64), (1024, 32)])
 def test_kernel_o_bit_equal_synthetic(dev, dim, clusters, selected):
-    """Synthetic pooled models at every padded width (dim 4 to 128), with
-    and without preselection (1 to 256 clusters, ties at the threshold from
-    a palette of means, select-all), inactive densities; frames drawn near
-    their means, NaN where the mean is an inactive density's (both quantize
-    NaN to 0)."""
+    """Synthetic pooled models at every padded width (dim 4 to 256: 64, 128
+    and 256 bytes), with and without preselection (1 to 1,024 clusters,
+    past 352 in device scratch; ties at the threshold from a palette of
+    means, select-all), D 6 (not a multiple of 8), inactive densities;
+    frames drawn near their means, NaN where the mean is an inactive
+    density's (both quantize NaN to 0). The first design, where it takes
+    the shape (dim <= 128, at most 256 clusters), gives the same scores."""
     from speechrecognition_torch.models import quantized as tq
     from torch_linear_tables import pooled_model, pooled_raw
     rng = np.random.default_rng(dim + clusters)
-    raw = pooled_raw(rng, 300 if clusters == 256 else 40, 6, dim, empty_share=0.2,
-                     palette=5 if clusters == 24 else 0)
+    raw = pooled_raw(rng, 400 if clusters > 256 else 300 if clusters == 256 else 40, 6, dim,
+                     empty_share=0.2, palette=5 if clusters == 24 else 0)
     model = pooled_model(raw)
     qp = tq.build_quant_pack(model, preselection=clusters > 0, num_clusters=max(clusters, 1),
                              n_selected=max(selected, 1), device=dev)
     mi = rng.integers(0, model.means.shape[0], 300)
     x = model.means[mi] + rng.standard_normal((300, dim)) * np.sqrt(model.vars[0])
     x = torch.as_tensor(x.astype(np.float32), device=dev)
+    assert qp.density_cap == 6 and (clusters <= 256 or qp.qcenters.shape[0] > 256)
     got = tq.am_scores_q(qp, x)
     ref = tq.am_scores_q_reference(qp, x)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
+    if dim <= tq.FIRST_DESIGN_MAX_DIM and clusters <= tq.FIRST_DESIGN_MAX_CLUSTERS:
+        first = tq.am_scores_q_cuda(qp, x, first_design=True)
+        torch.cuda.synchronize()
+        assert torch.equal(first, ref)
 
 
 @pytest.mark.parametrize("preselection", [False, True])
@@ -1337,9 +1392,10 @@ def test_kernel_o_non_finite_and_half_way_frames(dev, preselection):
     x[9] = ((np.arange(13) - 6.5) / qp.inv_sqrt_var.cpu().numpy()).astype(np.float32)
     x = torch.as_tensor(x, device=dev)
     got = tq.am_scores_q(qp, x)
+    first = tq.am_scores_q_cuda(qp, x, first_design=True)
     ref = tq.am_scores_q_reference(qp, x)
     torch.cuda.synchronize()
-    assert bool(torch.isnan(x).any()) and torch.equal(got, ref)
+    assert bool(torch.isnan(x).any()) and torch.equal(got, ref) and torch.equal(first, ref)
 
 
 def test_linear_decode_on_the_card_equals_the_cpu(dev):

@@ -38,7 +38,9 @@ def test_sources_are_the_eight_kernels_and_the_header():
     decode_scan_bigram, K wcts_scan, L forward_backward, M linear_lvcsr_scan, N
     linear_traceback, O quantized_scores), the shared double-float header, the
     histogram header, the scans' order-key header and the search tier's
-    block helpers; the scans' instance, residency and scratch queries."""
+    block helpers; the scans' instance, residency and scratch queries
+    (kernels M and O among them since their redesigns: M's instance, O's
+    tile, scratch and residency)."""
     assert [p.name for p in _native._sources()] == SOURCES + ["df.cuh", "histogram.cuh",
                                                               "keys.cuh", "search.cuh"]
     assert "sm_90a" in " ".join(_native.NVCC_FLAGS)
@@ -58,8 +60,9 @@ def test_sources_are_the_eight_kernels_and_the_header():
         "sr_wcts_scan_scratch", "sr_wcts_scan_instance", "sr_wcts_scan_residency",
         "sr_forward_backward", "sr_forward_backward_chain", "sr_forward_backward_instance",
         "sr_forward_backward_residency", "sr_linear_scan", "sr_linear_scan_scratch",
-        "sr_linear_scan_residency", "sr_linear_traceback", "sr_quantized_scores",
-        "sr_error_string"}
+        "sr_linear_scan_instance", "sr_linear_scan_residency", "sr_linear_traceback",
+        "sr_quantized_scores", "sr_quantized_scores_tile", "sr_quantized_scores_scratch",
+        "sr_quantized_scores_residency", "sr_error_string"}
 
 
 def c_entry_points():

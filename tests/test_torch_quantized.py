@@ -248,14 +248,22 @@ def test_the_card_is_the_default(monkeypatch):
 def test_kernel_tables_reject_bad_packs():
     """Kernel O's operands are checked once a pack: a cluster id past the
     centers or tables of another shape raise before any launch; a good
-    pack's means are zero-padded to 16 bytes (dim 13)."""
+    pack's means are zero-padded to 16 bytes (dim 13) for the first design,
+    and to 64 bytes and D 6 to 8 densities a mixture for the tensor-core
+    design."""
     model, _jm = synthetic(2)
     good = tq.build_quant_pack(model, preselection=True, num_clusters=8, n_selected=2,
                                device="cpu")
-    kt = tq._kernel_tables(good)
-    assert kt["qmeans"].shape == (good.qmeans.shape[0], 4)
+    kt = tq._kernel_tables(good, first_design=True)
+    assert kt["qmeans"].shape == (good.qmeans.shape[0], 4) and kt["row_bytes"] == 16
     padded = kt["qmeans"].view(torch.int8)
     assert torch.equal(padded[:, :13], good.qmeans) and not padded[:, 13:].any()
+    kt = tq._kernel_tables(good)
+    S = good.num_mixtures
+    assert kt["qmeans"].shape == (S * 8, 16) and kt["row_bytes"] == 64
+    padded = kt["qmeans"].view(torch.int8).reshape(S, 8, 64)
+    assert torch.equal(padded[:, :6, :13].reshape(S * 6, 13), good.qmeans)
+    assert not padded[:, 6:].any() and not padded[:, :, 13:].any()
     bad = tq.build_quant_pack(model, preselection=True, num_clusters=8, n_selected=2,
                               device="cpu")
     bad.cluster_of = bad.cluster_of.clone()
