@@ -13,7 +13,8 @@ and word-conditioned tree searches (decode_batch_bigram, decode_batch_wcts),
 the streaming recognizers and the LVCSR tier's 1-best decode
 (tools.an4_system.decode: the int8 quantized scorer, the linear-lexicon scan
 and its device traceback), each at full width — its EM trainer (Trainer(..., dtype="df32")
-.train) and its NN trainer (NnTrainer.train), and holds each hand-written
+.train), its NN trainer (NnTrainer.train) and its char-RNN LM
+(CharRnnLm.train), and holds each hand-written
 kernel against its plain PyTorch version on the same tensors:
 
   1. the card's name and power limit (nvidia-smi);
@@ -234,7 +235,16 @@ kernel against its plain PyTorch version on the same tensors:
      first, new, plain; the phase fails unless the warp instance is the
      faster) and unpruned (the first PLAIN_LIN_CUT): the eight
      outputs of both designs torch.equal; their registers and blocks an
-     SM; kernel N's words torch.equal on all 130, timed; M with its state
+     SM; kernel N's words, its warp design's and its first design's
+     (forced), torch.equal on all 130 in both types and on
+     tests/torch_linear_tables.py's forced starts (a NaN first, in the
+     middle and last in the word or silence ends; ties across lane
+     boundaries; -0.0 against +0.0; W 1 to 300; walks past 128 words); N's
+     two designs timed in turns (plain, new, first, first, new, plain) by
+     device time and by events, the phase failing unless the warp design is
+     the faster, beside its bound over this run's walk steps and its chain
+     floor (a timed chase of dependent loads through L2, built under
+     build/chase/), with the words walked and the longest walk; M with its state
      in device scratch (299 words x 30 positions, the first design),
      bit-equal and timed; the main paths (launch counts read from these
      runs): an4_system.decode linear-q8, linear-q8-preselect and linear,
@@ -246,9 +256,16 @@ kernel against its plain PyTorch version on the same tensors:
      (7 seeds; the extended lexicon through kernel J, the linear decode
      through kernels M and N); an4_system.decode linear and f32 (the
      exact WCTS, kernel K, transparent silence) unpruned: the count of
-     transcripts that differ (not a gate).
+     transcripts that differ (not a gate);
+ 34. the char-RNN LM (lm/char_rnn.py; torch ops, no hand kernel) at the
+     reference's widths (hidden 100, windows of 25, lr 0.1) on README.md's
+     characters: three float64 train_steps on the card within 1e-10 of the
+     CPU port's on the same parameters; CharRnnLm.train for
+     CHAR_RNN_STEPS steps in float32 (the mean loss of the last 20 steps
+     under half the first 20's) and 200 sampled characters inside the
+     vocabulary, with milliseconds a train_step and a character.
 
-Kernels B, D and G are timed by their device time (torch.profiler), since
+Kernels B, D, G and N are timed by their device time (torch.profiler), since
 B and D's wrappers synchronise on a range check and a call timed by events
 also holds its host work; the others by events around their calls (the
 search tier's wrappers I, J and K check their tables once, where they are
@@ -1223,6 +1240,7 @@ def main():
     features_phase(dev, card, big)
     disc = discriminative_phases(dev, card, lex, corpus, big, bench, iter2)
     lvcsr = lvcsr_phases(dev, card)
+    char_rnn_phase(dev, card)
     check("jax" not in sys.modules, "the port imported jax")
 
     kernels = [
@@ -1827,11 +1845,28 @@ def vit_tile(A):
     return _native.load().sr_align_backtrack_tile(A)
 
 
-#: kernel G's yardstick, built by this script alone (the port does not carry
-#: it): one thread follows a chain of ``steps`` dependent shared-memory loads,
-#: each load's address the value the previous one read
+#: kernels G's and N's yardsticks, built by this script alone (the port does
+#: not carry them): one thread follows a chain of ``steps`` dependent loads,
+#: each load's address the value the previous one read, from shared memory
+#: (G's) or from device memory through L2 (N's: ld.global.cg, which skips
+#: L1, from *start; the last index is written to *out)
 CHASE_SOURCE = r"""
 #include <cuda_runtime.h>
+
+__global__ void global_chase_kernel(int steps, const int* __restrict__ next,
+                                    const int* __restrict__ start, int* __restrict__ out) {
+  int cur = *start;
+  for (int s = 0; s < steps; ++s) cur = __ldcg(next + cur);
+  *out = cur;
+}
+
+extern "C" int global_chase(int steps, const int* next, const int* start, int* out, int device,
+                            void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  global_chase_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(steps, next, start, out);
+  return (int)cudaGetLastError();
+}
 
 __global__ void shared_chase_kernel(int steps, int* __restrict__ out) {
   __shared__ int next[1024];
@@ -1853,6 +1888,7 @@ extern "C" int shared_chase(int steps, int* out, int device, void* stream) {
 """
 
 
+@functools.lru_cache(maxsize=None)
 def chase_library():
     """CHASE_SOURCE built with the kernels' nvcc flags under build/chase/."""
     from speechrecognition_torch.ops import _native
@@ -1865,6 +1901,9 @@ def chase_library():
     lib = ctypes.CDLL(str(lib_path))
     lib.shared_chase.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     lib.shared_chase.restype = ctypes.c_int
+    lib.global_chase.argtypes = [ctypes.c_int, *[ctypes.c_void_p] * 3, ctypes.c_int,
+                                 ctypes.c_void_p]
+    lib.global_chase.restype = ctypes.c_int
     return lib
 
 
@@ -3946,10 +3985,129 @@ def linear_bound(B, T, S, word_len, Ps, word):
     return bound(nbytes, **({"fp32": ops} if word == 4 else {"fp64": ops}))
 
 
-def traceback_bound(B, W, word, steps):
-    """Kernel N: per utterance the last frame's W word ends and W + 1
-    silence ends, three ints a step of the walk, the words written."""
-    return bound(B * ((2 * W + 1) * word + steps * 3 * 4 + steps * 4))
+def traceback_bound(B, W, word, steps, sil_starts, max_words):
+    """Kernel N over this run's walks: per utterance its length, the last
+    frame's W word ends and W + 1 silence ends and the [max_words] words
+    written; the chosen silence copy's origin for the ``sil_starts`` walks
+    that start there; three ints (bkp, pred, origin) for each of the
+    ``steps`` steps the walks take (walk_steps)."""
+    return bound(B * (4 + (2 * W + 1) * word + max_words * 4) + sil_starts * 4 + steps * 3 * 4)
+
+
+def walk_steps(words, max_words):
+    """Per utterance the words a walk emitted and the steps it took: one a
+    word, the last word's step the one that finds the walk done; a walk cut
+    at max_words takes no step after its last word."""
+    n = (words != -1).sum(0)
+    return n, n - (n == max_words).long()
+
+
+def n_floor(dev, card, longest):
+    """Kernel N's chain floor: a walk of ``longest`` steps is 2 x longest + 1
+    dependent loads (the start's silence origin or first bkp, then bkp and
+    pred together and origin a step). Measured by chase_library's global
+    chase: a random cycle of 2^20 ints (4 MB) walked twice from its start, so
+    the timed walk hits L2, and one of 2^26 (256 MB, past L2) walked on from
+    where it stopped, so every load goes to device memory. Returns (L2 ns a
+    load, device-memory ns a load, the floor in ms by L2)."""
+    lib = chase_library()
+    gen = torch.Generator(device=dev).manual_seed(17)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def cycle(n):
+        perm = torch.randperm(n, device=dev, generator=gen)
+        nxt = torch.empty(n, dtype=torch.int32, device=dev)
+        nxt[perm] = perm.roll(-1).to(torch.int32)
+        return nxt
+
+    steps = 1 << 14
+    start = torch.zeros(1, dtype=torch.int32, device=dev)
+    out = torch.zeros(1, dtype=torch.int32, device=dev)
+    ns = []
+    for nxt, first in ((cycle(1 << 20), start), (cycle(1 << 26), out)):
+        def chase():
+            check(lib.global_chase(steps, nxt.data_ptr(), first.data_ptr(), out.data_ptr(),
+                                   dev.index, stream) == 0, "the global-memory chase launches")
+
+        ns.append(cuda_ms(chase, 3) * 1e6 / steps)
+    torch.cuda.empty_cache()
+    loads = 2 * longest + 1
+    log(f"[32] kernel N chain floor: one dependent load through L2 takes {ns[0]:.1f} ns, from "
+        f"device memory {ns[1]:.1f} ns (chains of {steps} timed), so the longest walk, "
+        f"{longest} steps, {loads} loads, takes at least {loads * ns[0] * 1e-6:.6f} ms "
+        f"({loads * ns[1] * 1e-6:.6f} ms from device memory); {card}")
+    return ns[0], ns[1], loads * ns[0] * 1e-6
+
+
+def n_books(dev, card, tl, lin):
+    """Kernel N's two designs on tests/torch_linear_tables.py's forced starts
+    (NaNs, ties across lane boundaries, -0.0 against +0.0) at W 1, 33, 130,
+    300 and on its long walks (traceback_books seeds 0 and 1: past
+    MAX_TRACE_WORDS words), float32 and float64: torch.equal to the plain
+    version."""
+    cases = [(W, W, name, dict(B=5, T=160, W=W, **opts)) for W in (1, 33, 130, 300)
+             for name, opts in lin.TRACEBACK_STARTS.items()]
+    cases += [(seed, 3, f"seed {seed}", {}) for seed in (0, 1)]
+    bad = []
+    for seed, W, name, kw in cases:
+        arrays = lin.traceback_books(seed, **kw)
+        for dt, fl in ((torch.float32, np.float32), (torch.float64, np.float64)):
+            args = [torch.as_tensor(a.astype(fl) if a.dtype.kind == "f" else a, device=dev)
+                    for a in arrays]
+            new = tl.traceback_linear_cuda(*args)
+            first = tl.traceback_linear_cuda(*args, first_design=True)
+            ref = tl.traceback_linear_reference(*args)
+            torch.cuda.synchronize()
+            if not (torch.equal(new, ref) and torch.equal(first, ref)):
+                bad.append((W, name, str(dt)))
+    log(f"[32] kernel N on {len(cases)} books x 2 types (NaN first, middle, last in the word and "
+        f"silence ends; ties at 0/31/32/63 won by the word, the silence copy or neither; -0.0 "
+        f"against +0.0; W 1, 33, 130, 300; walks past {tl.MAX_TRACE_WORDS} words): both designs "
+        f"{'torch.equal to' if not bad else 'DIFFER from'} the plain version {bad[:6]}; {card}")
+    check(not bad, f"kernel N differs from its plain version on {bad}")
+
+
+def n_in_turns(dev, card, tl, walk, lens_t, W, word):
+    """Kernel N's warp design and first design timed in turns (plain, new,
+    first, first, new, plain), by events around the wrapper's calls and by
+    device time (torch.profiler); the phase fails unless the warp design's
+    device time is the smaller. Returns the two designs' entries' numbers."""
+    B = lens_t.shape[0]
+    words = tl.traceback_linear_cuda(*walk, lens_t)
+    n, steps = walk_steps(words, tl.MAX_TRACE_WORDS)
+    last = ((lens_t.long().clamp(min=1) - 1).clamp(max=walk[0].shape[0] - 1),
+            torch.arange(B, device=dev))
+    fb, fs = walk[0][last], walk[4][last]
+    sil_starts = int((fs.amin(1) < fb.gather(1, fb.argmin(1, keepdim=True))[:, 0]).sum())
+    bnd = traceback_bound(B, W, word, int(steps.sum()), sil_starts, tl.MAX_TRACE_WORDS)
+    plain = lambda: tl.traceback_linear_reference(*walk, lens_t)         # noqa: E731
+    new = lambda: tl.traceback_linear_cuda(*walk, lens_t)                # noqa: E731
+    first = lambda: tl.traceback_linear_cuda(*walk, lens_t, first_design=True)   # noqa: E731
+    ev_ms, ev_first, _p, ev_turns = designs_in_turns(plain, new, first, 3, 50)
+    p1 = cuda_ms(plain, 3)
+    d = [device_ms(new, 20, "linear_traceback_warp_kernel"),
+         device_ms(first, 20, "linear_traceback_kernel"),
+         device_ms(first, 20, "linear_traceback_kernel"),
+         device_ms(new, 20, "linear_traceback_warp_kernel")]
+    p2 = cuda_ms(plain, 3)
+    ms, first_ms, plain_ms = (d[0] + d[3]) / 2, (d[1] + d[2]) / 2, (p1 + p2) / 2
+    l2_ns, dram_ns, floor_ms = n_floor(dev, card, int(steps.max()))
+    log(f"[32] kernel N: {int(n.sum())} words walked over {B} utterances, the longest walk "
+        f"{int(n.max())} words; {int(steps.sum())} steps taken against the first design's "
+        f"{B} x {tl.MAX_TRACE_WORDS} = {B * tl.MAX_TRACE_WORDS}; {sil_starts} walks start at a "
+        f"silence copy")
+    log(f"[32] kernel N device time (torch.profiler), in turns plain, new, first, first, new, "
+        f"plain {[round(t, 5) for t in (p1, *d, p2)]}: warp design {ms:.5f} ms, first design "
+        f"{first_ms:.5f} ms ({first_ms / ms:.2f}x), plain {plain_ms:.2f} ms; by events around "
+        f"the wrapper {ev_ms:.5f} / {ev_first:.5f} ms (turns {[round(t, 5) for t in ev_turns]}); "
+        f"bound {bnd[0]:.6f} ms ({bnd[1]}), {ms / bnd[0]:.0f}x; chain floor {floor_ms:.6f} ms "
+        f"({ms / floor_ms:.2f}x; {2 * int(steps.max()) + 1} loads of {l2_ns:.1f} ns through L2, "
+        f"{dram_ns:.1f} ns from device memory); {card}")
+    log(f"[32] kernel N registers: warp design {ptxas_usage('linear_traceback_warp_kernel')}; "
+        f"first design {ptxas_usage('linear_traceback_kernel')}")
+    check(ms < first_ms, f"kernel N's warp design is not faster than its first design in turns "
+          f"({ms:.5f} against {first_ms:.5f} ms of device time)")
+    return (0.0, ms, plain_ms, bnd), (0.0, first_ms, plain_ms, bnd)
 
 
 def quantized_bound(N, S, J, dim, C=0):
@@ -4109,7 +4267,8 @@ def lvcsr_phases(dev, card):
     def walk_args(outs):
         return tuple(outs[i] for i in (0, 1, 2, 4, 5, 6))
 
-    m_res, m_first, n_res, cut = {}, {}, None, PLAIN_LIN_CUT
+    m_res, m_first, n_res, n_first, cut = {}, {}, None, None, PLAIN_LIN_CUT
+    n_books(dev, card, tl, lin)
     for dt, am in ((torch.float32, q8_am.contiguous()), (torch.float64, am64)):
         word = 8 if dt == torch.float64 else 4
         f64 = int(word == 8)
@@ -4141,14 +4300,16 @@ def lvcsr_phases(dev, card):
             same, err = bit_equal([o[:, :n] for o in outs], ref)
             same_f, err_f = bit_equal([o[:, :n] for o in fouts], ref)
             words = tl.traceback_linear_cuda(*walk_args(outs), lens_t)
+            words_first = tl.traceback_linear_cuda(*walk_args(outs), lens_t, first_design=True)
             words_ref = tl.traceback_linear_reference(*walk_args(outs), lens_t)
             torch.cuda.synchronize()
-            same_n = torch.equal(words, words_ref)
+            same_n = torch.equal(words, words_ref) and torch.equal(words_first, words_ref)
             log(f"[32] kernel M {dt} {'pruned at 200' if prune else 'unpruned'}: eight outputs of the "
                 f"warp instance {'torch.equal' if same else 'DIFFER'}, of the first design "
                 f"{'torch.equal' if same_f else 'DIFFER'} to the plain version over "
                 f"{'all' if prune else f'the first {cut}'} utterances; kernel N's words "
-                f"{'torch.equal' if same_n else 'DIFFER'} on all {B}; in scratch {in_scratch}, "
+                f"(both designs) {'torch.equal' if same_n else 'DIFFER'} on all {B}; in scratch "
+                f"{in_scratch}, "
                 f"{f_in_scratch}")
             check(same and same_f and same_n and not in_scratch and not f_in_scratch,
                   f"kernels M / N differ from their plain versions ({dt}, prune {prune})")
@@ -4170,16 +4331,7 @@ def lvcsr_phases(dev, card):
                     f"{lib.sr_linear_scan_residency(W, P, Ps, S, f64, 1)} an SM, its shared memory "
                     f"{lib.sr_linear_scan_scratch(W, P, Ps, S, f64)} (0: fits)); {card}")
                 if dt == torch.float32:
-                    walked = int((words >= 0).sum().item())
-                    n_ms, n_plain_ms, n_turns = in_turns(
-                        lambda: tl.traceback_linear_reference(*walk_args(outs), lens_t),
-                        lambda: tl.traceback_linear_cuda(*walk_args(outs), lens_t), 3, 20)
-                    n_res = (0.0, n_ms, n_plain_ms,
-                             traceback_bound(B, W, word, tl.MAX_TRACE_WORDS))
-                    log(f"[32] kernel N: {n_ms:.4f} ms, plain {n_plain_ms:.2f} ms (in turns "
-                        f"{[round(t, 4) for t in n_turns]}), bound {n_res[3][0]:.6f} ms "
-                        f"({n_res[3][1]}); {walked} words walked over {B} utterances, "
-                        f"{tl.MAX_TRACE_WORDS} steps each; {card}")
+                    n_res, n_first = n_in_turns(dev, card, tl, walk_args(outs), lens_t, W, word)
     log(f"[32] kernel M registers: warp instance {ptxas_usage('linear_scan_warp_kernel')}; first "
         f"design {ptxas_usage('linear_scan_kernel')}")
 
@@ -4309,6 +4461,7 @@ def lvcsr_phases(dev, card):
 
     rep_m = "speechrecognition_tpu/search/linear_lvcsr.py:54"
     rep_o = "speechrecognition_tpu/models/quantized.py:257"
+    rep_n = "speechrecognition_tpu/search/linear_lvcsr.py:313"
     entries = [
         entry("linear_scan", "linear_lvcsr_scan.cu", rep_m, launches["linear-q8"]["M"],
               *m_res[torch.float32]),
@@ -4321,9 +4474,10 @@ def lvcsr_phases(dev, card):
               *m_first[torch.float64]),
         entry("linear_scan in scratch", "linear_lvcsr_scan.cu", rep_m,
               sum(n["M in scratch"] for n in launches.values()), 0.0, s_ms, s_plain, s_bnd),
-        entry("linear_traceback", "linear_traceback.cu",
-              "speechrecognition_tpu/search/linear_lvcsr.py:313", launches["linear-q8"]["N"],
+        entry("linear_traceback", "linear_traceback.cu", rep_n, launches["linear-q8"]["N"],
               *n_res),
+        # the first design, forced beside the warp design
+        entry("linear_traceback[first design]", "linear_traceback.cu", rep_n, 0, *n_first),
         entry("quantized_scores", "quantized_scores.cu", rep_o, launches["linear-q8"]["O"],
               *o_res[""]),
         entry("quantized_scores[preselect]", "quantized_scores.cu", rep_o,
@@ -4339,6 +4493,66 @@ def lvcsr_phases(dev, card):
     entries += [entry(f"quantized_scores{tag}", "quantized_scores.cu", rep_o, 0, *r)
                 for tag, r in wide_res.items()]
     return entries
+
+
+#: phase 34: the char-RNN's training steps on README.md's characters, the
+#: steps compared with the CPU, and the characters sampled
+CHAR_RNN_STEPS = 1000
+CHAR_RNN_CPU_STEPS = 3
+CHAR_RNN_SAMPLE = 200
+
+
+def char_rnn_phase(dev, card):
+    """Phase 34: the char-RNN LM (lm/char_rnn.py) on the card at the
+    reference's widths (hidden 100, windows of 25, lr 0.1) on README.md's
+    characters. No hand kernel: a step is a loop of torch ops and autograd."""
+    from speechrecognition_torch.lm import char_rnn as cr
+    t_phase = time.perf_counter()
+    text = (REPO / "README.md").read_text()
+    lm = cr.CharRnnLm(text, hidden_size=100, seq_length=25, learning_rate=0.1, seed=0)
+    check(lm.params["Wxh"].device.type == "cuda", "CharRnnLm's parameters are on the card")
+    # train_step in float64 on the card against the CPU port, same parameters
+    where = {"card": {k: v.double() for k, v in lm.params.items()}}
+    where["cpu"] = {k: v.cpu() for k, v in where["card"].items()}
+    state = {w: (p, {k: torch.zeros_like(v) for k, v in p.items()},
+                 torch.zeros(100, dtype=torch.float64, device=p["bh"].device))
+             for w, p in where.items()}
+    err = 0.0
+    for i in range(CHAR_RNN_CPU_STEPS):
+        x, y = lm.data[25 * i: 25 * i + 25], lm.data[25 * i + 1: 25 * i + 26]
+        out = {w: cr.train_step(*st[:2], x, y, st[2], 0.1) for w, st in state.items()}
+        pairs = [(out["card"][0][k], out["cpu"][0][k]) for k in cr.NAMES]
+        pairs += [(out["card"][1][k], out["cpu"][1][k]) for k in cr.NAMES]
+        pairs += [(out["card"][2], out["cpu"][2]), (out["card"][3], out["cpu"][3])]
+        err = max([err] + [((a.cpu() - b).abs() / (1.0 + b.abs())).max().item()
+                           for a, b in pairs])
+        state = {w: (o[0], o[1], o[3]) for w, o in out.items()}
+    log(f"[34] char-RNN train_step in float64 (V {len(lm.vocab)}, H 100, T 25), "
+        f"{CHAR_RNN_CPU_STEPS} steps: params, Adagrad state, loss and h within {err:.2e} of the "
+        f"CPU port's (|card - cpu| / (1 + |cpu|))")
+    check(err <= 1e-10, f"the char-RNN's float64 train_step on the card differs from the CPU "
+          f"({err:.3e})")
+    # CharRnnLm.train and sample_text on the card, float32
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = lm.train(CHAR_RNN_STEPS)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / CHAR_RNN_STEPS
+    t0 = time.perf_counter()
+    out = lm.sample_text(CHAR_RNN_SAMPLE, seed_char="T", rng_seed=1)
+    char_ms = (time.perf_counter() - t0) * 1e3 / CHAR_RNN_SAMPLE
+    first, last = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
+    at = {n: round(float(np.mean(losses[n - 20:n])), 2) for n in (100, 300, 500, 800)}
+    log(f"[34] CharRnnLm on README.md ({len(text)} characters, {len(lm.vocab)} symbols), "
+        f"float32: {CHAR_RNN_STEPS} train steps, mean loss of the first 20 {first:.2f}, of the "
+        f"last 20 {last:.2f} ({last / first:.3f}; of the 20 before steps 100, 300, 500, 800: {at}),"
+        f" smoothed {lm.smooth_loss:.2f}; {step_ms:.3f} ms a train_step (host clock, a float() of "
+        f"the loss a step); {CHAR_RNN_SAMPLE} characters sampled, {char_ms:.3f} ms a character: "
+        f"{out[:60]!r}; phase {time.perf_counter() - t_phase:.1f} s; {card}")
+    check(all(np.isfinite(losses)) and last < 0.5 * first,
+          f"the char-RNN's loss did not fall under half ({first:.2f} -> {last:.2f})")
+    check(len(out) == CHAR_RNN_SAMPLE and set(out) <= set(lm.vocab),
+          "the char-RNN's samples leave the vocabulary")
 
 
 def repeat_corpus(corpus, n, corpus_cls):

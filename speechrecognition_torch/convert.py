@@ -112,3 +112,11 @@ def quant_pack_from_jax(qp, device="cuda"):
                      qcenters_sq=_tensor(qp.qcenters_sq, device, torch.int32),
                      cluster_of=_tensor(qp.cluster_of, device, torch.int32),
                      n_selected=int(qp.n_selected), backoff=float(qp.backoff))
+
+
+def char_rnn_params_from_jax(params, device="cuda"):
+    """The JAX char-RNN's parameter dict (``Wxh``, ``Whh``, ``Why``, ``bh``,
+    ``by``) as the port's, each array in its own float type on ``device``
+    (the card unless the caller asks for the CPU)."""
+    device = pack_device(device, "char-RNN parameters")
+    return {k: _tensor(v, device) for k, v in params.items()}

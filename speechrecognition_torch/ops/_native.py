@@ -180,8 +180,9 @@ SIGNATURES = {
     # (-1: error)
     "sr_linear_scan_residency": ((_I,) * 6, _I),
     # f64, book, bkp, pred, origin, silend, silorg, feat_len, words, B, T, W,
-    # max_words, device, stream
-    "sr_linear_traceback": ((_I,) + (_P,) * 8 + (_I,) * 5 + (_P,), _I),
+    # max_words, first_design (0: the warp design; 1: the first design, a
+    # thread an utterance), device, stream
+    "sr_linear_traceback": ((_I,) + (_P,) * 8 + (_I,) * 6 + (_P,), _I),
     # first_design (0: the tensor-core design; 1: the first design), x, isv,
     # qmeans, qmeans_sq, consts, qcenters, qcenters_sq, cluster_of (the last
     # three NULL without preselection), out, scratch (or NULL), N, S, D, dim,

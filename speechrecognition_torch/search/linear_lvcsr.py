@@ -320,7 +320,9 @@ def traceback_linear_reference(book: torch.Tensor, bkp: torch.Tensor, pred: torc
                                origin: torch.Tensor, silend: torch.Tensor,
                                silorg: torch.Tensor, feat_len: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of ``traceback_linear`` (any device). Same
-    contract."""
+    contract. ``argmin`` picks the first index of the least value, and the
+    first NaN where a row holds one (its silence test is then false), as
+    JAX's ``jnp.argmin`` and ``min`` do."""
     T, B, W = book.shape
     device = book.device
     if T == 0:
@@ -364,8 +366,8 @@ def traceback_linear(book: torch.Tensor, bkp: torch.Tensor, pred: torch.Tensor,
     word to its predecessor at its entry boundary, through that
     predecessor's silence copy's origin; it stops at the sentence start, at
     frame 0 or after MAX_TRACE_WORDS words. CPU tensors take the plain
-    version; CUDA tensors launch kernel N (counted in
-    ``traceback_linear.LAUNCHES``), one thread an utterance."""
+    version; CUDA tensors launch kernel N's warp design (counted in
+    ``traceback_linear.LAUNCHES``), a warp an utterance."""
     if book.device.type == "cpu":
         return traceback_linear_reference(book, bkp, pred, origin, silend, silorg, feat_len)
     words = traceback_linear_cuda(book, bkp, pred, origin, silend, silorg, feat_len)
@@ -378,9 +380,11 @@ traceback_linear.LAUNCHES = 0
 
 def traceback_linear_cuda(book: torch.Tensor, bkp: torch.Tensor, pred: torch.Tensor,
                           origin: torch.Tensor, silend: torch.Tensor, silorg: torch.Tensor,
-                          feat_len: torch.Tensor) -> torch.Tensor:
+                          feat_len: torch.Tensor, first_design: bool = False) -> torch.Tensor:
     """Kernel N's launch on CUDA tensors, as ``traceback_linear`` makes it
-    but not counted."""
+    but not counted. ``first_design`` launches the first design (a thread
+    an utterance, all MAX_TRACE_WORDS steps) in place of the warp design,
+    for timing the two in turns; only this argument launches it."""
     if book.device.type != "cuda":
         raise ValueError(f"traceback_linear: unsupported device {book.device}")
     if book.dtype not in (torch.float32, torch.float64) or silend.dtype != book.dtype:
@@ -401,7 +405,8 @@ def traceback_linear_cuda(book: torch.Tensor, bkp: torch.Tensor, pred: torch.Ten
         int(book.dtype == torch.float64), fl["book"].data_ptr(), ints["bkp"].data_ptr(),
         ints["pred"].data_ptr(), ints["origin"].data_ptr(), fl["silend"].data_ptr(),
         ints["silorg"].data_ptr(), ints["feat_len"].data_ptr(), words.data_ptr(), B, T, W,
-        MAX_TRACE_WORDS, device.index, torch.cuda.current_stream(device).cuda_stream)
+        MAX_TRACE_WORDS, int(bool(first_design)), device.index,
+        torch.cuda.current_stream(device).cuda_stream)
     _native.check(err, "traceback_linear")
     return words
 

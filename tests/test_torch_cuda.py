@@ -56,6 +56,7 @@ from speechrecognition_torch.tdp import TdpModel
 from torch_df_tables import (BACKTRACK_CASES, backtrack_frames, backtrack_inputs,
                              wide_magnitude_pack_df)
 from torch_fb_tables import L_INSTANCES, fb_inputs
+from torch_linear_tables import TRACEBACK_STARTS, TRACEBACK_WIDTHS
 
 pytestmark = pytest.mark.cuda
 
@@ -1298,21 +1299,87 @@ def test_kernel_m_warp_instance_edge(dev, dtype, positions):
             assert torch.equal(g, r) and torch.equal(f, r), (W, key)
 
 
+def traceback_args(dev, dtype, *a, **kw):
+    from torch_linear_tables import traceback_books
+    book, bkp, pred, origin, silend, silorg, lens = traceback_books(*a, **kw)
+    fl = {torch.float32: np.float32, torch.float64: np.float64}[dtype]
+    return [torch.as_tensor(x, device=dev) for x in (book.astype(fl), bkp, pred, origin,
+                                                      silend.astype(fl), silorg, lens)]
+
+
+def kernel_n_designs(args):
+    """Kernel N's words from its counted wrapper (the warp design), from
+    the forced first design and from the plain version."""
+    from speechrecognition_torch.search import linear_lvcsr as tl
+    got = tl.traceback_linear(*args)
+    first = tl.traceback_linear_cuda(*args, first_design=True)
+    ref = tl.traceback_linear_reference(*args)
+    torch.cuda.synchronize()
+    return got, first, ref
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("seed", [0, 1])
 def test_kernel_n_random_books(dev, seed, dtype):
-    """Walks past MAX_TRACE_WORDS words, one ending at the sentence start,
-    one empty utterance."""
+    """Walks past MAX_TRACE_WORDS words (they stop at exactly that many),
+    one ending at the sentence start, one empty utterance: both designs."""
+    got, first, ref = kernel_n_designs(traceback_args(dev, dtype, seed))
+    assert torch.equal(got, ref) and torch.equal(first, ref) and (got[:, 0] >= 0).all()
+    assert got.shape[0] == 128 and (got[:, 2] == -1).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("W", TRACEBACK_WIDTHS)
+@pytest.mark.parametrize("name", list(TRACEBACK_STARTS))
+def test_kernel_n_forced_starts(dev, name, W, dtype):
+    """tests/torch_linear_tables.py's TRACEBACK_STARTS (a NaN first, in the
+    middle and last in the word ends or the silence ends; ties across lane
+    boundaries 0/31/32/63 won by the word end, the silence copy or
+    neither; -0.0 tied with +0.0) at W 1 to 300, B 5: both designs pick
+    argmin's start (the first NaN) and walk to the plain version's words."""
+    got, first, ref = kernel_n_designs(traceback_args(dev, dtype, W, B=5, T=160, W=W,
+                                                      **TRACEBACK_STARTS[name]))
+    assert torch.equal(got, ref) and torch.equal(first, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["nan-book-middle", "nan-silend-last", "ties-31-32-63-silence",
+                                  "signed-zero-31-32-63"])
+@pytest.mark.parametrize("B", [1, 3, 33, 133])
+def test_kernel_n_batches(dev, B, name, dtype):
+    """One utterance, fewer than a block's 4 warps, 33 (a block not full)
+    and 133 (34 blocks): both designs equal the plain version."""
+    got, first, ref = kernel_n_designs(traceback_args(dev, dtype, B, B=B, T=160, W=130,
+                                                      **TRACEBACK_STARTS[name]))
+    assert torch.equal(got, ref) and torch.equal(first, ref)
+
+
+def test_kernel_n_first_design_only_when_forced(dev):
+    """The counted wrapper and traceback_linear_cuda's default launch the
+    warp design; only first_design=True launches the first design (the
+    launches' kernel names, torch.profiler). The counted wrapper counts its
+    launch, the forced one does not."""
     from speechrecognition_torch.search import linear_lvcsr as tl
-    from torch_linear_tables import traceback_books
-    book, bkp, pred, origin, silend, silorg, lens = traceback_books(seed)
-    fl = {torch.float32: np.float32, torch.float64: np.float64}[dtype]
-    args = [torch.as_tensor(a, device=dev) for a in (book.astype(fl), bkp, pred, origin,
-                                                      silend.astype(fl), silorg, lens)]
-    got = tl.traceback_linear(*args)
-    ref = tl.traceback_linear_reference(*args)
+    args = traceback_args(dev, torch.float32, 0)
+    tl.traceback_linear(*args)
     torch.cuda.synchronize()
-    assert torch.equal(got, ref) and (got[:, 0] >= 0).all()
+    launched = {}
+    for tag, call in (("counted", lambda: tl.traceback_linear(*args)),
+                      ("default", lambda: tl.traceback_linear_cuda(*args)),
+                      ("forced", lambda: tl.traceback_linear_cuda(*args, first_design=True))):
+        n0 = tl.traceback_linear.LAUNCHES
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        launched[tag] = ({e.key for e in prof.key_averages() if "linear_traceback" in e.key},
+                         tl.traceback_linear.LAUNCHES - n0)
+    for tag in ("counted", "default", "forced"):
+        names, counted = launched[tag]
+        assert len(names) == 1, (tag, names)
+        (name,) = names
+        assert ("linear_traceback_warp_kernel" in name) == (tag != "forced"), (tag, name)
+        assert ("linear_traceback_kernel" in name) == (tag == "forced"), (tag, name)
+        assert counted == (tag == "counted"), tag
 
 
 @pytest.fixture(scope="module")

@@ -196,6 +196,7 @@ def test_port_imports_no_jax():
         "import speechrecognition_torch.native.loader\n"
         "import speechrecognition_torch.sprint.config, speechrecognition_torch.sprint.am\n"
         "import speechrecognition_torch.lm.arpa, speechrecognition_torch.tools.an4_system\n"
+        "import speechrecognition_torch.lm.char_rnn\n"
         "import speechrecognition_torch.models.quantized\n"
         "import speechrecognition_torch.search.linear_lvcsr\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"

@@ -40,7 +40,9 @@ def test_sources_are_the_eight_kernels_and_the_header():
     histogram header, the scans' order-key header and the search tier's
     block helpers; the scans' instance, residency and scratch queries
     (kernels M and O among them since their redesigns: M's instance, O's
-    tile, scratch and residency)."""
+    tile, scratch and residency). Kernel N keeps its one entry,
+    sr_linear_traceback, whose first_design argument chooses between its
+    warp design and its first design; it has no query."""
     assert [p.name for p in _native._sources()] == SOURCES + ["df.cuh", "histogram.cuh",
                                                               "keys.cuh", "search.cuh"]
     assert "sm_90a" in " ".join(_native.NVCC_FLAGS)

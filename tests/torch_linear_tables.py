@@ -236,12 +236,28 @@ def linear_case(name):
     return lex, tm, lm, lm_start, am, np.asarray(lens, np.int32), thr
 
 
-def traceback_books(seed: int, B: int = 4, T: int = 600, W: int = 3):
+def traceback_books(seed: int, B: int = 4, T: int = 600, W: int = 3, nan=None, ties=(),
+                    sil_offset: float = 1.0, signed_zero: bool = False):
     """Random scan outputs with a scan's structure for the traceback alone
     (book, bkp, pred, origin, silend, silorg as float64 / int32 numpy, and
     lens): entry boundaries and silence origins one or two frames back, so that
     a long utterance walks past MAX_TRACE_WORDS words; one utterance ends at
-    the sentence start early, one is empty."""
+    the sentence start early, one is empty (B >= 3).
+
+    The start of each walk, every utterance's last live row (frame
+    max(len, 1) - 1), can be forced:
+
+    * ``nan``: ("book" or "silend", "first", "middle" or "last"), a NaN at
+      that index of the word ends or the silence ends (argmin picks the
+      first NaN, and the silence test is then false);
+    * ``ties``: indices (those inside the row) where both rows take their
+      least value (the random values are positive), -2.0 in the word ends
+      and -2.0 + ``sil_offset`` in the silence ends (below 0: the silence
+      copy wins; 0: equal, the word wins); the first index must win. With
+      ``signed_zero`` the word ends' ties are 0.0, the first +0.0 and the
+      later ones -0.0, which equal it (the silence ends' likewise when
+      ``sil_offset`` is 0).
+    """
     rng = np.random.default_rng(seed)
     V = W + 1
     t_idx = np.arange(T)[:, None, None]
@@ -249,11 +265,41 @@ def traceback_books(seed: int, B: int = 4, T: int = 600, W: int = 3):
     silend = rng.uniform(0.0, 60.0, (T, B, V))
     bkp = np.maximum(t_idx - rng.integers(1, 3, (T, B, W)), 0).astype(np.int32)
     pred = rng.integers(0, W, (T, B, W)).astype(np.int32)
-    pred[:, 1][rng.uniform(size=(T, W)) < 0.05] = W
+    if B > 1:
+        pred[:, 1][rng.uniform(size=(T, W)) < 0.05] = W
     origin = np.maximum(t_idx - rng.integers(0, 2, (T, B, V)), 0).astype(np.int32)
     silorg = np.maximum(t_idx - rng.integers(1, 5, (T, B, V)), 0).astype(np.int32)
-    lens = np.asarray([T, T - 17, 0] + [int(rng.integers(1, T))] * (B - 3), np.int32)
+    lens = np.asarray(([T, T - 17, 0] + [int(rng.integers(1, T))] * (B - 3))[:B], np.int32)
+    last = np.minimum(np.maximum(lens, 1) - 1, T - 1)
+    rows = (last, np.arange(B))
+    low = 0.0 if signed_zero else -2.0
+    for a, n, value in ((book, W, low), (silend, V, low + sil_offset)):
+        for k, i in enumerate(i for i in ties if i < n):
+            a[rows + (i,)] = -0.0 if k and value == 0.0 else value
+    if nan is not None:
+        where, which = nan
+        a = book if where == "book" else silend
+        n = a.shape[2]
+        a[rows + ({"first": 0, "middle": n // 2, "last": n - 1}[which],)] = np.nan
     return book, bkp, pred, origin, silend, silorg, lens
+
+
+#: kernel N's forced starts: name → traceback_books options (NaNs first,
+#: in the middle and last; ties across the warp design's lane boundaries,
+#: won by the word end, the silence copy or neither; -0.0 against +0.0)
+TRACEBACK_STARTS = {
+    "random": {},
+    **{f"nan-{where}-{which}": {"nan": (where, which)}
+       for where in ("book", "silend") for which in ("first", "middle", "last")},
+    "ties-0-31-32-63": {"ties": (0, 31, 32, 63)},
+    "ties-31-32-63": {"ties": (31, 32, 63)},
+    "ties-31-32-63-silence": {"ties": (31, 32, 63), "sil_offset": -1.0},
+    "ties-0-31-32-63-equal": {"ties": (0, 31, 32, 63), "sil_offset": 0.0},
+    "signed-zero-31-32-63": {"ties": (31, 32, 63), "sil_offset": 0.0, "signed_zero": True},
+}
+#: the widths kernel N's starts are checked at: one word, a lane's worth
+#: and either side of it, the AN4 lexicon's 130 and past 256
+TRACEBACK_WIDTHS = (1, 31, 32, 33, 130, 300)
 
 
 # -- the reference's silence-copy oracle (tests/test_linear_lvcsr.py:27-117) ---
