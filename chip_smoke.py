@@ -264,6 +264,19 @@ kernel against its plain PyTorch version on the same tensors:
      CHAR_RNN_STEPS steps in float32 (the mean loss of the last 20 steps
      under half the first 20's) and 200 sampled characters inside the
      vocabulary, with milliseconds a train_step and a character.
+ 35. the lattice tier's one device path: an Flf network (search/flf_network.py)
+     whose recognizer node decodes the SieTill demo system (iter-2.mix, 106
+     mixtures at dim 25, the golden TDPs and word penalty, am-threshold 200)
+     on the card, rec -> best and rec -> CN-builder -> CN-decoder, over the
+     35 demo segments at the default device (the main path; J's launches
+     are read from this run and added to decode_scan_bigram[f64]'s): 35 of
+     35 best paths equal the golden hyps; each lattice equals the CPU port's
+     node's (arcs and words exactly, scores within FLF_SCORE_RTOL); the
+     profiler sees kernel J once a segment (in a fresh process: late in
+     this script it records fewer launches than were made); the CN
+     decodes' word errors within the best paths' + max(2, 2 %); ms a
+     segment (host clock, median of three passes after a warm-up) and J's
+     device time within it.
 
 Kernels B, D, G and N are timed by their device time (torch.profiler), since
 B and D's wrappers synchronise on a range check and a call timed by events
@@ -286,6 +299,7 @@ plain_ms, bound_ms, bound_by, library_ms).
 import ctypes
 import functools
 import importlib.util
+import io
 import json
 import os
 import subprocess
@@ -1241,6 +1255,12 @@ def main():
     disc = discriminative_phases(dev, card, lex, corpus, big, bench, iter2)
     lvcsr = lvcsr_phases(dev, card)
     char_rnn_phase(dev, card)
+    flf_launches = flf_phase(dev, card)
+    j64 = [e for e in search if e["name"] == "decode_scan_bigram[f64]"]
+    check(len(j64) == 1, "one decode_scan_bigram[f64] entry in the search tier's kernels")
+    log(f"[35] decode_scan_bigram[f64] launches: {j64[0]['launches']} on the bigram decode "
+        f"(phase 24) + {flf_launches} on the Flf recognizer")
+    j64[0]["launches"] += flf_launches
     check("jax" not in sys.modules, "the port imported jax")
 
     kernels = [
@@ -4553,6 +4573,156 @@ def char_rnn_phase(dev, card):
           f"the char-RNN's loss did not fall under half ({first:.2f} -> {last:.2f})")
     check(len(out) == CHAR_RNN_SAMPLE and set(out) <= set(lm.vocab),
           "the char-RNN's samples leave the vocabulary")
+
+
+#: phase 35's profiled pass, run in a fresh process: argv the repo, the
+#: network config and the segment names; prints the device events as JSON
+FLF_PROFILE_CHILD = """
+import io, json, sys, time
+import torch
+sys.path.insert(0, sys.argv[1])
+from speechrecognition_torch.lexicon import build_sietill_lexicon
+from speechrecognition_torch.search.flf_network import FlfNetwork
+from speechrecognition_torch.sprint.config import SprintConfig
+lex = build_sietill_lexicon()
+net = FlfNetwork.parse(SprintConfig.read(sys.argv[2]), list(lex.orth), silence=lex.silence_idx)
+names = sys.argv[3].split(",")
+net.run(names, out=io.StringIO())
+torch.cuda.synchronize()
+acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+with torch.profiler.profile(activities=acts) as prof:
+    t0 = time.perf_counter()
+    net.run(names, out=io.StringIO())
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+us = lambda e: getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+print(json.dumps({"seconds": secs, "events": [
+    [e.key, e.count, us(e)] for e in prof.key_averages()
+    if e.device_type == torch.autograd.DeviceType.CUDA]}))
+"""
+
+#: phase 35: arc scores of the card's recognizer lattices against the CPU
+#: port's, relative: the f64 scores are sums of cuBLAS products on the card
+#: and of the CPU's BLAS products there, nothing else differs
+FLF_SCORE_RTOL = 1e-9
+FLF_PASSES = 3
+
+
+def flf_phase(dev, card):
+    """Phase 35: the Flf network's recognizer node on the card (see the
+    module docstring). Returns kernel J's launches on this path."""
+    from speechrecognition_torch.lexicon import build_sietill_lexicon
+    from speechrecognition_torch.search import ngram_decoder as ng
+    from speechrecognition_torch.search.flf_network import FlfNetwork
+    from speechrecognition_torch.sprint.config import SprintConfig
+    t_phase = time.perf_counter()
+    ft = tables_module("torch_flf_tables")
+    with open(FIX / "demo_recognition.json") as f:
+        golden = json.load(f)
+    lex = build_sietill_lexicon()
+    names = ft.demo_segment_names()
+    check(len(names) == 35, "the demo corpus has 35 segments")
+    def write_config(tmp):
+        return str(ft.recognizer_config(
+            Path(tmp) / "net.config", golden["config"], links="best cn",
+            extra="[network.cn]\ntype = CN-builder\nlinks = cndec\n"
+                  "[network.cndec]\ntype = CN-decoder\n"))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = SprintConfig.read(write_config(tmp))
+    nets = {d: FlfNetwork.parse(cfg, list(lex.orth), silence=lex.silence_idx,
+                                **({} if d == "card" else {"device": "cpu"}))
+            for d in ("card", "cpu")}
+    check(nets["card"].device == "cuda", "the Flf network's default device is the card")
+
+    def run(d):
+        return nets[d].run(names, out=io.StringIO())
+
+    run("card")                             # warm-up: builds the recognizer, loads the kernels
+    torch.cuda.synchronize()
+    ng.decode_scan_bigram.LAUNCHES = 0
+    res = run("card")
+    torch.cuda.synchronize()
+    launches = ng.decode_scan_bigram.LAUNCHES
+    check(launches == len(names), f"kernel J launched {launches} times on {len(names)} segments")
+    check(len(nets["card"]._archives_misc) == 1, "one recognizer, cached on the network")
+    hyps = {u["idx"]: u["hyp"] for u in golden["utts"]}
+    wrong = [n for i, n in enumerate(names)
+             if [w for w in res[n]["best"] if w != lex.silence_idx] != hyps[i]]
+    check(not wrong, f"Flf best paths differ from the golden hyps at {wrong}")
+
+    t0 = time.perf_counter()
+    cpu = run("cpu")
+    cpu_s = time.perf_counter() - t0
+    worst, arcs = 0.0, 0
+    for n in names:
+        a, b = res[n]["rec"], cpu[n]["rec"]
+        check([(x.start, x.end, x.word) for x in a.arcs] ==
+              [(x.start, x.end, x.word) for x in b.arcs] and a.num_frames == b.num_frames,
+              f"the card's lattice of {n} differs in its arcs from the CPU port's")
+        for x, y in zip(a.arcs, b.arcs):
+            check(np.isfinite(x.score), f"a non-finite arc score in {n}")
+            worst = max(worst, abs(x.score - y.score) / max(abs(y.score), 1e-300))
+        arcs += len(a.arcs)
+    check(worst <= FLF_SCORE_RTOL, f"the card's arc scores differ from the CPU port's by "
+          f"{worst:.3e} relative")
+    cn_differ = [n for n in names if res[n]["cndec"] != cpu[n]["cndec"]]
+
+    from speechrecognition_torch.search.edit_distance import edit_distance
+    ref_of = {u["idx"]: u["ref"] for u in golden["utts"]}
+    refs = {n: ref_of[i] for i, n in enumerate(names)}
+    err_best = sum(edit_distance(refs[n], [w for w in res[n]["best"] if w != lex.silence_idx])
+                   .total_count for n in names)
+    err_cn = sum(edit_distance(refs[n], [w for w in res[n]["cndec"] if w != lex.silence_idx])
+                 .total_count for n in names)
+    total = sum(len(r) for r in refs.values())
+    check(err_cn <= err_best + max(2, int(0.02 * total)),
+          f"CN consensus errors {err_cn} against the best paths' {err_best}")
+
+    passes = []
+    for _ in range(FLF_PASSES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run("card")
+        torch.cuda.synchronize()
+        passes.append((time.perf_counter() - t0) * 1e3 / len(names))
+    S, W, P = lex.num_states, lex.num_words, lex.max_positions
+    check(S == 106, f"the demo system has 106 mixtures, not {S}")
+    frames = sum(res[n]["rec"].num_frames for n in names)
+    log(f"[35] Flf recognizer network (rec -> best, rec -> CN-builder -> CN-decoder) on the card, "
+        f"35 demo segments ({frames} frames), f64 \"mxu\" scores, kernel J at B=1: 35/35 golden "
+        f"best paths; lattices ({arcs} arcs) equal the CPU port's, scores within {worst:.3e} "
+        f"relative; CN decodes that differ from the CPU port's: {len(cn_differ)} {cn_differ}; "
+        f"word errors best path {err_best}, CN {err_cn} of {total}; kernel J launches "
+        f"{launches}")
+    # the profiled pass runs in a fresh process: late in this script the
+    # profiler records fewer launches than were made (device_ms), for kernel J
+    # here 32 of 35 in each of three padded windows (PERF.md §7)
+    with tempfile.TemporaryDirectory() as tmp:
+        child = subprocess.run([sys.executable, "-c", FLF_PROFILE_CHILD, str(REPO),
+                                write_config(tmp), ",".join(names)], cwd=REPO,
+                               capture_output=True, text=True, timeout=600)
+    check(child.returncode == 0, f"the profiled Flf run failed:\n{child.stderr[-2000:]}")
+    prof = json.loads(child.stdout.strip().splitlines()[-1])
+    j_us = [(n, us) for key, n, us in prof["events"] if "bigram_scan" in key]
+    j_n, j_ms = sum(n for n, _ in j_us), sum(us for _, us in j_us) / 1e3
+    check(j_n == len(names), f"the profiler saw kernel J {j_n} times on {len(names)} segments")
+    bounds = [bigram_bound(1, res[n]["rec"].num_frames, S, W, P, 8) for n in names]
+    bnd = (sum(b[0] for b in bounds), bounds[0][1])
+    log(f"[35] Flf recognizer: {float(np.median(passes)):.4f} ms a segment (host clock, median "
+        f"of {FLF_PASSES} passes after a warm-up: {', '.join(f'{v:.4f}' for v in passes)}); "
+        f"kernel J's device time {j_ms / len(names):.4f} ms a segment ({j_ms:.4f} ms over the 35, "
+        f"{j_n} launches in the profiled pass, a fresh process), "
+        f"its bound {bnd[0] / len(names):.6f} ms a segment ({bnd[1]}); the CPU port's node "
+        f"{cpu_s * 1e3 / len(names):.4f} ms a segment; phase {time.perf_counter() - t_phase:.1f} "
+        f"s; {card}")
+    busy_us = sum(us for _key, _n, us in prof["events"])
+    log(f"[35] Flf recognizer profiled pass: device busy share "
+        f"{busy_us / 1e6 / prof['seconds']:.4f} ({busy_us / 1e3:.1f} ms of device time in "
+        f"{prof['seconds']:.4f} s)")
+    for key, n, us in sorted(prof["events"], key=lambda e: -e[2])[:8]:
+        log(f"[35]   {us / 1e3:10.3f} ms  {n:6d}x  {key[:90]}")
+    return launches
 
 
 def repeat_corpus(corpus, n, corpus_cls):

@@ -199,6 +199,15 @@ def test_port_imports_no_jax():
         "import speechrecognition_torch.lm.char_rnn\n"
         "import speechrecognition_torch.models.quantized\n"
         "import speechrecognition_torch.search.linear_lvcsr\n"
+        "import speechrecognition_torch.fsa, speechrecognition_torch.fsa.lazy\n"
+        "import speechrecognition_torch.fsa.alphabet, speechrecognition_torch.fsa.tail\n"
+        "import speechrecognition_torch.lm.ngram, speechrecognition_torch.lm.variants\n"
+        "import speechrecognition_torch.sprint.bliss, speechrecognition_torch.search.flf\n"
+        "import speechrecognition_torch.search.flf_rescore\n"
+        "import speechrecognition_torch.search.flf_closure\n"
+        "import speechrecognition_torch.search.flf_compose\n"
+        "import speechrecognition_torch.search.flf_network\n"
+        "import speechrecognition_torch.search.flf_cn\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m.startswith('speechrecognition_tpu'))\n"
         "assert not bad, bad\n"
