@@ -13,8 +13,10 @@ and word-conditioned tree searches (decode_batch_bigram, decode_batch_wcts),
 the streaming recognizers and the LVCSR tier's 1-best decode
 (tools.an4_system.decode: the int8 quantized scorer, the linear-lexicon scan
 and its device traceback), each at full width — its EM trainer (Trainer(..., dtype="df32")
-.train), its NN trainer (NnTrainer.train) and its char-RNN LM
-(CharRnnLm.train), and holds each hand-written
+.train), its NN trainer (NnTrainer.train), its char-RNN LM
+(CharRnnLm.train) and the Sprint tier's system at AN4 width
+(tools.an4_system.build_system, load_corpus, train_model, the
+allophone-state alignments and Baum-Welch passes), and holds each hand-written
 kernel against its plain PyTorch version on the same tensors:
 
   1. the card's name and power limit (nvidia-smi);
@@ -64,7 +66,8 @@ kernel against its plain PyTorch version on the same tensors:
      WER 19.587629 %, S/I/D 4/14/1, through the new kernels;
  11. full width, df32 (the production path; launch counts are read from this
      run): bench/model.mix on the 1024-utterance batch through kernels C and D
-     and through the plain versions: equal transcripts, each equal to the
+     and through the plain versions (cut to PLAIN_CUT utterances past
+     PLAIN_BUDGET_S projected seconds): equal transcripts, each equal to the
      35-utterance df32 run; the count that differ from the f64 decode;
  12. the CLI's recognize on a temporary demo config with --device cuda:
      exit 0 and the golden WER line;
@@ -206,7 +209,7 @@ kernel against its plain PyTorch version on the same tensors:
      MpeTrainer.iterate(compute_after=True) and one profiled
      EbwTrainer.iterate on a fresh model, seconds split into lattices, arc
      alignment, accumulation, update and criterion, launches of J, E and
-     G, peak memory; the first 64 utterances through the kernels and
+     G, peak memory; the first 32 utterances through the kernels and
      through their plain versions: identical lattices and arc alignments,
      equal statistics and updated parameters; the 35 demo utterances in
      float64 (iter-2.mix): the card's MPE and MMI iterations within 1e-9 of
@@ -276,7 +279,26 @@ kernel against its plain PyTorch version on the same tensors:
      this script it records fewer launches than were made); the CN
      decodes' word errors within the best paths' + max(2, 2 %); ms a
      segment (host clock, median of three passes after a warm-up) and J's
-     device time within it.
+     device time within it;
+ 36. the Sprint tier's alignment and training path at AN4 width, on the
+     seeded files of tests/torch_sprint_tables.py (written under
+     build/sprint36/: a Bliss lexicon of 131 entries and corpus of 130
+     segments, a CART tree of 501 classes, the AN4 config's TDP block, an
+     MFCC cache of dim 16 and 35,570 frames, an LDA to 45 dimensions and the
+     three Flow files of cache.lda.flow): tools.an4_system.build_system,
+     load_corpus (the Flow network) and train_model in df32 (3 splits, 2
+     aligns, 3 estimates, threshold 300; launch counts read from this run,
+     its phase split), sprint/mm_io's round trip, aligner_tables_for_orths
+     over the 130 orthographies (chains of up to about 300 positions, so
+     kernels E, F and L take their block instances), align_batch_chunked in
+     f32 "pallas" (A fused, E, G), f64 "mxu" (E, G) and df32 (C, F, G), and
+     baum_welch_posteriors in f64 "mxu" and f32 "pallas" (L); each kernel's
+     last recorded calls held against its plain version on the same inputs
+     (bit-equal; A fused within A_REL_TOL relative; H's counts bit-equal
+     and sums within 1e-12), timed in turns beside its bound; wall seconds
+     of every step and the host share of the df32 alignment and the
+     Baum-Welch pass (profiler, in a fresh process, in a window that
+     recorded every launch the wrappers counted).
 
 Kernels B, D, G and N are timed by their device time (torch.profiler), since
 B and D's wrappers synchronise on a range check and a call timed by events
@@ -324,14 +346,14 @@ C_F64_REL = 2.0 ** -38
 C_F64_ABS = 2.0 ** -30
 #: seconds of plain full-width df32 decode past which the plain comparison
 #: is cut to the first PLAIN_CUT utterances
-PLAIN_BUDGET_S = 240.0
+PLAIN_BUDGET_S = 10.0
 PLAIN_CUT = 128
 #: the trainer's alignment batch (train-batch-size)
 TRAIN_BATCH = 256
 #: projected seconds of the plain full-width df32 trainer past which its
 #: comparison is cut to the first PLAIN_TRAIN_CUT utterances
-PLAIN_TRAIN_BUDGET_S = 300.0
-PLAIN_TRAIN_CUT = 256
+PLAIN_TRAIN_BUDGET_S = 60.0
+PLAIN_TRAIN_CUT = 128
 #: NVIDIA's H100 SXM data sheet: HBM3 bandwidth, and the FP32 and FP64 peaks
 #: outside the tensor cores (an FMA counted as two operations)
 HBM_BYTES_S = 3.35e12
@@ -1256,6 +1278,7 @@ def main():
     lvcsr = lvcsr_phases(dev, card)
     char_rnn_phase(dev, card)
     flf_launches = flf_phase(dev, card)
+    sprint = sprint_phase(dev, card)
     j64 = [e for e in search if e["name"] == "decode_scan_bigram[f64]"]
     check(len(j64) == 1, "one decode_scan_bigram[f64] entry in the search tier's kernels")
     log(f"[35] decode_scan_bigram[f64] launches: {j64[0]['launches']} on the bigram decode "
@@ -1284,6 +1307,7 @@ def main():
         *search,
         *disc,
         *lvcsr,
+        *sprint,
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -3507,7 +3531,7 @@ L_POS_OPS = 22 + 22 + 7
 #: utterances a Baum-Welch batch (kernel E's phase-13 batch)
 L_BATCH = 256
 #: utterances of phase 30's plain comparison
-PLAIN_DISC_CUT = 64
+PLAIN_DISC_CUT = 32
 #: phase 30's demo run on the card against the CPU port (float64)
 DISC_CPU_TOL = 1e-9
 
@@ -4723,6 +4747,466 @@ def flf_phase(dev, card):
     for key, n, us in sorted(prof["events"], key=lambda e: -e[2])[:8]:
         log(f"[35]   {us / 1e3:10.3f} ms  {n:6d}x  {key[:90]}")
     return launches
+
+
+#: phase 36's profiled runs, in a fresh process: argv the repo, a pickle of
+#: (model, features, lengths, tables, threshold), PROFILE_PAD_S and
+#: PROFILE_TRIES. The df32 alignment and the f32 Baum-Welch pass each run
+#: once to warm up, then in windows padded with idle time until the profiler
+#: holds as many launches of each kernel as its wrapper counted (at most
+#: PROFILE_TRIES windows); prints each run's seconds, windows, launches
+#: counted and seen, and device events as JSON
+SPRINT_PROFILE_CHILD = """
+import json, pickle, sys, time
+import torch
+sys.path.insert(0, sys.argv[1])
+from speechrecognition_torch.align import baumwelch as bw, viterbi as vit
+from speechrecognition_torch.models import gmm
+from speechrecognition_torch.ops import mahalanobis as maha
+pad, tries = float(sys.argv[3]), int(sys.argv[4])
+with open(sys.argv[2], "rb") as f:
+    model, feats, lens, tables, pruning = pickle.load(f)
+dev = torch.device("cuda", 0)
+df = model.pack_df(device=dev)
+f32 = model.pack(dtype=torch.float32, method="pallas", device=dev)
+runs = {"align df32": (
+            lambda: vit.align_batch_chunked(df, feats, lens, tables, pruning, dtype="df32"),
+            {"am_scores_df_kernel": gmm.am_scores_df, "align_fwd_df_": vit.align_fwd_chunk_df,
+             "align_backtrack_kernel": vit.align_backtrack}),
+        "Baum-Welch f32 pallas": (
+            lambda: bw.baum_welch_posteriors(f32, feats, lens, tables, dtype=torch.float32),
+            {"mahalanobis_kernel": maha.mahalanobis_min_scores,
+             "fb_block_kernel": bw.forward_backward})}
+us = lambda e: getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+out = {}
+for tag, (fn, kernels) in runs.items():
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, tries + 1):
+        for w in kernels.values():
+            w.LAUNCHES = 0
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            time.sleep(pad)
+        events = [[e.key, e.count, us(e)] for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        seen = {k: sum(n for key, n, _ in events if k in key) for k in kernels}
+        launched = {k: w.LAUNCHES for k, w in kernels.items()}
+        if seen == launched:
+            break
+    out[tag] = {"seconds": secs, "tries": attempt, "seen": seen, "launched": launched,
+                "events": events}
+print(json.dumps(out))
+"""
+
+#: phase 36: the root tool's training recipe (3 splits; 2 aligns and 3
+#: estimates a split and threshold 300 are train_model's own)
+SPRINT_SPLITS = 3
+#: phase 36: the Baum-Welch passes' and the Viterbi alignments' utterances
+#: (the whole corpus in one batch, as the trainer's realignment takes it)
+SPRINT_SEGMENTS = 130
+
+
+class Recorder:
+    """Calls a kernel wrapper and keeps its last ``keep`` calls' (args,
+    kwargs, result) in ``calls``. Every other attribute is the wrapper's
+    own: a wrapper counts its launches on its module-level name, which is
+    this object while it is patched in, so the counts stay on the wrapper."""
+
+    def __init__(self, fn, calls, keep):
+        vars(self).update(fn=fn, calls=calls, keep=keep)
+
+    def __call__(self, *a, **k):
+        out = self.fn(*a, **k)
+        self.calls.append((a, k, out))
+        del self.calls[:-self.keep]
+        return out
+
+    def __getattr__(self, attr):
+        return getattr(self.fn, attr)
+
+    def __setattr__(self, attr, value):
+        setattr(self.fn, attr, value)
+
+
+def recorded(stack, mod, name, keep):
+    """Patch ``mod.name`` with a Recorder while ``stack`` is open; returns
+    its list of calls."""
+    calls = []
+    stack.enter_context(mock.patch.object(mod, name, Recorder(getattr(mod, name), calls, keep)))
+    return calls
+
+
+def flat(out):
+    """A kernel's outputs as a flat list of tensors (DF pairs split)."""
+    items = out if isinstance(out, (tuple, list)) else (out,)
+    res = []
+    for x in items:
+        res.extend([x.hi, x.lo] if hasattr(x, "hi") else [x])
+    return res
+
+
+def sprint_phase(dev, card):
+    """Phase 36: the Sprint tier's alignment and training path at AN4 width
+    (see the module docstring). Returns the kernels' JSON entries."""
+    import contextlib
+    import pickle
+    import re
+    import shutil
+    from speechrecognition_torch.align import baumwelch as bw
+    from speechrecognition_torch.align import viterbi as vit
+    from speechrecognition_torch.io import read_mixture_set
+    from speechrecognition_torch.models import gmm
+    from speechrecognition_torch.ops import mahalanobis as maha
+    from speechrecognition_torch.sprint import mm_io
+    from speechrecognition_torch.sprint.state_graph import (AllophoneStateGraphBuilder,
+                                                            aligner_tables_for_orths)
+    from speechrecognition_torch.tools import an4_system as an4
+    from speechrecognition_torch.train import em
+    t_phase = time.perf_counter()
+    st = tables_module("torch_sprint_tables")
+    root = REPO / "build" / "sprint36"
+    shutil.rmtree(root, ignore_errors=True)
+    wall = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall[name] = time.perf_counter() - t0
+        return out
+
+    setup = timed("write the seeded setup", lambda: st.write_setup(str(root / "setup"), seed=0))
+    cfg, corpus_xml, asm, lex, tm, net, pruning, _lm_scale = timed(
+        "build_system", lambda: an4.build_system(**setup.build_system_args()))
+    corpus, _ws = timed("load_corpus (Flow)", lambda: an4.load_corpus(corpus_xml, lex, net))
+    check((corpus.num_segments, corpus.total_frames, corpus.dim, asm.num_classes,
+           lex.num_words) == (130, 35570, 45, 501, 131),
+          f"the AN4 shape: {corpus.num_segments} segments, {corpus.total_frames} frames, dim "
+          f"{corpus.dim}, {asm.num_classes} classes, {lex.num_words} entries")
+    builder = AllophoneStateGraphBuilder(model=asm, transition=tm)
+    tables = timed("state graphs", lambda: aligner_tables_for_orths(
+        builder, [seg.orth for seg in corpus_xml.segments]))
+    A = tables.states.shape[1]
+    short = [s for s in range(corpus.num_segments) if tables.lengths[s] > corpus.lengths[s]]
+    log(f"[36] seeded AN4-shape setup: {corpus.num_segments} segments, "
+        f"{corpus.total_frames} frames (the longest {int(corpus.lengths.max())}), "
+        f"{lex.num_words} search-lexicon entries, {asm.num_classes} tied classes, Flow "
+        f"features {corpus.features.shape} (cache dim 16, window 9 right 4, LDA 45); "
+        f"state-graph chains of {int(tables.lengths.min())} to {A} positions; chains longer "
+        f"than their segment: {len(short)} {short}; the AN4 TDPs (silence skip "
+        f"{tm.silence.skip}), acoustic pruning {pruning}")
+
+    # -- the df32 trainer, the training main path (launch counts) --------------------
+    counters = {"A": maha.mahalanobis_min_scores, "A unfused": maha.mahalanobis_scores,
+                "C": gmm.am_scores_df, "E": vit.align_fwd_chunk, "F": vit.align_fwd_chunk_df,
+                "G": vit.align_backtrack, "H": gmm.em_pass_sorted, "L": bw.forward_backward}
+
+    def zero():
+        for fn in counters.values():
+            fn.LAUNCHES = 0
+
+    def counts():
+        return {k: fn.LAUNCHES for k, fn in counters.items()}
+
+    lines = []
+    zero()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(
+            an4, "log", lambda *a: lines.append(" ".join(map(str, a)))))
+        n_chunks = -(-int(corpus.lengths.max()) // vit.ALIGN_CHUNK)
+        rec = {"C": recorded(stack, gmm, "am_scores_df", n_chunks),
+               "F": recorded(stack, vit, "align_fwd_chunk_df", n_chunks),
+               "G": recorded(stack, vit, "align_backtrack", 1),
+               "H": recorded(stack, em, "em_pass_sorted", 1)}
+        model, train_s = timed("train_model (df32)", lambda: an4.train_model(
+            corpus, lex, asm, str(root), SPRINT_SPLITS, "df32"))
+    train_counts = counts()
+    split = {m.group(1): float(m.group(2)) for m in
+             (re.match(r"(.+?)\s+took ([\d.]+) seconds", ln) for ln in lines) if m}
+    scores = [float(ln.split(":")[1]) for ln in lines if ln.startswith("AM score")]
+    check(train_counts["E"] == 0 and all(train_counts[k] > 0 for k in "CFGH"),
+          f"the df32 trainer's kernels: {train_counts}")
+    check(scores and all(np.isfinite(scores)), "the trainer's AM scores are finite")
+    audio_s = corpus.total_frames * corpus.frame_duration
+    log(f"[36] train_model df32 ({SPRINT_SPLITS} splits, 2 aligns, 3 estimates, threshold 300): "
+        f"{train_s:.4f} s ({train_s / audio_s:.5f} s a second of audio over {audio_s:.1f} s), "
+        f"{model.num_densities()} densities; AM score {scores[0]:.6g} -> {scores[-1]:.6g}; "
+        f"phase split {split}; launches {train_counts} on {card}")
+
+    # -- the kernels of the trainer against their plain versions (its last calls) ----
+    res, errs = {}, {}
+
+    def check_calls(name, calls, plain, tol=None, key=None):
+        """Each recorded call's outputs against the plain version's on the same
+        inputs: bit-equal, or (``tol``) within tol relative. Keeps the largest
+        absolute difference in ``errs[key or name]``; returns the largest
+        relative one."""
+        worst, err = 0.0, 0.0
+        for a, k, out in calls:
+            ref = plain(*a, **k)
+            got, want = flat(out), flat(ref)
+            if tol is None:
+                same, e = bit_equal(got, want)
+                check(same, f"kernel {name} is not bit-equal to its plain version")
+                err = max(err, e)
+            else:
+                for g, r in zip(got, want):
+                    worst = max(worst, max_rel(g, r))
+                err = max(err, max((g.double() - r.double()).abs().max().item()
+                                   for g, r in zip(got, want)))
+        errs[key or name] = max(errs.get(key or name, 0.0), err)
+        return worst
+
+    check_calls("C", rec["C"], gmm.am_scores_df_reference)
+    check_calls("F", rec["F"], vit.align_fwd_chunk_df_reference)
+    check_calls("G", rec["G"], vit.align_backtrack_reference)
+    (a_h, k_h, out_h), = rec["H"]
+    ref_h = gmm.em_pass_sorted_reference(*a_h, **k_h)
+    check(torch.equal(out_h[1], ref_h[1]), "kernel H's counts differ from its plain version")
+    h_rel = max(max_rel(out_h[i], ref_h[i]) for i in (0, 2, 3))
+    check(h_rel <= 1e-12, f"kernel H's sums differ from its plain version by {h_rel:.3e}")
+    errs["H"] = max((g - r).abs().max().item() for g, r in zip(out_h, ref_h))
+    log(f"[36] the trainer's last realignment and E-step against the plain versions: C "
+        f"{len(rec['C'])} calls bit-equal (hi, lo), F {len(rec['F'])} chunks bit-equal (carry, "
+        f"jumps), G bit-equal (states, final positions); H counts bit-equal, sums within "
+        f"{h_rel:.3e} relative (limit 1e-12)")
+
+    a_c, k_c, _ = rec["C"][0]
+    N_c = a_c[1].shape[0]
+    c_ms, c_plain, c_all = in_turns(lambda: gmm.am_scores_df_reference(*a_c, **k_c),
+                                    lambda: gmm.am_scores_df(*a_c, **k_c), 1, 10)
+    S_c, D_c, dim = a_c[0].num_mixtures, a_c[0].density_cap, corpus.dim
+    J_c = S_c * D_c
+    c_bnd = bound(4 * N_c * dim + 8 * (2 * J_c * dim + 2 * J_c) + 8 * N_c * S_c,
+                  fp32=N_c * J_c * dim * C_ELEMENT_OPS + N_c * J_c * C_DENSITY_OPS)
+    res["C"] = (c_ms, c_plain, c_bnd)
+    a_f, k_f, _ = rec["F"][0]
+    f_ms, f_plain, f_all = in_turns(lambda: vit.align_fwd_chunk_df_reference(*a_f, **k_f),
+                                    lambda: vit.align_fwd_chunk_df(*a_f, **k_f), 1, 10)
+    B_f, C_f, A_f = a_f[1].hi.shape
+    res["F"] = (f_ms, f_plain, align_bound(B_f, C_f, A_f, 8, df=True))
+    a_g, k_g, _ = rec["G"][0]
+    g_ms, g_plain, g_all, g_call = kernel_in_turns(
+        lambda: vit.align_backtrack_reference(*a_g, **k_g),
+        lambda: vit.align_backtrack(*a_g, **k_g), 1, 10, "align_backtrack_kernel",
+        bare=g_bare(*a_g, **k_g))
+    Tp_g, B_g, A_g = a_g[2].shape
+    res["G"] = (g_ms, g_plain,
+                bound(B_g * (Tp_g + 2 * A_g * 4 + 4 * a_g[5] + 4 + 3 * 4)))
+    h_ms, h_plain, h_all = in_turns(lambda: gmm.em_pass_sorted_reference(*a_h, **k_h),
+                                    lambda: gmm.em_pass_sorted(*a_h, **k_h), 1, 10)
+    NB_h, R_h = a_h[2].shape
+    live_h = int(a_h[2].sum().item())
+    S_h, D_h = a_h[0].num_mixtures, a_h[0].density_cap
+    res["H"] = (h_ms, h_plain, bound(
+        4 * NB_h * R_h * (dim + 1) + 4 * NB_h + 8 * (2 * S_h * D_h * dim + 2 * S_h * D_h)
+        + 8 * (2 * S_h * D_h * dim + S_h * D_h + 1),
+        fp32=live_h * D_h * (dim * C_ELEMENT_OPS + C_DENSITY_OPS),
+        fp64=live_h * (dim * H_ROW_DIM_F64 + H_ROW_F64)))
+    for name, shape in (("C", f"N={N_c} S={S_c} D={D_c} dim={dim}"),
+                        ("F", f"B={B_f} C={C_f} A={A_f} "
+                              f"({instance('sr_align_fwd_df_warps', A_f)})"),
+                        ("G", f"B={B_g} Tp={Tp_g} A={A_g} ({vit_tile(A_g)} frames a tile)"),
+                        ("H", f"NB={NB_h} x {R_h} rows, {live_h} live, S={S_h} D={D_h}")):
+        ms, plain_ms, bnd = res[name]
+        log(f"[36] kernel {name} at {shape}, the trainer's: kernel {ms:.4f} ms"
+            f"{' (device time)' if name == 'G' else ''}, plain {plain_ms:.4f} ms; bound "
+            f"{bnd[0]:.4f} ms ({bnd[1]}), {ms / bnd[0]:.1f}x it"
+            + (f"; {ms / C_f * 1e3:.3f} us a frame" if name == "F" else "") + f" on {card}")
+
+    # -- mm_io's round trip ----------------------------------------------------------
+    pms = str(root / "am.pms")
+    timed("mm_io write", lambda: mm_io.write_sprint_mixture_set(pms, model))
+    dim_r, mixtures, densities, means, covs = timed(
+        "mm_io read", lambda: mm_io.read_sprint_mixture_set(pms))
+    kept = [[(mi, vi) for mi, vi in model.mixtures[s] if np.isfinite(model.means[mi]).all()
+             and np.isfinite(model.mean_weights_log[mi])] for s in range(model.num_mixtures)]
+    same = (dim_r == model.dim and [len(m) for m in mixtures] == [len(k) for k in kept]
+            and all(np.array_equal(means[densities[d][0]], model.means[mi])
+                    and lw == model.mean_weights_log[mi]
+                    for row, krow in zip(mixtures, kept) for (d, lw), (mi, _v) in zip(row, krow))
+            and np.array_equal(covs[0], model.vars[0]))
+    back = read_mixture_set(str(root / "am.mix"), corpus.dim)
+    log(f"[36] mm_io: {len(densities)} densities of {len(mixtures)} mixtures written and read "
+        f"back equal {same} ({model.num_densities() - len(densities)} of classes no frame "
+        f"reached dropped); am.mix read back: {len(back.mixtures)} mixtures")
+    check(same, "mm_io's round trip changed the trained model")
+
+    # -- the alignments and the Baum-Welch passes (launch counts) ---------------------
+    ids = list(range(SPRINT_SEGMENTS))
+    feats, lens = corpus.padded_batch(ids)
+    T = feats.shape[1]
+    runs = {}
+    for tag, dt, make in (("f32 pallas", torch.float32,
+                           lambda: model.pack(dtype=torch.float32, method="pallas", device=dev)),
+                          ("f64 mxu", torch.float64,
+                           lambda: model.pack(dtype=torch.float64, device=dev)),
+                          ("df32", "df32", lambda: model.pack_df(device=dev))):
+        pack = make()
+        zero()
+        with contextlib.ExitStack() as stack:
+            rec = {"A": recorded(stack, maha, "mahalanobis_min_scores", 2),
+                   "E": recorded(stack, vit, "align_fwd_chunk", 1),
+                   "F": recorded(stack, vit, "align_fwd_chunk_df", 1),
+                   "C": recorded(stack, gmm, "am_scores_df", 1),
+                   "G": recorded(stack, vit, "align_backtrack", 1)}
+            states, costs = timed(f"align {tag}", lambda: vit.align_batch_chunked(
+                pack, feats, lens, tables, pruning, dtype=dt))
+        runs[tag] = run = {"states": states, "costs": costs, "counts": counts(), "rec": rec,
+                           "pack": pack}
+        dead = int((costs >= 0.5e30).sum())
+        log(f"[36] align_batch_chunked {tag}, {len(ids)} utterances (T {T}, A {A}), threshold "
+            f"{pruning}: {wall[f'align {tag}']:.4f} s; launches {counts()}; utterances whose "
+            f"row died {dead}")
+        for name, plain in (("E", vit.align_fwd_chunk_reference),
+                            ("F", vit.align_fwd_chunk_df_reference),
+                            ("C", gmm.am_scores_df_reference),
+                            ("G", vit.align_backtrack_reference)):
+            if rec[name]:
+                check_calls(name, rec[name], plain, key=f"E {tag}" if name == "E" else None)
+        if rec["A"]:
+            run["A rel"] = check_calls("A", rec["A"], maha.mahalanobis_min_scores_reference,
+                                       tol=A_REL_TOL)
+            check(run["A rel"] <= A_REL_TOL,
+                  f"kernel A fused differs from plain by {run['A rel']:.3e}")
+    f32s, f64s, dfs = (runs[k]["states"] for k in ("f32 pallas", "f64 mxu", "df32"))
+    c32, c64, cdf = (runs[k]["counts"] for k in ("f32 pallas", "f64 mxu", "df32"))
+    check(c32["A"] > 0 and c32["E"] > 0 and c64["E"] > 0 and cdf["F"] > 0 and cdf["C"] > 0
+          and all(r["counts"]["G"] > 0 for r in runs.values()), "an alignment skipped a kernel")
+    check(not (runs["f32 pallas"]["costs"] >= 0.5e30).any()
+          and not (runs["f64 mxu"]["costs"] >= 0.5e30).any(),
+          "an f32 or f64 alignment lost an utterance")
+    frames_live = np.arange(T)[None, :] < np.asarray(lens)[:, None]
+    differ = {k: int(((s != f64s) & frames_live).sum()) for k, s in (("f32", f32s), ("df32", dfs))}
+    log(f"[36] alignment frames that differ: f32 against f64 {differ['f32']}, df32 against f64 "
+        f"{differ['df32']} of {int(frames_live.sum())}"
+        f" (df32 splits the infinite silence skip into (inf, NaN): ROADMAP Queue 3 #21); every "
+        f"kernel of the three runs bit-equal to its plain version (A fused within "
+        f"{runs['f32 pallas']['A rel']:.3e} relative, limit {A_REL_TOL:g}; within 3.8e-7: "
+        f"{runs['f32 pallas']['A rel'] <= 3.8e-7})")
+
+    bw_counts = {}
+    for tag, dt, pack in (("f64 mxu", torch.float64, runs["f64 mxu"]["pack"]),
+                          ("f32 pallas", torch.float32, runs["f32 pallas"]["pack"])):
+        zero()
+        with contextlib.ExitStack() as stack:
+            rec = recorded(stack, bw, "forward_backward", 1)
+            rec_a = recorded(stack, maha, "mahalanobis_min_scores", 2)
+            gamma, log_z = timed(f"Baum-Welch {tag}", lambda: bw.baum_welch_posteriors(
+                pack, feats, lens, tables, dtype=dt))
+        bw_counts[tag] = c = counts()
+        check(c["L"] > 0 and (c["A"] > 0) == (tag == "f32 pallas"),
+              f"the Baum-Welch pass ({tag}) launched {c}")
+        check(bool(torch.isfinite(gamma).all() and torch.isfinite(log_z).all()),
+              f"Baum-Welch {tag}: not finite")
+        check_calls("L", rec, bw.forward_backward_reference, key=f"L {tag}")
+        if rec_a:
+            a_rel = check_calls("A", rec_a, maha.mahalanobis_min_scores_reference, tol=A_REL_TOL)
+            check(a_rel <= A_REL_TOL, f"kernel A fused differs from plain by {a_rel:.3e}")
+            log(f"[36] Baum-Welch {tag}: kernel A fused's last {len(rec_a)} calls within "
+                f"{a_rel:.3e} relative of the plain version (limit {A_REL_TOL:g})")
+        live = torch.arange(T, device=dev)[None, :] < torch.as_tensor(lens, device=dev)[:, None]
+        sum_err = (gamma.sum(dim=2)[live] - 1.0).abs().max().item()
+        a_l, k_l, _ = rec[0]
+        l_ms, l_plain, l_all = in_turns(lambda: bw.forward_backward_reference(*a_l, **k_l),
+                                        lambda: bw.forward_backward(*a_l, **k_l), 1, 5)
+        word = 8 if dt == torch.float64 else 4
+        l_bnd = fb_bound(len(ids), T, A, word, int(np.asarray(lens).sum()))
+        res[f"L {tag}"] = (l_ms, l_plain, l_bnd)
+        log(f"[36] Baum-Welch {tag}, {len(ids)} utterances (T {T}, A {A}, "
+            f"{instance('sr_forward_backward_instance', A)}): "
+            f"{wall[f'Baum-Welch {tag}']:.4f} s; launches {c}; kernel L bit-equal to its plain "
+            f"version (gamma, log_z), posteriors sum to 1 within {sum_err:.3e}; L {l_ms:.4f} ms, "
+            f"plain {l_plain:.4f} ms (plain, kernel, kernel, plain: "
+            f"{', '.join(f'{v:.4f}' for v in l_all)}); bound {l_bnd[0]:.4f} ms ({l_bnd[1]}), "
+            f"{l_ms / l_bnd[0]:.1f}x it; {l_ms / int(np.asarray(lens).max()) * 1e3:.3f} us a "
+            f"frame of the longest utterance on {card}")
+        del gamma, log_z, rec, rec_a
+    # kernel F on the df32 alignment's NaN rows (Queue 3 #21), kernels E (both
+    # types) and A fused, timed on their recorded calls
+    a_n, k_n, _ = runs["df32"]["rec"]["F"][0]
+    n_ms, n_plain, _all = in_turns(lambda: vit.align_fwd_chunk_df_reference(*a_n, **k_n),
+                                   lambda: vit.align_fwd_chunk_df(*a_n, **k_n), 1, 10)
+    log(f"[36] kernel F on the df32 alignment's last chunk (B={B_f}, A={A_f}, t0={a_n[6]}; "
+        f"every row holds NaN costs, folded as the plain version does): kernel {n_ms:.4f} ms, "
+        f"plain {n_plain:.4f} ms; {n_ms / C_f * 1e3:.3f} us a frame against the trainer's "
+        f"{res['F'][0] / C_f * 1e3:.3f} on {card}")
+    for tag, dt in (("f32 pallas", torch.float32), ("f64 mxu", torch.float64)):
+        a_e, k_e, _ = runs[tag]["rec"]["E"][0]
+        e_ms, e_plain, _all = in_turns(lambda: vit.align_fwd_chunk_reference(*a_e, **k_e),
+                                       lambda: vit.align_fwd_chunk(*a_e, **k_e), 1, 10)
+        B_e, C_e, A_e = a_e[1].shape
+        e_bnd = align_bound(B_e, C_e, A_e, 4 if dt == torch.float32 else 8)
+        res[f"E {tag}"] = (e_ms, e_plain, e_bnd)
+        log(f"[36] kernel E {dt} at B={B_e} C={C_e} A={A_e} "
+            f"({instance('sr_align_fwd_warps', A_e)}): kernel {e_ms:.4f} ms, plain {e_plain:.4f} "
+            f"ms; bound {e_bnd[0]:.4f} ms ({e_bnd[1]}), {e_ms / e_bnd[0]:.1f}x it; "
+            f"{e_ms / C_e * 1e3:.3f} us a frame on {card}")
+    a_a, k_a, _ = runs["f32 pallas"]["rec"]["A"][0]      # a whole AM_CHUNK of frames
+    m_ms, m_plain, _all = in_turns(lambda: maha.mahalanobis_min_scores_reference(*a_a, **k_a),
+                                   lambda: maha.mahalanobis_min_scores(*a_a, **k_a), 1, 10)
+    n_a, j_a, D_a = a_a[0].shape[0], a_a[1].shape[0], a_a[4]
+    S_a = j_a // D_a
+    m_bnd = bound(4 * (n_a * dim + 2 * j_a * dim + j_a + n_a * S_a),
+                  fp32=n_a * j_a * (A_ELEMENT_OPS * dim + 1) + n_a * S_a * (D_a - 1))
+    res["A"] = (m_ms, m_plain, m_bnd)
+    log(f"[36] kernel A fused at N={n_a} S={S_a} D={D_a} dim={dim}: kernel {m_ms:.4f} ms, plain "
+        f"{m_plain:.4f} ms; bound {m_bnd[0]:.4f} ms ({m_bnd[1]}), {m_ms / m_bnd[0]:.1f}x it on "
+        f"{card}")
+
+    device_s = sum(v for k, v in wall.items() if k.startswith(("train", "align", "Baum")))
+    log(f"[36] wall seconds by step: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in wall.items())
+        + f"; host-only steps {sum(wall.values()) - device_s:.4f} s of {sum(wall.values()):.4f}")
+    # the host share of the device steps: one profiled run each of the
+    # trainer's realignment path (the df32 alignment) and the Baum-Welch pass,
+    # in a fresh process (late in this script the profiler records fewer
+    # launches than were made)
+    inputs = root / "profile_inputs.pkl"
+    with open(inputs, "wb") as f:
+        pickle.dump((model, feats, lens, tables, pruning), f)
+    child = subprocess.run([sys.executable, "-c", SPRINT_PROFILE_CHILD, str(REPO), str(inputs),
+                            str(PROFILE_PAD_S), str(PROFILE_TRIES)], cwd=REPO,
+                           capture_output=True, text=True, timeout=600)
+    check(child.returncode == 0, f"the profiled Sprint runs failed:\n{child.stderr[-2000:]}")
+    for tag, p in json.loads(child.stdout.strip().splitlines()[-1]).items():
+        check(p["seen"] == p["launched"] and all(p["launched"].values()),
+              f"{tag}: the profiler saw {p['seen']} of the launches {p['launched']} in each of "
+              f"{p['tries']} windows")
+        busy = sum(us for _key, _n, us in p["events"]) / 1e6
+        log(f"[36] {tag} profiled (a fresh process, window {p['tries']}; every launch recorded: "
+            f"{p['launched']}): {p['seconds']:.4f} s, device busy {busy:.4f} s, host share "
+            f"{1 - busy / p['seconds']:.4f}")
+        for key, n, us in sorted(p["events"], key=lambda e: -e[2])[:5]:
+            log(f"[36]   {us / 1e3:10.3f} ms  {n:6d}x  {key[:90]}")
+    log(f"[36] phase seconds {time.perf_counter() - t_phase:.1f}")
+
+    launches = {"A": c32["A"] + bw_counts["f32 pallas"]["A"], "C": train_counts["C"] + cdf["C"],
+                "E f32 pallas": c32["E"], "E f64 mxu": c64["E"], "F": train_counts["F"] + cdf["F"],
+                "G": train_counts["G"] + c32["G"] + c64["G"] + cdf["G"], "H": train_counts["H"],
+                "L f32 pallas": bw_counts["f32 pallas"]["L"], "L f64 mxu": bw_counts["f64 mxu"]["L"]}
+    log(f"[36] launches on the Sprint path: {launches}")
+    rep = "speechrecognition_tpu/align/viterbi.py"
+    return [entry(name, source, replaces, launches[key], errs[key], *res[key])
+            for name, source, replaces, key in (
+        ("mahalanobis_min_scores[sprint]", "mahalanobis.cu",
+         "speechrecognition_tpu/ops/mahalanobis.py:90 + speechrecognition_tpu/models/gmm.py:538",
+         "A"),
+        ("am_scores_df[sprint]", "am_scores_df.cu", "speechrecognition_tpu/models/gmm.py:568", "C"),
+        ("align_fwd[sprint]", "align_scan.cu", f"{rep}:315", "E f32 pallas"),
+        ("align_fwd[f64, sprint]", "align_scan.cu", f"{rep}:315", "E f64 mxu"),
+        ("align_fwd_df[sprint]", "align_scan_df.cu", f"{rep}:368", "F"),
+        ("align_backtrack[sprint]", "align_backtrack.cu", f"{rep}:582", "G"),
+        ("em_pass_df[sprint]", "em_pass_df.cu", "speechrecognition_tpu/models/gmm.py:997", "H"),
+        ("forward_backward[sprint]", "forward_backward.cu",
+         "speechrecognition_tpu/align/baumwelch.py:44", "L f32 pallas"),
+        ("forward_backward[f64, sprint]", "forward_backward.cu",
+         "speechrecognition_tpu/align/baumwelch.py:44", "L f64 mxu"))]
 
 
 def repeat_corpus(corpus, n, corpus_cls):

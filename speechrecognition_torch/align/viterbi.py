@@ -300,8 +300,10 @@ def align_fwd_chunk_df(prev: dfm.DF, ams: dfm.DF, tdp: dfm.DF, pos_valid: torch.
     out = dfm.DF(torch.empty_like(prev.hi), torch.empty_like(prev.lo))
     jumps = torch.empty((C, B, A), dtype=torch.int8, device=device)
     lib = _native.load()
-    # the block instance keeps the row's pairs in device scratch past A = 1024
-    scratch = (torch.empty(4 * B * A, dtype=torch.float32, device=device)
+    # the block instance keeps the row's pairs (and its NaN fold's) in device
+    # scratch past A = 1024
+    scratch = (torch.empty(2 * B * lib.sr_align_fwd_df_scratch(A), dtype=torch.float32,
+                           device=device)
                if lib.sr_align_fwd_df_warps(A) < 0 else None)
     err = lib.sr_align_fwd_df(
         prev.hi.data_ptr(), prev.lo.data_ptr(), ams.hi.data_ptr(), ams.lo.data_ptr(),

@@ -11,6 +11,16 @@
 //   * the lexicographic (hi, lo) row minimum, exact in any order; a dead row
 //     (minimum hi >= BIG/2) renormalises by (0, 0); shifted = sub(cost, min),
 //     kept only where cost.hi < BIG/2;
+//   * a row that holds a NaN takes the plain version's own reduction
+//     (doublefloat.min_axis: pairwise halving, the first half against the
+//     second by df::minimum, an odd last element carried), whose result
+//     depends on where the NaNs lie: df::minimum keeps the second of a pair
+//     unless the first is strictly less, so a NaN second survives and a NaN
+//     first does not. An infinite TDP gives such rows: from_f64 splits inf
+//     into (inf, NaN), and a candidate through it adds to (NaN, NaN). The
+//     AN4 TDPs forbid the silence skip (inf); with tie_pruned the skip is
+//     the first candidate, no other is strictly less than a NaN, so every
+//     silence position past the first two is NaN every frame;
 //   * pruning where !less_equal(cost, thr);
 //   * t == 0 initialises position 0 only; rows with t >= feat_len keep
 //     their carry.
@@ -51,10 +61,21 @@
 // of min(ceil(A/32)*32, 1024) threads per utterance, each looping over
 // ceil(A/1024) positions, two __syncthreads a frame, the row
 // double-buffered by frame parity in shared memory up to A = 1024, beyond
-// in device scratch [B, 2, A] that the wrapper allocates (simple, not
-// tuned). sr_align_fwd_df_warps holds the choice, from A alone.
+// in device scratch (sr_align_fwd_df_scratch pairs an utterance) that the
+// wrapper allocates (simple, not tuned). sr_align_fwd_df_warps holds the
+// choice, from A alone. A NaN row (any position's cost NaN) takes the
+// plain version's fold instead of the keyed minimum. The warp instance's
+// frames stay branch-free: a ballot finds a warp's NaN, which it publishes
+// as a NaN minimum, and after each group of PREFETCH frames a group that
+// held a NaN row is done again from its carry, frame by frame, with the
+// emissions read from device memory; there a NaN row is written to shared
+// memory after a second barrier and each warp folds it in its own buffers.
+// The block instance finds a NaN row by __syncthreads_or and folds it stage
+// by stage with a barrier a stage.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "df.cuh"
 #include "keys.cuh"
@@ -72,6 +93,7 @@ constexpr int PREFETCH = 4;          // frames of emissions in flight
 constexpr int WARP_POSITIONS = 128;  // the warp instance's longest automaton (4 warps)
 constexpr int SHARED_POSITIONS = 1024;  // the longest row the block instance keeps in shared memory
 constexpr int BLOCK_THREADS = 1024;     // threads per utterance of the block instance, at most
+constexpr int FOLD_HALF = WARP_POSITIONS / 2;  // the warp instance's fold buffers, in pairs
 
 __device__ __forceinline__ df::DF big() { return df::make(BIG, 0.f); }
 
@@ -127,6 +149,59 @@ __device__ __forceinline__ df::DF warp_minimum(df::DF m) {
   return df::make(key_value(key_hi), key_value(key_lo));
 }
 
+__device__ __forceinline__ bool is_nan(df::DF v) { return v.hi != v.hi || v.lo != v.lo; }
+
+// the minimum a warp whose costs hold a NaN publishes
+__device__ __forceinline__ float2 nan_pair() {
+  return make_float2(__int_as_float(0x7fffffff), __int_as_float(0x7fffffff));
+}
+
+// One stage of the plain version's pairwise halving over n pairs in ``in``:
+// out[i] = minimum(in[i], in[i + n/2]) for i < n/2, and the odd last
+// element carried to out[n/2]; threads k, k + step, ... of the stage.
+__device__ __forceinline__ int fold_stage(const float2* in, float2* out, int n, int k,
+                                          int step) {
+  const int half = n >> 1;
+  const int m = half + (n & 1);
+  for (int i = k; i < m; i += step) {
+    if (i < half) {
+      const df::DF v = df::minimum(df::make(in[i].x, in[i].y),
+                                   df::make(in[i + half].x, in[i + half].y));
+      out[i] = make_float2(v.hi, v.lo);
+    } else {
+      out[i] = in[2 * half];
+    }
+  }
+  return m;
+}
+
+// the row minimum of the n <= 128 costs in ``row`` exactly as the plain
+// version folds them, by one warp, through its two buffers of FOLD_HALF
+// pairs (out of line: only an infinite TDP gives NaN rows)
+__device__ __noinline__ df::DF fold_minimum_warp(const float2* row, int n,
+                                                 float2 (*buf)[FOLD_HALF], int lane) {
+  const float2* in = row;
+  for (int s = 0; n > 1; s ^= 1) {
+    n = fold_stage(in, buf[s], n, lane, 32);
+    __syncwarp();
+    in = buf[s];
+  }
+  return df::make(in[0].x, in[0].y);
+}
+
+// the same by the whole block, through two buffers of (n + 1) / 2 pairs
+__device__ __noinline__ df::DF fold_minimum_block(const float2* row, int n, float2* buf0,
+                                                  float2* buf1) {
+  const float2* in = row;
+  for (int s = 0; n > 1; s ^= 1) {
+    float2* out = s ? buf1 : buf0;
+    n = fold_stage(in, out, n, threadIdx.x, blockDim.x);
+    __syncthreads();
+    in = out;
+  }
+  return df::make(in[0].x, in[0].y);
+}
+
 // W warps per utterance, one position a lane: position a = w*32 + lane;
 // named barrier 1 + u for utterance u of the block (at most 4 with W > 1)
 template <int W>
@@ -140,9 +215,12 @@ align_fwd_df_warp_kernel(
     int B, int C, int A, int t0, float thr_hi, float thr_lo, int tie_pruned,
     int use_pruning) {
   constexpr int U = MAX_WARPS / W;  // utterances a block
-  // per utterance and frame parity, per warp: its minimum and the costs of
-  // its second-last and last positions
+  // per utterance and frame parity, per warp: its minimum (NaN if its costs
+  // hold a NaN) and the costs of its second-last and last positions
   __shared__ float2 s_pub[U][2][W][3];
+  // a NaN row's costs and each warp's fold buffers
+  __shared__ float2 s_row[U][W * 32];
+  __shared__ float2 s_fold[U * W][2][FOLD_HALF];
   const int warp = threadIdx.x >> 5;
   const int u = warp / W;
   const int w = warp - u * W;
@@ -177,7 +255,69 @@ align_fwd_df_warp_kernel(
     ring_lo[p] = p < C ? am_lo[(size_t)p * A] : 0.f;
   }
 
+  // frame i from the carry h (and the shadow sh): the costs and jumps, the
+  // row minimum, the carry. Returns whether the utterance's row held a NaN;
+  // with fold (std::true_type) such a row takes the plain version's fold,
+  // without it the keyed minimum stands and the caller does the frame again.
+  auto frame = [&](int i, df::DF am, auto fold) -> bool {
+    // positions a-1 and a-2: the lanes below, or the shadow
+    df::DF n1 = df::make(__shfl_up_sync(FULL, h.hi, 1), __shfl_up_sync(FULL, h.lo, 1));
+    df::DF n2 = df::make(__shfl_up_sync(FULL, h.hi, 2), __shfl_up_sync(FULL, h.lo, 2));
+    if (W > 1) {
+      const df::DF sh_up = df::make(__shfl_up_sync(FULL, sh.hi, 1),
+                                    __shfl_up_sync(FULL, sh.lo, 1));
+      const df::DF sh_down = df::make(__shfl_down_sync(FULL, sh.hi, 1),
+                                      __shfl_down_sync(FULL, sh.lo, 1));
+      if (lane == 0) { n1 = sh; n2 = sh_down; }
+      if (lane == 1) n2 = sh_up;
+    }
+    const int t = t0 + i;
+    signed char jump;
+    df::DF cost = step_cost(h, n1, n2, tw0, tw1, tw2, am, a, valid, tie_pruned, jump);
+    cost = pos ? cost : big();
+    store_if(jumps + ((size_t)i * B + b) * A + a, jump, pos);
+
+    // the exact row minimum: the warp's, then the utterance's
+    df::DF row_best = warp_minimum(cost);
+    bool nan_row = __any_sync(FULL, pos && is_nan(cost));
+    if (W > 1) {
+      float2* pub = s_pub[u][i & 1][w];
+      if (lane == 0) pub[0] = nan_row ? nan_pair() : make_float2(row_best.hi, row_best.lo);
+      if (lane >= 30) pub[lane - 29] = make_float2(cost.hi, cost.lo);
+      asm volatile("bar.sync %0, %1;" :: "r"(1 + u), "r"(W * 32) : "memory");
+      const float2 m0 = s_pub[u][i & 1][0][0];
+      row_best = df::make(m0.x, m0.y);
+      nan_row = m0.x != m0.x;
+#pragma unroll
+      for (int v = 1; v < W; ++v) {
+        const float2 mv = s_pub[u][i & 1][v][0];
+        row_best = df::minimum(row_best, df::make(mv.x, mv.y));
+        nan_row = nan_row || mv.x != mv.x;
+      }
+    }
+    if constexpr (decltype(fold)::value) {
+      if (nan_row) {  // the same for the utterance's warps: the plain fold
+        if (pos) s_row[u][a] = make_float2(cost.hi, cost.lo);
+        if (W > 1)
+          asm volatile("bar.sync %0, %1;" :: "r"(1 + u), "r"(W * 32) : "memory");
+        else
+          __syncwarp();
+        row_best = fold_minimum_warp(s_row[u], A, s_fold[warp], lane);
+      }
+    }
+    if (row_best.hi >= HALF_BIG) row_best = df::make(0.f, 0.f);
+    if (W > 1) {
+      const float2 sc = s_pub[u][i & 1][max(w - 1, 0)][lane == 0 ? 2 : 1];
+      sh = step_carry(df::make(sc.x, sc.y), row_best, df::make(0.f, 0.f), sh, thr, sa,
+                      false, t, len, use_pruning);
+    }
+    h = step_carry(cost, row_best, am, h, thr, a, valid, t, len, use_pruning);
+    return nan_row;
+  };
+
   for (int i0 = 0; i0 < C; i0 += PREFETCH) {
+    const df::DF h_group = h, sh_group = sh;
+    bool nan_group = false;
 #pragma unroll
     for (int p = 0; p < PREFETCH; ++p) {
       const int i = i0 + p;
@@ -185,46 +325,15 @@ align_fwd_df_warp_kernel(
         const df::DF am = df::make(ring_hi[p], ring_lo[p]);
         ring_hi[p] = am_hi[(size_t)min(i + PREFETCH, C - 1) * A];
         ring_lo[p] = am_lo[(size_t)min(i + PREFETCH, C - 1) * A];
-        // positions a-1 and a-2: the lanes below, or the shadow
-        df::DF n1 = df::make(__shfl_up_sync(FULL, h.hi, 1), __shfl_up_sync(FULL, h.lo, 1));
-        df::DF n2 = df::make(__shfl_up_sync(FULL, h.hi, 2), __shfl_up_sync(FULL, h.lo, 2));
-        if (W > 1) {
-          const df::DF sh_up = df::make(__shfl_up_sync(FULL, sh.hi, 1),
-                                        __shfl_up_sync(FULL, sh.lo, 1));
-          const df::DF sh_down = df::make(__shfl_down_sync(FULL, sh.hi, 1),
-                                          __shfl_down_sync(FULL, sh.lo, 1));
-          if (lane == 0) { n1 = sh; n2 = sh_down; }
-          if (lane == 1) n2 = sh_up;
-        }
-        const int t = t0 + i;
-        signed char jump;
-        df::DF cost = step_cost(h, n1, n2, tw0, tw1, tw2, am, a, valid, tie_pruned, jump);
-        cost = pos ? cost : big();
-        store_if(jumps + ((size_t)i * B + b) * A + a, jump, pos);
-
-        // the exact row minimum: the warp's, then the utterance's
-        df::DF row_best = warp_minimum(cost);
-        if (W > 1) {
-          float2* pub = s_pub[u][i & 1][w];
-          if (lane == 0) pub[0] = make_float2(row_best.hi, row_best.lo);
-          if (lane >= 30) pub[lane - 29] = make_float2(cost.hi, cost.lo);
-          asm volatile("bar.sync %0, %1;" :: "r"(1 + u), "r"(W * 32) : "memory");
-          const float2 m0 = s_pub[u][i & 1][0][0];
-          row_best = df::make(m0.x, m0.y);
-#pragma unroll
-          for (int v = 1; v < W; ++v) {
-            const float2 mv = s_pub[u][i & 1][v][0];
-            row_best = df::minimum(row_best, df::make(mv.x, mv.y));
-          }
-        }
-        if (row_best.hi >= HALF_BIG) row_best = df::make(0.f, 0.f);
-        if (W > 1) {
-          const float2 sc = s_pub[u][i & 1][max(w - 1, 0)][lane == 0 ? 2 : 1];
-          sh = step_carry(df::make(sc.x, sc.y), row_best, df::make(0.f, 0.f), sh, thr, sa,
-                          false, t, len, use_pruning);
-        }
-        h = step_carry(cost, row_best, am, h, thr, a, valid, t, len, use_pruning);
+        nan_group |= frame(i, am, std::false_type{});
       }
+    }
+    if (nan_group) {  // the same for the utterance's warps: the group again, folded
+      h = h_group;
+      sh = sh_group;
+#pragma unroll 1
+      for (int i = i0; i < min(i0 + PREFETCH, C); ++i)
+        frame(i, df::make(am_hi[(size_t)i * A], am_lo[(size_t)i * A]), std::true_type{});
     }
   }
   if (pos) {
@@ -233,12 +342,18 @@ align_fwd_df_warp_kernel(
   }
 }
 
+// the (hi, lo) pairs the block instance keeps per utterance: the row
+// double-buffered by frame parity, and the NaN fold's two buffers
+__host__ __device__ __forceinline__ size_t block_pairs(int A) {
+  return 2 * (size_t)A + 2 * (size_t)((A + 1) / 2);
+}
+
 // one block of min(ceil(A/32)*32, 1024) threads per utterance, each thread
 // looping over the positions a = threadIdx.x + k*blockDim.x; the row's
-// (hi, lo) pairs double-buffered by frame parity in lat [2][A]: shared
-// memory where scratch is null, else the utterance's part of the wrapper's
-// device scratch [B][2][A] (not restrict: the threads read one another's
-// writes after each __syncthreads)
+// (hi, lo) pairs double-buffered by frame parity in lat [2][A], then the
+// NaN fold's buffers: shared memory where scratch is null, else the
+// utterance's block_pairs(A) of the wrapper's device scratch (not restrict:
+// the threads read one another's writes after each __syncthreads)
 __global__ void __launch_bounds__(BLOCK_THREADS) align_fwd_df_block_kernel(
     const float* __restrict__ prev_hi, const float* __restrict__ prev_lo,
     const float* __restrict__ ams_hi, const float* __restrict__ ams_lo,
@@ -252,7 +367,9 @@ __global__ void __launch_bounds__(BLOCK_THREADS) align_fwd_df_block_kernel(
   const int b = blockIdx.x;
   const int nwarps = blockDim.x / 32;
   const size_t urow = (size_t)b * A;
-  float2* lat = scratch != nullptr ? scratch + 2 * urow : smem;
+  float2* lat = scratch != nullptr ? scratch + (size_t)b * block_pairs(A) : smem;
+  float2* fold0 = lat + 2 * (size_t)A;
+  float2* fold1 = fold0 + (A + 1) / 2;
   const df::DF thr = df::make(thr_hi, thr_lo);
   const int len = feat_len[b];
   for (int a = threadIdx.x; a < A; a += blockDim.x)
@@ -267,6 +384,7 @@ __global__ void __launch_bounds__(BLOCK_THREADS) align_fwd_df_block_kernel(
     const size_t am_t = ((size_t)b * C + i) * A;
     // (a) every position's cost before the renormalisation, into nxt
     df::DF m = big();
+    int nan_seen = 0;
     for (int a = threadIdx.x; a < A; a += blockDim.x) {
       const size_t r = urow + a;
       const df::DF h1 = a >= 1 ? df::make(cur[a - 1].x, cur[a - 1].y) : big();
@@ -280,16 +398,23 @@ __global__ void __launch_bounds__(BLOCK_THREADS) align_fwd_df_block_kernel(
       jumps[((size_t)i * B + b) * A + a] = jump;
       nxt[a] = make_float2(cost.hi, cost.lo);
       m = df::minimum(m, cost);
+      nan_seen |= is_nan(cost);
     }
     // the lexicographic row minimum (exact in any order); a thread without
     // a position holds (BIG, 0), which every real row minimum already is or
     // undercuts
     m = warp_minimum(m);
     if ((threadIdx.x & 31) == 0) s_wmin[threadIdx.x >> 5] = make_float2(m.hi, m.lo);
-    __syncthreads();  // the per-warp minima are visible
-    df::DF row_best = df::make(s_wmin[0].x, s_wmin[0].y);
-    for (int k = 1; k < nwarps; ++k)
-      row_best = df::minimum(row_best, df::make(s_wmin[k].x, s_wmin[k].y));
+    // the per-warp minima and the row are visible; a NaN row folds as the
+    // plain version does
+    df::DF row_best;
+    if (__syncthreads_or(nan_seen)) {
+      row_best = fold_minimum_block(nxt, A, fold0, fold1);
+    } else {
+      row_best = df::make(s_wmin[0].x, s_wmin[0].y);
+      for (int k = 1; k < nwarps; ++k)
+        row_best = df::minimum(row_best, df::make(s_wmin[k].x, s_wmin[k].y));
+    }
     if (row_best.hi >= HALF_BIG) row_best = df::make(0.f, 0.f);
     // (b) each thread's own positions: the carry
     for (int a = threadIdx.x; a < A; a += blockDim.x) {
@@ -313,11 +438,15 @@ __global__ void __launch_bounds__(BLOCK_THREADS) align_fwd_df_block_kernel(
 
 // the instance sr_align_fwd_df launches for A positions: warps per
 // utterance of the warp instance (1-4); the block instance with its row in
-// shared memory (0), or in device scratch of 2*B*A (hi, lo) pairs (-1)
+// shared memory (0), or in device scratch of B * sr_align_fwd_df_scratch(A)
+// (hi, lo) pairs (-1)
 extern "C" int sr_align_fwd_df_warps(int A) {
   if (A <= WARP_POSITIONS) return (A + 31) / 32;
   return A <= SHARED_POSITIONS ? 0 : -1;
 }
+
+// the block instance's (hi, lo) pairs an utterance, in device scratch past A = 1024
+extern "C" int sr_align_fwd_df_scratch(int A) { return (int)block_pairs(A); }
 
 extern "C" int sr_align_fwd_df(const float* prev_hi, const float* prev_lo,
                                const float* ams_hi, const float* ams_lo, const float* tdp_hi,
@@ -345,7 +474,7 @@ extern "C" int sr_align_fwd_df(const float* prev_hi, const float* prev_lo,
       // the row in shared memory (0) or in the scratch (-1)
       if (inst < 0 && scratch == nullptr) return (int)cudaErrorInvalidValue;
       const int threads = A < BLOCK_THREADS ? (A + 31) / 32 * 32 : BLOCK_THREADS;
-      const size_t smem = inst < 0 ? 0 : 2 * (size_t)A * sizeof(float2);
+      const size_t smem = inst < 0 ? 0 : block_pairs(A) * sizeof(float2);
       align_fwd_df_block_kernel<<<B, threads, smem, st>>>(
           prev_hi, prev_lo, ams_hi, ams_lo, tdp_hi, tdp_lo, pos_valid, feat_len, out_hi, out_lo,
           jumps, inst < 0 ? reinterpret_cast<float2*>(scratch) : nullptr, B, C, A, t0, thr_hi,

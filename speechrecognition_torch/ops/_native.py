@@ -92,6 +92,9 @@ SIGNATURES = {
     # A → warps per utterance of kernel F's warp instance (0: block
     # instance, its row in shared memory; -1: in device scratch)
     "sr_align_fwd_df_warps": ((_I,), _I),
+    # A → (hi, lo) pairs of device scratch an utterance of kernel F's block
+    # instance takes past A = 1024 (the row by frame parity, the NaN fold)
+    "sr_align_fwd_df_scratch": ((_I,), _I),
     # final_hi, aut_len, jumps, feat_len, states_tbl, states, final_pos, B, A,
     # Tp, T, tie_pruned, device, stream
     "sr_align_backtrack": ((_P,) * 7 + (_I, _I, _I, _I, _I, _I, _P), _I),

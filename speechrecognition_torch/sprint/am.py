@@ -1,23 +1,31 @@
-"""The Sprint per-state-type transition model: TDPs {entry-m1, entry-m2,
+"""Acoustic-model assembly: the Sprint per-state-type transition model and
+the allophone-state model.
+
+``StateTypeTdp`` and ``TransitionModel``: TDPs {entry-m1, entry-m2,
 silence, phone0, phone1} x {loop, forward, skip, exit}
 (Am/TransitionModel.hh:64-76), read from a SprintConfig's
-``acoustic-model.tdp`` block, and the decoder tables it gives a lexicon.
+``acoustic-model.tdp`` block, and the decoder tables they give a lexicon,
+built with numpy on the host in the port's ``search.decoder.DecoderTables``
+and ``search.tree_decoder.TreeTables``. ``AllophoneStateModel``: a Bliss
+lexicon and a CART tree mapped to per-word automata over tied mixture
+indices (states-per-phone x state-repetitions, triphone context within the
+word, ``#`` across word boundaries), in the port's ``Lexicon`` and
+``MarkovAutomaton``.
 
-Counterpart of ``StateTypeTdp`` and ``TransitionModel`` in
-speechrecognition_tpu/sprint/am.py: the same tables, built with numpy on the
-host, in the port's ``search.decoder.DecoderTables`` and
-``search.tree_decoder.TreeTables``. The allophone-state model (Bliss
-lexicon and CART tying) is not ported yet.
+Port: counterpart of speechrecognition_tpu/sprint/am.py; the same tables,
+host code.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..lexicon import Lexicon
+from ..lexicon import Lexicon, MarkovAutomaton
+from .bliss import BlissLexicon
+from .cart import DecisionTree
 from .config import SprintConfig
 
 
@@ -230,3 +238,77 @@ def _tree_children(tables) -> List[Dict[int, int]]:
     for n in range(1, tables.num_nodes):
         children[int(tables.parent[n])][int(tables.state[n])] = n
     return children
+
+
+@dataclass
+class AllophoneStateModel:
+    """Lexicon + CART → tied-state word automata."""
+
+    bliss: BlissLexicon
+    tree: DecisionTree
+    states_per_phone: int = 3
+    state_repetitions: int = 1
+    silence_class: Optional[int] = None
+
+    def tied_states_for_pron(self, phonemes: Sequence[str],
+                             boundary_lemma: bool = True) -> List[int]:
+        """Tied mixture ids for one pronunciation, with within-word triphone
+        context and '#' at word boundaries (across-word-model = no)."""
+        out: List[int] = []
+        n = len(phonemes)
+        for i, ph in enumerate(phonemes):
+            hist = phonemes[i - 1] if i > 0 else "#"
+            fut = phonemes[i + 1] if i < n - 1 else "#"
+            if n == 1:
+                boundary = "single-phoneme-lemma"
+            elif i == 0:
+                boundary = "begin-of-lemma"
+            elif i == n - 1:
+                boundary = "end-of-lemma"
+            else:
+                boundary = "within-lemma"
+            for s in range(self.states_per_phone):
+                cls = self.tree.classify({
+                    "central": ph, "history[0]": hist, "future[0]": fut,
+                    "hmm-state": str(s), "boundary": boundary})
+                out.extend([cls] * self.state_repetitions)
+        return out
+
+    def build_search_lexicon(self) -> Tuple[Lexicon, List[str], np.ndarray]:
+        """Flatten the Bliss lexicon into the dense Lexicon structure used by
+        the decoders: one automaton per (lemma, pronunciation), global state
+        ids = tied CART classes. Returns (lexicon, orth list, tied-class map
+        int32 [num_slots] mapping automaton slots → mixture ids).
+
+        Unlike the SieTill digits (distinct states per word), LVCSR words
+        share tied states — the decoder's state_table carries mixture ids
+        directly, so the Lexicon here stores tied classes as 'states'.
+        """
+        lex = Lexicon()
+        orths: List[str] = []
+        sil = self.bliss.silence_lemma
+        # silence first (decoder convention: silence_idx with free entry)
+        if sil is not None and sil.pronunciations:
+            states = self.tied_states_for_pron(sil.pronunciations[0])
+            lex.orth.append(sil.orth[0])
+            lex.automata.append(MarkovAutomaton(
+                states=np.asarray(states, np.int32)))
+            lex.silence = 0
+            orths.append(sil.orth[0])
+        for lemma in self.bliss.lemmas:
+            if lemma.special is not None:
+                continue
+            for pron in lemma.pronunciations:
+                if not pron:
+                    continue
+                states = self.tied_states_for_pron(pron)
+                lex.orth.append(lemma.orth[0])
+                lex.automata.append(MarkovAutomaton(
+                    states=np.asarray(states, np.int32)))
+                orths.append(lemma.orth[0])
+        tied = np.concatenate([a.states for a in lex.automata])
+        return lex, orths, tied
+
+    @property
+    def num_classes(self) -> int:
+        return self.tree.max_leaf_id() + 1

@@ -1,6 +1,17 @@
-"""The AN4 LVCSR system's decode: the ARPA bigram boundary matrices and the
-1-best decode with its report — counterpart of ``build_lm_matrices`` and
-``decode`` in the repository's tools/an4_system.py.
+"""The AN4 LVCSR system: its assembly from the Sprint setup's files, its
+features, the self-trained CART-tied GMM, the ARPA bigram boundary matrices
+and the 1-best decode with its report — counterpart of ``build_system``,
+``load_corpus``, ``train_model``, ``build_lm_matrices`` and ``decode`` in the
+repository's tools/an4_system.py.
+
+``build_system`` reads the setup's Bliss lexicon and corpus, CART tree and
+Sprint configs and parses its Flow network (the reference's
+cache.lda.flow: an MFCC cache, a sliding window and an LDA product); it
+takes the files' paths as arguments, where the repository's tool reads
+them from the reference's example setup. ``load_corpus`` runs the Flow
+network segment by segment into a ``Corpus``. ``train_model`` trains the
+tied GMM with the port's EM trainer on the card (``device="cpu"`` for the
+CPU), in float64 or double-float (kernels C, E/F, G and H).
 
 ``build_lm_matrices`` turns an ARPA LM into the boundary matrices of the
 linear-lexicon and word-conditioned tree searches: lm[v, w] = lm_scale ·
@@ -9,17 +20,101 @@ unused, its column holds only the silence exit). ``decode`` scores a
 corpus (the float "mxu" pack, or the int8 quantized scorer for the ``q8``
 names) and decodes it with the linear engine (``linear*`` names: kernels M
 and N) or the exact or pruned WCTS (kernel K), and reports WER, SER,
-S/I/D, RTF and the search-space means. The assembly of the system from the
-reference's Bliss lexicon, CART tree, Flow features and trained model
-(``build_system``, ``load_corpus``, ``train_model``) is not ported yet.
+S/I/D, RTF and the search-space means.
 """
 
 from __future__ import annotations
 
+import os
+import sys
 import time
 
 import numpy as np
 import torch
+
+
+def log(*a):
+    print("[an4]", *a, file=sys.stderr, flush=True)
+
+
+def build_system(*, config, pruned_config, lexicon, corpus, cart_tree, flow, cache, lda):
+    """Assemble the system from the setup's files: the recognition
+    ``config`` and its ``pruned_config`` (the acoustic pruning), the Bliss
+    ``lexicon`` and ``corpus``, the CART tree ``cart_tree``, and the Flow
+    network ``flow`` (the reference's cache.lda.flow) over the MFCC
+    ``cache`` and the ``lda`` matrix. Returns (cfg, corpus_xml, asm, lex,
+    tm, net, acoustic_pruning, lm_scale)."""
+    from ..sprint import BlissCorpus, BlissLexicon, DecisionTree, SprintConfig
+    from ..sprint.am import AllophoneStateModel, TransitionModel
+    from ..sprint.flow import FlowNetwork
+
+    cfg = SprintConfig.read(config)
+    cfg_pruned = SprintConfig.read(pruned_config)
+
+    bliss = BlissLexicon.read(lexicon)
+    tree = DecisionTree.read(cart_tree)
+    corpus_xml = BlissCorpus.read(corpus)
+    asm = AllophoneStateModel(bliss=bliss, tree=tree)
+    lex, _orths, _tied = asm.build_search_lexicon()
+    tm = TransitionModel.from_config(cfg)
+
+    # Flow features: MFCC cache → sliding window max-size 9 / right 4 → LDA
+    # matrix multiplication
+    net = FlowNetwork.parse(flow, config={"base-feature-extraction-cache.path": cache,
+                                          "lda.file": lda})
+    acoustic_pruning = float(cfg_pruned.get("x.acoustic-pruning", "200"))
+    lm_scale = float(cfg.get("x.lm.scale", "1"))
+    return (cfg, corpus_xml, asm, lex, tm, net, acoustic_pruning, lm_scale)
+
+
+def load_corpus(corpus_xml, lex, net):
+    """Run the Flow network over every segment of the Bliss corpus.
+    Returns (Corpus of float32 features, word index sequences)."""
+    from ..corpus import Corpus
+
+    feats_list, offsets, word_seqs, names = [], [0], [], []
+    ctx = {}
+    for seg in corpus_xml.segments:
+        key = corpus_xml.full_segment_name(seg)
+        f = np.asarray(net.run(params={"id": key}, context=ctx)["features"], np.float32)
+        feats_list.append(f)
+        offsets.append(offsets[-1] + f.shape[0])
+        word_seqs.append([lex.word_idx(w) for w in seg.orth])
+        names.append(seg.name)
+    return Corpus(features=np.concatenate(feats_list),
+                  feature_offsets=np.asarray(offsets, np.int64),
+                  orths=word_seqs, names=names,
+                  frame_duration=0.01, dim=feats_list[0].shape[1]), word_seqs
+
+
+def train_model(corpus, lex, asm, out_dir, splits, train_dtype="f64", *, device="cuda"):
+    """Train the CART-tied triphone GMM (global pooling, max-approximation)
+    from a linear segmentation: ``splits`` splits, 2 realignments and 3
+    estimates a split, pruning threshold 300, flat TDPs 3/0/3. train_dtype
+    "df32" runs the double-float path (float64 decisions in float32
+    arithmetic), "f64" float64. Writes <out_dir>/am.mix; returns (model,
+    training seconds)."""
+    from ..io import write_mixture_set
+    from ..models.gmm import MixtureModel, VarianceModel
+    from ..tdp import TdpModel
+    from ..train.em import Trainer, TrainerConfig
+
+    if train_dtype not in ("df32", "f64"):
+        raise ValueError(f"train_dtype must be 'df32' or 'f64', not {train_dtype!r}")
+    model = MixtureModel(dim=corpus.dim, num_mixtures=asm.num_classes,
+                         var_model=VarianceModel.GLOBAL_POOLING, max_approx=True)
+    tdp = TdpModel(silence_state=int(lex.get_silence_automaton().states[0]),
+                   loop=3.0, forward=0.0, skip=3.0)
+    cfg = TrainerConfig(min_obs=1, num_splits=splits, num_aligns=2, num_estimates=3,
+                        pruning_threshold=300.0)
+    dtype = "df32" if train_dtype == "df32" else torch.float64
+    trainer = Trainer(cfg, lex, model, tdp, dtype=dtype, log=log, device=device)
+    t0 = time.perf_counter()
+    trainer.train(corpus)
+    train_s = time.perf_counter() - t0
+    write_mixture_set(os.path.join(out_dir, "am.mix"), model.to_raw())
+    log(f"trained {model.num_densities()} densities in {train_s:.1f}s")
+    return model, train_s
 
 
 def build_lm_matrices(lex, tm, lm_scale, word_exit=None, sil_exit=None, *, arpa_path):

@@ -669,6 +669,61 @@ def test_kernel_f_bit_equal(dev, case, A):
         assert torch.equal(k, p), name
 
 
+def same_bits(got, want):
+    """Equal bit for bit, every NaN counted equal to a NaN (the card writes
+    one NaN, and torch.equal holds a NaN unequal to itself)."""
+    nan = torch.isnan(want)
+    if got.dtype != want.dtype or not torch.equal(torch.isnan(got), nan):
+        return False
+    if not got.is_floating_point():
+        return torch.equal(got, want)
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}[want.dtype]
+    zero = torch.zeros((), dtype=want.dtype, device=want.device)
+    return torch.equal(torch.where(nan, zero, got).view(ints),
+                       torch.where(nan, zero, want).view(ints))
+
+
+@pytest.mark.parametrize("A", [2, 9, 33, 70, 97, 128, 129, 300, 1025])
+@pytest.mark.parametrize("case", ALIGN_CASES)
+@pytest.mark.parametrize("kind", ["f32", "f64", "df32"])
+def test_kernels_e_f_infinite_skip_bit_equal(dev, case, A, kind):
+    """Tables with an infinite skip into every third position (the AN4 TDPs
+    forbid the silence skip): double-float splits inf into (inf, NaN), so
+    kernel F's rows hold NaN costs, and it folds them as its plain version
+    does (doublefloat.min_axis). Kernel E sees inf and no NaN. Every
+    instance, carry and jumps bit-equal (NaN equal to NaN)."""
+    from speechrecognition_torch.align import viterbi as vit
+    ams, tdp, valid, aut, lens, thr, tie, prune = align_inputs(case, A=A)
+    tdp[:, 2::3, 2] = np.inf
+    B, T, A = ams.shape
+    df = kind == "df32"
+    results = []
+    for fwd in ((vit.align_fwd_chunk_df, vit.align_fwd_chunk_df_reference) if df
+                else (vit.align_fwd_chunk, vit.align_fwd_chunk_reference)):
+        if df:
+            args = (dfm.from_f64(tdp, dev), torch.as_tensor(valid, device=dev),
+                    torch.as_tensor(lens, device=dev), dfm.from_f64(np.float64(thr), dev))
+            prev = dfm.DF(torch.full((B, A), 1e30, device=dev), torch.zeros((B, A), device=dev))
+            am = dfm.from_f64(ams, dev)
+        else:
+            dt = torch.float32 if kind == "f32" else torch.float64
+            args = (torch.as_tensor(tdp, dtype=dt, device=dev), torch.as_tensor(valid, device=dev),
+                    torch.as_tensor(lens, device=dev), thr)
+            prev = torch.full((B, A), 1e30, dtype=dt, device=dev)
+        jumps = []
+        for t0, n in ((0, 25), (25, 35)):
+            if df:
+                chunk = dfm.DF(am.hi[:, t0:t0 + n].contiguous(), am.lo[:, t0:t0 + n].contiguous())
+            else:
+                chunk = torch.as_tensor(ams[:, t0:t0 + n], dtype=dt, device=dev).contiguous()
+            prev, j = fwd(prev, chunk, *args, t0, tie_pruned=tie, use_pruning=prune)
+            jumps.append(j)
+        results.append((*(prev if df else (prev,)), torch.cat(jumps)))
+    torch.cuda.synchronize()
+    for k, p in zip(*results):
+        assert same_bits(k, p)
+
+
 def sorted_demo_blocks(dev, block):
     lex = build_sietill_lexicon()
     desc = CorpusDescription.read(str(FIX / "demo_corpus.json"), lex)

@@ -192,7 +192,7 @@ def test_port_imports_no_jax():
         "import speechrecognition_torch.align.viterbi\n"
         "import speechrecognition_torch.models.nn\n"
         "import speechrecognition_torch.train.nn_training\n"
-        "import speechrecognition_torch.tools.tsne\n"
+        "import speechrecognition_torch.tools.tsne, speechrecognition_torch.tools.time_align_df\n"
         "import speechrecognition_torch.native.loader\n"
         "import speechrecognition_torch.sprint.config, speechrecognition_torch.sprint.am\n"
         "import speechrecognition_torch.lm.arpa, speechrecognition_torch.tools.an4_system\n"
@@ -208,6 +208,19 @@ def test_port_imports_no_jax():
         "import speechrecognition_torch.search.flf_compose\n"
         "import speechrecognition_torch.search.flf_network\n"
         "import speechrecognition_torch.search.flf_cn\n"
+        "import speechrecognition_torch.sprint.archive, speechrecognition_torch.sprint.flow_cache\n"
+        "import speechrecognition_torch.sprint.lda, speechrecognition_torch.sprint.flow\n"
+        "import speechrecognition_torch.sprint.cart, speechrecognition_torch.sprint.state_graph\n"
+        "import speechrecognition_torch.sprint.mm_io, speechrecognition_torch.sprint.mc\n"
+        "import speechrecognition_torch.sprint.legacy_tree\n"
+        "import speechrecognition_torch.sprint.cart_convert\n"
+        "import speechrecognition_torch.sprint.cart_train\n"
+        "import speechrecognition_torch.sprint.segment_clustering\n"
+        "import speechrecognition_torch.sprint.core_utils\n"
+        "import speechrecognition_torch.sprint.channel\n"
+        "from speechrecognition_torch.sprint.am import AllophoneStateModel\n"
+        "from speechrecognition_torch.tools.an4_system import (build_system, load_corpus,\n"
+        "                                                     train_model)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m.startswith('speechrecognition_tpu'))\n"
         "assert not bad, bad\n"

@@ -53,7 +53,7 @@ def test_sources_are_the_eight_kernels_and_the_header():
         "sr_decode_scan_df", "sr_decode_scan_df_instance", "sr_decode_scan_df_threads",
         "sr_decode_scan_df_residency",
         "sr_align_fwd", "sr_align_fwd_f64", "sr_align_fwd_warps", "sr_align_fwd_df",
-        "sr_align_fwd_df_warps", "sr_align_backtrack", "sr_align_backtrack_tile",
+        "sr_align_fwd_df_warps", "sr_align_fwd_df_scratch", "sr_align_backtrack", "sr_align_backtrack_tile",
         "sr_em_pass_df",
         "sr_em_pass_df_scratch", "sr_tree_scan", "sr_tree_scan_scratch",
         "sr_tree_scan_instance", "sr_tree_scan_residency",
