@@ -300,6 +300,31 @@ kernel against its plain PyTorch version on the same tensors:
      Baum-Welch pass (profiler, in a fresh process, in a window that
      recorded every launch the wrappers counted).
 
+ 37. the parallel paths (speechrecognition_torch/parallel/): at world size 1
+     over NCCL, on phase 25's cell (bench/model.mix, 1,024 utterances, T
+     960, the demo bigram LM, 13 contexts x 212 nodes), wcts_sharded in
+     float32 and float64 (the main path: kernel P, two launches a frame and
+     one more; its launches read from this run) equal to kernel K's decode
+     on the same scores in books, bkps and preds, kernel P held against its
+     plain version on the path's own launches at six frames (P1 and P2),
+     a frame's two launches timed in turns against the plain version on the
+     path's middle-frame state, the collectives a frame by events and the
+     path's wall time against kernel K's; decode_sharded, and
+     recognize_corpus_sharded in f32 "pallas" (A fused, B) and df32 (C, D)
+     equal to the single card's tables and transcripts, accumulate_sharded
+     equal to accumulate_chunk; then two rank processes on the one card over
+     the host-staged gloo transport (tests/torch_parallel_ranks.py, 128
+     utterances, T 960): wcts_sharded equal to kernel K's decode in both
+     types, the sharded recognizers, decode and accumulation equal to the
+     single card's, on both ranks; the collectives' host time a frame;
+ 38. the tools on the card: sprint_tools lattice-processor ... network (the
+     Flf recognizer node, kernel J) over the 35 demo segments, best paths
+     equal to the CPU port's and golden; partition.wer_vs_threshold at
+     thresholds 25 and 200 (f64) equal to the CPU port's, golden at 200;
+ 39. models/gmm.py's aligned_density_scores_df bit-equal to the CPU port's
+     and em_score_and_accumulate_corpus (df32 equal; f32 score within 1e-6)
+     over the demo frames and golden alignment.
+
 Kernels B, D, G and N are timed by their device time (torch.profiler), since
 B and D's wrappers synchronise on a range check and a call timed by events
 also holds its host work; the others by events around their calls (the
@@ -1279,6 +1304,9 @@ def main():
     char_rnn_phase(dev, card)
     flf_launches = flf_phase(dev, card)
     sprint = sprint_phase(dev, card)
+    parallel = parallel_phase(dev, card, lex, big, bench, tdp)
+    tools_phase(dev, card, lex, corpus, iter2, tdp)
+    gmm_corpus_phase(dev, card, corpus, iter2)
     j64 = [e for e in search if e["name"] == "decode_scan_bigram[f64]"]
     check(len(j64) == 1, "one decode_scan_bigram[f64] entry in the search tier's kernels")
     log(f"[35] decode_scan_bigram[f64] launches: {j64[0]['launches']} on the bigram decode "
@@ -1308,6 +1336,7 @@ def main():
         *disc,
         *lvcsr,
         *sprint,
+        *parallel,
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -5207,6 +5236,392 @@ def sprint_phase(dev, card):
          "speechrecognition_tpu/align/baumwelch.py:44", "L f32 pallas"),
         ("forward_backward[f64, sprint]", "forward_backward.cu",
          "speechrecognition_tpu/align/baumwelch.py:44", "L f64 mxu"))]
+
+
+#: kernel P per slot and frame: P1's three within-word adds, two compares,
+#: the emission and entry adds (three), the entry compare, the cap, the key
+#: and its minimum (12); P2's guard, subtract and prune (3); per local
+#: context and word the end's guard, add and compare (3); per rank and word
+#: the recombination's compare
+P_SLOT_OPS = 12 + 3
+P_WORD_OPS = 3
+#: utterances of the two-rank run on one card (phase 37)
+RANKS_BATCH = 128
+#: ms a frame's two collectives are timed over (phase 37), calls
+COLLECTIVE_REPS = 200
+
+
+def p_bound(B, S, nl, N, W, R, word):
+    """Kernel P's bound for one frame (its two launches): the carry read and
+    written, the frame's emission row, the book read and written, the ranks'
+    gathered candidates read, the frame's outputs and the send buffer
+    written; its operations a slot, a context's word ends and a rank's
+    recombination."""
+    nbytes = (2 * B * nl * N * (word + 4) + B * S * word + 2 * B * W * word
+              + R * B * W * (word + 8) + 2 * B * W * (word + 8))
+    ops = B * (nl * N * P_SLOT_OPS + nl * W * P_WORD_OPS + R * W)
+    return bound(nbytes, **({"fp32": ops} if word == 4 else {"fp64": ops}))
+
+
+def p_compare(got, ref):
+    """(equal, largest difference) of two ShardStates' written tensors."""
+    err = 0.0
+    for k in got.WRITTEN:
+        a, b = getattr(got, k), getattr(ref, k)
+        pairs = (zip(got.candidates(a), ref.candidates(b)) if k in ("send", "gathered")
+                 else ((a, b),))
+        for x, y in pairs:
+            if x.is_floating_point():
+                fin = (x < 1e29) & (y < 1e29)
+                if bool(fin.any()):
+                    err = max(err, (x[fin].double() - y[fin].double()).abs().max().item())
+    return got.written_equal(ref), err
+
+
+def parallel_phase(dev, card, lex, big, bench, tdp):
+    """Phase 37: the parallel paths (see the module docstring). Returns
+    kernel P's JSON entries."""
+    import torch.distributed as dist
+    from speechrecognition_torch.config import Configuration
+    from speechrecognition_torch.models import gmm
+    from speechrecognition_torch.ops import mahalanobis as maha
+    from speechrecognition_torch.parallel import mesh as pm
+    from speechrecognition_torch.parallel import wcts_step as ws
+    from speechrecognition_torch.search import decoder as dec
+    from speechrecognition_torch.search import tree_decoder as td
+    from speechrecognition_torch.search import wcts as wc
+
+    t_phase = time.perf_counter()
+    st = tables_module("torch_search_tables")
+    tpr = tables_module("torch_parallel_ranks")
+    nb = FULL_BATCH
+    T = dec.Recognizer(Configuration(SETTINGS), lex, tdp, None)._bucket(big.max_seq_length)
+    feats_np, lens_np = big.padded_batch(list(range(nb)), pad_to=T)
+    lens_np = np.asarray(lens_np, np.int32)
+    feats = torch.as_tensor(feats_np, device=dev)
+    lens = torch.as_tensor(lens_np, device=dev)
+    lm, lm_start = st.demo_bigram_lm()
+    tree0 = td.TreeTables.build(lex, tdp, 0.0)
+    N, W = tree0.num_nodes, lex.num_words
+    nl = W + 1
+    packs = {"f32": bench.pack(method="pallas", device=dev),
+             "f64": bench.pack(dtype=torch.float64, device=dev)}
+    dts = {"f32": torch.float32, "f64": torch.float64}
+    entries = []
+    mesh = pm.make_mesh(1, ("model",), device=dev, transport="nccl",
+                        init_method=f"tcp://localhost:{tpr.free_port()}", rank=0, world_size=1)
+    data = pm.make_mesh(1, ("data",), device=dev, transport="nccl")
+    check(dist.get_backend() == "nccl" and mesh.world_size == 1, "phase 37 runs NCCL at world 1")
+    transport = mesh.transports["model"]
+    try:
+        for name in ("f32", "f64"):
+            dt = dts[name]
+            word = 4 if name == "f32" else 8
+            am = gmm.am_scores(packs[name], feats.reshape(-1, 25)).reshape(nb, T, -1)
+            am = am.to(dt).contiguous()
+            S = am.shape[2]
+            kargs = wc.WctsTables.build(tree0, tdp, lm, lm_start).args(dev, dt, S)
+            for _ in range(2):                  # the second call is timed
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _c, kouts = wc.wcts_scan(am, lens, *kargs, 200.0)
+                torch.cuda.synchronize()
+                k_s = time.perf_counter() - t0
+            # the main path, kernel P held against its plain version on its
+            # own launches at a few frames
+            frames = {1, 2, 3, T // 2, T, T + 1}
+            checks, mids = [], {}
+            run_e, run_n = ws.shard_entries, ws.shard_ends
+
+            def entries_checked(s, t, recombine, step=True):
+                if t not in frames:
+                    return run_e(s, t, recombine, step)
+                if t == T // 2:
+                    mids["state"] = s.clone()
+                ref = s.clone()
+                ws.shard_entries_reference(ref, t, recombine, step)
+                run_e(s, t, recombine, step)
+                checks.append(("P1", t, *p_compare(s, ref)))
+
+            def ends_checked(s, t):
+                if t not in frames:
+                    return run_n(s, t)
+                ref = s.clone()
+                ws.shard_ends_reference(ref, t)
+                run_n(s, t)
+                checks.append(("P2", t, *p_compare(s, ref)))
+
+            ws.LAUNCHES = 0
+            with mock.patch.object(ws, "shard_entries", entries_checked), \
+                    mock.patch.object(ws, "shard_ends", ends_checked):
+                books, bkps, preds = pm.wcts_sharded(mesh, None, feats_np, lens_np, tree0, tdp,
+                                                     lm, lm_start, 200.0, dtype=dt, am=am)
+            launches = ws.LAUNCHES
+            check(launches == 2 * T + 1, f"kernel P launched {launches} times over {T} frames")
+            bad = [c for c in checks if not c[2]]
+            check(not bad and len(checks) == 2 * len(frames) - 1,
+                  f"kernel P {name} differs from its plain version on the path's launches {bad}")
+            err = max(c[3] for c in checks)
+            same_k = all(np.array_equal(g, w.cpu().numpy())
+                         for g, w in zip((books, bkps, preds), kouts[:3]))
+            check(same_k, f"wcts_sharded {name} at world 1 (NCCL) differs from kernel K's decode")
+            # the same path again, timed, and its collectives
+            transport.calls, transport.seconds = 0, 0.0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pm.wcts_sharded(mesh, None, feats_np, lens_np, tree0, tdp, lm, lm_start, 200.0,
+                            dtype=dt, am=am)
+            torch.cuda.synchronize()
+            sh_s = time.perf_counter() - t0
+            host_coll = transport.seconds / T
+            s2 = pm.shard_state(am, lens_np, tree0, tdp, lm, lm_start, 200.0, 0, 1)
+            coll_ms = cuda_ms(lambda: (transport.all_reduce(s2.floor_key, "min"),
+                                       transport.all_gather(s2.gathered, s2.send)),
+                              COLLECTIVE_REPS)
+            # a frame's two launches against the plain version, in turns, on
+            # the path's state at the middle frame
+            tm = T // 2
+            mk, mp = mids["state"], mids["state"].clone()
+            ms, plain_ms, all_ = in_turns(
+                lambda: (ws.shard_entries_reference(mp, tm, True, True),
+                         ws.shard_ends_reference(mp, tm)),
+                lambda: (ws.shard_entries_cuda(mk, tm, True, True), ws.shard_ends_cuda(mk, tm)),
+                2, 50)
+            p1_ms = cuda_ms(lambda: ws.shard_entries_cuda(mk, tm, True, True), 50)
+            p2_ms = cuda_ms(lambda: ws.shard_ends_cuda(mk, tm), 50)
+            bnd = p_bound(nb, S, nl, N, W, 1, word)
+            log(f"[37] kernel P {name} at world 1 (NCCL), B={nb} T={T} {nl} contexts x {N} "
+                f"nodes: {launches} launches, held against its plain version on "
+                f"{len(checks)} of the path's launches (frames {sorted(frames)}): equal, max "
+                f"abs {err:.3e}; books, bkps, preds equal kernel K's; a frame's two launches "
+                f"{ms:.4f} ms (P1 {p1_ms:.4f}, P2 {p2_ms:.4f}), plain {plain_ms:.4f} ms (plain, "
+                f"kernel, kernel, plain: {', '.join(f'{v:.4f}' for v in all_)}); bound "
+                f"{bnd[0]:.4f} ms ({bnd[1]}), {ms / bnd[0]:.1f}x it; wcts_sharded {sh_s:.4f} s "
+                f"({sh_s / T * 1e3:.3f} ms a frame) against kernel K's scan {k_s:.4f} s; "
+                f"collectives a frame: {coll_ms:.4f} ms by events (all-reduce MIN + "
+                f"all-gather), {host_coll * 1e3:.4f} ms of host time in the path on {card}")
+            entries.append(entry(f"wcts_shard_step{'' if name == 'f32' else '[f64]'}",
+                                 "wcts_shard_step.cu", "speechrecognition_tpu/parallel/mesh.py:290",
+                                 launches, err, ms, plain_ms, bnd))
+            del am, kouts, mids, checks
+            torch.cuda.empty_cache()
+
+        # the data-parallel paths at world 1 (NCCL) against the single card
+        tables = dec.DecoderTables.build(lex, tdp, SETTINGS["word-penalty"])
+        single = dec.decode_batch_tables(packs["f32"], feats, lens_np, tables, 200.0)
+        got = pm.decode_sharded(data, packs["f32"], feats_np, lens_np, tables, 200.0)
+        check(all(np.array_equal(g, w.cpu().numpy()) for g, w in zip(got, single)),
+              "decode_sharded at world 1 differs from the single-card tables")
+        cfg = Configuration(SETTINGS)
+        counters = {"A": maha.mahalanobis_min_scores, "B": dec.decode_scan,
+                    "C": gmm.am_scores_df, "D": dec.decode_scan_df}
+        for kind, pack, dt in (("f32 pallas", packs["f32"], torch.float32),
+                               ("df32", bench.pack_df(device=dev), "df32")):
+            rec = dec.Recognizer(cfg, lex, tdp, pack, dtype=dt)
+            one = rec.recognize_corpus(big, batch_size=nb)
+            for fn in counters.values():
+                fn.LAUNCHES = 0
+            t0 = time.perf_counter()
+            res = pm.recognize_corpus_sharded(data, pack, big, rec.tables, 200.0,
+                                              lex.silence_idx, batch_size=nb, dtype=dt)
+            sec = time.perf_counter() - t0
+            n = {k: fn.LAUNCHES for k, fn in counters.items()}
+            check(res["hyps"] == one["hyps"] and res["wer"] == one["wer"],
+                  f"recognize_corpus_sharded {kind} at world 1 differs from the Recognizer")
+            need = ("A", "B") if kind == "f32 pallas" else ("C", "D")
+            check(all(n[k] > 0 for k in need), f"the sharded {kind} decode skipped a kernel: {n}")
+            log(f"[37] recognize_corpus_sharded {kind} at world 1 (NCCL): {nb} transcripts "
+                f"equal the Recognizer's (WER {res['wer']:.4f} %), {sec:.4f} s against "
+                f"{one['time']:.4f} s decode; launches {n}")
+        pack32 = bench.pack(dtype=torch.float32, device=dev)
+        f, sts, m = tpr.accumulate_inputs(big, 32768, bench.num_mixtures)
+        acc = pm.accumulate_sharded(data, pack32, f, sts, m, first_pass=False)
+        one = gmm.accumulate_chunk(pack32, torch.as_tensor(f, device=dev),
+                                   torch.as_tensor(sts, device=dev),
+                                   torch.as_tensor(m, device=dev), False)
+        check(np.array_equal(acc[0], one[0].cpu().numpy())
+              and all(np.allclose(a, o.cpu().numpy(), rtol=1e-12, atol=1e-9)
+                      for a, o in zip(acc[1:], one[1:])),
+              "accumulate_sharded at world 1 differs from accumulate_chunk")
+        log(f"[37] decode_sharded (f32 pallas) and accumulate_sharded ({len(m)} frames) at "
+            f"world 1 (NCCL) equal the single card's")
+    finally:
+        dist.destroy_process_group()
+
+    # two ranks on the one card over the host-staged gloo transport
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = tpr.collect(tpr.start(2, REPO / "build" / "parallel37", "wcts,recognize,decode,accumulate",
+                                  device="cuda:0", transport="gloo", model="bench",
+                                  utterances=RANKS_BATCH, pad_to=T, batch=RANKS_BATCH), 420)
+    ranks_s = time.perf_counter() - t0
+    _lex, corpus2, _tdp, _m, f2, l2, lm2, lm2_start = tpr.inputs("bench", RANKS_BATCH, T)
+    feats2 = torch.as_tensor(f2, device=dev)
+    wt2 = wc.WctsTables.build(td.TreeTables.build(lex, tdp, 0.0), tdp, lm2, lm2_start)
+    for name in ("f32", "f64"):
+        pack = tpr.wcts_pack(bench, name, dev)
+        am = gmm.am_scores(pack, feats2.reshape(-1, 25)).reshape(RANKS_BATCH, T, -1)
+        am = am.to(dts[name]).contiguous()
+        _c, kouts = wc.wcts_scan(am, torch.as_tensor(l2, device=dev),
+                                 *wt2.args(dev, dts[name], am.shape[2]), 200.0)
+        for arrays, info in ranks:
+            check(all(np.array_equal(arrays[f"wcts_{name}_{k}"], w.cpu().numpy())
+                      for k, w in zip(("books", "bkps", "preds"), kouts[:3])),
+                  f"rank {info['rank']}'s wcts_sharded {name} differs from kernel K's decode")
+        info = ranks[0][1]
+        per = info[f"wcts_{name}_collective_seconds"] / T
+        log(f"[37] two ranks on one card (host-staged gloo), B={RANKS_BATCH} T={T}: "
+            f"wcts_sharded {name} equals kernel K's decode on both ranks; "
+            f"{info[f'wcts_{name}_seconds']:.4f} s ({info[f'wcts_{name}_seconds'] / T * 1e3:.3f} "
+            f"ms a frame), collectives {per * 1e3:.4f} ms a frame of host time "
+            f"({info[f'wcts_{name}_collectives']} calls), P launches "
+            f"{info[f'wcts_{name}_launches']} on rank 0 on {card}")
+    cfg = Configuration(SETTINGS)
+    for kind, pack, dt, key in (("f32 pallas", bench.pack(method="pallas", device=dev),
+                                 torch.float32, "f32"),
+                                ("df32", bench.pack_df(device=dev), "df32", "df32")):
+        one = dec.Recognizer(cfg, lex, tdp, pack, dtype=dt).recognize_corpus(
+            corpus2, batch_size=RANKS_BATCH)
+        for _arrays, info in ranks:
+            check(info[f"recognize_{key}_hyps"] == [one["hyps"][i] for i in range(RANKS_BATCH)],
+                  f"rank {info['rank']}'s recognize_corpus_sharded {kind} differs from the "
+                  f"single card's transcripts")
+    tables = dec.DecoderTables.build(lex, tdp, 80.0)
+    single = dec.decode_batch_tables(bench.pack(dtype=torch.float32, device=dev), f2, l2,
+                                     tables, 200.0)
+    acc_one = gmm.accumulate_chunk(bench.pack(dtype=torch.float32, device=dev),
+                                   *(torch.as_tensor(a, device=dev) for a in
+                                     tpr.accumulate_inputs(corpus2, 2400, bench.num_mixtures)),
+                                   False)
+    for arrays, info in ranks:
+        check(all(np.array_equal(arrays[f"decode_{k}"], w.cpu().numpy())
+                  for k, w in zip(("scores", "words", "bkps"), single)),
+              f"rank {info['rank']}'s decode_sharded differs from the single card's")
+        check(np.array_equal(arrays["acc_w"], acc_one[0].cpu().numpy())
+              and all(np.allclose(arrays[k], o.cpu().numpy(), rtol=1e-12, atol=1e-9)
+                      for k, o in (("acc_xs", acc_one[1]), ("acc_x2s", acc_one[2]))),
+              f"rank {info['rank']}'s accumulate_sharded differs from accumulate_chunk")
+    log(f"[37] two ranks on one card: recognize_corpus_sharded (f32 pallas, df32), "
+        f"decode_sharded and accumulate_sharded equal the single card's on both ranks; the run "
+        f"{ranks_s:.1f} s with process start-up")
+    log(f"[37] phase seconds {time.perf_counter() - t_phase:.1f}")
+    return entries
+
+
+def tools_phase(dev, card, lex, corpus, iter2, tdp):
+    """Phase 38: the tools on the card (see the module docstring)."""
+    from speechrecognition_torch.config import Configuration
+    from speechrecognition_torch.search import decoder as dec
+    from speechrecognition_torch.search import flf
+    from speechrecognition_torch.search import lattice
+    from speechrecognition_torch.search import ngram_decoder as ng
+    from speechrecognition_torch.tools import partition, sprint_tools
+
+    t_phase = time.perf_counter()
+    ft = tables_module("torch_flf_tables")
+    with open(FIX / "demo_recognition.json") as f:
+        golden = json.load(f)
+    names = ft.demo_segment_names()
+    vocab = list(lex.orth)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "vocab.txt").write_text("\n".join(vocab) + "\n")
+        arch = flf.LatticeArchive(str(tmp / "segs"), vocab)
+        for n in names:
+            arch.write(n, lattice.WordLattice(num_frames=1, arcs=[lattice.Arc(0, 1, 0, 0.0)],
+                                              silence=0))
+        cfg = ft.recognizer_config(tmp / "net.config", golden["config"])
+        args = [str(tmp / "segs"), str(tmp / "vocab.txt"), "network", str(cfg)]
+        out = {}
+        for tag, where in (("card", str(dev)), ("cpu", "cpu")):
+            ng.decode_scan_bigram.LAUNCHES = 0
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            check(sprint_tools.lattice_processor(args, out=buf, device=where) == 0,
+                  f"lattice-processor network failed on {where}")
+            out[tag] = (buf.getvalue().splitlines(), ng.decode_scan_bigram.LAUNCHES,
+                        time.perf_counter() - t0)
+    card_lines, j_launches, card_s = out["card"]
+    cpu_lines = out["cpu"][0]
+    check(len(card_lines) == len(cpu_lines) == len(names), "one best path a segment")
+    worst = 0.0
+    for a, b in zip(card_lines, cpu_lines):
+        na, sa, wa = a.split("\t")
+        nb_, sb, wb = b.split("\t")
+        check((na, wa) == (nb_, wb), f"the card's best path of {na} differs from the CPU port's")
+        worst = max(worst, abs(float(sa) - float(sb)))
+    hyps = [[vocab.index(w) for w in ln.split("\t")[2].split()] for ln in card_lines]
+    check(hyps == [u["hyp"] for u in golden["utts"]], "the network's best paths are not golden")
+    check(j_launches == len(names), f"kernel J launched {j_launches} times on {len(names)}")
+    log(f"[38] sprint_tools lattice-processor ... network on the card: {len(names)} best paths "
+        f"equal the CPU port's (scores within {worst:.1e}) and the golden hyps; kernel J "
+        f"{j_launches} launches; {card_s:.3f} s (CPU {out['cpu'][2]:.3f} s) on {card}")
+
+    records = {}
+    for tag, where in (("card", dev), ("cpu", "cpu")):
+        pack = iter2.pack(dtype=torch.float64, device=where)
+
+        def make(thr, pack=pack):
+            return dec.Recognizer(Configuration({**SETTINGS, "am-threshold": thr}), lex, tdp,
+                                  pack, dtype=torch.float64)
+
+        records[tag] = partition.wer_vs_threshold(make, corpus, [25.0, 200.0], batch_size=35)
+    same = [(r["wer"], r["ser"]) for r in records["card"]] == \
+        [(r["wer"], r["ser"]) for r in records["cpu"]]
+    check(same, f"wer_vs_threshold on the card differs from the CPU port's: {records}")
+    check(abs(records["card"][1]["wer"] - golden["corpus"]["wer"]) < 1e-5,
+          f"wer_vs_threshold at threshold 200 is not the golden WER: {records}")
+    log(f"[38] wer_vs_threshold on the card (f64, 35 demo utterances): "
+        + ", ".join(f"threshold {r['threshold']:g} WER {r['wer']:.6f} % ({r['time']:.4f} s)"
+                    for r in records["card"]) + "; equal to the CPU port's")
+    log(f"[38] phase seconds {time.perf_counter() - t_phase:.1f}")
+
+
+def gmm_corpus_phase(dev, card, corpus, iter2):
+    """Phase 39: aligned_density_scores_df and em_score_and_accumulate_corpus
+    on the card against the CPU port (see the module docstring)."""
+    from speechrecognition_torch.io import read_alignment
+    from speechrecognition_torch.models import gmm
+
+    t_phase = time.perf_counter()
+    align, _w, _m = read_alignment(str(FIX / "demo_alignments" / "alignment-2-0.dump"))
+    n = min(corpus.features.shape[0], align.shape[0])
+    C = 4096
+    K = -(-n // C)
+    fp = np.zeros((K * C, corpus.dim), np.float32)
+    fp[:n] = corpus.features[:n]
+    sts = np.zeros(K * C, np.int32)
+    sts[:n] = align[:n]
+    mask = np.zeros(K * C, np.float32)
+    mask[:n] = 1.0
+    chunks = (fp.reshape(K, C, -1), sts.reshape(K, C), mask.reshape(K, C))
+    res = {}
+    for tag, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        pdf = iter2.pack_df(device=where)
+        sc = gmm.aligned_density_scores_df(pdf, torch.as_tensor(fp[:C], device=where),
+                                           torch.as_tensor(sts[:C], device=where))
+        res[tag] = (sc, {kind: gmm.em_score_and_accumulate_corpus(
+            pack, *(torch.as_tensor(a, device=where) for a in chunks))
+            for kind, pack in (("df32", pdf),
+                               ("f32", iter2.pack(dtype=torch.float32, device=where)))})
+    (sc_c, em_c), (sc_h, em_h) = res["card"], res["cpu"]
+    check(torch.equal(sc_c.hi.cpu(), sc_h.hi) and torch.equal(sc_c.lo.cpu(), sc_h.lo),
+          "aligned_density_scores_df on the card differs from the CPU port's")
+    g, h = [t.cpu() for t in em_c["df32"]], em_h["df32"]
+    check(torch.equal(g[1], h[1]) and all(torch.allclose(a, b, rtol=1e-12, atol=1e-9)
+                                          for a, b in zip(g[2:], h[2:]))
+          and abs(float(g[0]) - float(h[0])) <= 1e-12 * abs(float(h[0])),
+          "em_score_and_accumulate_corpus df32 on the card differs from the CPU port's")
+    g32, h32 = [t.cpu() for t in em_c["f32"]], em_h["f32"]
+    w_diff = int((g32[1] != h32[1]).sum())
+    check(abs(float(g32[0]) - float(h32[0])) <= 1e-6 * abs(float(h32[0]))
+          and float(g32[1].sum()) == float(h32[1].sum()) == float(mask.sum()),
+          "em_score_and_accumulate_corpus f32 on the card differs from the CPU port's")
+    log(f"[39] aligned_density_scores_df ({C} frames) bit-equal to the CPU port's; "
+        f"em_score_and_accumulate_corpus over {n} demo frames: df32 equal (score "
+        f"{float(g[0]):.6f}), f32 score {float(g32[0]):.6f} against {float(h32[0]):.6f}, "
+        f"{w_diff} of {g32[1].numel()} counts differ (float32 products); on {card}; phase "
+        f"seconds {time.perf_counter() - t_phase:.1f}")
 
 
 def repeat_corpus(corpus, n, corpus_cls):

@@ -707,6 +707,101 @@ def aligned_density_scores(pack: ScorePack, feats: torch.Tensor,
         return torch.bmm(X[:, None, :], Pg)[:, 0]
 
 
+def aligned_density_scores_df(packdf: ScorePackDF, feats: torch.Tensor,
+                              states: torch.Tensor) -> dfm.DF:
+    """Double-float twin of ``aligned_density_scores``: [N, dim] × int [N]
+    → DF [N, D] scores of the aligned mixture's densities, with exactly
+    ``density_scores_df_reference``'s operation order (so decisions match
+    the decode path's). Plain PyTorch on the pack's device: the aligned
+    mixture's [N, D, dim] tables are gathered a frame at a time."""
+    S, D, dim = packdf.num_mixtures, packdf.density_cap, packdf.dim
+    device = packdf.device
+    st = torch.as_tensor(states, device=device).long()
+    mu_hi = packdf.mu.hi.reshape(S, D, dim)[st]              # [N, D, dim]
+    mu_lo = packdf.mu.lo.reshape(S, D, dim)[st]
+    iv_hi = packdf.iv.hi.reshape(S, D, dim)[st]
+    iv_lo = packdf.iv.lo.reshape(S, D, dim)[st]
+    x = torch.as_tensor(feats, device=device).to(torch.float32)
+    N = x.shape[0]
+    zeros = torch.zeros((N, D), dtype=torch.float32, device=device)
+    acc = dfm.DF(zeros, zeros)
+    for i in range(dim):
+        mu_i = dfm.DF(mu_hi[:, :, i], mu_lo[:, :, i])
+        iv_i = dfm.DF(iv_hi[:, :, i], iv_lo[:, :, i])
+        diff = dfm.add_f(dfm.neg(mu_i), x[:, i, None])
+        acc = dfm.add(acc, dfm.mul(dfm.mul(diff, diff), iv_i))
+    half = dfm.DF(acc.hi * 0.5, acc.lo * 0.5)
+    score = dfm.add(dfm.DF(packdf.norm.hi.reshape(S, D)[st],
+                           packdf.norm.lo.reshape(S, D)[st]), half)
+    return dfm.add(score, dfm.neg(dfm.DF(packdf.logw.hi.reshape(S, D)[st],
+                                         packdf.logw.lo.reshape(S, D)[st])))
+
+
+def em_score_and_accumulate_corpus(pack, feats_chunks: torch.Tensor,
+                                   states_chunks: torch.Tensor, mask_chunks: torch.Tensor,
+                                   first_pass: bool = False, aligned_gather: bool = True):
+    """The AM score pass and the E-step under ONE model in one pass over the
+    corpus chunks, sharing each frame's scoring: feats_chunks f32 [K, C, dim],
+    states int [K, C], mask f32 [K, C] → (score_total, w [S, D], xs [S, D,
+    dim], x2s [S, D, dim]), all float64 on the pack's device.
+
+    The frame score follows Training.cpp:585-612 (the aligned mixture's
+    minimum capped at MIN_SCORE_INIT, or −log Σ exp over its active
+    densities in sum mode); the statistics take the first density at the
+    minimum (max-approx) or density 0 (``first_pass``). ``pack`` may be a
+    ScorePackDF: the scores are then ``aligned_density_scores_df``'s and the
+    minimum is exact in double-float pairs. ``aligned_gather`` scores only
+    the aligned mixture (``aligned_density_scores``); else every density is
+    scored and the aligned block gathered, as a "pallas" pack always does.
+    A loop over the chunks; every sum over frames is a one-hot product in
+    float64."""
+    is_df = isinstance(pack, ScorePackDF)
+    S, D = pack.num_mixtures, pack.density_cap
+    device = pack.device
+    feats_chunks = torch.as_tensor(feats_chunks, device=device)
+    states_chunks = torch.as_tensor(states_chunks, device=device)
+    mask_chunks = torch.as_tensor(mask_chunks, device=device)
+    dim = feats_chunks.shape[-1]
+    if is_df and not pack.max_approx:
+        raise NotImplementedError("df32 EM covers max-approx scoring only")
+    if not (first_pass or pack.max_approx):
+        raise NotImplementedError("fused pass covers max-approx membership only")
+    total = torch.zeros((), dtype=torch.float64, device=device)
+    w = torch.zeros((S * D,), dtype=torch.float64, device=device)
+    xs = torch.zeros((S * D, dim), dtype=torch.float64, device=device)
+    x2s = torch.zeros((S * D, dim), dtype=torch.float64, device=device)
+    for f, st, m in zip(feats_chunks, states_chunks.long(), mask_chunks):
+        m64 = m.to(torch.float64)
+        if is_df:
+            sc = aligned_density_scores_df(pack, f, st)
+            mn = dfm.min_axis(sc, -1)
+            capped_hi = torch.clamp(mn.hi, max=MIN_SCORE_INIT)
+            capped_lo = torch.where(mn.hi < MIN_SCORE_INIT, mn.lo, 0.0)
+            fs64 = capped_hi.to(torch.float64) + capped_lo.to(torch.float64)
+            eq = (sc.hi == mn.hi[:, None]) & (sc.lo == mn.lo[:, None])
+            best = torch.argmax(eq.to(torch.uint8), dim=-1)         # first minimum
+        else:
+            if aligned_gather and pack.method != "pallas":
+                sc = aligned_density_scores(pack, f, st)
+            else:
+                sc = density_scores(pack, f)[torch.arange(f.shape[0], device=device), st]
+            if pack.max_approx:
+                fs = torch.clamp(sc.amin(dim=-1), max=MIN_SCORE_INIT)
+            else:
+                fs = -torch.logsumexp(torch.where(pack.active[st], -sc, -math.inf), dim=-1)
+            fs64 = fs.to(torch.float64)
+            best = sc.argmin(dim=-1)
+        total = total + (fs64 * m64).sum()
+        if first_pass:
+            best = torch.zeros_like(best)
+        onehot = torch.nn.functional.one_hot(st * D + best, S * D).to(torch.float64).t()
+        f64 = f.to(torch.float64)
+        w = w + onehot @ m64
+        xs = xs + onehot @ (f64 * m64[:, None])
+        x2s = x2s + onehot @ (f64 * f64 * m64[:, None])
+    return total, w.reshape(S, D), xs.reshape(S, D, dim), x2s.reshape(S, D, dim)
+
+
 #: frames per step of the sum-mode passes: bounds aligned_density_scores'
 #: [rows, 2·dim+1, D] parameter gather (~50 MB in float64 at SieTill widths)
 SUM_ROWS = 8192

@@ -199,6 +199,15 @@ SIGNATURES = {
     # row_bytes, C, D, first_design → blocks per SM of kernel O's launch (-1:
     # error)
     "sr_quantized_scores_residency": ((_I,) * 4, _I),
+    # f64, am, feat_len, state, parent, grand, tdp, loop_allowed, entry_state,
+    # entry_pen, hyp, bkp, book, gathered, rank_bytes, ranks, out_book,
+    # out_bkp, out_pred, nhyp, nbkp, floor_key, B, T, S, n_local, N, W, ctx0,
+    # t, recombine, step, device, stream: kernel P's first launch
+    "sr_wcts_shard_entries": ((_I,) + (_P,) * 13 + (ctypes.c_longlong, _I) + (_P,) * 6
+                              + (_I,) * 11 + (_P,), _I),
+    # f64, feat_len, end_node, lm_local, floor_key, nhyp, nbkp, hyp, bkp, send,
+    # B, n_local, N, W, ctx0, t, thr, prune, device, stream: kernel P's second
+    "sr_wcts_shard_ends": ((_I,) + (_P,) * 9 + (_I,) * 6 + (_D, _I, _I, _P), _I),
     "sr_error_string": ((_I,), ctypes.c_char_p),
 }
 

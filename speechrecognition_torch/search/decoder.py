@@ -580,19 +580,18 @@ def _traceback_host(words_np: np.ndarray, bkps_np: np.ndarray,
     return out
 
 
-def decode_batch(pack: gmm_mod.ScorePack, feats, feat_len: np.ndarray,
-                 tables: DecoderTables, am_threshold: float, silence_idx: int,
-                 prune: bool = True, dtype: torch.dtype = torch.float32,
-                 am: Optional[torch.Tensor] = None,
-                 chunk: int = DECODE_CHUNK) -> List[List[int]]:
-    """Decode a padded batch → word sequences (silence removed).
+def decode_batch_tables(pack: gmm_mod.ScorePack, feats, feat_len: np.ndarray,
+                        tables: DecoderTables, am_threshold: float, prune: bool = True,
+                        dtype: torch.dtype = torch.float32, am: Optional[torch.Tensor] = None,
+                        chunk: int = DECODE_CHUNK):
+    """The scan's per-frame tables of a padded batch: (score [T, B] in
+    ``dtype``, word [T, B], bkp [T, B] int32) on the device.
 
     feats f32 [B, T, dim] (numpy, or a tensor on the pack's device);
     feat_len int [B]. ``am`` may be passed to reuse precomputed [B, T, S]
     acoustic scores (the NN scorer's; ``pack`` may then be None). Everything
     runs on the pack's device, or with ``am`` on its device; acoustic
-    scoring and the scan go chunk by chunk, and the traceback tables come to
-    the host once, at the end."""
+    scoring and the scan go chunk by chunk."""
     device = pack.device if am is None else am.device
     B, T, dim = feats.shape
     n_chunks = -(-T // chunk)
@@ -614,7 +613,7 @@ def decode_batch(pack: gmm_mod.ScorePack, feats, feat_len: np.ndarray,
                 else torch.as_tensor(tables.exit_pen, device=device))
     W, P = tables.state_table.shape
     carry = _init_carry(B, W, P, dtype, device)
-    words, bkps = [], []
+    outs = []
     for ci in range(n_chunks):
         if am is not None:
             am_c = am[:, ci * chunk:(ci + 1) * chunk].contiguous()
@@ -622,23 +621,33 @@ def decode_batch(pack: gmm_mod.ScorePack, feats, feat_len: np.ndarray,
             fl = feats[:, ci * chunk:(ci + 1) * chunk].reshape(B * chunk, dim)
             am_c = gmm_mod.am_scores(pack, fl).reshape(
                 B, chunk, pack.num_mixtures).to(dtype)
-        carry, (_s, w, b) = decode_scan(
+        carry, o = decode_scan(
             am_c, lens, *args, am_threshold, prune=prune,
             carry_in=carry, t0=ci * chunk, exit_pen=exit_pen)
-        words.append(w)
-        bkps.append(b)
-    words_np = torch.cat(words).cpu().numpy()
-    bkps_np = torch.cat(bkps).cpu().numpy()
-    return _traceback_host(words_np, bkps_np, np.asarray(feat_len), silence_idx)
+        outs.append(o)
+    return tuple(torch.cat([o[k] for o in outs])[:T] for k in range(3))
 
 
-def decode_batch_df(packdf: gmm_mod.ScorePackDF, feats, feat_len: np.ndarray,
-                    tables: DecoderTables, am_threshold: float, silence_idx: int,
-                    prune: bool = True, chunk: int = DECODE_CHUNK) -> List[List[int]]:
-    """decode_batch on the double-float path: df32 acoustic scores
-    (models/gmm.am_scores_df) and the df32 scan — the reference's float64
-    decisions with float32 arithmetic only. Runs on the pack's device, chunk
-    by chunk; the traceback tables come to the host once, at the end."""
+def decode_batch(pack: gmm_mod.ScorePack, feats, feat_len: np.ndarray,
+                 tables: DecoderTables, am_threshold: float, silence_idx: int,
+                 prune: bool = True, dtype: torch.dtype = torch.float32,
+                 am: Optional[torch.Tensor] = None,
+                 chunk: int = DECODE_CHUNK) -> List[List[int]]:
+    """Decode a padded batch → word sequences (silence removed):
+    ``decode_batch_tables``, then the traceback tables come to the host
+    once, at the end."""
+    _s, words, bkps = decode_batch_tables(pack, feats, feat_len, tables, am_threshold,
+                                          prune=prune, dtype=dtype, am=am, chunk=chunk)
+    return _traceback_host(words.cpu().numpy(), bkps.cpu().numpy(), np.asarray(feat_len),
+                           silence_idx)
+
+
+def decode_batch_df_tables(packdf: gmm_mod.ScorePackDF, feats, feat_len: np.ndarray,
+                           tables: DecoderTables, am_threshold: float, prune: bool = True,
+                           chunk: int = DECODE_CHUNK):
+    """``decode_batch_tables`` on the double-float path: df32 acoustic
+    scores (models/gmm.am_scores_df) and the df32 scan, chunk by chunk on
+    the pack's device → (score hi [T, B], word [T, B], bkp [T, B])."""
     device = packdf.device
     B, T, dim = feats.shape
     n_chunks = -(-T // chunk)
@@ -654,19 +663,28 @@ def decode_batch_df(packdf: gmm_mod.ScorePackDF, feats, feat_len: np.ndarray,
         dfm.from_f64(tables.tdp_within, device), dfm.from_f64(tables.entry_pen, device))
     W, P = tables.state_table.shape
     carry = _init_carry_df(B, W, P, device)
-    words, bkps = [], []
+    outs = []
     for ci in range(n_chunks):
         fl = feats[:, ci * chunk:(ci + 1) * chunk].reshape(B * chunk, dim)
         am = gmm_mod.am_scores_df(packdf, fl)
         am = dfm.DF(am.hi.reshape(B, chunk, S), am.lo.reshape(B, chunk, S))
-        carry, (_s, w, b) = decode_scan_df(am, lens, *args, am_threshold,
-                                           prune=prune, carry_in=carry,
-                                           t0=ci * chunk)
-        words.append(w)
-        bkps.append(b)
-    words_np = torch.cat(words).cpu().numpy()
-    bkps_np = torch.cat(bkps).cpu().numpy()
-    return _traceback_host(words_np, bkps_np, np.asarray(feat_len), silence_idx)
+        carry, o = decode_scan_df(am, lens, *args, am_threshold,
+                                  prune=prune, carry_in=carry, t0=ci * chunk)
+        outs.append(o)
+    return tuple(torch.cat([o[k] for o in outs])[:T] for k in range(3))
+
+
+def decode_batch_df(packdf: gmm_mod.ScorePackDF, feats, feat_len: np.ndarray,
+                    tables: DecoderTables, am_threshold: float, silence_idx: int,
+                    prune: bool = True, chunk: int = DECODE_CHUNK) -> List[List[int]]:
+    """decode_batch on the double-float path: df32 acoustic scores
+    (models/gmm.am_scores_df) and the df32 scan — the reference's float64
+    decisions with float32 arithmetic only. Runs on the pack's device, chunk
+    by chunk; the traceback tables come to the host once, at the end."""
+    _s, words, bkps = decode_batch_df_tables(packdf, feats, feat_len, tables, am_threshold,
+                                             prune=prune, chunk=chunk)
+    return _traceback_host(words.cpu().numpy(), bkps.cpu().numpy(), np.asarray(feat_len),
+                           silence_idx)
 
 
 class DeviceCorpus:

@@ -1563,3 +1563,109 @@ def test_silence_copy_oracle_on_the_card(dev, seed):
                                     lm, lm_start, 1e9, 0, prune=False, dtype=torch.float64,
                                     am=torch.as_tensor(am, device=dev))
     assert got[0] == [w for w in want[0] if w in (1, 2)]
+
+
+# -- kernel P: the context-sharded WCTS frame step (parallel/wcts_step.py) ---------
+
+
+def _p_inputs(dev, dtype, kind):
+    """(am on the card, lens, lex, tdp, lm, lm_start): the demo tie inputs
+    (small integer scores, LM entries in steps of 5; "nan": one NaN score)
+    or random scores in [0, 40) at SieTill's widths."""
+    import torch_parallel_ranks as tpr
+    from torch_search_tables import am_scores, random_lm
+    lex, tdp = sietill_search()
+    if kind in ("ties", "nan"):
+        am, lens, lm, lm_start = tpr.tie_inputs(lex, nan=kind == "nan")
+        am = torch.as_tensor(am)
+    else:
+        lens = np.asarray(SEARCH_LENS, np.int32)
+        am = am_scores(len(lens), 60, lex.num_states, seed=5)
+        lm, lm_start = random_lm(lex.num_words, 4)
+    return am.to(device=dev, dtype=dtype), lens, lex, tdp, lm, lm_start
+
+
+@pytest.mark.parametrize("ranks", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("kind", ["random", "ties", "nan"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_p_bit_equal(dev, dtype, kind, ranks):
+    """Kernel P against its plain version, launch by launch, over every
+    frame of 1-5 virtual ranks (13 contexts: 3 and 5 leave padding rows),
+    the exchange made in-process; NaN counted equal to NaN."""
+    import torch_parallel_ranks as tpr
+    from speechrecognition_torch.parallel import wcts_step as ws
+    args = _p_inputs(dev, dtype, kind)
+    k = tpr.virtual_ranks(*args, ranks)
+    p = [st.clone() for st in k]
+    before = ws.LAUNCHES
+    n = tpr.lockstep(k, p)
+    T = args[0].shape[1]
+    assert n == ranks * (2 * T + 1) and ws.LAUNCHES == before + n
+    if kind == "nan":
+        assert torch.isnan(k[0].out_book).any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_p_sharded_equals_kernel_k(dev, dtype):
+    """Four virtual ranks through kernel P give kernel K's books, bkps and
+    preds on the same scores."""
+    import torch_parallel_ranks as tpr
+    from speechrecognition_torch.search import wcts
+    am, lens, lex, tdp, lm, lm_start = _p_inputs(dev, dtype, "random")
+    k = tpr.virtual_ranks(am, lens, lex, tdp, lm, lm_start, 4)
+    tpr.lockstep(k, [st.clone() for st in k])
+    from speechrecognition_torch.search.tree_decoder import TreeTables
+    wt = wcts.WctsTables.build(TreeTables.build(lex, tdp, 0.0), tdp, lm, lm_start)
+    _c, outs = wcts.wcts_scan(am, torch.as_tensor(lens, device=dev),
+                              *wt.args(dev, dtype, am.shape[2]), tpr.THRESHOLD)
+    for st in k:
+        for got, want in zip((st.out_book, st.out_bkp, st.out_pred), outs[:3]):
+            assert torch.equal(got, want)
+
+
+def test_kernel_p_refuses_bad_frames(dev):
+    import torch_parallel_ranks as tpr
+    from speechrecognition_torch.parallel import wcts_step as ws
+    st = tpr.virtual_ranks(*_p_inputs(dev, torch.float32, "random"), 2)[0]
+    T = st.am.shape[1]
+    for t, recombine, step in ((0, False, True), (T + 1, False, True), (1, True, True),
+                               (T + 2, True, False)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            ws.shard_entries_cuda(st, t, recombine, step)
+
+
+def test_host_staged_gloo_equals_nccl_at_world_one(dev):
+    """The gloo transport stages CUDA tensors through pinned host buffers;
+    at world size 1 its collectives and a sharded WCTS decode equal NCCL's."""
+    import torch.distributed as dist
+    import torch_parallel_ranks as tpr
+    from speechrecognition_torch.parallel import mesh as pm
+    if dist.is_initialized():
+        pytest.skip("a process group is already running in this process")
+    try:
+        gloo = pm.make_mesh(1, ("model",), device=dev, transport="gloo",
+                            init_method=f"tcp://localhost:{tpr.free_port()}", rank=0,
+                            world_size=1)
+        nccl = pm.make_mesh(1, ("model",), device=dev, transport="nccl")
+        assert nccl.transport == "nccl" and gloo.transport == "gloo"
+        rng = np.random.default_rng(0)
+        for dt in (torch.int32, torch.int64, torch.float64):
+            x = torch.as_tensor(rng.integers(-99, 99, 257)).to(device=dev, dtype=dt)
+            got = [m.transports["model"].all_reduce(x.clone(), op) for m in (gloo, nccl)
+                   for op in ("min", "sum")]
+            assert torch.equal(got[0], got[2]) and torch.equal(got[1], got[3])
+            outs = [torch.empty((1, 257), dtype=dt, device=dev) for _ in range(2)]
+            for m, o in zip((gloo, nccl), outs):
+                m.transports["model"].all_gather(o, x)
+            assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0][0], x)
+        am, lens, lex, tdp, lm, lm_start = _p_inputs(dev, torch.float32, "random")
+        from speechrecognition_torch.search.tree_decoder import TreeTables
+        tree = TreeTables.build(lex, tdp, 0.0)
+        feats = np.zeros((*am.shape[:2], 25), np.float32)
+        res = [pm.wcts_sharded(m, None, feats, lens, tree, tdp, lm, lm_start, tpr.THRESHOLD,
+                               am=am) for m in (gloo, nccl)]
+        for a, b in zip(*res):
+            assert np.array_equal(a, b)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

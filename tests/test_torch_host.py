@@ -221,8 +221,15 @@ def test_port_imports_no_jax():
         "from speechrecognition_torch.sprint.am import AllophoneStateModel\n"
         "from speechrecognition_torch.tools.an4_system import (build_system, load_corpus,\n"
         "                                                     train_model)\n"
+        "import speechrecognition_torch.parallel, speechrecognition_torch.parallel.mesh\n"
+        "import speechrecognition_torch.parallel.multihost\n"
+        "import speechrecognition_torch.parallel.wcts_step\n"
+        "import speechrecognition_torch.tools.partition, speechrecognition_torch.tools.plots\n"
+        "import speechrecognition_torch.tools.sprint_tools\n"
+        "import speechrecognition_torch.tools.full_parity\n"
+        "import speechrecognition_torch.tools.wer_sweep, speechrecognition_torch.tools.mpe_run\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "             or m.startswith('speechrecognition_tpu'))\n"
+        "             or m.startswith('speechrecognition_tpu') or m.startswith('matplotlib'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

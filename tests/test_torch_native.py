@@ -27,7 +27,8 @@ def test_library_path_is_keyed_by_sources(tmp_path, monkeypatch):
 SOURCES = ["align_backtrack.cu", "align_scan.cu", "align_scan_df.cu", "am_scores_df.cu",
            "decode_scan.cu", "decode_scan_bigram.cu", "decode_scan_df.cu", "em_pass_df.cu",
            "forward_backward.cu", "linear_lvcsr_scan.cu", "linear_traceback.cu",
-           "mahalanobis.cu", "quantized_scores.cu", "tree_scan.cu", "wcts_scan.cu"]
+           "mahalanobis.cu", "quantized_scores.cu", "tree_scan.cu", "wcts_scan.cu",
+           "wcts_shard_step.cu"]
 
 
 def test_sources_are_the_eight_kernels_and_the_header():
@@ -36,7 +37,8 @@ def test_sources_are_the_eight_kernels_and_the_header():
     am_scores_df, D decode_scan_df, E align_scan in f32 and f64, F
     align_scan_df, G align_backtrack, H em_pass_df, I tree_scan, J
     decode_scan_bigram, K wcts_scan, L forward_backward, M linear_lvcsr_scan, N
-    linear_traceback, O quantized_scores), the shared double-float header, the
+    linear_traceback, O quantized_scores, P wcts_shard_step with its two
+    launches' entries), the shared double-float header, the
     histogram header, the scans' order-key header and the search tier's
     block helpers; the scans' instance, residency and scratch queries
     (kernels M and O among them since their redesigns: M's instance, O's
@@ -64,7 +66,8 @@ def test_sources_are_the_eight_kernels_and_the_header():
         "sr_forward_backward_residency", "sr_linear_scan", "sr_linear_scan_scratch",
         "sr_linear_scan_instance", "sr_linear_scan_residency", "sr_linear_traceback",
         "sr_quantized_scores", "sr_quantized_scores_tile", "sr_quantized_scores_scratch",
-        "sr_quantized_scores_residency", "sr_error_string"}
+        "sr_quantized_scores_residency", "sr_wcts_shard_entries", "sr_wcts_shard_ends",
+        "sr_error_string"}
 
 
 def c_entry_points():
@@ -81,8 +84,8 @@ def c_entry_points():
 def ctype_of(decl: str):
     if "*" in decl:
         return ctypes.c_void_p
-    return {"int": ctypes.c_int, "float": ctypes.c_float,
-            "double": ctypes.c_double}[decl.split()[0]]
+    return {"int": ctypes.c_int, "float": ctypes.c_float, "double": ctypes.c_double,
+            "long": ctypes.c_longlong}[decl.split()[0]]
 
 
 def test_every_entry_point_has_its_signature():
