@@ -302,14 +302,21 @@ kernel against its plain PyTorch version on the same tensors:
 
  37. the parallel paths (speechrecognition_torch/parallel/): at world size 1
      over NCCL, on phase 25's cell (bench/model.mix, 1,024 utterances, T
-     960, the demo bigram LM, 13 contexts x 212 nodes), wcts_sharded in
-     float32 and float64 (the main path: kernel P, two launches a frame and
-     one more; its launches read from this run) equal to kernel K's decode
-     on the same scores in books, bkps and preds, kernel P held against its
-     plain version on the path's own launches at six frames (P1 and P2),
-     a frame's two launches timed in turns against the plain version on the
-     path's middle-frame state, the collectives a frame by events and the
-     path's wall time against kernel K's; decode_sharded, and
+     960, the demo bigram LM, 13 contexts x 212 nodes), in float32 and
+     float64: the eager route (mesh.run_frames_eager: kernel P, two launches
+     a frame and one more) with P held against its plain version on its own
+     launches at six frames (P1 and P2) and its books, bkps and preds equal
+     to kernel K's decode on the same scores; then the main path,
+     wcts_sharded, whose frames replay from a CUDA graph in chunks
+     (mesh.FRAME_CHUNK; its launches read from this run, 2T + 1), equal to
+     kernel K's decode and the eager route; both routes' wall time in turns
+     against kernel K's warm scan, the graph route at chunks of 4-32 frames
+     (float32); a frame's two launches of P's owner instance and its forced
+     first design (the block instance) timed in turns with the plain
+     version on the path's middle-frame state, P1 and P2 by device time,
+     beside the bound, with blocks an SM and registers; the first design
+     held against the plain version there; the collectives a frame by
+     events; decode_sharded, and
      recognize_corpus_sharded in f32 "pallas" (A fused, B) and df32 (C, D)
      equal to the single card's tables and transcripts, accumulate_sharded
      equal to accumulate_chunk; then two rank processes on the one card over
@@ -601,6 +608,19 @@ def designs_in_turns(plain, new, first, reps_plain, reps):
     n2 = cuda_ms(new, reps)
     p2 = cuda_ms(plain, reps_plain)
     return (n1 + n2) / 2, (f1 + f2) / 2, (p1 + p2) / 2, [p1, n1, f1, f2, n2, p2]
+
+
+def graph_ms(fn, reps):
+    """Mean device milliseconds of one call of ``fn`` whose launches are
+    captured ``reps`` times in a CUDA graph and replayed (no host work
+    between them), after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(g.replay, 3) / reps
 
 
 def in_turns(plain, kernel, reps_plain, reps_kernel):
@@ -5278,6 +5298,242 @@ def p_compare(got, ref):
     return got.written_equal(ref), err
 
 
+#: chunks of frames the sharded WCTS's graph route is timed with (phase 37)
+P_CHUNKS = (4, 8, 16, 32)
+
+
+def p_phase_type(dev, card, mesh, name, dt, pack, feats, feats_np, lens, lens_np, tree0, tdp,
+                 lm, lm_start, T):
+    """Phase 37's sharded WCTS in one type at world 1 over NCCL: the eager
+    route with kernel P held against its plain version on its own launches,
+    the main path (wcts_sharded: its frames replayed from CUDA graphs) equal
+    to it and to kernel K's decode, both routes timed against K's warm
+    scan, the chunk swept (float32), and a frame's two launches of the
+    owner instance and the forced first design timed in turns with the
+    plain version. Returns kernel P's two JSON entries."""
+    from speechrecognition_torch.models import gmm
+    from speechrecognition_torch.ops import _native
+    from speechrecognition_torch.parallel import mesh as pm
+    from speechrecognition_torch.parallel import wcts_step as ws
+    from speechrecognition_torch.search import wcts as wc
+
+    nb = feats.shape[0]
+    N, W = tree0.num_nodes, tree0.num_words
+    nl = W + 1
+    word = 4 if dt == torch.float32 else 8
+    transport = mesh.transports["model"]
+    am = gmm.am_scores(pack, feats.reshape(-1, 25)).reshape(nb, T, -1).to(dt).contiguous()
+    S = am.shape[2]
+    kargs = wc.WctsTables.build(tree0, tdp, lm, lm_start).args(dev, dt, S)
+    for _ in range(2):                  # the second call is timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _c, kouts = wc.wcts_scan(am, lens, *kargs, 200.0)
+        torch.cuda.synchronize()
+        k_s = time.perf_counter() - t0
+    kouts = [o.cpu().numpy() for o in kouts[:3]]
+
+    # the eager route, kernel P held against its plain version on its own
+    # launches at a few frames
+    frames = {1, 2, 3, T // 2, T, T + 1}
+    checks, mids = [], {}
+    run_e, run_n = ws.shard_entries, ws.shard_ends
+
+    def entries_checked(s, t, recombine, step=True, stream=None):
+        if t not in frames:
+            return run_e(s, t, recombine, step, stream)
+        if t == T // 2:
+            mids["state"] = s.clone()
+        ref = s.clone()
+        ws.shard_entries_reference(ref, t, recombine, step)
+        run_e(s, t, recombine, step, stream)
+        checks.append(("P1", t, *p_compare(s, ref)))
+
+    def ends_checked(s, t, stream=None):
+        if t not in frames:
+            return run_n(s, t, stream)
+        ref = s.clone()
+        ws.shard_ends_reference(ref, t)
+        run_n(s, t, stream)
+        checks.append(("P2", t, *p_compare(s, ref)))
+
+    def eager_route():
+        st = pm.shard_state(am, lens_np, tree0, tdp, lm, lm_start, 200.0, 0, 1)
+        pm.run_frames_eager(st, transport)
+        return [o.cpu().numpy() for o in (st.out_book, st.out_bkp, st.out_pred)]
+
+    def graph_route():
+        return pm.wcts_sharded(mesh, None, feats_np, lens_np, tree0, tdp, lm, lm_start, 200.0,
+                               dtype=dt, am=am)
+
+    ws.LAUNCHES = 0
+    with mock.patch.object(ws, "shard_entries", entries_checked), \
+            mock.patch.object(ws, "shard_ends", ends_checked):
+        eager = eager_route()
+    eager_launches = ws.LAUNCHES
+    check(eager_launches == 2 * T + 1,
+          f"kernel P launched {eager_launches} times over {T} frames on the eager route")
+    bad = [c for c in checks if not c[2]]
+    check(not bad and len(checks) == 2 * len(frames) - 1,
+          f"kernel P {name} differs from its plain version on the path's launches {bad}")
+    err = max(c[3] for c in checks)
+    check(all(np.array_equal(g, w) for g, w in zip(eager, kouts)),
+          f"wcts_sharded's eager route {name} at world 1 (NCCL) differs from kernel K's decode")
+
+    # the main path: wcts_sharded, its frames replayed from a CUDA graph
+    ws.LAUNCHES = 0
+    graph = graph_route()
+    launches = ws.LAUNCHES
+    check(launches == 2 * T + 1, f"kernel P launched {launches} times over {T} frames")
+    check(all(np.array_equal(g, w) and np.array_equal(g, e)
+              for g, w, e in zip(graph, kouts, eager)),
+          f"wcts_sharded {name} at world 1 (NCCL) differs from kernel K's decode or the eager "
+          f"route")
+
+    # both routes timed in turns (graph, eager, eager, graph), warm
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    routes = [wall(r) for r in (graph_route, eager_route, eager_route, graph_route) * 2]
+    graph_s = float(np.median([v for i, v in enumerate(routes) if i % 4 in (0, 3)]))
+    eager_s = float(np.median([v for i, v in enumerate(routes) if i % 4 in (1, 2)]))
+
+    # the frame loop alone on a fresh state (graph, eager, eager, graph),
+    # and the outputs' copy to the host that wcts_sharded adds
+    def frame_loop(run):
+        st = pm.shard_state(am, lens_np, tree0, tdp, lm, lm_start, 200.0, 0, 1)
+        s_loop = wall(lambda: run(st, transport))
+        return s_loop, wall(lambda: [o.cpu().numpy() for o in (st.out_book, st.out_bkp,
+                                                                 st.out_pred)])
+
+    loops = [frame_loop(r) for r in (pm.run_frames, pm.run_frames_eager, pm.run_frames_eager,
+                                      pm.run_frames) * 2]
+    loop_graph = float(np.median([v[0] for i, v in enumerate(loops) if i % 4 in (0, 3)]))
+    loop_eager = float(np.median([v[0] for i, v in enumerate(loops) if i % 4 in (1, 2)]))
+    transport.calls, transport.seconds = 0, 0.0
+    eager_route()
+    host_coll = transport.seconds / T
+    sweep = {}
+    if name == "f32":
+        for F in P_CHUNKS + P_CHUNKS[::-1]:        # in turns: 4, ..., 32, 32, ..., 4
+            with mock.patch.object(pm, "FRAME_CHUNK", F):
+                sweep.setdefault(F, []).append(frame_loop(pm.run_frames)[0])
+    s2 = pm.shard_state(am, lens_np, tree0, tdp, lm, lm_start, 200.0, 0, 1)
+    coll_ms = cuda_ms(lambda: (transport.all_reduce(s2.floor_key, "min"),
+                               transport.all_gather(s2.gathered, s2.send)), COLLECTIVE_REPS)
+
+    # a frame's two launches, owner instance and first design, against the
+    # plain version in turns on the path's middle-frame state; the first
+    # design held against the plain version there
+    tm = T // 2
+    mk, mf, mp = mids["state"], mids["state"].clone(), mids["state"].clone()
+    ref = mids["state"].clone()
+    first = mids["state"].clone()
+    err_f = 0.0
+    for fn_k, fn_r in ((lambda s: ws.shard_entries_cuda(s, tm, True, True, first_design=True),
+                        lambda s: ws.shard_entries_reference(s, tm, True, True)),
+                       (lambda s: ws.shard_ends_cuda(s, tm),
+                        lambda s: ws.shard_ends_reference(s, tm))):
+        fn_k(first)
+        fn_r(ref)
+        same_f, e = p_compare(first, ref)
+        check(same_f, f"kernel P's first design {name} differs from its plain version at "
+                      f"frame {tm}")
+        err_f = max(err_f, e)
+    lib = _native.load()
+    check(ws.launcher(mk).instance == 1 and lib.sr_wcts_shard_instance(nl, N, W, word == 8) == 1,
+          f"kernel P {name} at {nl} x {N} takes the owner instance")
+    # the kernels' pairs replayed from a CUDA graph of 50 pairs (no host
+    # work between launches), in turns with the plain version by events
+    def plain_pair():
+        ws.shard_entries_reference(mp, tm, True, True)
+        ws.shard_ends_reference(mp, tm)
+
+    def owner_pair():
+        ws.shard_entries_cuda(mk, tm, True, True)
+        ws.shard_ends_cuda(mk, tm)
+
+    def first_pair():
+        ws.shard_entries_cuda(mf, tm, True, True, first_design=True)
+        ws.shard_ends_cuda(mf, tm)
+
+    all_ = [cuda_ms(plain_pair, 2), graph_ms(owner_pair, 50), graph_ms(first_pair, 50),
+            graph_ms(first_pair, 50), graph_ms(owner_pair, 50), cuda_ms(plain_pair, 2)]
+    ms, first_ms, plain_ms = ((all_[1] + all_[4]) / 2, (all_[2] + all_[3]) / 2,
+                              (all_[0] + all_[5]) / 2)
+    ev_ms = cuda_ms(owner_pair, 50)
+    # the host's share of a bound launch: 200 launches made back to back
+    # (the device runs behind), by the host clock
+    bound_l, stream = ws.launcher(mk), ws.current_stream(mk)
+    host_us = []
+    for launch in (lambda: bound_l.entries(tm, True, True, stream),
+                   lambda: bound_l.ends(tm, stream)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            launch()
+        host_us.append((time.perf_counter() - t0) / 200 * 1e6)
+        torch.cuda.synchronize()
+    p1_ev = cuda_ms(lambda: ws.shard_entries_cuda(mk, tm, True, True), 50)
+    p2_ev = cuda_ms(lambda: ws.shard_ends_cuda(mk, tm), 50)
+    # device times by the profiler, after every timing by events or the
+    # host clock
+    p1_ms = device_ms(lambda: ws.shard_entries_cuda(mk, tm, True, True), 50,
+                      "shard_owner_kernel")
+    p1f_ms = device_ms(lambda: ws.shard_entries_cuda(mf, tm, True, True, first_design=True), 50,
+                       "shard_block_kernel")
+    p2_ms = device_ms(lambda: ws.shard_ends_cuda(mk, tm), 50, "shard_ends_kernel")
+    with torch.profiler.profile(activities=PROFILED) as prof:
+        prof_s = wall(graph_route)
+    log_profile(f"[37] wcts_sharded {name}, graph route (chunks of {pm.FRAME_CHUNK}):", prof,
+                prof_s)
+    bnd = p_bound(nb, S, nl, N, W, 1, word)
+    res = [lib.sr_wcts_shard_residency(nl, N, W, word == 8, f) for f in (0, 1)]
+    log(f"[37] kernel P {name} at world 1 (NCCL), B={nb} T={T} {nl} contexts x {N} nodes: "
+        f"the eager route {eager_launches} launches, held against its plain version on "
+        f"{len(checks)} of its launches (frames {sorted(frames)}): equal, max abs {err:.3e}; "
+        f"the main path (graph route, chunks of {pm.FRAME_CHUNK}) {launches} launches; both "
+        f"routes' books, bkps, preds equal kernel K's; the first design equal to the plain "
+        f"version at frame {tm}")
+    log(f"[37] kernel P {name}: a frame's two launches (replayed from a graph of 50 pairs, "
+        f"in turns with the plain version by events: plain, owner, first, first, owner, plain: "
+        f"{', '.join(f'{v:.4f}' for v in all_)}): owner instance {ms:.4f} ms, first design "
+        f"{first_ms:.4f} ms, plain {plain_ms:.4f} ms; the owner pair by events around its "
+        f"wrappers {ev_ms:.4f} ms; device time "
+        f"P1 owner {p1_ms:.4f} ms, P1 first design {p1f_ms:.4f} ms, P2 {p2_ms:.4f} ms "
+        f"(events around the wrapper: P1 {p1_ev:.4f}, P2 {p2_ev:.4f}; host time a bound "
+        f"launch P1 {host_us[0]:.2f} us, P2 {host_us[1]:.2f} us); bound {bnd[0]:.4f} ms "
+        f"({bnd[1]}), owner {ms / bnd[0]:.2f}x it, first design {first_ms / bnd[0]:.2f}x; "
+        f"blocks an SM: owner {res[0]}, first design {res[1]}; registers: owner "
+        f"{ptxas_usage('shard_owner_kernel')}; first design {ptxas_usage('shard_block_kernel')}"
+        f"; P2 {ptxas_usage('shard_ends_kernel')} on {card}")
+    log(f"[37] wcts_sharded {name} (in turns, graph, eager, eager, graph, twice: "
+        f"{', '.join(f'{v:.4f}' for v in routes)} s): median graph route {graph_s:.4f} s "
+        f"({graph_s / T * 1e3:.4f} ms a frame), eager route {eager_s:.4f} s "
+        f"({eager_s / T * 1e3:.4f} ms a frame), against kernel K's scan {k_s:.4f} s; the "
+        f"frame loop alone (graph, eager, eager, graph, twice: "
+        f"{', '.join(f'{v[0]:.4f}' for v in loops)} s) median graph route "
+        f"{loop_graph:.4f} s ({loop_graph / T * 1e3:.4f} ms a frame), eager route "
+        f"{loop_eager:.4f} s ({loop_eager / T * 1e3:.4f} ms a frame); the outputs' copy to "
+        f"the host {', '.join(f'{v[1]:.4f}' for v in loops)} s; "
+        f"collectives a frame {coll_ms:.4f} ms by events (all-reduce MIN + all-gather), "
+        f"{host_coll * 1e3:.4f} ms of host time on the eager route"
+        + (f"; the graph route's frame loop by chunk, in turns: " + ", ".join(
+            f"{F} frames {', '.join(f'{x:.4f}' for x in v)} s" for F, v in sweep.items())
+           if sweep else "")
+        + f" on {card}")
+    suffix = "" if name == "f32" else "f64"
+    return [entry(f"wcts_shard_step{f'[{suffix}]' if suffix else ''}", "wcts_shard_step.cu",
+                  "speechrecognition_tpu/parallel/mesh.py:290", launches, err, ms, plain_ms, bnd),
+            entry(f"wcts_shard_step[{suffix + ', ' if suffix else ''}first design]",
+                  "wcts_shard_step.cu", "speechrecognition_tpu/parallel/mesh.py:290", 0, err_f,
+                  first_ms, plain_ms, bnd)]
+
+
 def parallel_phase(dev, card, lex, big, bench, tdp):
     """Phase 37: the parallel paths (see the module docstring). Returns
     kernel P's JSON entries."""
@@ -5286,7 +5542,6 @@ def parallel_phase(dev, card, lex, big, bench, tdp):
     from speechrecognition_torch.models import gmm
     from speechrecognition_torch.ops import mahalanobis as maha
     from speechrecognition_torch.parallel import mesh as pm
-    from speechrecognition_torch.parallel import wcts_step as ws
     from speechrecognition_torch.search import decoder as dec
     from speechrecognition_torch.search import tree_decoder as td
     from speechrecognition_torch.search import wcts as wc
@@ -5302,8 +5557,6 @@ def parallel_phase(dev, card, lex, big, bench, tdp):
     lens = torch.as_tensor(lens_np, device=dev)
     lm, lm_start = st.demo_bigram_lm()
     tree0 = td.TreeTables.build(lex, tdp, 0.0)
-    N, W = tree0.num_nodes, lex.num_words
-    nl = W + 1
     packs = {"f32": bench.pack(method="pallas", device=dev),
              "f64": bench.pack(dtype=torch.float64, device=dev)}
     dts = {"f32": torch.float32, "f64": torch.float64}
@@ -5312,98 +5565,10 @@ def parallel_phase(dev, card, lex, big, bench, tdp):
                         init_method=f"tcp://localhost:{tpr.free_port()}", rank=0, world_size=1)
     data = pm.make_mesh(1, ("data",), device=dev, transport="nccl")
     check(dist.get_backend() == "nccl" and mesh.world_size == 1, "phase 37 runs NCCL at world 1")
-    transport = mesh.transports["model"]
     try:
         for name in ("f32", "f64"):
-            dt = dts[name]
-            word = 4 if name == "f32" else 8
-            am = gmm.am_scores(packs[name], feats.reshape(-1, 25)).reshape(nb, T, -1)
-            am = am.to(dt).contiguous()
-            S = am.shape[2]
-            kargs = wc.WctsTables.build(tree0, tdp, lm, lm_start).args(dev, dt, S)
-            for _ in range(2):                  # the second call is timed
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                _c, kouts = wc.wcts_scan(am, lens, *kargs, 200.0)
-                torch.cuda.synchronize()
-                k_s = time.perf_counter() - t0
-            # the main path, kernel P held against its plain version on its
-            # own launches at a few frames
-            frames = {1, 2, 3, T // 2, T, T + 1}
-            checks, mids = [], {}
-            run_e, run_n = ws.shard_entries, ws.shard_ends
-
-            def entries_checked(s, t, recombine, step=True):
-                if t not in frames:
-                    return run_e(s, t, recombine, step)
-                if t == T // 2:
-                    mids["state"] = s.clone()
-                ref = s.clone()
-                ws.shard_entries_reference(ref, t, recombine, step)
-                run_e(s, t, recombine, step)
-                checks.append(("P1", t, *p_compare(s, ref)))
-
-            def ends_checked(s, t):
-                if t not in frames:
-                    return run_n(s, t)
-                ref = s.clone()
-                ws.shard_ends_reference(ref, t)
-                run_n(s, t)
-                checks.append(("P2", t, *p_compare(s, ref)))
-
-            ws.LAUNCHES = 0
-            with mock.patch.object(ws, "shard_entries", entries_checked), \
-                    mock.patch.object(ws, "shard_ends", ends_checked):
-                books, bkps, preds = pm.wcts_sharded(mesh, None, feats_np, lens_np, tree0, tdp,
-                                                     lm, lm_start, 200.0, dtype=dt, am=am)
-            launches = ws.LAUNCHES
-            check(launches == 2 * T + 1, f"kernel P launched {launches} times over {T} frames")
-            bad = [c for c in checks if not c[2]]
-            check(not bad and len(checks) == 2 * len(frames) - 1,
-                  f"kernel P {name} differs from its plain version on the path's launches {bad}")
-            err = max(c[3] for c in checks)
-            same_k = all(np.array_equal(g, w.cpu().numpy())
-                         for g, w in zip((books, bkps, preds), kouts[:3]))
-            check(same_k, f"wcts_sharded {name} at world 1 (NCCL) differs from kernel K's decode")
-            # the same path again, timed, and its collectives
-            transport.calls, transport.seconds = 0, 0.0
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            pm.wcts_sharded(mesh, None, feats_np, lens_np, tree0, tdp, lm, lm_start, 200.0,
-                            dtype=dt, am=am)
-            torch.cuda.synchronize()
-            sh_s = time.perf_counter() - t0
-            host_coll = transport.seconds / T
-            s2 = pm.shard_state(am, lens_np, tree0, tdp, lm, lm_start, 200.0, 0, 1)
-            coll_ms = cuda_ms(lambda: (transport.all_reduce(s2.floor_key, "min"),
-                                       transport.all_gather(s2.gathered, s2.send)),
-                              COLLECTIVE_REPS)
-            # a frame's two launches against the plain version, in turns, on
-            # the path's state at the middle frame
-            tm = T // 2
-            mk, mp = mids["state"], mids["state"].clone()
-            ms, plain_ms, all_ = in_turns(
-                lambda: (ws.shard_entries_reference(mp, tm, True, True),
-                         ws.shard_ends_reference(mp, tm)),
-                lambda: (ws.shard_entries_cuda(mk, tm, True, True), ws.shard_ends_cuda(mk, tm)),
-                2, 50)
-            p1_ms = cuda_ms(lambda: ws.shard_entries_cuda(mk, tm, True, True), 50)
-            p2_ms = cuda_ms(lambda: ws.shard_ends_cuda(mk, tm), 50)
-            bnd = p_bound(nb, S, nl, N, W, 1, word)
-            log(f"[37] kernel P {name} at world 1 (NCCL), B={nb} T={T} {nl} contexts x {N} "
-                f"nodes: {launches} launches, held against its plain version on "
-                f"{len(checks)} of the path's launches (frames {sorted(frames)}): equal, max "
-                f"abs {err:.3e}; books, bkps, preds equal kernel K's; a frame's two launches "
-                f"{ms:.4f} ms (P1 {p1_ms:.4f}, P2 {p2_ms:.4f}), plain {plain_ms:.4f} ms (plain, "
-                f"kernel, kernel, plain: {', '.join(f'{v:.4f}' for v in all_)}); bound "
-                f"{bnd[0]:.4f} ms ({bnd[1]}), {ms / bnd[0]:.1f}x it; wcts_sharded {sh_s:.4f} s "
-                f"({sh_s / T * 1e3:.3f} ms a frame) against kernel K's scan {k_s:.4f} s; "
-                f"collectives a frame: {coll_ms:.4f} ms by events (all-reduce MIN + "
-                f"all-gather), {host_coll * 1e3:.4f} ms of host time in the path on {card}")
-            entries.append(entry(f"wcts_shard_step{'' if name == 'f32' else '[f64]'}",
-                                 "wcts_shard_step.cu", "speechrecognition_tpu/parallel/mesh.py:290",
-                                 launches, err, ms, plain_ms, bnd))
-            del am, kouts, mids, checks
+            entries += p_phase_type(dev, card, mesh, name, dts[name], packs[name], feats,
+                                    feats_np, lens, lens_np, tree0, tdp, lm, lm_start, T)
             torch.cuda.empty_cache()
 
         # the data-parallel paths at world 1 (NCCL) against the single card

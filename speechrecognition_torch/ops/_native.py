@@ -200,14 +200,24 @@ SIGNATURES = {
     # error)
     "sr_quantized_scores_residency": ((_I,) * 4, _I),
     # f64, am, feat_len, state, parent, grand, tdp, loop_allowed, entry_state,
-    # entry_pen, hyp, bkp, book, gathered, rank_bytes, ranks, out_book,
-    # out_bkp, out_pred, nhyp, nbkp, floor_key, B, T, S, n_local, N, W, ctx0,
-    # t, recombine, step, device, stream: kernel P's first launch
-    "sr_wcts_shard_entries": ((_I,) + (_P,) * 13 + (ctypes.c_longlong, _I) + (_P,) * 6
-                              + (_I,) * 11 + (_P,), _I),
-    # f64, feat_len, end_node, lm_local, floor_key, nhyp, nbkp, hyp, bkp, send,
-    # B, n_local, N, W, ctx0, t, thr, prune, device, stream: kernel P's second
-    "sr_wcts_shard_ends": ((_I,) + (_P,) * 9 + (_I,) * 6 + (_D, _I, _I, _P), _I),
+    # entry_pen, end_first, end_next, hyp, bkp, carry_floor, book, gathered,
+    # rank_bytes, ranks, out_book, out_bkp, out_pred, ends, ends_bkp,
+    # floor_key, nhyp, nbkp (or NULL), B, T, S, n_local, N, W, ctx0, thr,
+    # prune, frame (or NULL), t, recombine, step, first_design (0: the
+    # instance the shape chooses; 1: the block instance), device, stream:
+    # kernel P's first launch
+    "sr_wcts_shard_entries": ((_I,) + (_P,) * 16 + (ctypes.c_longlong, _I) + (_P,) * 8
+                              + (_I,) * 7 + (_D, _I, _P) + (_I,) * 5 + (_P,), _I),
+    # f64, feat_len, lm_local, floor_key, carry_floor, ends, ends_bkp, send,
+    # B, n_local, W, ctx0, thr, prune, frame (or NULL), t, device, stream:
+    # kernel P's second launch
+    "sr_wcts_shard_ends": ((_I,) + (_P,) * 7 + (_I,) * 4 + (_D, _I, _P, _I, _I, _P), _I),
+    # n_local, N, W, f64 → kernel P's first launch's instance (1: the owner
+    # instance; 0: the block instance, its scratch rows in device memory)
+    "sr_wcts_shard_instance": ((_I,) * 4, _I),
+    # n_local, N, W, f64, first_design → blocks per SM of kernel P's first
+    # launch (-1: error)
+    "sr_wcts_shard_residency": ((_I,) * 5, _I),
     "sr_error_string": ((_I,), ctypes.c_char_p),
 }
 

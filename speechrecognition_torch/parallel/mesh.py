@@ -15,7 +15,9 @@ one rank on one device:
   * ``wcts_sharded``: the predecessor contexts split over the ``model``
     axis; each frame is kernel P's two launches with an all-reduce MIN of
     the beam floors between them and an all-gather of the word-end
-    candidates after them (parallel/wcts_step.py).
+    candidates after them (parallel/wcts_step.py), replayed a chunk of
+    frames at a time from a CUDA graph on the nccl and local transports
+    (``run_frames``).
 
 A ``Mesh`` is this rank's view of the group: its rank, the world size, its
 device and the axis sizes, and one ``Transport`` an axis. The transports,
@@ -46,7 +48,9 @@ TRANSPORTS = ("nccl", "gloo", "local")
 
 class Transport:
     """Collectives of one axis group: ``all_reduce`` in place and
-    ``all_gather`` into a [size, ...] tensor, in rank order."""
+    ``all_gather`` into a [size, ...] tensor, in rank order. ``calls`` and
+    ``seconds`` count the host's calls and their host time; a CUDA graph
+    that captured calls replays them without counting."""
 
     def __init__(self, name: str, group=None, size: int = 1):
         if name not in TRANSPORTS:
@@ -402,18 +406,64 @@ def shard_state(am: torch.Tensor, feat_len, tree_tables, tdp_model, lm_matrix, l
         am_threshold, prune)
 
 
+#: frames a chunk that run_frames replays from a CUDA graph
+FRAME_CHUNK = 8
+#: transports whose collectives a CUDA graph captures (gloo stages through
+#: host buffers, which a graph cannot)
+GRAPH_TRANSPORTS = ("nccl", "local")
+
+
+def frame_schedule(T: int, chunk: int):
+    """The frame loop's segments, (first frame, frames, captured): frame 1
+    alone (it recombines nothing), then from frame 2 whole chunks of
+    ``chunk`` frames (captured; none where ``chunk`` is 0), then the frames
+    past the last whole chunk one at a time. Together they cover frames
+    1..T once each, in order; the recombination at T + 1 follows them."""
+    segments = [(1, 1, False)] if T >= 1 else []
+    whole = (T - 1) // chunk if chunk > 0 and T > 1 else 0
+    segments += [(2 + k * chunk, chunk, True) for k in range(whole)]
+    segments += [(t, 1, False) for t in range(2 + whole * chunk, T + 1)]
+    return segments
+
+
 def run_frames(st, transport: Transport) -> None:
     """Every frame of ``st``'s batch: P1, the floor's all-reduce MIN, P2, the
-    candidates' all-gather; then the last frame's recombination."""
+    candidates' all-gather; then the last frame's recombination.
+
+    The route is chosen by the transport's name and the state's device: a
+    CUDA state on the nccl or local transport replays whole chunks of
+    FRAME_CHUNK frames from a CUDA graph (``wcts_step.FrameChunk``, captured
+    once per call), and launches frame 1, the frames past the last whole chunk
+    and the recombination eagerly; the gloo transport, whose host staging a
+    graph cannot capture, and the CPU run every frame eagerly
+    (``run_frames_eager``). Both launch the same kernels, 2T + 1 a call."""
+    graph = st.am.device.type == "cuda" and transport.name in GRAPH_TRANSPORTS
+    _run_frames(st, transport, FRAME_CHUNK if graph else 0)
+
+
+def run_frames_eager(st, transport: Transport) -> None:
+    """``run_frames`` with every frame launched eagerly, each launch through
+    ``wcts_step.shard_entries`` / ``shard_ends`` (the gloo and CPU route)."""
+    _run_frames(st, transport, 0)
+
+
+def _run_frames(st, transport: Transport, chunk: int) -> None:
     from . import wcts_step
 
     T = st.am.shape[1]
-    for t in range(1, T + 1):
-        wcts_step.shard_entries(st, t, recombine=t > 1)
+    stream = wcts_step.current_stream(st) if st.am.device.type == "cuda" else None
+    captured = None
+    for t0, n, graph in frame_schedule(T, chunk):
+        if graph:
+            if captured is None:
+                captured = wcts_step.FrameChunk(st, n, transport)
+            captured.replay(t0)
+            continue
+        wcts_step.shard_entries(st, t0, recombine=t0 > 1, stream=stream)
         transport.all_reduce(st.floor_key, "min")
-        wcts_step.shard_ends(st, t)
+        wcts_step.shard_ends(st, t0, stream=stream)
         transport.all_gather(st.gathered, st.send)
-    wcts_step.shard_entries(st, T + 1, recombine=True, step=False)
+    wcts_step.shard_entries(st, T + 1, recombine=True, step=False, stream=stream)
 
 
 def accumulate_sharded(mesh: Mesh, pack, feats: np.ndarray, states: np.ndarray,

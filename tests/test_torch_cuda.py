@@ -1585,24 +1585,103 @@ def _p_inputs(dev, dtype, kind):
     return am.to(device=dev, dtype=dtype), lens, lex, tdp, lm, lm_start
 
 
+@pytest.mark.parametrize("design", ["owner", "block"])
 @pytest.mark.parametrize("ranks", [1, 2, 3, 4, 5])
 @pytest.mark.parametrize("kind", ["random", "ties", "nan"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_kernel_p_bit_equal(dev, dtype, kind, ranks):
+def test_kernel_p_bit_equal(dev, dtype, kind, ranks, design):
     """Kernel P against its plain version, launch by launch, over every
     frame of 1-5 virtual ranks (13 contexts: 3 and 5 leave padding rows),
-    the exchange made in-process; NaN counted equal to NaN."""
+    the exchange made in-process; NaN counted equal to NaN. P1 through the
+    instance SieTill's shape takes (the owner instance) or the block
+    instance forced (the first design, uncounted)."""
     import torch_parallel_ranks as tpr
     from speechrecognition_torch.parallel import wcts_step as ws
     args = _p_inputs(dev, dtype, kind)
     k = tpr.virtual_ranks(*args, ranks)
     p = [st.clone() for st in k]
     before = ws.LAUNCHES
-    n = tpr.lockstep(k, p)
+    n = tpr.lockstep(k, p, first_design=design == "block")
     T = args[0].shape[1]
-    assert n == ranks * (2 * T + 1) and ws.LAUNCHES == before + n
+    assert n == ranks * (2 * T + 1)
+    assert ws.LAUNCHES == before + (n if design == "owner" else ranks * T)
+    assert ws.launcher(k[0]).instance == 1
     if kind == "nan":
         assert torch.isnan(k[0].out_book).any()
+
+
+#: shapes past the owner instance: (lexicon words, seed, ranks, dtype); the
+#: tree has 266 nodes at 60 words (row at 1 rank 127 KB in float32, past
+#: search::SHARED_LIMIT; at 2 ranks 66 KB, the owner instance's, and 99 KB
+#: in float64) and 722 at 200 (more nodes than a block's 512 threads)
+P_SHAPES = {"w60-r1-f32": (60, 1, 1, torch.float32, 0),
+            "w60-r2-f32": (60, 1, 2, torch.float32, 1),
+            "w60-r2-f64": (60, 1, 2, torch.float64, 0),
+            "w200-r4-f32": (200, 2, 4, torch.float32, 0)}
+
+
+@pytest.mark.parametrize("shape", sorted(P_SHAPES))
+def test_kernel_p_instance_by_shape(dev, shape):
+    """Prefix-sharing trees past the owner instance take the block instance
+    unforced (its scratch rows allocated by the launcher), bit-equal to the
+    plain version launch by launch; utterances end at frames 20, 11, 1
+    and 0."""
+    import torch_parallel_ranks as tpr
+    from speechrecognition_torch.parallel import wcts_step as ws
+    from torch_search_tables import PrefixLexicon, am_scores, prefix_tdp, random_lm
+    words, seed, ranks, dtype, instance = P_SHAPES[shape]
+    lex = PrefixLexicon(words, seed)
+    lens = np.asarray([20, 11, 1, 0], np.int32)
+    am = am_scores(len(lens), 20, lex.num_states, seed=5).to(device=dev, dtype=dtype)
+    lm, lm_start = random_lm(lex.num_words, 4)
+    k = tpr.virtual_ranks(am, lens, lex, prefix_tdp(lex), lm, lm_start, ranks)
+    p = [st.clone() for st in k]
+    assert all(ws.launcher(st).instance == instance for st in k)
+    assert (ws.launcher(k[0]).scratch[0] is None) == (instance == 1)
+    before = ws.LAUNCHES
+    n = tpr.lockstep(k, p)
+    assert n == ranks * 41 and ws.LAUNCHES == before + n
+
+
+@pytest.mark.parametrize("chunk", [1, 8, 13])
+@pytest.mark.parametrize("kind", ["random", "nan"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_p_graph_route(dev, dtype, kind, chunk, monkeypatch):
+    """wcts_sharded on the local transport replays its frames from a CUDA
+    graph (chunks of 1, 8 and 13 frames, then an eager tail; random scores
+    over 60 frames, or the NaN tie inputs over 40 with dead utterances):
+    books, bkps and preds equal the eager route's and kernel K's plain
+    version's on the CPU (NaN equal to NaN), on random scores also kernel
+    K's decode (on the NaN inputs kernel K's minimum drops the NaN floor,
+    ROADMAP Queue 3 #26), and kernel P launches 2T + 1 times."""
+    import torch_parallel_ranks as tpr
+    from speechrecognition_torch.parallel import mesh as pm
+    from speechrecognition_torch.parallel import wcts_step as ws
+    from speechrecognition_torch.search import wcts
+    from speechrecognition_torch.search.tree_decoder import TreeTables
+    am, lens, lex, tdp, lm, lm_start = _p_inputs(dev, dtype, kind)
+    B, T, S = am.shape
+    tree = TreeTables.build(lex, tdp, 0.0)
+    mesh = pm.make_mesh(1, ("model",), device=dev, transport="local")
+    monkeypatch.setattr(pm, "FRAME_CHUNK", chunk)
+    before = ws.LAUNCHES
+    graph = pm.wcts_sharded(mesh, None, np.zeros((B, T, 25), np.float32), lens, tree, tdp, lm,
+                            lm_start, tpr.THRESHOLD, dtype=dtype, am=am)
+    assert ws.LAUNCHES == before + 2 * T + 1
+    st = pm.shard_state(am, lens, tree, tdp, lm, lm_start, tpr.THRESHOLD, 0, 1)
+    pm.run_frames_eager(st, mesh.transports["model"])
+    eager = [o.cpu().numpy() for o in (st.out_book, st.out_bkp, st.out_pred)]
+    wt = wcts.WctsTables.build(tree, tdp, lm, lm_start)
+    _c, plain = wcts.wcts_scan(am.cpu(), torch.as_tensor(lens), *wt.args("cpu", dtype, S),
+                               tpr.THRESHOLD)
+    _c, kern = wcts.wcts_scan(am, torch.as_tensor(lens, device=dev), *wt.args(dev, dtype, S),
+                              tpr.THRESHOLD)
+    for g, e, p, k in zip(graph, eager, plain[:3], kern[:3]):
+        nan = g.dtype.kind == "f"
+        assert np.array_equal(g, e, equal_nan=nan) and np.array_equal(g, p.numpy(), equal_nan=nan)
+        if kind == "random":
+            assert np.array_equal(g, k.cpu().numpy())
+    assert np.isnan(graph[0]).any() == (kind == "nan")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

@@ -67,6 +67,7 @@ def test_sources_are_the_eight_kernels_and_the_header():
         "sr_linear_scan_instance", "sr_linear_scan_residency", "sr_linear_traceback",
         "sr_quantized_scores", "sr_quantized_scores_tile", "sr_quantized_scores_scratch",
         "sr_quantized_scores_residency", "sr_wcts_shard_entries", "sr_wcts_shard_ends",
+        "sr_wcts_shard_instance", "sr_wcts_shard_residency",
         "sr_error_string"}
 
 

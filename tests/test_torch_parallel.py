@@ -12,7 +12,12 @@ float32 and float64, on every rank; on tie scores (small integers, LM
 entries in steps of 5) likewise; with a NaN score it equals the
 single-device scans (XLA:CPU's cross-device ``pmin`` drops a NaN floor,
 ROADMAP Queue 3), and at one rank the frame step equals JAX's one-device
-``wcts_sharded`` with the NaN. ``decode_sharded`` and
+``wcts_sharded`` with the NaN. Kernel P's plain version over 1-5 virtual
+ranks, utterances ending at frames 1, 2 and T, equals JAX's one-device
+``wcts_sharded`` and keeps a dead utterance's raw carry and carry_floor; the
+frame loop's schedule covers every frame once, in order, and its chunked
+route (the CUDA graph's, its chunk played by the plain versions) equals the
+eager route. ``decode_sharded`` and
 ``recognize_corpus_sharded`` (f32 "pallas", df32) give JAX's and the port
 Recognizer's transcripts; ``accumulate_sharded`` meets
 tests/test_parallel.py's tolerances; ``make_mesh``'s factorisation and
@@ -309,3 +314,145 @@ def test_accumulate_sharded_equals_single(setup, ranks):
             tol = dict(rtol=0, atol=0) if got.ndim == 2 else dict(rtol=1e-12, atol=1e-9)
             np.testing.assert_allclose(got, np.asarray(j), **tol)
             np.testing.assert_allclose(got, t.numpy(), **tol)
+
+
+# -- the new frame-step contract and the frame loop --------------------------------
+
+
+def _step_virtual(states, T, after_frame):
+    """Every frame of ``states`` (virtual ranks on the CPU) through the plain
+    versions, the exchange made in-process; ``after_frame(t)`` after each."""
+    for t in range(1, T + 1):
+        for st in states:
+            wcts_step.shard_entries_reference(st, t, t > 1, True)
+        k = torch.stack([st.floor_key for st in states]).amin(dim=0)
+        for st in states:
+            st.floor_key.copy_(k)
+            wcts_step.shard_ends_reference(st, t)
+        g = torch.stack([st.send for st in states])
+        for st in states:
+            st.gathered.copy_(g)
+        after_frame(t)
+    for st in states:
+        wcts_step.shard_entries_reference(st, T + 1, True, False)
+
+
+@pytest.fixture(scope="module")
+def dead_inputs(setup):
+    """The tie inputs (with and without the NaN) whose utterances end at
+    frames 1, 2, T and T − 23, and JAX's one-device wcts_sharded on them in
+    both types."""
+    am, want = {}, {}
+    for nan in (False, True):
+        am[nan], _lens, lm, lm_start = tpr.tie_inputs(setup["lex"], nan=nan)
+        T = am[nan].shape[1]
+        lens = np.asarray([1, 2, T, T - 23], np.int32)
+        feats = np.zeros((*am[nan].shape[:2], 25), np.float32)
+        for name, (_tdt, jdt) in DT.items():
+            with pytest.MonkeyPatch.context() as mp:
+                want[nan, name] = tuple(np.asarray(o) for o in jax_wcts(
+                    setup, 1, jdt, feats, lens, lm, lm_start, mp, am[nan]))
+    return am, lens, lm, lm_start, want
+
+
+@pytest.mark.parametrize("ranks", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("nan", [False, True], ids=["ties", "nan"])
+@pytest.mark.parametrize("name", ["f32", "f64"])
+def test_dead_utterances_keep_their_carry(setup, dead_inputs, name, nan, ranks):
+    """The plain frame step over 1-5 virtual ranks, utterances ending at
+    frames 1, 2 and T: books, bkps and preds equal JAX's wcts_sharded on one
+    device (NaN equal to NaN), and a dead utterance's raw carry and
+    carry_floor stay as its last frame left them."""
+    s = setup
+    am, lens, lm, lm_start, want = dead_inputs
+    tdt = DT[name][0]
+    states = tpr.virtual_ranks(torch.as_tensor(am[nan]).to(tdt), lens, s["lex"], s["tdp"], lm,
+                               lm_start, ranks)
+    T = am[nan].shape[1]
+    kept = {}
+
+    def after_frame(t):
+        for b in np.flatnonzero(lens == t):
+            kept[int(b)] = [(st.hyp[b].clone(), st.bkp[b].clone(), st.carry_floor[b].clone())
+                            for st in states]
+
+    _step_virtual(states, T, after_frame)
+    assert sorted(kept) == list(range(len(lens)))
+    for b, snaps in kept.items():
+        for st, (h, bk, fl) in zip(states, snaps):
+            assert same(st.hyp[b].numpy(), h.numpy()) and torch.equal(st.bkp[b], bk)
+            assert torch.equal(st.carry_floor[b], fl), (b, st.ctx0)
+    for st in states:
+        for g, j in zip((st.out_book, st.out_bkp, st.out_pred), want[nan, name]):
+            for t in range(T):
+                assert same(g[t].numpy(), j[t]), (t, st.ctx0)
+    assert np.isnan(states[0].out_book.numpy()).any() == nan
+
+
+@pytest.mark.parametrize("chunk", [1, 4, 8])
+@pytest.mark.parametrize("offset", [-1, 0, 1], ids=["below", "at", "above"])
+@pytest.mark.parametrize("multiple", [1, 3])
+def test_frame_schedule_covers_every_frame_once_in_order(chunk, multiple, offset):
+    """T − 1 below, at and above a multiple of the chunk: frame 1 alone,
+    whole chunks from frame 2, the rest one at a time, each frame once and
+    in order."""
+    T = multiple * chunk + 1 + offset
+    segments = pm.frame_schedule(T, chunk)
+    frames = [t for t0, n, _g in segments for t in range(t0, t0 + n)]
+    assert frames == list(range(1, T + 1))
+    assert segments[0] == (1, 1, False)
+    graphed = [(t0, n) for t0, n, g in segments if g]
+    assert all(n == chunk for _t0, n in graphed)
+    assert len(graphed) == (T - 1) // chunk
+    assert all(n == 1 for _t0, n, g in segments if not g)
+    assert [t0 for t0, _n, g in pm.frame_schedule(T, 0)] == list(range(1, T + 1))
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 8])
+def test_chunked_route_equals_eager_route(setup, monkeypatch, chunk):
+    """The graph route's loop on the CPU, its captured chunk played by the
+    plain versions: captured once, replayed at each chunk's first frame in
+    order, the same outputs, carry and launches as the eager route."""
+    s = setup
+    am, lens, lm, lm_start = tpr.tie_inputs(s["lex"], nan=True)
+    T = am.shape[1]
+    played = []
+
+    class PlainChunk:
+        made = 0
+
+        def __init__(self, st, frames, transport):
+            PlainChunk.made += 1
+            self.st, self.frames, self.transport = st, frames, transport
+
+        def replay(self, t0):
+            played.append((t0, self.frames))
+            for t in range(t0, t0 + self.frames):
+                wcts_step.shard_entries_reference(self.st, t, True, True)
+                self.transport.all_reduce(self.st.floor_key, "min")
+                wcts_step.shard_ends_reference(self.st, t)
+                self.transport.all_gather(self.st.gathered, self.st.send)
+
+    monkeypatch.setattr(wcts_step, "FrameChunk", PlainChunk)
+    mesh = pm.make_mesh(1, ("model",), device="cpu", transport="local")
+    transport = mesh.transports["model"]
+    eager, graph = (pm.shard_state(torch.as_tensor(am), lens, s["tree"], s["tdp"], lm, lm_start,
+                                   tpr.THRESHOLD, 0, 1) for _ in range(2))
+    pm.run_frames_eager(eager, transport)
+    pm._run_frames(graph, transport, chunk)
+    assert PlainChunk.made == (1 if T > chunk else 0)
+    assert played == [(2 + k * chunk, chunk) for k in range((T - 1) // chunk)]
+    assert graph.written_equal(eager)
+
+
+def test_end_lists_cover_every_word_at_its_node():
+    end_node = np.asarray([3, 5, 3, 0, 5, 5, 7])
+    first, nxt = wcts_step.end_lists(end_node, 9)
+    seen = {}
+    for n in range(9):
+        w = first[n]
+        while w >= 0:
+            seen[int(w)] = n
+            w = nxt[w]
+    assert seen == {w: int(e) for w, e in enumerate(end_node)}
+    assert first[1] == -1 and first[3] == 0 and first[5] == 1

@@ -114,16 +114,22 @@ def virtual_ranks(am, lens, lex, tdp, lm, lm_start, ranks: int, prune: bool = Tr
             for r in range(ranks)]
 
 
-def lockstep(kernel_states, plain_states, frames=None) -> int:
+def lockstep(kernel_states, plain_states, frames=None, first_design=False) -> int:
     """Advance two copies of the same virtual ranks frame by frame, one
     through kernel P's launches, one through its plain version, exchanging
     in-process (the minimum of the floor keys, the stacked send buffers);
     after every launch each rank's written tensors must be equal. Returns
-    the launches compared. ``frames`` stops after that many frames."""
+    the launches compared. ``frames`` stops after that many frames;
+    ``first_design`` forces P1's block instance (its launches uncounted)."""
     from speechrecognition_torch.parallel import wcts_step as ws
     import torch
     T = kernel_states[0].am.shape[1] if frames is None else frames
     n = 0
+
+    def entries(st, t, recombine, step):
+        if first_design:
+            return ws.shard_entries_cuda(st, t, recombine, step, first_design=True)
+        return ws.shard_entries(st, t, recombine, step)
 
     def exchange(states, floor):
         if floor:
@@ -142,17 +148,17 @@ def lockstep(kernel_states, plain_states, frames=None) -> int:
             plain(p, *args)
             if not k.written_equal(p):
                 raise AssertionError(f"kernel P differs from its plain version: "
-                                     f"{kernel.__name__}{args} at rank {k.ctx0}")
+                                     f"{plain.__name__}{args} at rank {k.ctx0}")
             n += 1
 
     for t in range(1, T + 1):
-        both(ws.shard_entries, ws.shard_entries_reference, t, t > 1, True)
+        both(entries, ws.shard_entries_reference, t, t > 1, True)
         exchange(kernel_states, True)
         exchange(plain_states, True)
         both(ws.shard_ends, ws.shard_ends_reference, t)
         exchange(kernel_states, False)
         exchange(plain_states, False)
-    both(ws.shard_entries, ws.shard_entries_reference, T + 1, True, False)
+    both(entries, ws.shard_entries_reference, T + 1, True, False)
     return n
 
 
