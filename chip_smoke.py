@@ -75,9 +75,10 @@ kernel against its plain PyTorch version on the same tensors:
      and G (backtrack) at B=256, C=320, A=70 on real bench/model.mix
      scores, three chunks with carry: bit-equal to their plain versions,
      times in turns beside the instance that ran; kernel E's warp instance
-     timed at A = 32 to 128 (every warp count) in three rounds; F's block
-     instance on a synthetic batch with A=160: bit-equal over two chunks,
-     timed; G per launch and per step beside its bound and the chain's
+     timed at A = 32 to 128 (every warp count) in three rounds; F's wide
+     instance on a synthetic batch with A=160, and its first design (the
+     block instance, forced): bit-equal over two chunks, timed in turns with
+     the plain version and with each other; G per launch and per step beside its bound and the chain's
      floor (a timed chain of dependent shared-memory loads, a kernel this
      script builds for that alone), and on tests/torch_df_tables.py's edge cases plus
      Tp 3,000 at A 1,025: bit-equal;
@@ -191,8 +192,9 @@ kernel against its plain PyTorch version on the same tensors:
      waves and the backward chain's buffer; the split: each chain alone, and
      the device time of the chains' launch and of the posterior pass; a
      sweep at B=4, T=40 over every instance edge (tests/torch_fb_tables.py's
-     L_INSTANCES: 1 to 3 positions a lane, the block instance in shared
-     memory and in device scratch at 1,025), bit-equal, the first design
+     L_INSTANCES: 1 to 3 positions a lane on a warp a chain, the wide chains
+     at 2 to 4 positions a lane and 2 to 8 warps a chain up to 1,024, the
+     block instance in device scratch at 1,025), bit-equal, the first design
      too;
  29. Baum-Welch at full width: baum_welch_posteriors and
      accumulate_baum_welch over the 1024 utterances in batches of 256,
@@ -290,12 +292,16 @@ kernel against its plain PyTorch version on the same tensors:
      aligns, 3 estimates, threshold 300; launch counts read from this run,
      its phase split), sprint/mm_io's round trip, aligner_tables_for_orths
      over the 130 orthographies (chains of up to about 300 positions, so
-     kernels E, F and L take their block instances), align_batch_chunked in
+     kernel E takes its block instance and kernels F and L their wide
+     instances), align_batch_chunked in
      f32 "pallas" (A fused, E, G), f64 "mxu" (E, G) and df32 (C, F, G), and
      baum_welch_posteriors in f64 "mxu" and f32 "pallas" (L); each kernel's
      last recorded calls held against its plain version on the same inputs
      (bit-equal; A fused within A_REL_TOL relative; H's counts bit-equal
-     and sums within 1e-12), timed in turns beside its bound; wall seconds
+     and sums within 1e-12), timed in turns beside its bound; F's and L's
+     first designs (their block instances, forced) bit-equal on the same
+     calls and timed in turns with the wide instances (F also on the df32
+     alignment's NaN rows), with us a frame; wall seconds
      of every step and the host share of the df32 alignment and the
      Baum-Welch pass (profiler, in a fresh process, in a window that
      recorded every launch the wrappers counted).
@@ -330,7 +336,17 @@ kernel against its plain PyTorch version on the same tensors:
      thresholds 25 and 200 (f64) equal to the CPU port's, golden at 200;
  39. models/gmm.py's aligned_density_scores_df bit-equal to the CPU port's
      and em_score_and_accumulate_corpus (df32 equal; f32 score within 1e-6)
-     over the demo frames and golden alignment.
+     over the demo frames and golden alignment;
+ 40. one NaN acoustic score (tests/torch_nan_tables.py: utterance 0 of 4,
+     frame 20 of 40) through kernels B (f32, f64) and D at 12 x 24, 33 x 8
+     and 44 x 24 (warp, block and scratch instances; D with the NaN in the
+     lattice's last cell unpruned and in an inner cell pruned), J at 12 x 24
+     and 33 x 8 and its first design, E at A 70, 303 and 1,025 (the carry
+     compared at the NaN's frame), I at 212 and 1,025 nodes and its first
+     design, K on SieTill pruned and with every option (the owner instance
+     and the block instance forced) and M and its first design: every output
+     bit-equal to the plain version's on the card (NaN equal to NaN), or
+     the run fails.
 
 Kernels B, D, G and N are timed by their device time (torch.profiler), since
 B and D's wrappers synchronise on a range check and a call timed by events
@@ -408,7 +424,13 @@ DF_ADD, DF_CMP = 20, 3
 #: operations, and its FP32 instructions)
 A_ELEMENT_OPS = 4
 A_ELEMENT_INSTR = 3
-#: the synthetic automaton length that takes kernel F's block instance
+#: the frame of phase 40's NaN in kernel E's inputs (its first chunk ends
+#: there, so the carry it returns holds the NaN row)
+NAN_E_FRAME = 20
+#: the longest automaton of kernel F's warp instance (its wide instance past it)
+F_WARP_A = 128
+#: the synthetic automaton length that takes kernel F's wide instance (its
+#: block instance, the first design, forced beside it)
 F_BLOCK_A = 160
 #: kernels C and H, per frame, density and dimension: add_f 10, two mul of 9
 #: instructions each (1 product, 1 FMA counted twice, 3 for the cross terms,
@@ -514,18 +536,26 @@ def entry(name, source, replaces, launches, err, ms, plain_ms, bnd):
 
 
 def f_warps(A):
-    """Warps per utterance of kernel F's warp instance for A positions; 0 or
-    -1 for its block instance (the row in shared memory or in device
-    scratch): the choice of its C entry."""
+    """Warps per utterance of kernel F's warp or wide instance for A
+    positions; -1 for its block instance (the row in device scratch): the
+    choice of its C entry."""
     from speechrecognition_torch.ops import _native
     return _native.load().sr_align_fwd_df_warps(A)
+
+
+def f_positions(A):
+    """Positions a lane of kernel F's instance for A positions: 1 (the warp
+    instance), 2-4 (the wide instance), 0 (the block instance)."""
+    from speechrecognition_torch.ops import _native
+    return _native.load().sr_align_fwd_df_positions(A)
 
 
 #: the scans' kernels whose machine code phase 2 counts
 SASS_KERNELS = ("decode_scan_warp_kernel", "decode_scan_df_warp_kernel",
                 "decode_scan_df_block_kernel", "align_fwd_warp_kernel", "align_fwd_df_warp_kernel",
-                "align_backtrack_kernel", "bigram_scan_warp_kernel", "wcts_owner_kernel",
-                "tree_scan_owner_kernel", "tree_scan_kernel", "fb_chain_kernel",
+                "align_fwd_df_wide_kernel", "align_backtrack_kernel", "bigram_scan_warp_kernel",
+                "wcts_owner_kernel", "tree_scan_owner_kernel", "tree_scan_kernel",
+                "fb_chain_kernel", "fb_wide_chain_kernel",
                 "fb_posterior_kernel", "fb_warp_kernel", "linear_scan_warp_kernel",
                 "linear_scan_kernel")
 
@@ -559,7 +589,14 @@ def instance(query, *shape):
     a lane (kernels B and D) of the warp instance; 0 for the block instance
     with its lattice in shared memory, -1 in device scratch."""
     from speechrecognition_torch.ops import _native
-    v = getattr(_native.load(), query)(*shape)
+    lib = _native.load()
+    v = getattr(lib, query)(*shape)
+    if query == "sr_align_fwd_df_warps" and v > 0 and shape[0] > F_WARP_A:
+        return (f"wide instance, {v} warps an utterance, "
+                f"{lib.sr_align_fwd_df_positions(*shape)} positions a lane")
+    if query == "sr_forward_backward_instance" and lib.sr_forward_backward_warps(*shape) > 1:
+        return (f"wide chains, {lib.sr_forward_backward_warps(*shape)} warps a chain, {v} "
+                f"positions a lane")
     if v <= 0:
         return f"block instance, lattice in {'device scratch' if v < 0 else 'shared memory'}"
     if query == "sr_wcts_scan_instance":
@@ -1327,6 +1364,7 @@ def main():
     parallel = parallel_phase(dev, card, lex, big, bench, tdp)
     tools_phase(dev, card, lex, corpus, iter2, tdp)
     gmm_corpus_phase(dev, card, corpus, iter2)
+    nan_phase(dev, card)
     j64 = [e for e in search if e["name"] == "decode_scan_bigram[f64]"]
     check(len(j64) == 1, "one decode_scan_bigram[f64] entry in the search tier's kernels")
     log(f"[35] decode_scan_bigram[f64] launches: {j64[0]['launches']} on the bigram decode "
@@ -1783,9 +1821,10 @@ def train_phases(dev, card, lex, corpus, big, bench, packdf_bench, c_plain_ms):
 
 
 def log_block_instance(dev, card, vit, dfm, C):
-    """Kernel F's block instance (A > 128) on a synthetic batch
-    of TRAIN_BATCH utterances: two chunks with carry bit-equal to the plain
-    version, one chunk timed."""
+    """Kernel F's wide instance (128 < A <= 1024) on a synthetic batch of
+    TRAIN_BATCH utterances: two chunks with carry bit-equal to the plain
+    version, as the forced first design (the block instance, its row in
+    shared memory); one chunk timed against each in turns."""
     A = F_BLOCK_A
     rng = np.random.default_rng(A)
     ams = [dfm.from_f64(rng.uniform(0.0, 40.0, size=(TRAIN_BATCH, C, A)), dev) for _ in range(2)]
@@ -1797,25 +1836,36 @@ def log_block_instance(dev, card, vit, dfm, C):
     thr = dfm.from_f64(np.float64(200.0), dev)
     big = dfm.DF(torch.full((TRAIN_BATCH, A), 1e30, device=dev),
                  torch.zeros((TRAIN_BATCH, A), device=dev))
+    def first(*a):
+        return f_first(vit, *a)
+
     outs = []
-    for fn in (vit.align_fwd_chunk_df, vit.align_fwd_chunk_df_reference):
+    for fn in (vit.align_fwd_chunk_df, first, vit.align_fwd_chunk_df_reference):
         prev, jumps = big, []
         for c in range(2):
             prev, j = fn(prev, ams[c], tdp, valid, lens, thr, c * C)
             jumps.append(j)
         outs.append((prev.hi, prev.lo, torch.cat(jumps)))
     torch.cuda.synchronize()
-    equal = all(torch.equal(k, p) for k, p in zip(*outs))
+    equal = all(torch.equal(k, p) for k, p in zip(outs[0], outs[2]))
+    equal_first = all(torch.equal(k, p) for k, p in zip(outs[1], outs[2]))
     ms, plain_ms, all_ = in_turns(
         lambda: vit.align_fwd_chunk_df_reference(big, ams[0], tdp, valid, lens, thr, 0),
         lambda: vit.align_fwd_chunk_df(big, ams[0], tdp, valid, lens, thr, 0), 1, 10)
+    wide_ms, first_ms, fall = in_turns(
+        lambda: first(big, ams[0], tdp, valid, lens, thr, 0),
+        lambda: vit.align_fwd_chunk_df(big, ams[0], tdp, valid, lens, thr, 0), 10, 10)
     log(f"[13] kernel F B={TRAIN_BATCH} C={C} A={A} "
         f"({instance('sr_align_fwd_df_warps', A)}) on "
-        f"synthetic scores, 2 chunks with carry: hi, lo and jumps bit-equal {equal}; kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms per chunk (plain, kernel, kernel, plain: "
-        f"{', '.join(f'{v:.4f}' for v in all_)}); per frame {ms / C * 1e3:.3f} us on {card}")
-    check(f_warps(A) == 0, "kernel F's block instance runs")
-    check(equal, "kernel F's block instance is not bit-equal to its plain version")
+        f"synthetic scores, 2 chunks with carry: hi, lo and jumps bit-equal {equal} (the first "
+        f"design, forced: {equal_first}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per chunk "
+        f"(plain, kernel, kernel, plain: {', '.join(f'{v:.4f}' for v in all_)}); first design "
+        f"{first_ms:.4f} ms against the wide instance's {wide_ms:.4f} ms in turns (first, wide, "
+        f"wide, first: {', '.join(f'{v:.4f}' for v in fall)}); per frame {ms / C * 1e3:.3f} us "
+        f"(first design {first_ms / C * 1e3:.3f} us) on {card}")
+    check(A > F_WARP_A and f_warps(A) > 0, "kernel F's wide instance runs")
+    check(equal and equal_first, "kernel F's wide instance or its first design is not "
+          "bit-equal to its plain version")
 
 
 #: automaton lengths of phase 13's sweep of kernel E's warp instance: every
@@ -4825,7 +4875,7 @@ runs = {"align df32": (
         "Baum-Welch f32 pallas": (
             lambda: bw.baum_welch_posteriors(f32, feats, lens, tables, dtype=torch.float32),
             {"mahalanobis_kernel": maha.mahalanobis_min_scores,
-             "fb_block_kernel": bw.forward_backward})}
+             "fb_wide_chain_kernel": bw.forward_backward})}
 us = lambda e: getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 out = {}
 for tag, (fn, kernels) in runs.items():
@@ -4890,6 +4940,14 @@ def recorded(stack, mod, name, keep):
     return calls
 
 
+def f_first(vit, *a, **k):
+    """Kernel F's first design (the block instance, its row in shared
+    memory), forced on a call's arguments: (the cost row, the jumps),
+    uncounted."""
+    out, jumps, _scratch = vit.align_fwd_chunk_df_cuda(*a, first_design=True, **k)
+    return out, jumps
+
+
 def flat(out):
     """A kernel's outputs as a flat list of tensors (DF pairs split)."""
     items = out if isinstance(out, (tuple, list)) else (out,)
@@ -4910,6 +4968,7 @@ def sprint_phase(dev, card):
     from speechrecognition_torch.align import viterbi as vit
     from speechrecognition_torch.io import read_mixture_set
     from speechrecognition_torch.models import gmm
+    from speechrecognition_torch.ops import _native
     from speechrecognition_torch.ops import mahalanobis as maha
     from speechrecognition_torch.sprint import mm_io
     from speechrecognition_torch.sprint.state_graph import (AllophoneStateGraphBuilder,
@@ -5034,11 +5093,18 @@ def sprint_phase(dev, card):
     c_bnd = bound(4 * N_c * dim + 8 * (2 * J_c * dim + 2 * J_c) + 8 * N_c * S_c,
                   fp32=N_c * J_c * dim * C_ELEMENT_OPS + N_c * J_c * C_DENSITY_OPS)
     res["C"] = (c_ms, c_plain, c_bnd)
-    a_f, k_f, _ = rec["F"][0]
+    a_f, k_f, out_f = rec["F"][0]
     f_ms, f_plain, f_all = in_turns(lambda: vit.align_fwd_chunk_df_reference(*a_f, **k_f),
                                     lambda: vit.align_fwd_chunk_df(*a_f, **k_f), 1, 10)
     B_f, C_f, A_f = a_f[1].hi.shape
     res["F"] = (f_ms, f_plain, align_bound(B_f, C_f, A_f, 8, df=True))
+    # kernel F's first design (the block instance, forced) beside the wide
+    # instance: bit-equal on the trainer's first recorded chunk, in turns
+    same_ff, errs["F first"] = bit_equal(flat(f_first(vit, *a_f, **k_f)), flat(out_f))
+    check(same_ff, "kernel F's first design is not bit-equal to the wide instance")
+    fw_ms, ff_ms, ff_all = in_turns(lambda: f_first(vit, *a_f, **k_f),
+                                    lambda: vit.align_fwd_chunk_df(*a_f, **k_f), 10, 10)
+    res["F first"] = (ff_ms, f_plain, res["F"][2])
     a_g, k_g, _ = rec["G"][0]
     g_ms, g_plain, g_all, g_call = kernel_in_turns(
         lambda: vit.align_backtrack_reference(*a_g, **k_g),
@@ -5067,6 +5133,14 @@ def sprint_phase(dev, card):
             f"{' (device time)' if name == 'G' else ''}, plain {plain_ms:.4f} ms; bound "
             f"{bnd[0]:.4f} ms ({bnd[1]}), {ms / bnd[0]:.1f}x it"
             + (f"; {ms / C_f * 1e3:.3f} us a frame" if name == "F" else "") + f" on {card}")
+    log(f"[36] kernel F's first design (the block instance, its row in shared memory, forced) "
+        f"against the wide instance on the trainer's chunk, in turns (first, wide, wide, first: "
+        f"{', '.join(f'{v:.4f}' for v in ff_all)} ms): first design {ff_ms:.4f} ms "
+        f"({ff_ms / C_f * 1e3:.3f} us a frame, {ff_ms / res['F'][2][0]:.1f}x the bound) -> wide "
+        f"instance {fw_ms:.4f} ms ({fw_ms / C_f * 1e3:.3f} us a frame, "
+        f"{fw_ms / res['F'][2][0]:.1f}x); bit-equal {same_ff}; wide instance "
+        f"{ptxas_usage(f'align_fwd_df_wide_kernelILi{f_positions(A_f)}E')}, first design "
+        f"{ptxas_usage('align_fwd_df_block_kernel')} on {card}")
 
     # -- mm_io's round trip ----------------------------------------------------------
     pms = str(root / "am.pms")
@@ -5161,12 +5235,22 @@ def sprint_phase(dev, card):
                 f"{a_rel:.3e} relative of the plain version (limit {A_REL_TOL:g})")
         live = torch.arange(T, device=dev)[None, :] < torch.as_tensor(lens, device=dev)[:, None]
         sum_err = (gamma.sum(dim=2)[live] - 1.0).abs().max().item()
-        a_l, k_l, _ = rec[0]
+        a_l, k_l, out_l = rec[0]
         l_ms, l_plain, l_all = in_turns(lambda: bw.forward_backward_reference(*a_l, **k_l),
                                         lambda: bw.forward_backward(*a_l, **k_l), 1, 5)
         word = 8 if dt == torch.float64 else 4
+        ty = "d" if dt == torch.float64 else "f"
         l_bnd = fb_bound(len(ids), T, A, word, int(np.asarray(lens).sum()))
         res[f"L {tag}"] = (l_ms, l_plain, l_bnd)
+        # kernel L's first design (the block instance, forced) beside the
+        # wide chains: bit-equal on the recorded call, in turns
+        same_lf, errs[f"L {tag} first"] = bit_equal(
+            flat(bw.forward_backward_cuda(*a_l, **k_l, first_design=True)[:2]), flat(out_l))
+        check(same_lf, f"kernel L's first design ({tag}) is not bit-equal to the wide chains")
+        lw_ms, lf_ms, lf_all = in_turns(
+            lambda: bw.forward_backward_cuda(*a_l, **k_l, first_design=True),
+            lambda: bw.forward_backward(*a_l, **k_l), 5, 5)
+        res[f"L {tag} first"] = (lf_ms, l_plain, l_bnd)
         log(f"[36] Baum-Welch {tag}, {len(ids)} utterances (T {T}, A {A}, "
             f"{instance('sr_forward_backward_instance', A)}): "
             f"{wall[f'Baum-Welch {tag}']:.4f} s; launches {c}; kernel L bit-equal to its plain "
@@ -5175,16 +5259,33 @@ def sprint_phase(dev, card):
             f"{', '.join(f'{v:.4f}' for v in l_all)}); bound {l_bnd[0]:.4f} ms ({l_bnd[1]}), "
             f"{l_ms / l_bnd[0]:.1f}x it; {l_ms / int(np.asarray(lens).max()) * 1e3:.3f} us a "
             f"frame of the longest utterance on {card}")
+        longest = int(np.asarray(lens).max())
+        log(f"[36] kernel L {tag}: the first design (the block instance, its rows in shared "
+            f"memory, forced) against the wide chains, in turns (first, chains, chains, first: "
+            f"{', '.join(f'{v:.4f}' for v in lf_all)} ms): first design {lf_ms:.4f} ms "
+            f"({lf_ms / longest * 1e3:.3f} us a frame, {lf_ms / l_bnd[0]:.1f}x the bound) -> "
+            f"wide chains {lw_ms:.4f} ms ({lw_ms / longest * 1e3:.3f} us a frame, "
+            f"{lw_ms / l_bnd[0]:.1f}x); bit-equal {same_lf}; wide chains "
+            f"{ptxas_usage(f'fb_wide_chain_kernelI{ty}Li{_native.load().sr_forward_backward_instance(A)}E')}, "
+            f"posterior pass {ptxas_usage(f'fb_posterior_kernelI{ty}Li{-(-A // 32)}E')} on {card}")
         del gamma, log_z, rec, rec_a
     # kernel F on the df32 alignment's NaN rows (Queue 3 #21), kernels E (both
     # types) and A fused, timed on their recorded calls
-    a_n, k_n, _ = runs["df32"]["rec"]["F"][0]
+    a_n, k_n, out_n = runs["df32"]["rec"]["F"][0]
     n_ms, n_plain, _all = in_turns(lambda: vit.align_fwd_chunk_df_reference(*a_n, **k_n),
                                    lambda: vit.align_fwd_chunk_df(*a_n, **k_n), 1, 10)
-    log(f"[36] kernel F on the df32 alignment's last chunk (B={B_f}, A={A_f}, t0={a_n[6]}; "
-        f"every row holds NaN costs, folded as the plain version does): kernel {n_ms:.4f} ms, "
-        f"plain {n_plain:.4f} ms; {n_ms / C_f * 1e3:.3f} us a frame against the trainer's "
-        f"{res['F'][0] / C_f * 1e3:.3f} on {card}")
+    same_nf, _e = bit_equal(flat(f_first(vit, *a_n, **k_n)), flat(out_n))
+    check(same_nf, "kernel F's first design is not bit-equal to the wide instance on NaN rows")
+    nw_ms, nf_ms, nf_all = in_turns(lambda: f_first(vit, *a_n, **k_n),
+                                    lambda: vit.align_fwd_chunk_df(*a_n, **k_n), 10, 10)
+    C_n = a_n[1].hi.shape[1]
+    log(f"[36] kernel F on the df32 alignment's last chunk (B={B_f}, C={C_n}, A={A_f}, "
+        f"t0={a_n[6]}; every row holds NaN costs, folded as the plain version does): kernel "
+        f"{n_ms:.4f} ms, plain {n_plain:.4f} ms; {n_ms / C_n * 1e3:.3f} us a frame against the "
+        f"trainer's {res['F'][0] / C_f * 1e3:.3f}; the first design, forced, in turns (first, "
+        f"wide, wide, first: {', '.join(f'{v:.4f}' for v in nf_all)} ms): {nf_ms:.4f} ms "
+        f"({nf_ms / C_n * 1e3:.3f} us a frame) -> {nw_ms:.4f} ms ({nw_ms / C_n * 1e3:.3f} us a "
+        f"frame), bit-equal {same_nf} on {card}")
     for tag, dt in (("f32 pallas", torch.float32), ("f64 mxu", torch.float64)):
         a_e, k_e, _ = runs[tag]["rec"]["E"][0]
         e_ms, e_plain, _all = in_turns(lambda: vit.align_fwd_chunk_reference(*a_e, **k_e),
@@ -5238,7 +5339,9 @@ def sprint_phase(dev, card):
     launches = {"A": c32["A"] + bw_counts["f32 pallas"]["A"], "C": train_counts["C"] + cdf["C"],
                 "E f32 pallas": c32["E"], "E f64 mxu": c64["E"], "F": train_counts["F"] + cdf["F"],
                 "G": train_counts["G"] + c32["G"] + c64["G"] + cdf["G"], "H": train_counts["H"],
-                "L f32 pallas": bw_counts["f32 pallas"]["L"], "L f64 mxu": bw_counts["f64 mxu"]["L"]}
+                "L f32 pallas": bw_counts["f32 pallas"]["L"], "L f64 mxu": bw_counts["f64 mxu"]["L"],
+                # the first designs, forced beside the new ones: no main path launches them
+                "F first": 0, "L f32 pallas first": 0, "L f64 mxu first": 0}
     log(f"[36] launches on the Sprint path: {launches}")
     rep = "speechrecognition_tpu/align/viterbi.py"
     return [entry(name, source, replaces, launches[key], errs[key], *res[key])
@@ -5250,12 +5353,17 @@ def sprint_phase(dev, card):
         ("align_fwd[sprint]", "align_scan.cu", f"{rep}:315", "E f32 pallas"),
         ("align_fwd[f64, sprint]", "align_scan.cu", f"{rep}:315", "E f64 mxu"),
         ("align_fwd_df[sprint]", "align_scan_df.cu", f"{rep}:368", "F"),
+        ("align_fwd_df[sprint, first design]", "align_scan_df.cu", f"{rep}:368", "F first"),
         ("align_backtrack[sprint]", "align_backtrack.cu", f"{rep}:582", "G"),
         ("em_pass_df[sprint]", "em_pass_df.cu", "speechrecognition_tpu/models/gmm.py:997", "H"),
         ("forward_backward[sprint]", "forward_backward.cu",
          "speechrecognition_tpu/align/baumwelch.py:44", "L f32 pallas"),
         ("forward_backward[f64, sprint]", "forward_backward.cu",
-         "speechrecognition_tpu/align/baumwelch.py:44", "L f64 mxu"))]
+         "speechrecognition_tpu/align/baumwelch.py:44", "L f64 mxu"),
+        ("forward_backward[sprint, first design]", "forward_backward.cu",
+         "speechrecognition_tpu/align/baumwelch.py:44", "L f32 pallas first"),
+        ("forward_backward[f64, sprint, first design]", "forward_backward.cu",
+         "speechrecognition_tpu/align/baumwelch.py:44", "L f64 mxu first"))]
 
 
 #: kernel P per slot and frame: P1's three within-word adds, two compares,
@@ -5787,6 +5895,152 @@ def gmm_corpus_phase(dev, card, corpus, iter2):
         f"{float(g[0]):.6f}), f32 score {float(g32[0]):.6f} against {float(h32[0]):.6f}, "
         f"{w_diff} of {g32[1].numel()} counts differ (float32 products); on {card}; phase "
         f"seconds {time.perf_counter() - t_phase:.1f}")
+
+
+def nan_phase(dev, card):
+    """Phase 40: one NaN score (tests/torch_nan_tables.py) through kernels B,
+    D, E, I, J, K and M on the card, each instance its shapes select, every
+    output and carry against the plain version's on the same card tensors
+    (NaN equal to NaN). These launches are no main path's: the phase runs
+    after every main path has been counted."""
+    from speechrecognition_torch.align import viterbi as vit
+    from speechrecognition_torch.lexicon import build_sietill_lexicon
+    from speechrecognition_torch.ops import _native
+    from speechrecognition_torch.ops import doublefloat as dfm
+    from speechrecognition_torch.search import decoder as dec
+    from speechrecognition_torch.search import linear_lvcsr as tl
+    from speechrecognition_torch.search import ngram_decoder as ng
+    from speechrecognition_torch.search import tree_decoder as td
+    from speechrecognition_torch.search import wcts
+    from speechrecognition_torch.tdp import TdpModel
+    t_phase = time.perf_counter()
+    nt = tables_module("torch_nan_tables")
+    stt = tables_module("torch_search_tables")
+    ltt = tables_module("torch_linear_tables")
+    lib = _native.load()
+    lens = torch.as_tensor(nt.NAN_LENS, dtype=torch.int32, device=dev)
+    cases = []
+
+    def same_all(name, got, ref):
+        ok = len(got) == len(ref) and all(nt.same_bits(g, r) for g, r in zip(got, ref))
+        nan = any(bool(torch.isnan(g).any()) for g in got if g.is_floating_point())
+        cases.append((name, ok, nan))
+        check(ok, f"[40] {name}: a kernel output differs from its plain version")
+
+    def chunks(fn, am, args, **kw):
+        carry, outs, t0 = None, [], 0
+        for n in (15, 25):
+            part = (dfm.DF(am.hi[:, t0:t0 + n].contiguous(), am.lo[:, t0:t0 + n].contiguous())
+                    if isinstance(am, dfm.DF) else am[:, t0:t0 + n].contiguous())
+            carry, out = fn(part, lens, *args, carry_in=carry, t0=t0, **kw)
+            outs.append(out)
+            t0 += n
+        return carry, [torch.cat([o[k] for o in outs]) for k in range(len(outs[0]))]
+
+    for W, P in ((12, 24), (33, 8), (44, 24)):
+        tables, S = nt.nan_lexicon_tables(W, P, seed=W + P)
+        tab = [torch.as_tensor(a, device=dev) for a in (
+            tables.state_table, tables.last_pos, tables.word_len, tables.first_state)]
+        for dt in (torch.float32, torch.float64):    # kernel B
+            am = torch.as_tensor(nt.nan_scores(tables, S, 1, seed=W * P), dtype=dt, device=dev)
+            args = (*tab, torch.as_tensor(tables.tdp_within, device=dev),
+                    torch.as_tensor(tables.entry_pen, device=dev), 60.0)
+            k = chunks(dec.decode_scan, am, args, prune=True)
+            p = chunks(dec.decode_scan_reference, am, args, prune=True)
+            same_all(f"B {dt} {W}x{P} ({instance('sr_decode_scan_instance', W, P)})",
+                     [*k[0], *k[1]], [*p[0], *p[1]])
+        for where, prune in (("last", False), ("inner", True)):    # kernel D
+            am = dfm.from_f64(nt.nan_scores(tables, S, P - 1 if where == "last" else 1,
+                                            seed=W * P), dev)
+            args = (*tab, dfm.from_f64(tables.tdp_within, dev),
+                    dfm.from_f64(tables.entry_pen, dev), 60.0)
+            k = chunks(dec.decode_scan_df, am, args, prune=prune)
+            p = chunks(dec.decode_scan_df_reference, am, args, prune=prune)
+            same_all(f"D {W}x{P} NaN in the last word's {where} cell, prune {prune} "
+                     f"({instance('sr_decode_scan_df_instance', W, P)})",
+                     [*flat(k[0]), *k[1]], [*flat(p[0]), *p[1]])
+    for W, P in ((12, 24), (33, 8)):    # kernel J, and its first design
+        tables, S = nt.nan_lexicon_tables(W, P, seed=W * 5 + P)
+        lm, lm_start = stt.random_lm(W, seed=W + P)
+        for dt in (torch.float32, torch.float64):
+            am = torch.as_tensor(nt.nan_scores(tables, S, 1, seed=W + P), dtype=dt, device=dev)
+            args = [torch.as_tensor(np.asarray(a, np.int32), device=dev)
+                    for a in (tables.state_table, tables.last_pos, tables.word_len)]
+            args += [torch.as_tensor(a, dtype=dt, device=dev)
+                     for a in (tables.tdp_within, tables.entry_pen, lm, lm_start)]
+            ref = ng.decode_scan_bigram_reference(am, lens, *args, 200.0)
+            inst = instance('sr_decode_scan_bigram_instance', W, P, int(dt == torch.float64))
+            same_all(f"J {dt} {W}x{P} ({inst})", ng.decode_scan_bigram(am, lens, *args, 200.0),
+                     ref)
+            same_all(f"J {dt} {W}x{P} first design",
+                     ng.decode_scan_bigram_cuda(am, lens, *args, 200.0, first_design=True)[0],
+                     ref)
+    rng = np.random.default_rng(40)
+    for A in (70, 303, 1025):    # kernel E: warp, block and scratch instances
+        ams = rng.uniform(0.0, 40.0, size=(4, 40, A))
+        ams[0, NAN_E_FRAME, A // 2] = np.nan
+        tdp = rng.uniform(0.0, 20.0, size=(4, A, 3))
+        valid = torch.arange(A, device=dev)[None, :] < torch.as_tensor(
+            [A, A - 2, 3, A], device=dev)[:, None]
+        for dt in (torch.float32, torch.float64):
+            args = (torch.as_tensor(tdp, dtype=dt, device=dev), valid, lens, 60.0)
+            outs = []
+            for fn in (vit.align_fwd_chunk, vit.align_fwd_chunk_reference):
+                prev, got = torch.full((4, A), 1e30, dtype=dt, device=dev), []
+                for t0, n in ((0, NAN_E_FRAME + 1), (NAN_E_FRAME + 1, 40 - NAN_E_FRAME - 1)):
+                    prev, j = fn(prev, torch.as_tensor(ams[:, t0:t0 + n], dtype=dt,
+                                                       device=dev).contiguous(), *args, t0)
+                    got += [prev, j]
+                outs.append(got)
+            same_all(f"E {dt} A={A} ({instance('sr_align_fwd_warps', A)})", *outs)
+    for N in (212, 1025):    # kernel I, and its first design
+        tree = stt.random_tree(N, seed=N)
+        for dt in (torch.float32, torch.float64):
+            am = stt.tree_scores(4, 40, seed=N + 7, dtype=dt, device=dev)
+            am[0, nt.NAN_FRAME, int(tree.state[N // 2])] = float("nan")
+            args = tree.device_args(dev, dt, am.shape[2])
+            ref = td.tree_scan_reference(am, lens, *args, 45.0)
+            same_all(f"I {dt} N={N} (instance {lib.sr_tree_scan_instance(N, int(dt == torch.float64))})",
+                     td.tree_scan(am, lens, *args, 45.0), ref)
+            same_all(f"I {dt} N={N} first design",
+                     td.tree_scan_cuda(am, lens, *args, 45.0, first_design=True)[0], ref)
+    lex = build_sietill_lexicon()    # kernel K: the owner instance and the block forced
+    tdp_k = TdpModel(silence_state=lex.silence_state, loop=3.0, forward=0.0, skip=30.0)
+    lm, lm_start = stt.random_lm(lex.num_words, seed=11)
+    for dt in (torch.float32, torch.float64):
+        for opts in ({}, {"transparent_silence": 0, "use_lookahead": True, "state_limit": 40,
+                          "emit_ends": True, "emit_stats": True}):
+            _t, wt = stt.wcts_inputs(lex, tdp_k, lm, lm_start,
+                                     lookahead=opts.get("use_lookahead", False))
+            args = wt.args(dev, dt, lex.num_states)
+            am = stt.am_scores(4, 40, lex.num_states, seed=11, dtype=dt, device=dev)
+            am[0, nt.NAN_FRAME, 40] = float("nan")
+            ref = chunks(wcts.wcts_scan_reference, am, (*args, 200.0), **opts)
+            for force in (0, 1):
+                def kern(*a, **kw):
+                    return wcts.wcts_scan_cuda(*a, force=force, **kw)[:2]
+                got = chunks(kern, am, (*args, 200.0), **opts)
+                same_all(f"K {dt} {sorted(opts) or 'pruned'} "
+                         f"{'the block instance forced' if force else 'owner instance'}",
+                         [*got[0], *got[1]], [*ref[0], *ref[1]])
+    for dt in (torch.float32, torch.float64):    # kernel M, and its first design
+        lex_l, tm, lm, lm_start, am, llens, thr = ltt.linear_case("lengths-1-2-3")
+        lt = tl.LinearTables.build(tm.decoder_tables(lex_l), lm, lm_start, 0)
+        am = np.array(am)
+        b = int(np.argmax(llens))
+        am[b, int(llens[b]) // 2, int(lt.state_table[1, 0])] = np.nan
+        args = (torch.as_tensor(am, device=dev).to(dt).contiguous(),
+                torch.as_tensor(llens, device=dev), *lt.args(dev, dt, am.shape[2]))
+        ref = tl.decode_scan_linear_reference(*args, thr)
+        same_all(f"M {dt}", tl.decode_scan_linear(*args, thr), ref)
+        same_all(f"M {dt} first design",
+                 tl.decode_scan_linear_cuda(*args, thr, first_design=True)[0], ref)
+    torch.cuda.synchronize()
+    log(f"[40] one NaN score, kernels against their plain versions (NaN equal to NaN), every "
+        f"output bit-equal in {sum(ok for _n, ok, _x in cases)} of {len(cases)} cases; a NaN "
+        f"reached the kernel's outputs in {sum(x for _n, _ok, x in cases)} on {card}: "
+        + "; ".join(f"{n}{' (NaN out)' if x else ''}" for n, _ok, x in cases))
+    log(f"[40] phase seconds {time.perf_counter() - t_phase:.1f}")
 
 
 def repeat_corpus(corpus, n, corpus_cls):

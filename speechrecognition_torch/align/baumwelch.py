@@ -11,7 +11,7 @@ Viterbi minimum, each row shifted by its maximum.
 ``forward_backward_reference`` for CPU tensors, kernel L
 (``csrc/forward_backward.cu``) for CUDA tensors, with no fallback from one to
 the other. The plain version is three phases, as the kernel's instance for
-A <= 96 runs them: the forward rows and log_z (``forward_reference``), the
+A <= 1024 runs them: the forward rows and log_z (``forward_reference``), the
 backward rows (``backward_reference``), both independent of each other,
 and the posterior rows from the two (``posterior_reference``). Both follow
 the reference's ``_forward_backward`` step for step, with two choices the
@@ -245,7 +245,7 @@ def forward_backward(lams: torch.Tensor, ltdp: torch.Tensor, pos_valid: torch.Te
     (float32 or float64, ``forward_backward_cuda``), whose C entry chooses
     its instance from A alone (``sr_forward_backward_instance``): any A is
     taken. ``forward_backward.LAUNCHES`` counts the calls that launch it,
-    one a call, though the instance of A <= 96 makes two launches (its
+    one a call, though the instance of A <= 1024 makes two launches (its
     chains, then its posterior pass); calls whose rows live in device
     scratch (A > 1024) are also counted in ``SCRATCH_LAUNCHES``. The
     lengths are not range-checked here (``baum_welch_posteriors`` does
@@ -292,10 +292,11 @@ def forward_backward_cuda(lams: torch.Tensor, ltdp: torch.Tensor, pos_valid: tor
                           first_design: bool = False):
     """Kernel L's launch on CUDA tensors, as ``forward_backward`` makes it
     but not counted: returns (gamma, log_z, whether the rows lived in device
-    scratch). For A <= 96 the wrapper allocates the backward chain's rows
+    scratch). For A <= 1024 the wrapper allocates the backward chain's rows
     ([B, T, A] in the score type); ``first_design`` launches the first
-    design there instead (a warp an utterance, the posterior on the backward
-    chain), so that the two can be timed in turns."""
+    design there instead (up to A = 96 a warp an utterance, past it a block
+    an utterance, the posterior on the backward chain), so that the two can
+    be timed in turns."""
     pv, fl, al = _cuda_args(lams, ltdp, pos_valid, feat_len, aut_len)
     B, T, A = lams.shape
     dtype, device = lams.dtype, lams.device
@@ -319,8 +320,8 @@ def forward_backward_cuda(lams: torch.Tensor, ltdp: torch.Tensor, pos_valid: tor
 def forward_backward_chain_cuda(chain: int, lams: torch.Tensor, ltdp: torch.Tensor,
                                 pos_valid: torch.Tensor, feat_len: torch.Tensor,
                                 aut_len: torch.Tensor) -> torch.Tensor:
-    """One chain of kernel L's A <= 96 instance alone, a warp an utterance,
-    not counted, for timing the two chains apart: chain 0 returns the
+    """One chain of kernel L's two chains (A <= 1024) alone, not counted,
+    for timing the two chains apart: chain 0 returns the
     forward rows ([B, T, A], as ``forward_reference``'s below feat_len) and
     log_z in a tuple, chain 1 the backward rows (as
     ``backward_reference``'s up to feat_len - 1). Rows past those are not

@@ -276,13 +276,32 @@ def align_fwd_chunk_df(prev: dfm.DF, ams: dfm.DF, tdp: dfm.DF, pos_valid: torch.
 
     CPU tensors take the plain version; CUDA tensors launch kernel F
     (counted in ``align_fwd_chunk_df.LAUNCHES``), whose C entry chooses its
-    instance from A alone (``sr_align_fwd_df_warps``): any A is taken.
-    Launches whose row lives in device scratch (A > 1024) are also counted
-    in ``SCRATCH_LAUNCHES``."""
+    instance from A alone (``sr_align_fwd_df_warps``,
+    ``sr_align_fwd_df_positions``): any A is taken. Launches whose row
+    lives in device scratch (A > 1024) are also counted in
+    ``SCRATCH_LAUNCHES``."""
     device = ams.hi.device
     if device.type == "cpu":
         return align_fwd_chunk_df_reference(prev, ams, tdp, pos_valid, feat_len, thr, t0,
                                             tie_pruned, use_pruning)
+    out, jumps, in_scratch = align_fwd_chunk_df_cuda(prev, ams, tdp, pos_valid, feat_len, thr,
+                                                     t0, tie_pruned, use_pruning)
+    align_fwd_chunk_df.LAUNCHES += 1
+    align_fwd_chunk_df.SCRATCH_LAUNCHES += in_scratch
+    return out, jumps
+
+
+def align_fwd_chunk_df_cuda(prev: dfm.DF, ams: dfm.DF, tdp: dfm.DF, pos_valid: torch.Tensor,
+                            feat_len: torch.Tensor, thr: dfm.DF, t0: int,
+                            tie_pruned: bool = True, use_pruning: bool = True,
+                            first_design: bool = False) -> Tuple[dfm.DF, torch.Tensor, bool]:
+    """Kernel F's launch on CUDA tensors, as ``align_fwd_chunk_df`` makes it
+    but not counted: returns (the cost row, the jumps, whether the row lived
+    in device scratch). ``first_design`` launches the block instance with
+    its row in shared memory where the wide instance runs (128 < A <=
+    1024), so that the two can be timed in turns; it changes nothing at
+    other A."""
+    device = ams.hi.device
     if device.type != "cuda":
         raise ValueError(f"align_fwd_chunk_df: unsupported device {device}")
     if ams.hi.dim() != 3:
@@ -311,11 +330,9 @@ def align_fwd_chunk_df(prev: dfm.DF, ams: dfm.DF, tdp: dfm.DF, pos_valid: torch.
         out.hi.data_ptr(), out.lo.data_ptr(), jumps.data_ptr(),
         None if scratch is None else scratch.data_ptr(), B, C, A, int(t0),
         float(thr.hi), float(thr.lo), int(bool(tie_pruned)), int(bool(use_pruning)),
-        device.index, torch.cuda.current_stream(device).cuda_stream)
+        int(bool(first_design)), device.index, torch.cuda.current_stream(device).cuda_stream)
     _native.check(err, "align_fwd_chunk_df")
-    align_fwd_chunk_df.LAUNCHES += 1
-    align_fwd_chunk_df.SCRATCH_LAUNCHES += scratch is not None
-    return out, jumps
+    return out, jumps, scratch is not None
 
 
 align_fwd_chunk_df.LAUNCHES = align_fwd_chunk_df.SCRATCH_LAUNCHES = 0

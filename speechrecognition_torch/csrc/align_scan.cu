@@ -19,8 +19,9 @@
 //     ties); without, start from c0 and take c1, then c2, if strictly less;
 //   * cost = valid ? best + am : BIG, then min(cost, BIG) (the kernel
 //     leaves the cap out: see step_cost);
-//   * the row minimum (exact in any order); renormalise with the >= BIG/2
-//     guards; prune cost > thr when pruning;
+//   * the row minimum (exact in any order; NaN where a cost is NaN, as
+//     the reference's min(cost, BIG) and .min keep it); renormalise with
+//     the >= BIG/2 guards; prune cost > thr when pruning;
 //   * at t == 0 only position 0 is initialised (am), with no renormalisation
 //     or pruning; rows with t >= feat_len keep their carry. The jump is
 //     written at every frame, as the reference does.
@@ -45,7 +46,8 @@
 //     8 / W utterances a block; the candidates from a-1 and a-2 come from
 //     the lanes below through __shfl_up_sync; the three candidate compares
 //     are independent and the selection has no branch; the warp's row
-//     minimum is redux.sync on an order-preserving key (one for float; for
+//     minimum is redux.sync on an order-preserving key, a NaN's the least
+//     (one for float; for
 //     double two, on the high and then the low halves of the 64-bit key:
 //     exact; five float64 shuffles and minima were no faster on the card);
 //     each warp publishes its minimum and its last two costs
@@ -71,7 +73,7 @@
 
 namespace {
 
-using keys::warp_minimum;
+using keys::warp_minimum_nan;
 
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int MAX_WARPS = 8;          // warps a block of the warp instance holds
@@ -80,12 +82,9 @@ constexpr int WARP_POSITIONS = 128;   // the warp instance's longest automaton (
 constexpr int SHARED_POSITIONS = 1024; // the longest row the block instance keeps in shared memory
 constexpr int BLOCK_THREADS = 1024;   // threads per utterance of the block instance, at most
 
+// the minimum of two costs, NaN where either is (jnp.minimum)
 template <typename T>
-__device__ __forceinline__ T tmin(T a, T b);
-template <>
-__device__ __forceinline__ float tmin<float>(float a, float b) { return fminf(a, b); }
-template <>
-__device__ __forceinline__ double tmin<double>(double a, double b) { return fmin(a, b); }
+__device__ __forceinline__ T tmin(T a, T b) { return keys::nan_min(a, b); }
 
 template <typename T>
 __device__ __forceinline__ T big() { return T(1e30); }
@@ -202,7 +201,7 @@ align_fwd_warp_kernel(const T* __restrict__ prev, const T* __restrict__ ams,
         store_if(jumps + ((size_t)i * B + b) * A + a, jump, pos);
 
         // the exact row minimum: the warp's, then the utterance's
-        T row_best = warp_minimum(cost);
+        T row_best = warp_minimum_nan(cost);
         if (W > 1) {
           T* pub = s_pub[u][i & 1][w];
           if (lane == 0) pub[0] = row_best;
@@ -212,7 +211,7 @@ align_fwd_warp_kernel(const T* __restrict__ prev, const T* __restrict__ ams,
 #pragma unroll
           for (int v = 1; v < W; ++v) {
             const T mv = s_pub[u][i & 1][v][0];
-            row_best = mv < row_best ? mv : row_best;
+            row_best = tmin(row_best, mv);
           }
         }
         if (row_best >= BIG * T(0.5)) row_best = T(0);

@@ -57,19 +57,30 @@
 // bit for bit the owner's), so the next frame needs no second barrier. Each
 // lane keeps the emissions of the next PREFETCH frames in a register ring,
 // so device-memory latency leaves the chain; jumps are predicated byte
-// stores, write-only. Longer automata take the block instance: one block
-// of min(ceil(A/32)*32, 1024) threads per utterance, each looping over
-// ceil(A/1024) positions, two __syncthreads a frame, the row
-// double-buffered by frame parity in shared memory up to A = 1024, beyond
-// in device scratch (sr_align_fwd_df_scratch pairs an utterance) that the
-// wrapper allocates (simple, not tuned). sr_align_fwd_df_warps holds the
-// choice, from A alone. A NaN row (any position's cost NaN) takes the
+// stores, write-only. 128 < A <= 1024 (the Sprint trainer's automata, A 303
+// at AN4's shape) takes the wide instance, the same design with K
+// consecutive positions a lane: one block of W warps an utterance, K =
+// max(2, ceil(A/256)) and W = ceil(A/(32K)) (A 303: 5 warps of 2), the
+// TDPs, validity and carry in registers, the emissions in the ring, the
+// previous warp's last two positions in a shadow that every lane follows,
+// the warps' minima and edge costs published and one __syncthreads a frame,
+// the minima folded by every thread. Longer automata take the block
+// instance: one block of min(ceil(A/32)*32, 1024) threads per utterance,
+// each looping over ceil(A/1024) positions, two __syncthreads a frame, the
+// row double-buffered by frame parity in device scratch
+// (sr_align_fwd_df_scratch pairs an utterance) that the wrapper allocates
+// (simple, not tuned). The block instance was the first design for
+// 128 < A <= 1024 too, its row in shared memory: the C entry's first_design
+// launches it there, for timing in turns, and nothing else does.
+// sr_align_fwd_df_warps and sr_align_fwd_df_positions hold the choice, from
+// A alone. A NaN row (any position's cost NaN) takes the
 // plain version's fold instead of the keyed minimum. The warp instance's
 // frames stay branch-free: a ballot finds a warp's NaN, which it publishes
 // as a NaN minimum, and after each group of PREFETCH frames a group that
 // held a NaN row is done again from its carry, frame by frame, with the
 // emissions read from device memory; there a NaN row is written to shared
 // memory after a second barrier and each warp folds it in its own buffers.
+// The wide instance does the same, its NaN rows folded by the whole block.
 // The block instance finds a NaN row by __syncthreads_or and folds it stage
 // by stage with a barrier a stage.
 
@@ -342,6 +353,231 @@ align_fwd_df_warp_kernel(
   }
 }
 
+// ---- the wide instance (128 < A <= 1024): W warps an utterance, K positions a lane ----
+
+constexpr int WIDE_WARPS = 8;  // warps an utterance, at most
+
+// positions a lane (2-4) and warps an utterance (3-8) of the wide instance:
+// at most 256 positions take 2 a lane, longer rows 3 or 4, so that an
+// utterance's warps stay at most 8. On an H100 a trainer chunk (B 130, C
+// 320, A 303) took 0.39 ms at 2 positions a lane on 5 warps, 0.41 ms at 1 on
+// 10 and 0.51 ms at 3 on 4
+__host__ __device__ __forceinline__ int wide_k(int A) {
+  const int k = (A + 8 * 32 - 1) / (8 * 32);
+  return k < 2 ? 2 : k;
+}
+
+__host__ __device__ __forceinline__ int wide_warps(int A) {
+  const int k = wide_k(A);
+  return (A + 32 * k - 1) / (32 * k);
+}
+
+// One utterance a block of W = blockDim.x / 32 warps, K consecutive
+// positions a lane: position a = (w*32 + lane)*K + k. The warp instance's
+// design with K positions a lane: TDPs, validity and the carry in registers,
+// the emissions PREFETCH frames ahead in a register ring, neighbours a-1 and
+// a-2 of a lane's first position from the lane below (shuffles) or, in
+// lane 0, from the shadow of the previous warp's last two positions; the
+// row minimum a keyed redux.sync a warp, the W warps' minima folded by every
+// thread after the one barrier a frame. A NaN row: each warp publishes a
+// NaN minimum, and the group of PREFETCH frames that held one is done again
+// frame by frame, its NaN rows folded by the block as the plain version
+// folds them (fold_minimum_block, through shared memory); the groups after
+// it are folded from the start, until a group holds no NaN row.
+template <int K>
+__global__ void __launch_bounds__(WIDE_WARPS * 32)
+align_fwd_df_wide_kernel(
+    const float* __restrict__ prev_hi, const float* __restrict__ prev_lo,
+    const float* __restrict__ ams_hi, const float* __restrict__ ams_lo,
+    const float* __restrict__ tdp_hi, const float* __restrict__ tdp_lo,
+    const unsigned char* __restrict__ pos_valid, const int* __restrict__ feat_len,
+    float* __restrict__ out_hi, float* __restrict__ out_lo, signed char* __restrict__ jumps,
+    int B, int C, int A, int t0, float thr_hi, float thr_lo, int tie_pruned,
+    int use_pruning) {
+  // per frame parity and warp: its minimum (NaN if its costs hold a NaN) and
+  // the costs of its second-last and last positions
+  __shared__ float2 s_pub[2][WIDE_WARPS][3];
+  // a NaN row's costs and the fold's two buffers
+  __shared__ float2 s_row[SHARED_POSITIONS];
+  __shared__ float2 s_fold[2][SHARED_POSITIONS / 2];
+  const int W = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x;
+  const df::DF thr = df::make(thr_hi, thr_lo);
+  const int a0 = (warp * 32 + lane) * K;  // this lane's first position
+  const size_t urow = (size_t)b * A;
+  df::DF tw0[K], tw1[K], tw2[K], h[K];
+  bool valid[K], pos[K];
+  int col[K];  // the position's column, the last one standing in past A
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int a = a0 + k;
+    pos[k] = a < A;
+    col[k] = min(a, A - 1);
+    const size_t r = urow + col[k];
+    valid[k] = pos[k] && pos_valid[r] != 0;
+    tw0[k] = df::make(tdp_hi[r * 3 + 0], tdp_lo[r * 3 + 0]);
+    tw1[k] = df::make(tdp_hi[r * 3 + 1], tdp_lo[r * 3 + 1]);
+    tw2[k] = df::make(tdp_hi[r * 3 + 2], tdp_lo[r * 3 + 2]);
+    h[k] = pos[k] ? df::make(prev_hi[r], prev_lo[r]) : big();
+  }
+  // the shadow: positions w*32*K - 1 and w*32*K - 2, the previous warp's
+  // last two, followed by every lane from the costs that warp publishes
+  const int s1 = warp * 32 * K - 1, s2 = s1 - 1;
+  df::DF sh1 = big(), sh2 = big();
+  if (warp > 0) {
+    sh1 = df::make(prev_hi[urow + s1], prev_lo[urow + s1]);
+    sh2 = df::make(prev_hi[urow + s2], prev_lo[urow + s2]);
+  }
+  const int len = feat_len[b];
+  const float* am_hi = ams_hi + (size_t)b * C * A;
+  const float* am_lo = ams_lo + (size_t)b * C * A;
+
+  // the emissions of frames i .. i+PREFETCH-1, slot i % PREFETCH
+  float ring_hi[PREFETCH][K], ring_lo[PREFETCH][K];
+#pragma unroll
+  for (int p = 0; p < PREFETCH; ++p)
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      ring_hi[p][k] = p < C ? am_hi[(size_t)p * A + col[k]] : 0.f;
+      ring_lo[p][k] = p < C ? am_lo[(size_t)p * A + col[k]] : 0.f;
+    }
+
+  // frame i from the carry h and the shadow: the costs and jumps, the row
+  // minimum, the carry. Returns whether the row held a NaN; with fold
+  // (std::true_type) such a row takes the plain version's fold, without it
+  // the keyed minimum stands and the caller does the frame again.
+  auto frame = [&](int i, const df::DF(&am)[K], auto fold) -> bool {
+    const df::DF below1 = df::make(__shfl_up_sync(FULL, h[K - 1].hi, 1),
+                                   __shfl_up_sync(FULL, h[K - 1].lo, 1));
+    const df::DF below2 = df::make(__shfl_up_sync(FULL, h[K - 2].hi, 1),
+                                   __shfl_up_sync(FULL, h[K - 2].lo, 1));
+    const df::DF up1 = lane == 0 ? sh1 : below1;
+    const df::DF up2 = lane == 0 ? sh2 : below2;
+    const int t = t0 + i;
+    df::DF cost[K];
+    df::DF m = big();
+    bool nan_cell = false;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const df::DF n1 = k >= 1 ? h[k >= 1 ? k - 1 : 0] : up1;
+      const df::DF n2 = k >= 2 ? h[k >= 2 ? k - 2 : 0] : (k == 1 ? up1 : up2);
+      signed char jump;
+      cost[k] = step_cost(h[k], n1, n2, tw0[k], tw1[k], tw2[k], am[k], a0 + k, valid[k],
+                          tie_pruned, jump);
+      cost[k] = pos[k] ? cost[k] : big();
+      store_if(jumps + ((size_t)i * B + b) * A + a0 + k, jump, pos[k]);
+      m = df::minimum(m, cost[k]);
+      nan_cell |= pos[k] && is_nan(cost[k]);
+    }
+    // the exact row minimum: the warp's, then the utterance's
+    df::DF row_best = warp_minimum(m);
+    const bool nan_warp = __any_sync(FULL, nan_cell);
+    float2* pub = s_pub[i & 1][warp];
+    if (lane == 0) pub[0] = nan_warp ? nan_pair() : make_float2(row_best.hi, row_best.lo);
+    if (lane == 31) {
+      pub[1] = make_float2(cost[K - 2].hi, cost[K - 2].lo);
+      pub[2] = make_float2(cost[K - 1].hi, cost[K - 1].lo);
+    }
+    __syncthreads();  // the minima and the edge costs are visible
+    const float2 m0 = s_pub[i & 1][0][0];
+    row_best = df::make(m0.x, m0.y);
+    bool nan_row = m0.x != m0.x;
+    for (int v = 1; v < W; ++v) {
+      const float2 mv = s_pub[i & 1][v][0];
+      row_best = df::minimum(row_best, df::make(mv.x, mv.y));
+      nan_row = nan_row || mv.x != mv.x;
+    }
+    if constexpr (decltype(fold)::value) {
+      if (nan_row) {  // the same for the whole block: the plain fold
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          if (pos[k]) s_row[a0 + k] = make_float2(cost[k].hi, cost[k].lo);
+        __syncthreads();  // the row is visible
+        row_best = fold_minimum_block(s_row, A, s_fold[0], s_fold[1]);
+      }
+    }
+    if (row_best.hi >= HALF_BIG) row_best = df::make(0.f, 0.f);
+    if (warp > 0) {
+      const float2 c1 = s_pub[i & 1][warp - 1][2], c2 = s_pub[i & 1][warp - 1][1];
+      sh1 = step_carry(df::make(c1.x, c1.y), row_best, df::make(0.f, 0.f), sh1, thr, s1, false,
+                       t, len, use_pruning);
+      sh2 = step_carry(df::make(c2.x, c2.y), row_best, df::make(0.f, 0.f), sh2, thr, s2, false,
+                       t, len, use_pruning);
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      h[k] = step_carry(cost[k], row_best, am[k], h[k], thr, a0 + k, valid[k], t, len,
+                        use_pruning);
+    return nan_row;
+  };
+
+  // after a group that held a NaN row the next group is folded frame by
+  // frame from the start (such rows usually recur: the AN4 TDPs' infinite
+  // silence skip gives one every frame), until a group holds none
+  bool folding = false;
+  for (int i0 = 0; i0 < C; i0 += PREFETCH) {
+    bool nan_group = false;
+    if (!folding) {  // the same for the whole block
+      df::DF h_group[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) h_group[k] = h[k];
+      const df::DF sh1_group = sh1, sh2_group = sh2;
+#pragma unroll
+      for (int p = 0; p < PREFETCH; ++p) {
+        const int i = i0 + p;
+        if (i < C) {  // the same for the whole block
+          df::DF am[K];
+          const size_t nx = (size_t)min(i + PREFETCH, C - 1) * A;
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+            am[k] = df::make(ring_hi[p][k], ring_lo[p][k]);
+            ring_hi[p][k] = am_hi[nx + col[k]];
+            ring_lo[p][k] = am_lo[nx + col[k]];
+          }
+          nan_group |= frame(i, am, std::false_type{});
+        }
+      }
+      if (nan_group) {  // the group again from its carry
+#pragma unroll
+        for (int k = 0; k < K; ++k) h[k] = h_group[k];
+        sh1 = sh1_group;
+        sh2 = sh2_group;
+      }
+    }
+    if (folding || nan_group) {  // the same for the whole block: the group, folded
+      bool nan_again = false;
+#pragma unroll 1
+      for (int i = i0; i < min(i0 + PREFETCH, C); ++i) {
+        df::DF am[K];
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          am[k] = df::make(am_hi[(size_t)i * A + col[k]], am_lo[(size_t)i * A + col[k]]);
+        nan_again |= frame(i, am, std::true_type{});
+      }
+      if (folding) {  // the ring was not read: the next group's emissions
+#pragma unroll
+        for (int p = 0; p < PREFETCH; ++p) {
+          const size_t nx = (size_t)min(i0 + PREFETCH + p, C - 1) * A;
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+            ring_hi[p][k] = am_hi[nx + col[k]];
+            ring_lo[p][k] = am_lo[nx + col[k]];
+          }
+        }
+      }
+      folding = nan_again;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    if (pos[k]) {
+      out_hi[urow + a0 + k] = h[k].hi;
+      out_lo[urow + a0 + k] = h[k].lo;
+    }
+}
+
 // the (hi, lo) pairs the block instance keeps per utterance: the row
 // double-buffered by frame parity, and the NaN fold's two buffers
 __host__ __device__ __forceinline__ size_t block_pairs(int A) {
@@ -437,12 +673,21 @@ __global__ void __launch_bounds__(BLOCK_THREADS) align_fwd_df_block_kernel(
 }  // namespace
 
 // the instance sr_align_fwd_df launches for A positions: warps per
-// utterance of the warp instance (1-4); the block instance with its row in
-// shared memory (0), or in device scratch of B * sr_align_fwd_df_scratch(A)
-// (hi, lo) pairs (-1)
+// utterance of the warp instance (1-4, one position a lane) or of the wide
+// instance (3-8, sr_align_fwd_df_positions(A) positions a lane); the block
+// instance with its row in device scratch of B * sr_align_fwd_df_scratch(A)
+// (hi, lo) pairs (-1). The block instance with its row in shared memory (0)
+// runs only as the first design, forced for 128 < A <= 1024.
 extern "C" int sr_align_fwd_df_warps(int A) {
   if (A <= WARP_POSITIONS) return (A + 31) / 32;
-  return A <= SHARED_POSITIONS ? 0 : -1;
+  return A <= SHARED_POSITIONS ? wide_warps(A) : -1;
+}
+
+// positions a lane of that instance: 1 (the warp instance), 2-4 (the wide
+// instance), 0 (the block instance, whose threads loop over the positions)
+extern "C" int sr_align_fwd_df_positions(int A) {
+  if (A <= WARP_POSITIONS) return 1;
+  return A <= SHARED_POSITIONS ? wide_k(A) : 0;
 }
 
 // the block instance's (hi, lo) pairs an utterance, in device scratch past A = 1024
@@ -454,7 +699,7 @@ extern "C" int sr_align_fwd_df(const float* prev_hi, const float* prev_lo,
                                const int* feat_len, float* out_hi, float* out_lo,
                                signed char* jumps, float* scratch, int B, int C, int A, int t0,
                                float thr_hi, float thr_lo, int tie_pruned, int use_pruning,
-                               int device, void* stream) {
+                               int first_design, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B == 0 || A == 0) return (int)cudaSuccess;
@@ -464,14 +709,28 @@ extern "C" int sr_align_fwd_df(const float* prev_hi, const float* prev_lo,
                                 MAX_WARPS / W * W * 32, 0, st>>>(                             \
       prev_hi, prev_lo, ams_hi, ams_lo, tdp_hi, tdp_lo, pos_valid, feat_len, out_hi, out_lo,  \
       jumps, B, C, A, t0, thr_hi, thr_lo, tie_pruned, use_pruning)
-  const int inst = sr_align_fwd_df_warps(A);
+#define SR_WIDE(K)                                                                            \
+  align_fwd_df_wide_kernel<K><<<B, wide_warps(A) * 32, 0, st>>>(                              \
+      prev_hi, prev_lo, ams_hi, ams_lo, tdp_hi, tdp_lo, pos_valid, feat_len, out_hi, out_lo,  \
+      jumps, B, C, A, t0, thr_hi, thr_lo, tie_pruned, use_pruning)
+  const bool wide = A > WARP_POSITIONS && A <= SHARED_POSITIONS;
+  const int inst = wide && first_design ? 0 : sr_align_fwd_df_warps(A);
+  if (wide && !first_design) {
+    switch (wide_k(A)) {
+      case 2: SR_WIDE(2); break;
+      case 3: SR_WIDE(3); break;
+      default: SR_WIDE(4);
+    }
+    return (int)cudaGetLastError();
+  }
   switch (inst) {
     case 1: SR_WARPS(1); break;
     case 2: SR_WARPS(2); break;
     case 3: SR_WARPS(3); break;
     case 4: SR_WARPS(4); break;
     default: {
-      // the row in shared memory (0) or in the scratch (-1)
+      // the row in shared memory (0: the first design, forced) or in the
+      // scratch (-1)
       if (inst < 0 && scratch == nullptr) return (int)cudaErrorInvalidValue;
       const int threads = A < BLOCK_THREADS ? (A + 31) / 32 * 32 : BLOCK_THREADS;
       const size_t smem = inst < 0 ? 0 : block_pairs(A) * sizeof(float2);
@@ -482,5 +741,6 @@ extern "C" int sr_align_fwd_df(const float* prev_hi, const float* prev_lo,
     }
   }
 #undef SR_WARPS
+#undef SR_WIDE
   return (int)cudaGetLastError();
 }

@@ -27,7 +27,10 @@
 // Every operation is an add, compare or select in the score type and
 // BIG = 1e30 is a finite sentinel, so the kernel matches its plain PyTorch
 // version bit for bit in both types. The minimum is exact in any order; the
-// word end is the first index at the minimum.
+// word end is the first index at the minimum. A NaN score is kept as the
+// reference keeps it: the cap at BIG and the minimum give NaN where an
+// operand is NaN (jnp.minimum, .min), and the word end is the first NaN
+// (jnp.argmin).
 //
 // What bounds it: one frame's chain, and at the full batch instruction
 // issue, not bytes (a chunk of 1,024 utterances x 320 frames reads 44 MB of
@@ -73,8 +76,8 @@
 
 namespace {
 
-using keys::order_key;
-using keys::warp_minimum;
+using keys::nan_first_key;
+using keys::warp_minimum_nan;
 
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int GROUP = 8;             // lanes a word in the warp instance
@@ -88,23 +91,20 @@ constexpr int BLOCK_THREADS = 1024;  // threads per utterance of the block insta
 template <typename T>
 __device__ __forceinline__ T big() { return T(1e30); }
 
+// the minimum of two scores, NaN where either is
 template <typename T>
-__device__ __forceinline__ T tmin(T a, T b);
-template <>
-__device__ __forceinline__ float tmin<float>(float a, float b) { return fminf(a, b); }
-template <>
-__device__ __forceinline__ double tmin<double>(double a, double b) { return fmin(a, b); }
+__device__ __forceinline__ T tmin(T a, T b) { return keys::nan_min(a, b); }
 
-// the first lane whose live value is the warp's minimum (lanes that are not
-// live lose to every live one)
+// the first lane whose live value is the warp's minimum, a NaN first (lanes
+// that are not live lose to every live one)
 __device__ __forceinline__ int first_min_lane(float v, bool live) {
-  const unsigned k = live ? order_key(v) : FULL;
+  const unsigned k = live ? nan_first_key(v) : FULL;
   const unsigned m = __reduce_min_sync(FULL, k);
   return (int)__reduce_min_sync(FULL, k == m ? (unsigned)(threadIdx.x & 31) : FULL);
 }
 
 __device__ __forceinline__ int first_min_lane(double v, bool live) {
-  const unsigned long long k = order_key(v);
+  const unsigned long long k = nan_first_key(v);
   const unsigned hi = live ? (unsigned)(k >> 32) : FULL;
   const unsigned lo = live ? (unsigned)k : FULL;
   const unsigned mh = __reduce_min_sync(FULL, hi);
@@ -268,7 +268,7 @@ __global__ void __launch_bounds__(256, 3) decode_scan_warp_kernel(
             s.endb[par][w] = nb[k];
           }
         }
-        m = warp_minimum(m);
+        m = warp_minimum_nan(m);
         if (lane == 0) s.wmin[par][warp] = m;
         __syncthreads();  // the minima and the raw word ends are visible
 
@@ -326,9 +326,11 @@ struct End {
   int w, bk;
 };
 
-// (score, word) lexicographic: the smaller score, the smaller word on ties
+// (score, word) lexicographic: the smaller score, the smaller word on
+// ties; a NaN before every other score
 template <typename T>
 __device__ __forceinline__ bool end_less(const End<T>& a, const End<T>& b) {
+  if (a.v != a.v) return b.v == b.v || a.w < b.w;
   return a.v < b.v || (a.v == b.v && a.w < b.w);
 }
 
@@ -400,7 +402,7 @@ __global__ void __launch_bounds__(BLOCK_THREADS) decode_scan_block_kernel(
     }
     // a thread without a slot holds BIG, which every row minimum already is
     // or undercuts
-    m = warp_minimum(m);
+    m = warp_minimum_nan(m);
     if ((threadIdx.x & 31) == 0) s_wmin[threadIdx.x >> 5] = m;
     __syncthreads();  // the per-warp minima are visible
     T best = s_wmin[0];

@@ -132,7 +132,7 @@ __global__ void __launch_bounds__(search::MAX_THREADS) bigram_scan_kernel(
       int rp = 0;
       for (int v = 1; v < W; ++v) {
         const T c = add(s_book[v], lm[(size_t)v * W + w]);
-        if (c < rec) {
+        if (search::takes(c, rec)) {
           rec = c;
           rp = v;
         }
@@ -330,7 +330,7 @@ __global__ void __launch_bounds__(MAX_WARP_WORDS / WORDS_PER_WARP * 32, 3)
           const int v = l + GROUP * j;
           if (v < W) {
             const T c = add(book[j], s.lm[v * W + wc]);
-            if (c < rec) {  // v grows with j: the first v at the minimum
+            if (search::takes(c, rec)) {  // v grows with j: the first v at the minimum
               rec = c;
               rp = v;
             }
@@ -404,7 +404,7 @@ __global__ void __launch_bounds__(MAX_WARP_WORDS / WORDS_PER_WARP * 32, 3)
             s.endp[par][w] = np[k];
           }
         }
-        m = keys::warp_minimum(m);
+        m = keys::warp_minimum_nan(m);
         if (lane == 0) s.wmin[par][warp] = m;
         __syncthreads();  // the minima and the raw word ends are visible
 

@@ -71,7 +71,24 @@
 //     not fit a block's shared memory). Simple, not tuned.
 // sr_decode_scan_df_residency gives the blocks an SM holds of the chosen
 // instance's launch.
+//
+// A NaN score: the plain version's minima are doublefloat.min_axis,
+// pairwise halving (positions first, then words; the first half against
+// the second by df::minimum, an odd last element carried), and
+// df::minimum keeps the second of a pair unless the first is strictly
+// less. So a NaN survives only as the second of a pair, and a finite first
+// of a pair whose second is NaN is lost: the result depends on where the
+// NaNs lie, and is NaN exactly where the last element is. A row that holds
+// a NaN (a cell whose hi is NaN; a NaN emission gives (NaN, NaN)) is
+// therefore folded as the plain version folds it, by one thread through
+// the halving in shared memory (or the scratch), after a second barrier;
+// the word ends, when one is NaN, likewise (by shuffles in the warp
+// instance), and the word is the first index whose end equals that
+// minimum in both words, or 0 where none does (NaN equals nothing), as the
+// plain version's argmax over its equality mask gives. Finite rows take
+// the exact minimum in any order, as before.
 
+#include <climits>
 #include <cuda_runtime.h>
 
 #include "df.cuh"
@@ -94,6 +111,53 @@ constexpr int SHARED_SLOTS = 1024;   // the largest lattice the block instance k
 constexpr int BLOCK_THREADS = 1024;  // threads per utterance of the block instance, at most
 
 __device__ __forceinline__ DF big() { return df::make(BIG, 0.f); }
+
+__device__ __forceinline__ DF pair_df(float2 v) { return df::make(v.x, v.y); }
+
+__device__ __forceinline__ bool nan_hi(DF v) { return v.hi != v.hi; }
+
+// The plain version's pairwise halving (doublefloat.min_axis) of the n
+// pairs in[0], in[stride], ..., by one thread, through buf (n/2 + n%2
+// pairs; buf may be in when stride is 1): each stage takes df::minimum of
+// the first half against the second and carries an odd last element.
+// Within a stage, element i < n/2 is written after it and in[i + n/2] are
+// read, and the carried one last, so the stages run in place in buf.
+__device__ __noinline__ DF halving_min(const float2* in, int stride, int n, float2* buf) {
+  if (n == 1) return pair_df(in[0]);
+  int half = n >> 1;
+  for (int i = 0; i < half; ++i) {
+    const DF v = df::minimum(pair_df(in[(size_t)i * stride]),
+                             pair_df(in[(size_t)(i + half) * stride]));
+    buf[i] = make_float2(v.hi, v.lo);
+  }
+  if (n & 1) buf[half] = in[(size_t)(n - 1) * stride];
+  for (n -= half; n > 1; n -= half) {
+    half = n >> 1;
+    for (int i = 0; i < half; ++i) {
+      const DF v = df::minimum(pair_df(buf[i]), pair_df(buf[i + half]));
+      buf[i] = make_float2(v.hi, v.lo);
+    }
+    if (n & 1) buf[half] = buf[n - 1];
+  }
+  return pair_df(buf[0]);
+}
+
+// the row minimum of the lattice row[W][P] as the plain version folds it:
+// each word's positions (through fold, (P+1)/2 pairs) into wres[W], then
+// the words (by one thread)
+__device__ __noinline__ DF lattice_min(const float2* row, int W, int P, float2* fold,
+                                       float2* wres) {
+  for (int w = 0; w < W; ++w) {
+    const DF v = halving_min(row + (size_t)w * P, 1, P, fold);
+    wres[w] = make_float2(v.hi, v.lo);
+  }
+  return halving_min(wres, 1, W, wres);
+}
+
+// pairs of the NaN fold's buffers: a word's halving, then one pair a word
+__host__ __device__ __forceinline__ size_t fold_pairs(int W, int P) {
+  return (size_t)(P + 1) / 2 + W;
+}
 
 // the exact lexicographic (hi, lo) minimum over the warp (a butterfly of
 // shuffles: on the card it was a little faster here than two redux.sync on
@@ -156,6 +220,7 @@ struct WarpShared {
   int endb[2][MAX_WARP_WORDS];
 };
 
+// dynamic shared memory: a NaN row [W][P], then the fold's buffers
 template <int K>
 __global__ void __launch_bounds__(256, 3) decode_scan_df_warp_kernel(
     const float* __restrict__ am_hi, const float* __restrict__ am_lo,
@@ -172,6 +237,8 @@ __global__ void __launch_bounds__(256, 3) decode_scan_df_warp_kernel(
     int* __restrict__ word, int* __restrict__ bkp, int B, int T, int S, int W,
     int P, int t0, float am_threshold, int prune) {
   __shared__ WarpShared s;
+  __shared__ float2 s_best;
+  extern __shared__ float2 s_row[];  // [W][P], then fold_pairs(W, P)
   const DF thr = df::make(am_threshold, 0.f);
   const int b = blockIdx.x;
   const int warp = threadIdx.x >> 5;
@@ -263,6 +330,7 @@ __global__ void __launch_bounds__(256, 3) decode_scan_df_warp_kernel(
         DF nv[K];
         int nb[K];
         DF m = big();
+        bool nan_cell = false;
 #pragma unroll
         for (int k = 0; k < K; ++k) {
           const int p = l * K + k;
@@ -274,19 +342,39 @@ __global__ void __launch_bounds__(256, 3) decode_scan_df_warp_kernel(
           nv[k] = slot_step(h[k], bk[k], h1, b1, h2, b2, tw0[k], tw1[k], tw2[k], am[k], entry, p,
                             (valid >> k) & 1u, t, nb[k]);
           m = df::minimum(m, nv[k]);
+          nan_cell |= nan_hi(nv[k]);
           if (k == end_k) {
             s.end[par][w] = make_float2(nv[k].hi, nv[k].lo);
             s.endb[par][w] = nb[k];
           }
         }
         m = warp_minimum(m);
+        // a warp whose cells hold a NaN publishes a NaN minimum
+        if (__any_sync(FULL, nan_cell)) m = df::make(__int_as_float(0x7fffffff), 0.f);
         if (lane == 0) s.wmin[par][warp] = make_float2(m.hi, m.lo);
         __syncthreads();  // the minima and the raw word ends are visible
 
         DF best = df::make(s.wmin[par][0].x, s.wmin[par][0].y);
+        bool nan_row = nan_hi(best);
 #pragma unroll
         for (int v = 1; v < MAX_WARP_WORDS / WORDS_PER_WARP; ++v)
-          if (v < nwarps) best = df::minimum(best, df::make(s.wmin[par][v].x, s.wmin[par][v].y));
+          if (v < nwarps) {
+            const DF mv = df::make(s.wmin[par][v].x, s.wmin[par][v].y);
+            best = df::minimum(best, mv);
+            nan_row |= nan_hi(mv);
+          }
+        if (nan_row) {  // the same for the whole block: the plain version's fold
+#pragma unroll
+          for (int k = 0; k < K; ++k)
+            if (wv && l * K + k < P) s_row[w * P + l * K + k] = make_float2(nv[k].hi, nv[k].lo);
+          __syncthreads();  // the row is visible
+          if (threadIdx.x == 0) {
+            const DF v = lattice_min(s_row, W, P, s_row + WP, s_row + WP + (P + 1) / 2);
+            s_best = make_float2(v.hi, v.lo);
+          }
+          __syncthreads();  // its minimum is visible
+          best = pair_df(s_best);
+        }
         if (best.hi >= HALF_BIG) best = df::make(0.f, 0.f);
 
         // the word end, in every warp: lane j takes word j's published score
@@ -295,11 +383,31 @@ __global__ void __launch_bounds__(256, 3) decode_scan_df_warp_kernel(
         const int j = min(lane, W - 1);
         const DF e = renorm(df::make(s.end[par][j].x, s.end[par][j].y), best, thr, prune);
         const int eb = s.endb[par][j];
-        const unsigned kh = lane < W ? order_key(e.hi) : FULL;
-        const unsigned mh = __reduce_min_sync(FULL, kh);
-        const unsigned kl = kh == mh ? order_key(e.lo) : FULL;
-        const unsigned ml = __reduce_min_sync(FULL, kl);
-        const int bw = (int)__reduce_min_sync(FULL, kh == mh && kl == ml ? (unsigned)lane : FULL);
+        int bw;
+        if (__any_sync(FULL, lane < W && nan_hi(e))) {
+          // the plain version's halving over the words' ends, lane i
+          // holding element i; then the first end equal to it, else 0
+          DF f = e;
+          for (int n = W; n > 1;) {
+            const int half = n >> 1;
+            const DF o = df::make(__shfl_down_sync(FULL, f.hi, half),
+                                  __shfl_down_sync(FULL, f.lo, half));
+            if (lane < half)
+              f = df::minimum(f, o);
+            else if (lane == half && (n & 1))
+              f = o;
+            n -= half;
+          }
+          const DF root = df::make(__shfl_sync(FULL, f.hi, 0), __shfl_sync(FULL, f.lo, 0));
+          const unsigned eq = __ballot_sync(FULL, lane < W && e.hi == root.hi && e.lo == root.lo);
+          bw = eq ? __ffs(eq) - 1 : 0;
+        } else {
+          const unsigned kh = lane < W ? order_key(e.hi) : FULL;
+          const unsigned mh = __reduce_min_sync(FULL, kh);
+          const unsigned kl = kh == mh ? order_key(e.lo) : FULL;
+          const unsigned ml = __reduce_min_sync(FULL, kl);
+          bw = (int)__reduce_min_sync(FULL, kh == mh && kl == ml ? (unsigned)lane : FULL);
+        }
         DF bs = df::make(__shfl_sync(FULL, e.hi, bw), __shfl_sync(FULL, e.lo, bw));
         const int bb = __shfl_sync(FULL, eb, bw);
         if (bs.hi >= HALF_BIG) bs = big();
@@ -356,9 +464,12 @@ __device__ __forceinline__ End shfl_end(const End& e, int o) {
 
 // one block of min(ceil(W*P/32)*32, 1024) threads per utterance, thread x
 // owning the slots x + k*blockDim.x; the lattice double-buffered by frame
-// parity in lat_h / lat_b [2][W*P]: shared memory where lat_h is null, else
-// the utterance's part of the wrapper's device scratch [B][2][W*P] (not
-// restrict: the threads read one another's writes after __syncthreads)
+// parity in lat_h / lat_b [2][W*P], and the NaN fold's buffers (fold_pairs
+// pairs, then the word ends' pairs and backpointers, W each): shared memory
+// where lat_h is null, else the utterance's part of the wrapper's device
+// scratch (lat_h [B][2][W*P], lat_b [B][2][W*P], fold [B][fold_pairs + W],
+// fold_b [B][W]; not restrict: the threads read one another's writes after
+// __syncthreads)
 __global__ void __launch_bounds__(BLOCK_THREADS) decode_scan_df_block_kernel(
     const float* __restrict__ am_hi, const float* __restrict__ am_lo,
     const int* __restrict__ feat_len, const int* __restrict__ state_table,
@@ -371,23 +482,33 @@ __global__ void __launch_bounds__(BLOCK_THREADS) decode_scan_df_block_kernel(
     float* __restrict__ hyp_hi_out, float* __restrict__ hyp_lo_out,
     int* __restrict__ bkp_out, float* __restrict__ book_hi_out,
     float* __restrict__ book_lo_out, float* __restrict__ score,
-    int* __restrict__ word, int* __restrict__ bkp, float2* lat_h, int* lat_b, int B, int T,
-    int S, int W, int P, int t0, float am_threshold, int prune) {
+    int* __restrict__ word, int* __restrict__ bkp, float2* lat_h, int* lat_b, float2* fold,
+    int* fold_b, int B, int T, int S, int W, int P, int t0, float am_threshold, int prune) {
   extern __shared__ float2 smem[];
   __shared__ float2 s_wmin[BLOCK_THREADS / 32];
   __shared__ End s_wend[BLOCK_THREADS / 32];
+  __shared__ float2 s_best;
+  __shared__ End s_end;
   const DF thr = df::make(am_threshold, 0.f);
   const int b = blockIdx.x;
   const int nwarps = blockDim.x / 32;
   const int WP = W * P;
   const size_t off = (size_t)b * WP;
+  const size_t fp = fold_pairs(W, P) + W;
   if (lat_h != nullptr) {
     lat_h += 2 * off;
     lat_b += 2 * off;
+    fold += (size_t)b * fp;
+    fold_b += (size_t)b * W;
   } else {
     lat_h = smem;
-    lat_b = reinterpret_cast<int*>(smem + 2 * WP);
+    fold = smem + 2 * WP;
+    lat_b = reinterpret_cast<int*>(fold + fp);
+    fold_b = lat_b + 2 * WP;
   }
+  float2* const wres = fold + (P + 1) / 2;  // a pair a word
+  float2* const ends = wres + W;           // the word ends' scores
+
   for (int s = threadIdx.x; s < WP; s += blockDim.x) {
     lat_h[s] = make_float2(hyp_hi_in[off + s], hyp_lo_in[off + s]);
     lat_b[s] = bkp_in[off + s];
@@ -406,6 +527,7 @@ __global__ void __launch_bounds__(BLOCK_THREADS) decode_scan_df_block_kernel(
     const size_t row = ((size_t)b * T + i) * S;
     // (a) every slot's new score and backpointer, before the renormalisation
     DF m = big();
+    int nan_seen = 0;
     for (int s = threadIdx.x; s < WP; s += blockDim.x) {
       const int w = s / P, p = s - w * P;
       const DF h1 = p >= 1 ? df::make(ch[s - 1].x, ch[s - 1].y) : big();
@@ -428,24 +550,43 @@ __global__ void __launch_bounds__(BLOCK_THREADS) decode_scan_df_block_kernel(
       nh[s] = make_float2(nv.hi, nv.lo);
       nbk[s] = nb;
       m = df::minimum(m, nv);
+      nan_seen |= nan_hi(nv);
     }
     // a thread without a slot holds (BIG, 0), which every real row minimum
     // already is or undercuts
     m = warp_minimum(m);
     if ((threadIdx.x & 31) == 0) s_wmin[threadIdx.x >> 5] = make_float2(m.hi, m.lo);
-    __syncthreads();  // the per-warp minima are visible
-    DF best = df::make(s_wmin[0].x, s_wmin[0].y);
-    for (int k = 1; k < nwarps; ++k) best = df::minimum(best, df::make(s_wmin[k].x, s_wmin[k].y));
+    // the per-warp minima and the row are visible; a NaN row folds as the
+    // plain version does
+    DF best;
+    if (__syncthreads_or(nan_seen)) {
+      if (threadIdx.x == 0) {
+        const DF v = lattice_min(nh, W, P, fold, wres);
+        s_best = make_float2(v.hi, v.lo);
+      }
+      __syncthreads();  // its minimum is visible
+      best = pair_df(s_best);
+    } else {
+      best = df::make(s_wmin[0].x, s_wmin[0].y);
+      for (int k = 1; k < nwarps; ++k)
+        best = df::minimum(best, df::make(s_wmin[k].x, s_wmin[k].y));
+    }
     if (best.hi >= HALF_BIG) best = df::make(0.f, 0.f);
 
     // (b) each thread's own slots: renormalise, prune, offer the word ends
     const bool alive = t <= len;
     End e{df::make(__int_as_float(0x7f800000), 0.f), 0x7fffffff, 0};  // loses to every end
+    int nan_end = 0;
     for (int s = threadIdx.x; s < WP; s += blockDim.x) {
       const int w = s / P;
       const DF nv = renorm(df::make(nh[s].x, nh[s].y), best, thr, prune);
       const End c{nv, w, nbk[s]};
-      if (s - w * P == last_pos[w] && end_less(c, e)) e = c;
+      if (s - w * P == last_pos[w]) {
+        if (end_less(c, e)) e = c;
+        ends[w] = make_float2(nv.hi, nv.lo);
+        fold_b[w] = c.bk;
+        nan_end |= nan_hi(nv);
+      }
       if (alive) {
         nh[s] = make_float2(nv.hi, nv.lo);
       } else {
@@ -459,10 +600,28 @@ __global__ void __launch_bounds__(BLOCK_THREADS) decode_scan_df_block_kernel(
       if (end_less(other, e)) e = other;
     }
     if ((threadIdx.x & 31) == 0) s_wend[threadIdx.x >> 5] = e;
-    __syncthreads();  // the word ends and the new lattice are visible
-    End be = s_wend[0];
-    for (int k = 1; k < nwarps; ++k)
-      if (end_less(s_wend[k], be)) be = s_wend[k];
+    // the word ends and the new lattice are visible; where an end is NaN,
+    // the plain version's halving over the ends, then the first end equal
+    // to it, else word 0
+    End be;
+    if (__syncthreads_or(nan_end)) {
+      if (threadIdx.x == 0) {
+        const DF root = halving_min(ends, 1, W, wres);
+        int bw = 0;
+        for (int w = 0; w < W; ++w)
+          if (ends[w].x == root.hi && ends[w].y == root.lo) {
+            bw = w;
+            break;
+          }
+        s_end = End{pair_df(ends[bw]), bw, fold_b[bw]};
+      }
+      __syncthreads();  // the chosen end is visible
+      be = s_end;
+    } else {
+      be = s_wend[0];
+      for (int k = 1; k < nwarps; ++k)
+        if (end_less(s_wend[k], be)) be = s_wend[k];
+    }
     DF bs = be.v.hi >= HALF_BIG ? big() : be.v;
     if (threadIdx.x == 0) {
       score[(size_t)i * B + b] = bs.hi;
@@ -499,15 +658,37 @@ int threads_for(int W, int P) {
   return W * P < BLOCK_THREADS ? (W * P + 31) / 32 * 32 : BLOCK_THREADS;
 }
 
-// the block instance's shared lattice: two buffers of (hi, lo) pairs, then
-// two of backpointers
+// the block instance's shared lattice: two buffers of (hi, lo) pairs, the
+// NaN fold's pairs and the word ends' pairs, then two buffers of
+// backpointers and the word ends' backpointers
 size_t block_smem(int W, int P) {
-  return instance_for(W, P) == 0 ? 2 * (size_t)W * P * (sizeof(float2) + sizeof(int)) : 0;
+  if (instance_for(W, P) != 0) return 0;
+  return (2 * (size_t)W * P + fold_pairs(W, P) + W) * sizeof(float2)
+         + (2 * (size_t)W * P + W) * sizeof(int);
+}
+
+// the warp instance's dynamic shared memory: a NaN row and the fold's pairs
+size_t warp_smem(int W, int P) {
+  return ((size_t)W * P + fold_pairs(W, P)) * sizeof(float2);
+}
+
+// floats of the block instance's device scratch an utterance (A > 1,024
+// slots): the lattice's two buffers of pairs and two of backpointers, the
+// fold's pairs and the word ends' pairs and backpointers
+size_t scratch_floats(int W, int P) {
+  return 6 * (size_t)W * P + 2 * (fold_pairs(W, P) + W) + W;
 }
 
 }  // namespace
 
 extern "C" int sr_decode_scan_df_instance(int W, int P) { return instance_for(W, P); }
+
+// floats of device scratch the block instance needs an utterance where the
+// instance is -1 (-1: more than an int holds)
+extern "C" int sr_decode_scan_df_scratch(int W, int P) {
+  const size_t n = scratch_floats(W, P);
+  return n > (size_t)INT_MAX ? -1 : (int)n;
+}
 
 // threads a block of the chosen instance's launch for a W x P lattice
 extern "C" int sr_decode_scan_df_threads(int W, int P) { return threads_for(W, P); }
@@ -534,17 +715,22 @@ extern "C" int sr_decode_scan_df(
       tdp_lo, ent_hi, ent_lo, hyp_hi_in, hyp_lo_in, bkp_in, book_hi_in, book_lo_in, \
       hyp_hi_out, hyp_lo_out, bkp_out, book_hi_out, book_lo_out, score, word, bkp
   switch (inst) {
-    case 1: decode_scan_df_warp_kernel<1><<<B, threads, 0, st>>>(SR_ARGS, B, T, S, W, P, t0, am_threshold, prune); break;
-    case 2: decode_scan_df_warp_kernel<2><<<B, threads, 0, st>>>(SR_ARGS, B, T, S, W, P, t0, am_threshold, prune); break;
-    case 3: decode_scan_df_warp_kernel<3><<<B, threads, 0, st>>>(SR_ARGS, B, T, S, W, P, t0, am_threshold, prune); break;
-    case 4: decode_scan_df_warp_kernel<4><<<B, threads, 0, st>>>(SR_ARGS, B, T, S, W, P, t0, am_threshold, prune); break;
-    default:
-      // the lattice in shared memory (0) or in the scratch (-1)
+    case 1: decode_scan_df_warp_kernel<1><<<B, threads, warp_smem(W, P), st>>>(SR_ARGS, B, T, S, W, P, t0, am_threshold, prune); break;
+    case 2: decode_scan_df_warp_kernel<2><<<B, threads, warp_smem(W, P), st>>>(SR_ARGS, B, T, S, W, P, t0, am_threshold, prune); break;
+    case 3: decode_scan_df_warp_kernel<3><<<B, threads, warp_smem(W, P), st>>>(SR_ARGS, B, T, S, W, P, t0, am_threshold, prune); break;
+    case 4: decode_scan_df_warp_kernel<4><<<B, threads, warp_smem(W, P), st>>>(SR_ARGS, B, T, S, W, P, t0, am_threshold, prune); break;
+    default: {
+      // the lattice in shared memory (0) or in the scratch (-1): lat_h
+      // [B][2][WP] pairs, lat_b [B][2][WP] ints, the fold's pairs, its ints
       if (inst < 0 && scratch == nullptr) return (int)cudaErrorInvalidValue;
+      float2* lat = inst < 0 ? reinterpret_cast<float2*>(scratch) : nullptr;
+      int* lat_b = inst < 0 ? reinterpret_cast<int*>(scratch) + 4 * (size_t)B * WP : nullptr;
+      float2* fold = inst < 0 ? reinterpret_cast<float2*>(lat_b + 2 * (size_t)B * WP) : nullptr;
+      int* fold_b = inst < 0 ? reinterpret_cast<int*>(fold + (size_t)B * (fold_pairs(W, P) + W))
+                             : nullptr;
       decode_scan_df_block_kernel<<<B, threads, block_smem(W, P), st>>>(
-          SR_ARGS, inst < 0 ? reinterpret_cast<float2*>(scratch) : nullptr,
-          inst < 0 ? reinterpret_cast<int*>(scratch) + 4 * (size_t)B * WP : nullptr, B, T, S, W,
-          P, t0, am_threshold, prune);
+          SR_ARGS, lat, lat_b, fold, fold_b, B, T, S, W, P, t0, am_threshold, prune);
+    }
   }
 #undef SR_ARGS
   return (int)cudaGetLastError();
@@ -557,10 +743,10 @@ extern "C" int sr_decode_scan_df_residency(int W, int P) {
   const int threads = threads_for(W, P);
   cudaError_t err;
   switch (instance_for(W, P)) {
-    case 1: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, decode_scan_df_warp_kernel<1>, threads, 0); break;
-    case 2: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, decode_scan_df_warp_kernel<2>, threads, 0); break;
-    case 3: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, decode_scan_df_warp_kernel<3>, threads, 0); break;
-    case 4: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, decode_scan_df_warp_kernel<4>, threads, 0); break;
+    case 1: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, decode_scan_df_warp_kernel<1>, threads, warp_smem(W, P)); break;
+    case 2: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, decode_scan_df_warp_kernel<2>, threads, warp_smem(W, P)); break;
+    case 3: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, decode_scan_df_warp_kernel<3>, threads, warp_smem(W, P)); break;
+    case 4: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, decode_scan_df_warp_kernel<4>, threads, warp_smem(W, P)); break;
     default:
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, decode_scan_df_block_kernel, threads,
                                                           block_smem(W, P));

@@ -73,13 +73,25 @@
 //     backward frame forming its posterior row on the chain from beta in
 //     registers and alpha read back from gamma; maxima by butterfly
 //     shuffles.
-//   * A > 96: one block of min(ceil(A/32)*32, 1024) threads an utterance,
-//     each looping over the positions a = threadIdx.x + k*blockDim.x; the
-//     alpha / beta row double-buffered and a row of the posterior's
-//     exponentials in shared memory up to A = 1024 (instance 0), beyond in
-//     device scratch [B, 3, A] that the wrapper allocates (-1); warp 0
-//     forms the row sum in the order above. Simple, not tuned; no SieTill
-//     automaton reaches it.
+//   * 96 < A <= 1024 (the Sprint path's automata: A 303 at AN4's shape):
+//     the same two chains and posterior pass, each chain on a block of its
+//     own (grid [B, 2]) of W warps, K consecutive positions a lane (K =
+//     max(2, ceil(A/256)), W = ceil(A/(32K)): A 303 takes 5 warps of 2),
+//     tables and validity in registers, the emissions in flight ahead
+//     (fb_wide_chain_kernel). A warp's neighbours across its edge come from
+//     a shadow: each warp publishes its row maximum and the raw cells of
+//     its two edge positions, and after the one barrier a frame every
+//     thread folds the W maxima (keys' exact order) and renormalises the
+//     neighbouring warp's two cells as their owner does. The posterior
+//     pass takes ceil(A/32) positions a lane, the row sum's order.
+//   * A > 1024: one block of 1024 threads an utterance, each looping over
+//     the positions a = threadIdx.x + k*blockDim.x; the alpha / beta row
+//     double-buffered and a row of the posterior's exponentials in device
+//     scratch [B, 3, A] that the wrapper allocates (-1); warp 0 forms the
+//     row sum in the order above, each backward frame's posterior row on
+//     the chain. Simple, not tuned. For 96 < A <= 1024 it was the first
+//     design, its rows in shared memory; the C entry's first_design
+//     launches it there, for timing in turns, and nothing else does.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -504,6 +516,270 @@ fb_chain_kernel(const T* __restrict__ lams, const T* __restrict__ ltdp,
                          beta + (size_t)b * Tn * A);
 }
 
+// -- the two chains of W warps (96 < A <= 1024) --------------------------------------
+
+constexpr int WIDE_WARPS = 8;  // warps a chain, at most
+
+// positions a lane (2-4) and warps a chain (2-8) of the wide chains: at most
+// 256 positions take 2 a lane, longer rows 3 or 4, so that a chain's warps
+// stay at most 8. Fewer a lane is not faster: on an H100 (B 130, T 1,105, A
+// 303) one position a lane on 10 warps took 1.71 / 2.95 ms (f32 / f64), two
+// on 5 1.42 / 2.78 ms
+__host__ __device__ __forceinline__ int wide_k(int A) {
+  const int k = (A + 8 * 32 - 1) / (8 * 32);
+  return k < 2 ? 2 : k;
+}
+
+__host__ __device__ __forceinline__ int wide_warps(int A) {
+  const int k = wide_k(A);
+  return (A + 32 * k - 1) / (32 * k);
+}
+
+// the larger of two row maxima as keys::warp_maximum orders them (exact)
+template <typename T>
+__device__ __forceinline__ T key_max(T a, T b) {
+  return keys::order_key(b) > keys::order_key(a) ? b : a;
+}
+
+// what a warp of a wide chain publishes a frame: its row maximum and the raw
+// cells of its two positions at the edge that the neighbouring warp reads
+// (the forward chain's last two, the backward chain's first two)
+template <typename T>
+struct EdgePub {
+  T max, c0, c1;
+};
+
+// the row's shift from the W warps' published maxima, folded in warp order
+template <typename T>
+__device__ __forceinline__ T wide_shift(const EdgePub<T>* pub, int W) {
+  T m = pub[0].max;
+  for (int v = 1; v < W; ++v) m = key_max(m, pub[v].max);
+  return row_shift(m);
+}
+
+// the forward recursion of one utterance on the block's W warps, K
+// consecutive positions a lane (position a = (w*32 + lane)*K + k): the
+// lanes below give a-1 and a-2 by shuffles, lane 0 reads them from the
+// shadow of the previous warp's last two positions, which every lane
+// renormalises from the raw cells that warp publishes (bit for bit the
+// owner's); one barrier a frame. Alpha rows 0..len-1 into g_b, log_z into *z
+template <typename T, int K>
+__device__ __forceinline__ void forward_chain_wide(const T* __restrict__ lam_b, const T (&tw0)[K],
+                                                   const T (&tw1)[K], const T (&tw2)[K],
+                                                   const bool (&valid)[K], const int (&col)[K],
+                                                   int warp, int lane, int W, int len, int al,
+                                                   int A, T* g_b, T* z,
+                                                   EdgePub<T> (*pub)[WIDE_WARPS]) {
+  const T NB = neg_big<T>();
+  const int a0 = (warp * 32 + lane) * K;
+  T alpha[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    alpha[k] = (a0 + k == 0 && valid[k]) ? lam_b[0] : NB;
+    if (len > 0 && a0 + k < A) g_b[a0 + k] = alpha[k];
+  }
+  T sh1 = NB, sh2 = NB;  // alpha of positions warp*32*K - 1 and - 2
+  T shift_sum = T(0);
+  constexpr int PREFETCH = prefetch<T>();
+  T ring[PREFETCH][K];  // ring[d]: the emissions of frame t0 + d
+#pragma unroll
+  for (int d = 0; d < PREFETCH; ++d)
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      ring[d][k] = len > 1 ? lam_b[(size_t)min(1 + d, len - 1) * A + col[k]] : T(0);
+  for (int t0 = 1; t0 < len; t0 += PREFETCH) {
+#pragma unroll
+    for (int d = 0; d < PREFETCH; ++d) {
+      const int t = t0 + d;
+      if (t >= len) break;
+      T lam_t[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        lam_t[k] = ring[d][k];
+        ring[d][k] = lam_b[(size_t)min(t + PREFETCH, len - 1) * A + col[k]];
+      }
+      const T below1 = __shfl_up_sync(FULL, alpha[K - 1], 1);
+      const T below2 = __shfl_up_sync(FULL, alpha[K - 2], 1);
+      const T up1 = lane == 0 ? sh1 : below1;
+      const T up2 = lane == 0 ? sh2 : below2;
+      T nw[K];
+      T m = minus_inf<T>();
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int a = a0 + k;
+        const T p1 = k >= 1 ? alpha[k >= 1 ? k - 1 : 0] : up1;
+        const T p2 = k >= 2 ? alpha[k >= 2 ? k - 2 : 0] : (k == 1 ? up1 : up2);
+        const T c0 = alpha[k] + tw0[k];
+        const T c1 = a >= 1 ? p1 + tw1[k] : NB;
+        const T c2 = a >= 2 ? p2 + tw2[k] : NB;
+        const T v = lse3(c0, c1, c2) + lam_t[k];
+        nw[k] = valid[k] ? v : NB;
+        if (a < A) m = t_max(m, nw[k]);
+      }
+      m = keys::warp_maximum(m);
+      EdgePub<T>* p = pub[t & 1];
+      if (lane == 0) p[warp].max = m;
+      if (lane == 31) {
+        p[warp].c0 = nw[K - 2];
+        p[warp].c1 = nw[K - 1];
+      }
+      __syncthreads();  // the maxima and the edge cells are visible
+      const T shift = wide_shift(p, W);
+      if (warp > 0) {
+        sh2 = renorm(p[warp - 1].c0, shift);
+        sh1 = renorm(p[warp - 1].c1, shift);
+      }
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        alpha[k] = renorm(nw[k], shift);
+        if (a0 + k < A) g_b[(size_t)t * A + a0 + k] = alpha[k];
+      }
+      shift_sum = shift_sum + shift;
+    }
+  }
+  // log_z: alpha at (len-1, aut_len-1) plus the shifts, by its owner
+  const int fz = min(max(al - 1 < 0 ? al - 1 + A : al - 1, 0), A - 1);
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    if (a0 + k == fz) *z = alpha[k] + shift_sum;
+}
+
+// the backward recursion of one utterance on the block's W warps, K
+// positions a lane: the lanes above give a+1 and a+2 by shuffles, lane 31
+// forms them from the shadow of the next warp's first two positions (their
+// beta renormalised from the raw cells that warp publishes, their emissions
+// and transitions its own); one barrier a frame. Beta rows len-1..0 into
+// be_b
+template <typename T, int K>
+__device__ __forceinline__ void backward_chain_wide(const T* __restrict__ lam_b,
+                                                    const T* __restrict__ ltdp_b,
+                                                    const T (&tw0)[K], const T (&tw1)[K],
+                                                    const T (&tw2)[K], const bool (&valid)[K],
+                                                    const int (&col)[K], int warp, int lane, int W,
+                                                    int len, int al, int A, T* be_b,
+                                                    EdgePub<T> (*pub)[WIDE_WARPS]) {
+  if (len <= 0) return;
+  const T NB = neg_big<T>();
+  const int a0 = (warp * 32 + lane) * K;
+  T beta[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    beta[k] = (a0 + k == al - 1 && a0 + k < A) ? T(0) : NB;
+    if (a0 + k < A) be_b[(size_t)(len - 1) * A + a0 + k] = beta[k];
+  }
+  // the shadow: positions (warp+1)*32*K and + 1, the next warp's first two
+  const int n0 = (warp + 1) * 32 * K, n1 = n0 + 1;
+  const int sc0 = min(n0, A - 1), sc1 = min(n1, A - 1);
+  T shb0 = (n0 == al - 1 && n0 < A) ? T(0) : NB;
+  T shb1 = (n1 == al - 1 && n1 < A) ? T(0) : NB;
+  const T stw1_0 = ltdp_b[(size_t)sc0 * 3 + 1], stw2_0 = ltdp_b[(size_t)sc0 * 3 + 2];
+  const T stw2_1 = ltdp_b[(size_t)sc1 * 3 + 2];
+  constexpr int PREFETCH = prefetch<T>();
+  // ring[d]: the emissions of step s0 + d (frame len-1 - (s0 + d)), the
+  // lane's K columns and the shadow's two
+  T ring[PREFETCH][K + 2];
+#pragma unroll
+  for (int d = 0; d < PREFETCH; ++d) {
+    const size_t row = (size_t)max(len - 1 - d, 0) * A;
+#pragma unroll
+    for (int k = 0; k < K; ++k) ring[d][k] = len > 1 ? lam_b[row + col[k]] : T(0);
+    ring[d][K] = len > 1 ? lam_b[row + sc0] : T(0);
+    ring[d][K + 1] = len > 1 ? lam_b[row + sc1] : T(0);
+  }
+  for (int s0 = 0; s0 < len - 1; s0 += PREFETCH) {
+#pragma unroll
+    for (int d = 0; d < PREFETCH; ++d) {
+      const int t = len - 2 - (s0 + d);
+      if (t < 0) break;
+      const size_t nx = (size_t)max(t + 1 - PREFETCH, 0) * A;
+      T term[K], v1[K], v2[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        term[k] = beta[k] + ring[d][k];
+        v1[k] = term[k] + tw1[k];
+        v2[k] = term[k] + tw2[k];
+        ring[d][k] = lam_b[nx + col[k]];
+      }
+      const T sterm0 = shb0 + ring[d][K];
+      const T sterm1 = shb1 + ring[d][K + 1];
+      ring[d][K] = lam_b[nx + sc0];
+      ring[d][K + 1] = lam_b[nx + sc1];
+      // positions a+1 and a+2 of the lane's last positions: the lanes above,
+      // or the shadow
+      const T above1 = __shfl_down_sync(FULL, v1[0], 1);
+      const T above2_first = __shfl_down_sync(FULL, v2[0], 1);
+      const T above2 = __shfl_down_sync(FULL, v2[1], 1);
+      const T dn1 = lane == 31 ? sterm0 + stw1_0 : above1;
+      const T dn2_first = lane == 31 ? sterm0 + stw2_0 : above2_first;
+      const T dn2 = lane == 31 ? sterm1 + stw2_1 : above2;
+      T nb[K];
+      T m = minus_inf<T>();
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int a = a0 + k;
+        const T n1v = k + 1 < K ? v1[k + 1 < K ? k + 1 : 0] : dn1;
+        const T n2v = k + 2 < K ? v2[k + 2 < K ? k + 2 : 0] : (k + 2 == K ? dn2_first : dn2);
+        const T b0 = term[k] + tw0[k];
+        const T b1 = a + 1 < A ? n1v : NB;
+        const T b2 = a + 2 < A ? n2v : NB;
+        const T v = lse3(b0, b1, b2);
+        nb[k] = valid[k] ? v : NB;
+        if (a < A) m = t_max(m, nb[k]);
+      }
+      m = keys::warp_maximum(m);
+      EdgePub<T>* p = pub[t & 1];
+      if (lane == 0) {
+        p[warp].max = m;
+        p[warp].c0 = nb[0];
+        p[warp].c1 = nb[1];
+      }
+      __syncthreads();  // the maxima and the edge cells are visible
+      const T shift = wide_shift(p, W);
+      if (warp + 1 < W) {
+        shb0 = renorm(p[warp + 1].c0, shift);
+        shb1 = renorm(p[warp + 1].c1, shift);
+      }
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        beta[k] = renorm(nb[k], shift);
+        if (a0 + k < A) be_b[(size_t)t * A + a0 + k] = beta[k];
+      }
+    }
+  }
+}
+
+// a block of W warps a chain and utterance: blockIdx.y + chain0 selects the
+// recursion (0 forward, 1 backward); the production launch has both chains
+// (grid [B, 2], chain0 0), sr_forward_backward_chain one and the chain it
+// times
+template <typename T, int K>
+__global__ void __launch_bounds__(WIDE_WARPS * 32)
+fb_wide_chain_kernel(const T* __restrict__ lams, const T* __restrict__ ltdp,
+                     const unsigned char* __restrict__ pos_valid,
+                     const int* __restrict__ feat_len, const int* __restrict__ aut_len,
+                     T* __restrict__ gamma, T* __restrict__ log_z, T* __restrict__ beta, int Tn,
+                     int A, int chain0) {
+  __shared__ EdgePub<T> s_pub[2][WIDE_WARPS];
+  const int b = blockIdx.x;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int W = blockDim.x >> 5;
+  const int len = min(max(feat_len[b], 0), Tn);
+  const int al = aut_len[b];
+  const size_t urow = (size_t)b * A;
+  T tw0[K], tw1[K], tw2[K];
+  bool valid[K];
+  int col[K];
+  lane_tables<T, K>(ltdp, pos_valid, urow, warp * 32 + lane, A, tw0, tw1, tw2, valid, col);
+  const T* lam_b = lams + (size_t)b * Tn * A;
+  if (chain0 + (int)blockIdx.y == 0)
+    forward_chain_wide<T, K>(lam_b, tw0, tw1, tw2, valid, col, warp, lane, W, len, al, A,
+                             gamma + (size_t)b * Tn * A, log_z + b, s_pub);
+  else
+    backward_chain_wide<T, K>(lam_b, ltdp + urow * 3, tw0, tw1, tw2, valid, col, warp, lane, W,
+                              len, al, A, beta + (size_t)b * Tn * A, s_pub);
+}
+
 // the posterior rows: block (x, y) takes POST_TILE consecutive rows of
 // utterance y (and of y + gridDim.y, ...), a warp POST_ROWS of them, all
 // loaded before any is reduced; feat_len is read once a block and
@@ -690,24 +966,66 @@ fb_block_kernel(const T* __restrict__ lams, const T* __restrict__ ltdp,
     for (int a = threadIdx.x; a < A; a += blockDim.x) g_b[(size_t)t * A + a] = T(0);
 }
 
-// K positions a lane of the warp instance (1-3) for A positions; for the
-// block instance 0 (its rows in shared memory) or -1 (in device scratch)
+// K positions a lane of the two chains for A positions: 1-3 on one warp a
+// chain (A <= 96), 2-4 on wide_warps(A) warps a chain (A <= 1024); past
+// them -1, the block instance with its rows in device scratch
 int instance_for(int A) {
   if (A <= WARP_POSITIONS) return (A + 31) / 32;
-  return A <= SHARED_POSITIONS ? 0 : -1;
+  return A <= SHARED_POSITIONS ? wide_k(A) : -1;
 }
 
-// the two chains, then the posterior pass over every row, on one stream
-template <typename T, int K>
-cudaError_t launch_chains(const T* lams, const T* ltdp, const unsigned char* pos_valid,
-                          const int* feat_len, const int* aut_len, T* gamma, T* log_z, T* beta,
-                          int B, int Tn, int A, cudaStream_t st) {
-  fb_chain_kernel<T, K><<<B, 64, 0, st>>>(lams, ltdp, pos_valid, feat_len, aut_len, gamma, log_z,
-                                          beta, Tn, A, 0);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+// warps a chain of that instance (0 past A = 1024: the block instance)
+int warps_for(int A) {
+  if (A <= WARP_POSITIONS) return 1;
+  return A <= SHARED_POSITIONS ? wide_warps(A) : 0;
+}
+
+// the chains of A positions, both (chains 2, chain0 0) or one (chains 1,
+// chain0 the chain): for A <= 96 a block of one warp a chain, two chains a
+// block; past it a block of W warps a chain, the chain by blockIdx.y
+template <typename T>
+cudaError_t launch_chain_kernels(const T* lams, const T* ltdp, const unsigned char* pos_valid,
+                                 const int* feat_len, const int* aut_len, T* gamma, T* log_z,
+                                 T* beta, int B, int Tn, int A, int chains, int chain0,
+                                 cudaStream_t st) {
+#define SR_CHAIN(K)                                                                         \
+  fb_chain_kernel<T, K><<<B, 32 * chains, 0, st>>>(lams, ltdp, pos_valid, feat_len, aut_len, \
+                                                   gamma, log_z, beta, Tn, A, chain0)
+#define SR_WIDE(K)                                                                          \
+  fb_wide_chain_kernel<T, K><<<dim3(B, chains), 32 * wide_warps(A), 0, st>>>(              \
+      lams, ltdp, pos_valid, feat_len, aut_len, gamma, log_z, beta, Tn, A, chain0)
+  switch (A <= WARP_POSITIONS ? instance_for(A) : 4 + instance_for(A)) {
+    case 1: SR_CHAIN(1); break;
+    case 2: SR_CHAIN(2); break;
+    case 3: SR_CHAIN(3); break;
+    case 6: SR_WIDE(2); break;
+    case 7: SR_WIDE(3); break;
+    default: SR_WIDE(4);
+  }
+#undef SR_CHAIN
+#undef SR_WIDE
+  return cudaGetLastError();
+}
+
+// the posterior pass over every row: ceil(A/32) positions a lane, the
+// row sum's order for any A up to 1024
+template <typename T>
+cudaError_t launch_posterior(T* gamma, const T* beta, const int* feat_len, int B, int Tn, int A,
+                             cudaStream_t st) {
   const dim3 grid((Tn + POST_TILE - 1) / POST_TILE, B < 65535 ? B : 65535);
-  fb_posterior_kernel<T, K><<<grid, POST_THREADS, 0, st>>>(gamma, beta, feat_len, B, Tn, A);
+#define SR_POST(K)                                                                           \
+  case K:                                                                                    \
+    fb_posterior_kernel<T, K><<<grid, POST_THREADS, 0, st>>>(gamma, beta, feat_len, B, Tn, A); \
+    break
+  switch ((A + 31) / 32) {
+    SR_POST(1); SR_POST(2); SR_POST(3); SR_POST(4); SR_POST(5); SR_POST(6); SR_POST(7);
+    SR_POST(8); SR_POST(9); SR_POST(10); SR_POST(11); SR_POST(12); SR_POST(13); SR_POST(14);
+    SR_POST(15); SR_POST(16); SR_POST(17); SR_POST(18); SR_POST(19); SR_POST(20);
+    SR_POST(21); SR_POST(22); SR_POST(23); SR_POST(24); SR_POST(25); SR_POST(26);
+    SR_POST(27); SR_POST(28); SR_POST(29); SR_POST(30); SR_POST(31); SR_POST(32);
+    default: return cudaErrorInvalidValue;
+  }
+#undef SR_POST
   return cudaGetLastError();
 }
 
@@ -720,18 +1038,16 @@ int launch(const T* lams, const T* ltdp, const unsigned char* pos_valid, const i
   if (B == 0 || Tn == 0 || A == 0) return (int)cudaSuccess;
   const cudaStream_t st = (cudaStream_t)stream;
   const int inst = instance_for(A);
-  if (inst > 0 && !first_design) {
+  if (inst > 0 && !first_design) {  // the two chains, then the posterior pass
     if (beta == nullptr) return (int)cudaErrorInvalidValue;
-    switch (inst) {
-      case 1: return (int)launch_chains<T, 1>(lams, ltdp, pos_valid, feat_len, aut_len, gamma,
-                                              log_z, beta, B, Tn, A, st);
-      case 2: return (int)launch_chains<T, 2>(lams, ltdp, pos_valid, feat_len, aut_len, gamma,
-                                              log_z, beta, B, Tn, A, st);
-      default: return (int)launch_chains<T, 3>(lams, ltdp, pos_valid, feat_len, aut_len, gamma,
-                                               log_z, beta, B, Tn, A, st);
-    }
+    cudaError_t e = launch_chain_kernels<T>(lams, ltdp, pos_valid, feat_len, aut_len, gamma,
+                                            log_z, beta, B, Tn, A, 2, 0, st);
+    if (e != cudaSuccess) return (int)e;
+    return (int)launch_posterior<T>(gamma, beta, feat_len, B, Tn, A, st);
   }
-  switch (inst) {
+  // the first designs: a warp an utterance up to A = 96, past it the block
+  // instance (its rows in shared memory up to A = 1024)
+  switch (A <= WARP_POSITIONS ? inst : A <= SHARED_POSITIONS ? 0 : -1) {
     case 1:
       fb_warp_kernel<T, 1><<<B, 32, 0, st>>>(lams, ltdp, pos_valid, feat_len, aut_len, gamma,
                                              log_z, Tn, A);
@@ -756,8 +1072,8 @@ int launch(const T* lams, const T* ltdp, const unsigned char* pos_valid, const i
   return (int)cudaGetLastError();
 }
 
-// one chain (0 forward, 1 backward) of the A <= 96 instance alone, a warp an
-// utterance, for timing the chains apart
+// one chain (0 forward, 1 backward) of the two chains' instance alone (A <=
+// 1024), for timing the chains apart
 template <typename T>
 int launch_chain(int chain, const T* lams, const T* ltdp, const unsigned char* pos_valid,
                  const int* feat_len, const int* aut_len, T* gamma, T* log_z, T* beta, int B,
@@ -767,45 +1083,36 @@ int launch_chain(int chain, const T* lams, const T* ltdp, const unsigned char* p
   const int inst = instance_for(A);
   if (inst <= 0 || (chain != 0 && chain != 1)) return (int)cudaErrorInvalidValue;
   if (B == 0 || Tn == 0) return (int)cudaSuccess;
-  const cudaStream_t st = (cudaStream_t)stream;
-  switch (inst) {
-    case 1:
-      fb_chain_kernel<T, 1><<<B, 32, 0, st>>>(lams, ltdp, pos_valid, feat_len, aut_len, gamma,
-                                              log_z, beta, Tn, A, chain);
-      break;
-    case 2:
-      fb_chain_kernel<T, 2><<<B, 32, 0, st>>>(lams, ltdp, pos_valid, feat_len, aut_len, gamma,
-                                              log_z, beta, Tn, A, chain);
-      break;
-    default:
-      fb_chain_kernel<T, 3><<<B, 32, 0, st>>>(lams, ltdp, pos_valid, feat_len, aut_len, gamma,
-                                              log_z, beta, Tn, A, chain);
-  }
-  return (int)cudaGetLastError();
+  return (int)launch_chain_kernels<T>(lams, ltdp, pos_valid, feat_len, aut_len, gamma, log_z,
+                                      beta, B, Tn, A, 1, chain, (cudaStream_t)stream);
 }
 
-// blocks per SM of the launch for A positions (-1: error): for A <= 96 the
-// chains' launch, or with first_design the first design's
+// blocks per SM of the launch for A positions (-1: error): for A <= 1024
+// the chains' launch, or with first_design the first design's
 template <typename T>
 int residency(int A, int first_design) {
   int n = 0;
   cudaError_t err;
   const int inst = instance_for(A);
   if (inst > 0 && !first_design) {
-    switch (inst) {
+    const int wt = 32 * warps_for(A);
+    switch (A <= WARP_POSITIONS ? inst : 4 + inst) {
       case 1: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fb_chain_kernel<T, 1>, 64, 0); break;
       case 2: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fb_chain_kernel<T, 2>, 64, 0); break;
-      default: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fb_chain_kernel<T, 3>, 64, 0);
+      case 3: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fb_chain_kernel<T, 3>, 64, 0); break;
+      case 6: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fb_wide_chain_kernel<T, 2>, wt, 0); break;
+      case 7: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fb_wide_chain_kernel<T, 3>, wt, 0); break;
+      default: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fb_wide_chain_kernel<T, 4>, wt, 0);
     }
     return err == cudaSuccess ? n : -1;
   }
-  switch (inst) {
+  switch (A <= WARP_POSITIONS ? inst : A <= SHARED_POSITIONS ? 0 : -1) {
     case 1: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fb_warp_kernel<T, 1>, 32, 0); break;
     case 2: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fb_warp_kernel<T, 2>, 32, 0); break;
     case 3: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fb_warp_kernel<T, 3>, 32, 0); break;
     default: {
       const int threads = A < BLOCK_THREADS ? (A + 31) / 32 * 32 : BLOCK_THREADS;
-      const size_t smem = instance_for(A) < 0 ? 0 : 3 * (size_t)A * sizeof(T);
+      const size_t smem = inst < 0 ? 0 : 3 * (size_t)A * sizeof(T);
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fb_block_kernel<T>, threads, smem);
     }
   }
@@ -815,22 +1122,30 @@ int residency(int A, int first_design) {
 }  // namespace
 
 // blocks per SM of kernel L's launch for A positions in float (f64 = 0) or
-// double (-1: error); for A <= 96 the two chains' launch (two warps a
-// block), or the first design's with first_design != 0
+// double (-1: error); for A <= 1024 the two chains' launch (two warps a
+// block up to A = 96, past it a chain a block), or the first design's with
+// first_design != 0
 extern "C" int sr_forward_backward_residency(int A, int f64, int first_design) {
   return f64 ? residency<double>(A, first_design) : residency<float>(A, first_design);
 }
 
 // the instance sr_forward_backward launches for A positions: positions a
-// lane of the two chains (1-3); the block instance with its rows in shared
-// memory (0), or in device scratch of 3*B*A scores (-1)
+// lane of the two chains (1-3 up to A = 96, 2-4 up to 1024, on
+// sr_forward_backward_warps(A) warps a chain); the block instance with its
+// rows in device scratch of 3*B*A scores (-1). The block instance with its
+// rows in shared memory runs only as the first design, forced for 96 < A
+// <= 1024.
 extern "C" int sr_forward_backward_instance(int A) { return instance_for(A); }
 
+// warps a chain of that instance: 1 up to A = 96, 2-8 up to 1024, 0 past it
+extern "C" int sr_forward_backward_warps(int A) { return warps_for(A); }
+
 // f64 selects double (else float) for lams, ltdp, gamma, log_z, scratch and
-// beta. beta [B, T, A] holds the backward chain's rows for A <= 96 (NULL
+// beta. beta [B, T, A] holds the backward chain's rows for A <= 1024 (NULL
 // otherwise, or with first_design != 0, which launches the first design
-// for A <= 96 and changes nothing past it); scratch as
-// sr_forward_backward_instance says.
+// for A <= 1024: a warp an utterance up to A = 96, past it the block
+// instance with its rows in shared memory; it changes nothing past 1024);
+// scratch as sr_forward_backward_instance says.
 extern "C" int sr_forward_backward(int f64, const void* lams, const void* ltdp,
                                    const unsigned char* pos_valid, const int* feat_len,
                                    const int* aut_len, void* gamma, void* log_z, void* scratch,
@@ -846,8 +1161,8 @@ extern "C" int sr_forward_backward(int f64, const void* lams, const void* ltdp,
 }
 
 // chain 0 (the forward recursion: alpha rows into gamma, log_z) or 1 (the
-// backward: beta rows into beta) of the A <= 96 instance alone, a warp an
-// utterance, without the posterior pass: for timing the two chains apart
+// backward: beta rows into beta) of the two chains' instance (A <= 1024)
+// alone, without the posterior pass: for timing the two chains apart
 extern "C" int sr_forward_backward_chain(int f64, int chain, const void* lams, const void* ltdp,
                                          const unsigned char* pos_valid, const int* feat_len,
                                          const int* aut_len, void* gamma, void* log_z,

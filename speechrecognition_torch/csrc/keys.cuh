@@ -1,6 +1,10 @@
 // Order-preserving unsigned keys of float and double, and the exact warp
-// minimum (kernels B, D, E and F) and maximum (kernel L) by redux.sync on
-// them.
+// minimum (kernels D and F) and maximum (kernel L) by redux.sync on them.
+// order_key ranks a NaN above +inf (its sign bit is clear on the card), so
+// warp_minimum drops a NaN and warp_maximum keeps it. warp_minimum_nan and
+// nan_min keep a NaN as jnp.minimum and .min do (kernels B, E, I, J, K and
+// M); nan_first_key gives a NaN the least key, for an argmin that takes the
+// first NaN as jnp.argmin does.
 //
 // A key's unsigned order is the value's order, with -0 taken as +0 as the
 // float compare takes it: the key is formed from f + 0, which turns -0 into
@@ -50,6 +54,37 @@ __device__ __forceinline__ double warp_minimum(double m) {
   const unsigned key_hi = __reduce_min_sync(FULL, hi);
   const unsigned key_lo = __reduce_min_sync(FULL, hi == key_hi ? (unsigned)k : FULL);
   return key_value(((unsigned long long)key_hi << 32) | key_lo);
+}
+
+// a NaN's key is 0, below every other value's
+__device__ __forceinline__ unsigned nan_first_key(float f) { return f != f ? 0u : order_key(f); }
+
+__device__ __forceinline__ unsigned long long nan_first_key(double d) {
+  return d != d ? 0ull : order_key(d);
+}
+
+// the exact minimum over the full warp, NaN where any lane holds a NaN (the
+// vote beside the keys' minimum, off its chain)
+__device__ __forceinline__ float warp_minimum_nan(float m) {
+  const float r = warp_minimum(m);
+  return __any_sync(FULL, m != m) ? __int_as_float(0x7fffffff) : r;
+}
+
+__device__ __forceinline__ double warp_minimum_nan(double m) {
+  const double r = warp_minimum(m);
+  return __any_sync(FULL, m != m) ? __longlong_as_double(0x7ff8000000000000ll) : r;
+}
+
+// the minimum of two values, NaN where either is (min.NaN in float32; the
+// same bits as fminf and fmin otherwise, -0 aside, which no score is)
+__device__ __forceinline__ float nan_min(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ double nan_min(double a, double b) {
+  return b < a || b != b ? b : a;
 }
 
 // the exact maximum over the full warp

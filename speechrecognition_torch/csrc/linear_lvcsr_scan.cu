@@ -228,7 +228,7 @@ __global__ void __launch_bounds__(search::MAX_THREADS) linear_scan_kernel(
       int rp = 0;
       for (int v = 1; v < V; ++v) {
         const T c = add(ebook[v], __ldg(lm + (size_t)v * W + w));
-        if (c < rec) {
+        if (search::takes(c, rec)) {
           rec = c;
           rp = v;
         }
@@ -613,7 +613,7 @@ __global__ void __launch_bounds__(WARP_THREADS, 1) linear_scan_warp_kernel(
 #pragma unroll 4
         for (int v = gk + G; v < V; v += G) {
           const T c = add(ebk_t[v], row[v]);
-          if (c < pv) {
+          if (search::takes(c, pv)) {
             pv = c;
             pi = v;
           }
@@ -734,7 +734,7 @@ __global__ void __launch_bounds__(WARP_THREADS, 1) linear_scan_warp_kernel(
       }
       cur = nxt;
     }
-    m = keys::warp_minimum(m);
+    m = keys::warp_minimum_nan(m);
     if (lane == 0) part[warp] = m;
     __syncthreads();  // the warps' minima and the raw ends are visible
 
@@ -742,7 +742,7 @@ __global__ void __launch_bounds__(WARP_THREADS, 1) linear_scan_warp_kernel(
     // then a lane a silence copy the next frame's effective book, via and
     // origin of its predecessor (word w's book and copy w's end are this
     // warp's)
-    T best = keys::warp_minimum(lane < NW ? part[lane] : BIG);
+    T best = keys::warp_minimum_nan(lane < NW ? part[lane] : BIG);
     if (best >= HALF) best = T(0);
     for (int j = lane; j < ne; j += 32) {
       if (j < nw) {

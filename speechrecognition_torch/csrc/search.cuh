@@ -1,9 +1,12 @@
-// Shared pieces of the search-tier scans (kernels I, J and K): the score
-// type's BIG sentinel, adds and subtracts rounded to nearest with no
+// Shared pieces of the search-tier scans (kernels I, J, K, M and P): the
+// score type's BIG sentinel, adds and subtracts rounded to nearest with no
 // contraction (the reference computes each as one rounded operation), the
 // exact block minimum, the block argmin that takes the first index, and the
 // placement of an utterance's lattice: in shared memory up to SHARED_LIMIT
-// bytes, past it in device scratch that the wrapper allocates.
+// bytes, past it in device scratch that the wrapper allocates. A NaN score
+// is kept as the reference keeps it: tmin and block_min give NaN where an
+// operand is NaN (jnp.minimum, .min), and takes, pair_less and block_argmin
+// take the first NaN (jnp.argmin).
 
 #pragma once
 
@@ -27,8 +30,21 @@ __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b);
 __device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
-__device__ __forceinline__ float tmin(float a, float b) { return fminf(a, b); }
-__device__ __forceinline__ double tmin(double a, double b) { return fmin(a, b); }
+__device__ __forceinline__ float tmin(float a, float b) { return keys::nan_min(a, b); }
+__device__ __forceinline__ double tmin(double a, double b) { return keys::nan_min(a, b); }
+
+// v takes the place of best in a scan for the first minimum: strictly
+// less, or the first NaN
+template <typename T>
+__device__ __forceinline__ bool takes(T v, T best) {
+  return v < best || (v != v && best == best);
+}
+
+// v == w, a NaN equal to a NaN
+template <typename T>
+__device__ __forceinline__ bool same_value(T v, T w) {
+  return v == w || (v != v && w != w);
+}
 
 // renormalisation by the frame's minimum (0 for a dead frame): BIG stays BIG
 template <typename T>
@@ -44,12 +60,12 @@ inline int threads_for(long long slots) {
   return (int)(w < 32 ? 32 : w > MAX_THREADS ? MAX_THREADS : w);
 }
 
-// the exact minimum over the block (every thread calls it; blockDim a
-// multiple of 32); s_red holds 32 values. The trailing barrier lets the
-// next call reuse s_red.
+// the exact minimum over the block, NaN where any thread holds a NaN (every
+// thread calls it; blockDim a multiple of 32); s_red holds 32 values. The
+// trailing barrier lets the next call reuse s_red.
 template <typename T>
 __device__ __forceinline__ T block_min(T m, T* s_red) {
-  m = keys::warp_minimum(m);
+  m = keys::warp_minimum_nan(m);
   if ((threadIdx.x & 31) == 0) s_red[threadIdx.x >> 5] = m;
   __syncthreads();
   T best = s_red[0];
@@ -66,9 +82,11 @@ __device__ __forceinline__ void block_add(int v, int* s_sum) {
   if ((threadIdx.x & 31) == 0 && v) atomicAdd(s_sum, v);
 }
 
-// (value, index) lexicographic: the smaller value, the smaller index on ties
+// (value, index) lexicographic: the smaller value, the smaller index on
+// ties; a NaN before every other value, the smaller index among NaNs
 template <typename T>
 __device__ __forceinline__ bool pair_less(T v, int i, T w, int j) {
+  if (v != v) return w == w || i < j;
   return v < w || (v == w && i < j);
 }
 

@@ -154,7 +154,7 @@ __global__ void __launch_bounds__(search::MAX_THREADS) tree_scan_kernel(
       if (prune && nv > thr) nv = BIG;
       nh[n] = nv;
       const T e = end_word[n] >= 0 ? add(nv, exit_penalty[n]) : BIG;
-      if (e < ev) {  // a thread's nodes ascend: strict < keeps the first
+      if (search::takes(e, ev)) {  // a thread's nodes ascend: the first at the minimum
         ev = e;
         en = n;
       }
@@ -381,7 +381,7 @@ __global__ void __launch_bounds__(OWNER_MAX_THREADS, OWNER_MIN_BLOCKS) tree_scan
           if ((f & REAL) && alive) next[k * nt + tid] = {nv[k], nb[k]};
           if (pos[k] >= 0) ends_t[pos[k]] = {nv[k], nb[k]};
         }
-        m = keys::warp_minimum(m);
+        m = keys::warp_minimum_nan(m);
         if (lane == 0) s_wmin[par][warp] = m;
         __syncthreads();  // the row, the candidates and the minima are visible
 
@@ -397,13 +397,13 @@ __global__ void __launch_bounds__(OWNER_MAX_THREADS, OWNER_MIN_BLOCKS) tree_scan
           const T e = s_word[j] >= 0
                           ? add(renorm_prune(ends_t[j].h, best, thr), s_xpen[j])
                           : BIG;
-          if (ej == INT_MAX || e < ev) {  // a lane's candidates ascend
+          if (ej == INT_MAX || search::takes(e, ev)) {  // a lane's candidates ascend
             ev = e;
             ej = j;
           }
         }
-        const T mv = keys::warp_minimum(ev);
-        const int jmin = __reduce_min_sync(search::FULL, ev == mv ? ej : INT_MAX);
+        const T mv = keys::warp_minimum_nan(ev);
+        const int jmin = __reduce_min_sync(search::FULL, search::same_value(ev, mv) ? ej : INT_MAX);
         const T ws = __shfl_sync(search::FULL, ev, jmin & 31);  // its bits
         const T bs = ws >= HALF ? BIG : ws;
         if (tid == 0) {

@@ -360,7 +360,7 @@ __global__ void __launch_bounds__(search::MAX_THREADS) wcts_scan_kernel(const Ar
           a.cand[(fb * C + c) * W + w] = cd;
           a.ebkp[(fb * C + c) * W + w] = eb;
         }
-        if (c == 0 || cd < bv) {  // the first context at the minimum
+        if (c == 0 || search::takes(cd, bv)) {  // the first context at the minimum
           bv = cd;
           bc = c;
           bb = eb;
@@ -621,7 +621,7 @@ __global__ void __launch_bounds__(OwnerCfg<SPT>::MAXT, OwnerCfg<SPT>::minb(sizeo
       h[k] = dead ? BIG : tmin(v, BIG);
       m = tmin(m, h[k]);
     }
-    m = keys::warp_minimum(m);
+    m = keys::warp_minimum_nan(m);
     if (lane == 0) s_wmin[warp] = m;
     __syncthreads();  // barrier 1: the warps' minima are visible
 
@@ -652,9 +652,9 @@ __global__ void __launch_bounds__(OwnerCfg<SPT>::MAXT, OwnerCfg<SPT>::minb(sizeo
       T ma = BIG;
 #pragma unroll
       for (int k = 0; k < SPT; ++k)
-        if (node && c0 + k < C && h[k] < HALF)
+        if (node && c0 + k < C && !(h[k] >= HALF))  // a NaN takes part
           ma = tmin(ma, add(h[k], s_la[(c0 + k) * nv + n]));
-      ma = keys::warp_minimum(ma);
+      ma = keys::warp_minimum_nan(ma);
       if (lane == 0) s_wla[warp] = ma;
       __syncthreads();  // barrier 2 (lookahead): the prospects' minima are visible
       ant_best = s_wla[0];
@@ -760,7 +760,7 @@ __global__ void __launch_bounds__(OwnerCfg<SPT>::MAXT, OwnerCfg<SPT>::minb(sizeo
             a.cand[(fb * C + c) * W + wl] = cd;
             a.ebkp[(fb * C + c) * W + wl] = ce.b;
           }
-          if (bc == INT_MAX || cd < bv) {  // this lane's first context at its minimum
+          if (bc == INT_MAX || search::takes(cd, bv)) {  // this lane's first context at its minimum
             bv = cd;
             bc = c;
             bb = ce.b;

@@ -75,6 +75,9 @@ SIGNATURES = {
     "sr_decode_scan_df_instance": ((_I, _I), _I),
     # W, P → threads a block of kernel D's launch for that lattice
     "sr_decode_scan_df_threads": ((_I, _I), _I),
+    # W, P → floats of device scratch an utterance of kernel D's block
+    # instance takes where its instance is -1
+    "sr_decode_scan_df_scratch": ((_I, _I), _I),
     # W, P → blocks per SM of kernel D's launch for that lattice (-1: error)
     "sr_decode_scan_df_residency": ((_I, _I), _I),
     # prev, ams, tdp, pos_valid, feat_len, out, jumps, scratch (or NULL), B,
@@ -87,11 +90,13 @@ SIGNATURES = {
     "sr_align_fwd_warps": ((_I,), _I),
     # prev_hi, prev_lo, ams_hi, ams_lo, tdp_hi, tdp_lo, pos_valid, feat_len,
     # out_hi, out_lo, jumps, scratch (or NULL), B, C, A, t0, thr_hi, thr_lo,
-    # tie_pruned, use_pruning, device, stream
-    "sr_align_fwd_df": ((_P,) * 12 + (_I, _I, _I, _I, _F, _F, _I, _I, _I, _P), _I),
-    # A → warps per utterance of kernel F's warp instance (0: block
-    # instance, its row in shared memory; -1: in device scratch)
+    # tie_pruned, use_pruning, first_design, device, stream
+    "sr_align_fwd_df": ((_P,) * 12 + (_I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _P), _I),
+    # A → warps per utterance of kernel F's warp instance (1-4) or wide
+    # instance (3-8; -1: the block instance, its row in device scratch)
     "sr_align_fwd_df_warps": ((_I,), _I),
+    # A → positions a lane of that instance (1, 2-4; 0: the block instance)
+    "sr_align_fwd_df_positions": ((_I,), _I),
     # A → (hi, lo) pairs of device scratch an utterance of kernel F's block
     # instance takes past A = 1024 (the row by frame parity, the NaN fold)
     "sr_align_fwd_df_scratch": ((_I,), _I),
@@ -155,16 +160,19 @@ SIGNATURES = {
     "sr_wcts_scan_residency": ((_I,) * 8, _I),
     # f64, lams, ltdp, pos_valid, feat_len, aut_len, gamma, log_z, scratch (or
     # NULL), beta (the backward chain's rows, or NULL), B, T, A, first_design
-    # (0: the instance the shape chooses; 1: the first design for A <= 96),
-    # device, stream
+    # (0: the instance the shape chooses; 1: the first design for A <=
+    # 1024), device, stream
     "sr_forward_backward": ((_I,) + (_P,) * 9 + (_I, _I, _I, _I, _I, _P), _I),
     # f64, chain (0 forward, 1 backward), lams, ltdp, pos_valid, feat_len,
     # aut_len, gamma, log_z, beta, B, T, A, device, stream: one chain of
-    # kernel L's A <= 96 instance alone, for timing the chains apart
+    # kernel L's two chains (A <= 1024) alone, for timing the chains apart
     "sr_forward_backward_chain": ((_I, _I) + (_P,) * 8 + (_I, _I, _I, _I, _P), _I),
-    # A → kernel L's instance (1-3: positions a lane of the two chains; 0:
-    # block instance, its rows in shared memory; -1: in device scratch)
+    # A → kernel L's instance (1-4: positions a lane of the two chains; -1:
+    # the block instance, its rows in device scratch)
     "sr_forward_backward_instance": ((_I,), _I),
+    # A → warps a chain of kernel L's two chains (1, 2-8; 0: the block
+    # instance past A = 1024)
+    "sr_forward_backward_warps": ((_I,), _I),
     # A, f64, first_design → blocks per SM of kernel L's launch (-1: error)
     "sr_forward_backward_residency": ((_I, _I, _I), _I),
     # f64, am, feat_len, state_table, last_pos, word_len, tdp_within,

@@ -192,7 +192,9 @@ def decode_scan_reference(am: torch.Tensor, feat_len: torch.Tensor,
         if xpen is not None:
             end_scores = end_scores + xpen[None, :]
         end_bkp = new_bkp[:, words_idx, lp]
-        is_min = end_scores == end_scores.amin(dim=1, keepdim=True)
+        # (the first NaN where one ends a word, as jnp.argmin takes it)
+        least = end_scores.amin(dim=1, keepdim=True)
+        is_min = (end_scores == least) | (end_scores.isnan() & least.isnan())
         book_word = torch.where(is_min, words_idx, W).amin(dim=1)
         book_score = end_scores.gather(1, book_word[:, None])[:, 0]
         book_bkp = end_bkp.gather(1, book_word[:, None])[:, 0]
@@ -533,9 +535,14 @@ def decode_scan_df(am: dfm.DF, feat_len: torch.Tensor,
     thr = float(np.float32(am_threshold))
     lib = _native.load()
     # the block instance keeps the lattice in device scratch past 1,024
-    # slots: two buffers of (hi, lo) pairs, then two of int32 backpointers
-    scratch = (torch.empty(6 * B * W * P, dtype=torch.float32, device=device)
-               if lib.sr_decode_scan_df_instance(W, P) < 0 else None)
+    # slots: two buffers of (hi, lo) pairs, two of int32 backpointers and
+    # the buffers of its NaN fold
+    scratch = None
+    if lib.sr_decode_scan_df_instance(W, P) < 0:
+        per_utt = lib.sr_decode_scan_df_scratch(W, P)
+        if per_utt < 0:
+            raise ValueError(f"decode_scan_df: a {W} x {P} lattice is past the scratch's size")
+        scratch = torch.empty(B * per_utt, dtype=torch.float32, device=device)
     err = lib.sr_decode_scan_df(
         am.hi.data_ptr(), am.lo.data_ptr(), i32["feat_len"].data_ptr(),
         i32["state_table"].data_ptr(), i32["last_pos"].data_ptr(),

@@ -6,7 +6,7 @@ checkout, so that two checkouts can be compared in turns on one card:
     python3 speechrecognition_torch/tools/time_align_df.py --repo .
 
 The shapes are the SieTill trainer's chunk (B 256, C 320, A 70: the warp
-instance) and the Sprint path's (B 130, C 320, A 303: the block instance),
+instance) and the Sprint path's (B 130, C 320, A 303: the wide instance),
 each with finite transition penalties and with an infinite skip into every
 third position, which double-float splits into (inf, NaN), so that every
 row then holds NaN costs. Prints the card's name and power limit, then one

@@ -57,6 +57,7 @@ from torch_df_tables import (BACKTRACK_CASES, backtrack_frames, backtrack_inputs
                              wide_magnitude_pack_df)
 from torch_fb_tables import L_INSTANCES, fb_inputs
 from torch_linear_tables import TRACEBACK_STARTS, TRACEBACK_WIDTHS
+from torch_nan_tables import NAN_FRAME, NAN_LENS, nan_lexicon_tables, nan_scores, same_bits
 
 pytestmark = pytest.mark.cuda
 
@@ -639,15 +640,36 @@ def test_kernel_e_bit_equal(dev, case, A, dtype):
         assert k.dtype == p.dtype and torch.equal(k, p), name
 
 
-@pytest.mark.parametrize("A", [1, 2, 9, 31, 32, 33, 70, 96, 97, 128, 129, 300, 1025, 3000])
+#: kernel F's instance for A positions (sr_align_fwd_df_warps,
+#: sr_align_fwd_df_positions): the warp instance's warps an utterance, one
+#: position a lane; the wide instance's warps and positions a lane (128 < A
+#: <= 1024: 2 up to A = 512, 3 up to 768, 4 up to 1024; 3 to 8 warps); -1
+#: and 0, the block instance with its row in device scratch
+F_INSTANCES = {1: (1, 1), 2: (1, 1), 9: (1, 1), 31: (1, 1), 32: (1, 1), 33: (2, 1), 70: (3, 1),
+               96: (3, 1), 97: (4, 1), 128: (4, 1), 129: (3, 2), 160: (3, 2), 300: (5, 2),
+               303: (5, 2), 512: (8, 2), 700: (8, 3), 1024: (8, 4), 1025: (-1, 0),
+               3000: (-1, 0)}
+
+
+def f_first_design(*args, **kw):
+    """Kernel F's first design for 128 < A <= 1024 (the block instance, its
+    row in shared memory), forced; uncounted."""
+    from speechrecognition_torch.align import viterbi as vit
+    out, jumps, _scratch = vit.align_fwd_chunk_df_cuda(*args, first_design=True, **kw)
+    return out, jumps
+
+
+@pytest.mark.parametrize("A", list(F_INSTANCES))
 @pytest.mark.parametrize("case", ALIGN_CASES)
 def test_kernel_f_bit_equal(dev, case, A):
-    """Every lane boundary of the warp instance (1-4 warps an utterance), and
-    the block instance past A = 128 with its row in shared memory and past
-    A = 1,024 in device scratch."""
+    """Every lane boundary of the warp instance (1-4 warps an utterance), the
+    wide instance past A = 128 at 2, 3 and 4 positions a lane, with the
+    first design (the block instance, its row in shared memory) forced
+    beside it, and the block instance past A = 1,024 in device scratch."""
     from speechrecognition_torch.align import viterbi as vit
     from speechrecognition_torch.ops import _native
-    assert _native.load().sr_align_fwd_df_warps(A) == ALIGN_INSTANCES[A]
+    lib = _native.load()
+    assert (lib.sr_align_fwd_df_warps(A), lib.sr_align_fwd_df_positions(A)) == F_INSTANCES[A]
     ams, tdp, valid, aut, lens, thr, tie, prune = align_inputs(case, A=A)
     B, T, A = ams.shape
     am = dfm.from_f64(ams, dev)
@@ -655,7 +677,7 @@ def test_kernel_f_bit_equal(dev, case, A):
             torch.as_tensor(lens, device=dev), dfm.from_f64(np.float64(thr), dev))
     before = vit.align_fwd_chunk_df.LAUNCHES
     results = []
-    for fwd in (vit.align_fwd_chunk_df, vit.align_fwd_chunk_df_reference):
+    for fwd in (vit.align_fwd_chunk_df, f_first_design, vit.align_fwd_chunk_df_reference):
         prev = dfm.DF(torch.full((B, A), 1e30, device=dev), torch.zeros((B, A), device=dev))
         jumps = []
         for t0, n in ((0, 25), (25, 35)):
@@ -665,25 +687,12 @@ def test_kernel_f_bit_equal(dev, case, A):
         results.append((prev.hi, prev.lo, torch.cat(jumps)))
     torch.cuda.synchronize()
     assert vit.align_fwd_chunk_df.LAUNCHES == before + 2
-    for name, k, p in zip(("hi", "lo", "jumps"), *results):
+    for name, k, f, p in zip(("hi", "lo", "jumps"), *results):
         assert torch.equal(k, p), name
+        assert torch.equal(f, p), f"{name} (first design)"
 
 
-def same_bits(got, want):
-    """Equal bit for bit, every NaN counted equal to a NaN (the card writes
-    one NaN, and torch.equal holds a NaN unequal to itself)."""
-    nan = torch.isnan(want)
-    if got.dtype != want.dtype or not torch.equal(torch.isnan(got), nan):
-        return False
-    if not got.is_floating_point():
-        return torch.equal(got, want)
-    ints = {torch.float32: torch.int32, torch.float64: torch.int64}[want.dtype]
-    zero = torch.zeros((), dtype=want.dtype, device=want.device)
-    return torch.equal(torch.where(nan, zero, got).view(ints),
-                       torch.where(nan, zero, want).view(ints))
-
-
-@pytest.mark.parametrize("A", [2, 9, 33, 70, 97, 128, 129, 300, 1025])
+@pytest.mark.parametrize("A", [2, 9, 33, 70, 97, 128, 129, 300, 303, 512, 700, 1024, 1025])
 @pytest.mark.parametrize("case", ALIGN_CASES)
 @pytest.mark.parametrize("kind", ["f32", "f64", "df32"])
 def test_kernels_e_f_infinite_skip_bit_equal(dev, case, A, kind):
@@ -691,14 +700,15 @@ def test_kernels_e_f_infinite_skip_bit_equal(dev, case, A, kind):
     forbid the silence skip): double-float splits inf into (inf, NaN), so
     kernel F's rows hold NaN costs, and it folds them as its plain version
     does (doublefloat.min_axis). Kernel E sees inf and no NaN. Every
-    instance, carry and jumps bit-equal (NaN equal to NaN)."""
+    instance, carry and jumps bit-equal (NaN equal to NaN); kernel F's first
+    design forced beside its wide instance (128 < A <= 1024)."""
     from speechrecognition_torch.align import viterbi as vit
     ams, tdp, valid, aut, lens, thr, tie, prune = align_inputs(case, A=A)
     tdp[:, 2::3, 2] = np.inf
     B, T, A = ams.shape
     df = kind == "df32"
     results = []
-    for fwd in ((vit.align_fwd_chunk_df, vit.align_fwd_chunk_df_reference) if df
+    for fwd in ((vit.align_fwd_chunk_df, f_first_design, vit.align_fwd_chunk_df_reference) if df
                 else (vit.align_fwd_chunk, vit.align_fwd_chunk_reference)):
         if df:
             args = (dfm.from_f64(tdp, dev), torch.as_tensor(valid, device=dev),
@@ -720,8 +730,8 @@ def test_kernels_e_f_infinite_skip_bit_equal(dev, case, A, kind):
             jumps.append(j)
         results.append((*(prev if df else (prev,)), torch.cat(jumps)))
     torch.cuda.synchronize()
-    for k, p in zip(*results):
-        assert same_bits(k, p)
+    for outs in zip(*results):
+        assert all(same_bits(k, outs[-1]) for k in outs[:-1])
 
 
 def sorted_demo_blocks(dev, block):
@@ -963,10 +973,11 @@ WCTS_OPTIONS = {
 
 
 def wcts_both(dev, lex, tdp, S, W, opts, dtype, T, chunks, lens, seed, kernel=None,
-              ties=False):
+              ties=False, nan=None):
     """(kernel, plain) carries and outputs over the chunks; ``kernel`` is
     wcts_scan unless given; ``ties``: integer scores and LM rows of 0 and 1,
-    so contexts, predecessors and histogram bins tie."""
+    so contexts, predecessors and histogram bins tie; ``nan``: the
+    (utterance, frame, state) of a NaN score."""
     from speechrecognition_torch.search import wcts
     from torch_search_tables import am_scores, random_lm, wcts_inputs
     lm, lm_start = random_lm(W, seed=seed)
@@ -977,6 +988,8 @@ def wcts_both(dev, lex, tdp, S, W, opts, dtype, T, chunks, lens, seed, kernel=No
     am = am_scores(len(lens), T, S, seed=seed, dtype=dtype, device=dev)
     if ties:
         am = am.round() % 3
+    if nan is not None:
+        am[nan] = float("nan")
     lens = torch.as_tensor(lens, dtype=torch.int32, device=dev)
     results = []
     for fn in (kernel or wcts.wcts_scan, wcts.wcts_scan_reference):
@@ -1650,10 +1663,9 @@ def test_kernel_p_graph_route(dev, dtype, kind, chunk, monkeypatch):
     """wcts_sharded on the local transport replays its frames from a CUDA
     graph (chunks of 1, 8 and 13 frames, then an eager tail; random scores
     over 60 frames, or the NaN tie inputs over 40 with dead utterances):
-    books, bkps and preds equal the eager route's and kernel K's plain
-    version's on the CPU (NaN equal to NaN), on random scores also kernel
-    K's decode (on the NaN inputs kernel K's minimum drops the NaN floor,
-    ROADMAP Queue 3 #26), and kernel P launches 2T + 1 times."""
+    books, bkps and preds equal the eager route's, kernel K's plain
+    version's on the CPU and kernel K's decode on the card (NaN equal to
+    NaN), and kernel P launches 2T + 1 times."""
     import torch_parallel_ranks as tpr
     from speechrecognition_torch.parallel import mesh as pm
     from speechrecognition_torch.parallel import wcts_step as ws
@@ -1679,8 +1691,7 @@ def test_kernel_p_graph_route(dev, dtype, kind, chunk, monkeypatch):
     for g, e, p, k in zip(graph, eager, plain[:3], kern[:3]):
         nan = g.dtype.kind == "f"
         assert np.array_equal(g, e, equal_nan=nan) and np.array_equal(g, p.numpy(), equal_nan=nan)
-        if kind == "random":
-            assert np.array_equal(g, k.cpu().numpy())
+        assert np.array_equal(g, k.cpu().numpy(), equal_nan=nan)
     assert np.isnan(graph[0]).any() == (kind == "nan")
 
 
@@ -1748,3 +1759,230 @@ def test_host_staged_gloo_equals_nccl_at_world_one(dev):
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+# -- one NaN score: kernels B, D, E, I, J, K and M keep it as their plain versions do --
+#
+# One acoustic score of a live state is NaN, in utterance 0 of several, in the
+# middle of its frames (the second chunk where there are two). The plain
+# versions keep the NaN as the reference does (jnp.minimum, .min and
+# jnp.argmin for B, E, I, J, K and M; doublefloat.min_axis's halving for D),
+# so it spreads through the utterance's lattice. Every output and carry is
+# bit-equal to the plain version's, NaN counted equal to NaN, on every
+# instance the shapes select (inputs: tests/torch_nan_tables.py, which
+# chip_smoke.py's NaN phase shares).
+
+
+@pytest.mark.parametrize("W,P", [(4, 9), (12, 24), (33, 8), (44, 24)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_b_keeps_a_nan(dev, W, P, dtype):
+    """Kernel B's warp instance at 2 and 3 positions a lane, its block
+    instance and its scratch instance, two chunks."""
+    from speechrecognition_torch.ops import _native
+    assert _native.load().sr_decode_scan_instance(W, P) == {(4, 9): 2, (12, 24): 3, (33, 8): 0,
+                                                            (44, 24): -1}[W, P]
+    tables, S = nan_lexicon_tables(W, P, seed=W + P)
+    am = nan_scores(tables, S, 1, seed=W * P)
+    kern, plain = scan_both(dev, tables, am, NAN_LENS, 60.0, True, (15, 25), dtype=dtype)
+    for name, k, p in zip(("hyp", "bkp", "book", "score", "word", "bkp_t"), kern, plain):
+        assert same_bits(k, p), name
+    assert torch.isnan(kern[3]).any()
+
+
+@pytest.mark.parametrize("W,P", [(5, 3), (12, 24), (33, 8), (44, 24)])
+@pytest.mark.parametrize("where", ["last", "inner"])
+@pytest.mark.parametrize("prune", [True, False], ids=["pruned", "unpruned"])
+def test_kernel_d_keeps_a_nan(dev, W, P, where, prune):
+    """Kernel D's warp instance at 1 and 3 positions a lane, its block
+    instance and its scratch instance. The plain version's halving keeps a
+    NaN only as the second of a pair: the NaN in the lattice's last cell
+    makes the row minimum NaN (unpruned, a NaN reaches the outputs), one in
+    the last word's position 1 is lost or takes its pair's first with it."""
+    from speechrecognition_torch.ops import _native
+    assert _native.load().sr_decode_scan_df_instance(W, P) == D_INSTANCES[W, P]
+    tables, S = nan_lexicon_tables(W, P, seed=W + P)
+    am = nan_scores(tables, S, P - 1 if where == "last" else 1, seed=W * P)
+    kern, plain = scan_df_both(dev, tables, am, NAN_LENS, 60.0, prune, (15, 25))
+    for name, k, p in zip(("hyp.hi", "hyp.lo", "bkp", "book.hi", "book.lo", "score", "word",
+                           "bkp_t"), kern, plain):
+        assert same_bits(k, p), name
+    if where == "last" and not prune:
+        assert torch.isnan(kern[5]).any()
+
+
+@pytest.mark.parametrize("A", [9, 70, 129, 1025])
+@pytest.mark.parametrize("case", ["pruned", "full-dp"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_e_keeps_a_nan(dev, A, case, dtype):
+    """Kernel E's warp instance at 1 and 3 warps an utterance, its block
+    instance and its scratch instance, three chunks, the second ending at
+    the NaN's frame, every chunk's carry compared."""
+    from speechrecognition_torch.align import viterbi as vit
+    from speechrecognition_torch.ops import _native
+    assert _native.load().sr_align_fwd_warps(A) == ALIGN_INSTANCES[A]
+    ams, tdp, valid, aut, lens, thr, tie, prune = align_inputs(case, A=A)
+    ams[0, 30, A // 2] = np.nan
+    B, T, A = ams.shape
+    args = (torch.as_tensor(tdp, dtype=dtype, device=dev), torch.as_tensor(valid, device=dev),
+            torch.as_tensor(lens, device=dev), thr)
+    results = []
+    for fwd in (vit.align_fwd_chunk, vit.align_fwd_chunk_reference):
+        prev = torch.full((B, A), 1e30, dtype=dtype, device=dev)
+        carries, jumps = [], []
+        for t0, n in ((0, 25), (25, 6), (31, 29)):
+            am = torch.as_tensor(ams[:, t0:t0 + n], dtype=dtype, device=dev).contiguous()
+            prev, j = fwd(prev, am, *args, t0, tie_pruned=tie, use_pruning=prune)
+            carries.append(prev)
+            jumps.append(j)
+        results.append((*carries, torch.cat(jumps)))
+    torch.cuda.synchronize()
+    for name, k, p in zip(("carry 25", "carry 31", "carry 60", "jumps"), *results):
+        assert same_bits(k, p), name
+    assert torch.isnan(results[0][1][0]).any()
+
+
+@pytest.mark.parametrize("N", [33, 212, 1025, 9499])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_i_keeps_a_nan(dev, N, dtype):
+    """Kernel I's owner instance at 1 and 4 nodes a lane, its block instance
+    (also forced at every size: the first design) and its scratch instance
+    (the 9,499-node prefix tree)."""
+    from speechrecognition_torch.ops import _native
+    from speechrecognition_torch.search import tree_decoder as td
+    from torch_search_tables import PrefixLexicon, prefix_tdp, random_tree, tree_scores
+    f64 = int(dtype == torch.float64)
+    if N == 9499:
+        lex = PrefixLexicon(2000, 3, max_len=16, branch=4)
+        tree = td.TreeTables.build(lex, prefix_tdp(lex), 80.0)
+        S, T = lex.num_states, 30
+    else:
+        tree = random_tree(N, seed=N)
+        S, T = None, 40
+    assert tree.num_nodes == N
+    assert _native.load().sr_tree_scan_instance(N, f64) == {33: 1, 212: 4, 1025: 0, 9499: -1}[N]
+    am = tree_scores(4, T, seed=N + 7, dtype=dtype, device=dev) if S is None else None
+    if am is None:
+        from torch_search_tables import am_scores
+        am = am_scores(4, T, S, seed=N, dtype=dtype, device=dev)
+    am[0, T // 2, int(tree.state[N // 2])] = float("nan")
+    lens = torch.as_tensor(np.minimum(NAN_LENS, T), dtype=torch.int32, device=dev)
+    args = tree.device_args(dev, dtype, am.shape[2])
+    got = td.tree_scan(am, lens, *args, 45.0, prune=True)
+    first, _scratch = td.tree_scan_cuda(am, lens, *args, 45.0, prune=True, first_design=True)
+    ref = td.tree_scan_reference(am, lens, *args, 45.0, prune=True)
+    torch.cuda.synchronize()
+    for name, g, f, r in zip(("score", "word", "bkp"), got, first, ref):
+        assert same_bits(g, r) and same_bits(f, r), name
+    assert torch.isnan(got[0]).any()
+
+
+@pytest.mark.parametrize("W,P", [(5, 9), (12, 24), (33, 8), (200, 24)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_j_keeps_a_nan(dev, W, P, dtype):
+    """Kernel J's warp instance at 2 and 3 positions a lane, its block
+    instance (also forced at every shape: the first design) and its scratch
+    instance (200 words of 3 states repeated 8 times)."""
+    from speechrecognition_torch.ops import _native
+    from speechrecognition_torch.search import ngram_decoder as ng
+    from torch_search_tables import random_lm, wide_linear_tables
+    f64 = int(dtype == torch.float64)
+    if W == 200:
+        tables, S = wide_linear_tables(200, 8, 3)
+        am = np.random.default_rng(W).uniform(0.0, 40.0, size=(len(NAN_LENS), 40, S))
+        am[0, NAN_FRAME, tables.state_table[W - 1, 1]] = np.nan
+    else:
+        tables, S = nan_lexicon_tables(W, P, seed=W * 5 + P)
+        am = nan_scores(tables, S, 1, seed=W + P)
+    assert tables.state_table.shape == (W, P)
+    assert _native.load().sr_decode_scan_bigram_instance(W, P, f64) == {
+        (5, 9): 2, (12, 24): 3, (33, 8): 0, (200, 24): -1}[W, P]
+    lm, lm_start = random_lm(W, seed=W + P)
+    am = torch.as_tensor(am, dtype=dtype, device=dev)
+    lens = torch.as_tensor(NAN_LENS, dtype=torch.int32, device=dev)
+    args = [torch.as_tensor(np.asarray(a, np.int32), device=dev)
+            for a in (tables.state_table, tables.last_pos, tables.word_len)]
+    args += [torch.as_tensor(a, dtype=dtype, device=dev)
+             for a in (tables.tdp_within, tables.entry_pen, lm, lm_start)]
+    got = ng.decode_scan_bigram(am, lens, *args, 200.0)
+    first, _scratch = ng.decode_scan_bigram_cuda(am, lens, *args, 200.0, first_design=True)
+    ref = ng.decode_scan_bigram_reference(am, lens, *args, 200.0)
+    torch.cuda.synchronize()
+    for name, g, f, r in zip(("book", "bkp", "pred", "offset"), got, first, ref):
+        assert same_bits(g, r) and same_bits(f, r), name
+    assert torch.isnan(got[0]).any()
+
+
+@pytest.mark.parametrize("force", [0, 1, 8, 16])
+@pytest.mark.parametrize("option", ["pruned", "everything"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_k_keeps_a_nan(dev, force, option, dtype):
+    """Kernel K on SieTill, the instance its shape takes (0: the owner
+    instance at 16 contexts a thread) and each forced (the block instance,
+    the first design; the owner instance at 8 and 16), with the lookahead,
+    histogram pruning, transparent silence and the statistics
+    ("everything"), two chunks."""
+    from speechrecognition_torch.search import wcts
+
+    def kernel(*a, **kw):
+        out, outs, _scratch = wcts.wcts_scan_cuda(*a, force=force, **kw)
+        return out, outs
+
+    lex, tdp = sietill_search()
+    got, ref = wcts_both(dev, lex, tdp, lex.num_states, lex.num_words, WCTS_OPTIONS[option],
+                         dtype, 60, (23, 37), SEARCH_LENS, seed=11,
+                         kernel=kernel if force else None, nan=(0, 30, 40))
+    assert len(got) == len(ref)
+    for k, (g, r) in enumerate(zip(got, ref)):
+        assert same_bits(g, r), k
+    assert any(torch.isnan(g).any() for g in got if g.is_floating_point())
+
+
+@pytest.mark.parametrize("option", ["pruned", "everything"])
+def test_kernel_k_keeps_a_nan_in_scratch(dev, option):
+    """Kernel K's scratch instance (a 200-word prefix tree, 145,122 slots),
+    float32, two chunks."""
+    from speechrecognition_torch.search import wcts
+    from torch_search_tables import PrefixLexicon, prefix_tdp
+    lex = PrefixLexicon(200, 2)
+    before = wcts.wcts_scan.SCRATCH_LAUNCHES
+    got, ref = wcts_both(dev, lex, prefix_tdp(lex), lex.num_states, lex.num_words,
+                         WCTS_OPTIONS[option], torch.float32, 20, (10, 10), [20, 11], seed=3,
+                         nan=(0, 12, 5))
+    assert wcts.wcts_scan.SCRATCH_LAUNCHES == before + 2
+    for k, (g, r) in enumerate(zip(got, ref)):
+        assert same_bits(g, r), k
+
+
+@pytest.mark.parametrize("prune", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["lengths-1-2-3", "silence-2", "large"])
+def test_kernel_m_keeps_a_nan(dev, name, dtype, prune):
+    """Kernel M's warp instance and its first design, forced, on
+    tests/torch_linear_tables.py's cases, and the first design's scratch
+    instance (299 words of 30 positions); kernel N's words after it."""
+    from speechrecognition_torch.search import linear_lvcsr as tl
+    from torch_linear_tables import AN4_TDP, random_lm, tied_lexicon
+    if name == "large":
+        rng = np.random.default_rng(299)
+        lex = tied_lexicon([30] * 299 + [3], 3, 40, rng)
+        lm, lm_start = random_lm(rng, lex.num_words, 0, 10.0)
+        lt = tl.LinearTables.build(AN4_TDP.decoder_tables(lex), lm, lm_start, 0)
+        am = torch.as_tensor(rng.uniform(0.0, 6.0, (2, 12, 40)), device=dev).to(dtype)
+        args = (am, torch.as_tensor([12, 9], dtype=torch.int32, device=dev),
+                *lt.args(dev, dtype, 40))
+        thr = 200.0
+    else:
+        args, thr = linear_inputs(name, dtype, dev)
+    am, lens, st = args[0], args[1], args[2]
+    b = int(torch.argmax(lens))
+    am[b, int(lens[b]) // 2, int(st[min(1, st.shape[0] - 1), 0])] = float("nan")
+    got = tl.decode_scan_linear(*args, thr, prune=prune)
+    first, _scratch = tl.decode_scan_linear_cuda(*args, thr, prune=prune, first_design=True)
+    ref = tl.decode_scan_linear_reference(*args, thr, prune=prune)
+    torch.cuda.synchronize()
+    for key, g, f, r in zip(tl.OUTPUTS, got, first, ref):
+        assert same_bits(g, r) and same_bits(f, r), key
+    assert any(torch.isnan(g).any() for g in got if g.is_floating_point())
+    words = tl.traceback_linear(*(got[i] for i in (0, 1, 2, 4, 5, 6)), lens)
+    ref_words = tl.traceback_linear_reference(*(ref[i] for i in (0, 1, 2, 4, 5, 6)), lens)
+    assert torch.equal(words, ref_words)

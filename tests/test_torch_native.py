@@ -53,9 +53,10 @@ def test_sources_are_the_eight_kernels_and_the_header():
         "sr_mahalanobis_scores", "sr_mahalanobis_min", "sr_decode_scan", "sr_decode_scan_f64",
         "sr_decode_scan_instance", "sr_decode_scan_residency", "sr_am_scores_df",
         "sr_decode_scan_df", "sr_decode_scan_df_instance", "sr_decode_scan_df_threads",
-        "sr_decode_scan_df_residency",
+        "sr_decode_scan_df_residency", "sr_decode_scan_df_scratch",
         "sr_align_fwd", "sr_align_fwd_f64", "sr_align_fwd_warps", "sr_align_fwd_df",
-        "sr_align_fwd_df_warps", "sr_align_fwd_df_scratch", "sr_align_backtrack", "sr_align_backtrack_tile",
+        "sr_align_fwd_df_warps", "sr_align_fwd_df_positions", "sr_align_fwd_df_scratch",
+        "sr_align_backtrack", "sr_align_backtrack_tile",
         "sr_em_pass_df",
         "sr_em_pass_df_scratch", "sr_tree_scan", "sr_tree_scan_scratch",
         "sr_tree_scan_instance", "sr_tree_scan_residency",
@@ -63,7 +64,7 @@ def test_sources_are_the_eight_kernels_and_the_header():
         "sr_decode_scan_bigram_instance", "sr_decode_scan_bigram_residency", "sr_wcts_scan",
         "sr_wcts_scan_scratch", "sr_wcts_scan_instance", "sr_wcts_scan_residency",
         "sr_forward_backward", "sr_forward_backward_chain", "sr_forward_backward_instance",
-        "sr_forward_backward_residency", "sr_linear_scan", "sr_linear_scan_scratch",
+        "sr_forward_backward_warps", "sr_forward_backward_residency", "sr_linear_scan", "sr_linear_scan_scratch",
         "sr_linear_scan_instance", "sr_linear_scan_residency", "sr_linear_traceback",
         "sr_quantized_scores", "sr_quantized_scores_tile", "sr_quantized_scores_scratch",
         "sr_quantized_scores_residency", "sr_wcts_shard_entries", "sr_wcts_shard_ends",

@@ -5,10 +5,12 @@ and chip_smoke.py (which loads this file by path). Imports numpy only."""
 import numpy as np
 
 #: kernel L's instance for A positions (sr_forward_backward_instance):
-#: positions a lane of the warp instance, 0 for the block instance with its
-#: rows in shared memory, -1 in device scratch; each side of every edge
-L_INSTANCES = {1: 1, 2: 1, 3: 1, 32: 1, 33: 2, 64: 2, 65: 3, 70: 3, 96: 3, 97: 0, 1024: 0,
-               1025: -1}
+#: positions a lane of the two chains (one warp a chain up to A = 96, 2-8
+#: warps past it: sr_forward_backward_warps), -1 for the block instance with
+#: its rows in device scratch; each side of every edge, the Sprint path's
+#: A 303 and each of the wide chains' 2, 3 and 4 positions a lane
+L_INSTANCES = {1: 1, 2: 1, 3: 1, 32: 1, 33: 2, 64: 2, 65: 3, 70: 3, 96: 3, 97: 2, 160: 2,
+               303: 2, 512: 2, 700: 3, 1024: 4, 1025: -1}
 
 
 def fb_inputs(B, T, A, seed):
