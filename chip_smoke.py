@@ -292,16 +292,16 @@ kernel against its plain PyTorch version on the same tensors:
      aligns, 3 estimates, threshold 300; launch counts read from this run,
      its phase split), sprint/mm_io's round trip, aligner_tables_for_orths
      over the 130 orthographies (chains of up to about 300 positions, so
-     kernel E takes its block instance and kernels F and L their wide
-     instances), align_batch_chunked in
+     kernels E, F and L take their wide instances), align_batch_chunked in
      f32 "pallas" (A fused, E, G), f64 "mxu" (E, G) and df32 (C, F, G), and
      baum_welch_posteriors in f64 "mxu" and f32 "pallas" (L); each kernel's
      last recorded calls held against its plain version on the same inputs
      (bit-equal; A fused within A_REL_TOL relative; H's counts bit-equal
-     and sums within 1e-12), timed in turns beside its bound; F's and L's
-     first designs (their block instances, forced) bit-equal on the same
-     calls and timed in turns with the wide instances (F also on the df32
-     alignment's NaN rows), with us a frame; wall seconds
+     and sums within 1e-12), timed in turns beside its bound; E's (f32
+     and f64), F's and L's first designs (their block instances, forced)
+     bit-equal on the same calls and timed in turns with the wide instances
+     (E's in turns with the plain version too; F also on the df32
+     alignment's NaN rows), with us a frame and registers; wall seconds
      of every step and the host share of the df32 alignment and the
      Baum-Welch pass (profiler, in a fresh process, in a window that
      recorded every launch the wrappers counted).
@@ -427,7 +427,8 @@ A_ELEMENT_INSTR = 3
 #: the frame of phase 40's NaN in kernel E's inputs (its first chunk ends
 #: there, so the carry it returns holds the NaN row)
 NAN_E_FRAME = 20
-#: the longest automaton of kernel F's warp instance (its wide instance past it)
+#: the longest automaton of kernels E's and F's warp instances (their wide
+#: instances past it)
 F_WARP_A = 128
 #: the synthetic automaton length that takes kernel F's wide instance (its
 #: block instance, the first design, forced beside it)
@@ -552,7 +553,8 @@ def f_positions(A):
 
 #: the scans' kernels whose machine code phase 2 counts
 SASS_KERNELS = ("decode_scan_warp_kernel", "decode_scan_df_warp_kernel",
-                "decode_scan_df_block_kernel", "align_fwd_warp_kernel", "align_fwd_df_warp_kernel",
+                "decode_scan_df_block_kernel", "align_fwd_warp_kernel", "align_fwd_wide_kernel",
+                "align_fwd_df_warp_kernel",
                 "align_fwd_df_wide_kernel", "align_backtrack_kernel", "bigram_scan_warp_kernel",
                 "wcts_owner_kernel", "tree_scan_owner_kernel", "tree_scan_kernel",
                 "fb_chain_kernel", "fb_wide_chain_kernel",
@@ -591,9 +593,10 @@ def instance(query, *shape):
     from speechrecognition_torch.ops import _native
     lib = _native.load()
     v = getattr(lib, query)(*shape)
-    if query == "sr_align_fwd_df_warps" and v > 0 and shape[0] > F_WARP_A:
-        return (f"wide instance, {v} warps an utterance, "
-                f"{lib.sr_align_fwd_df_positions(*shape)} positions a lane")
+    if query in ("sr_align_fwd_warps", "sr_align_fwd_df_warps") and v > 0 \
+            and shape[0] > F_WARP_A:
+        positions = getattr(lib, query.replace("_warps", "_positions"))(*shape)
+        return f"wide instance, {v} warps an utterance, {positions} positions a lane"
     if query == "sr_forward_backward_instance" and lib.sr_forward_backward_warps(*shape) > 1:
         return (f"wide chains, {lib.sr_forward_backward_warps(*shape)} warps a chain, {v} "
                 f"positions a lane")
@@ -4940,6 +4943,14 @@ def recorded(stack, mod, name, keep):
     return calls
 
 
+def e_first(vit, *a, **k):
+    """Kernel E's first design (the block instance, its row in shared
+    memory), forced on a call's arguments: (the cost row, the jumps),
+    uncounted."""
+    out, jumps, _scratch = vit.align_fwd_chunk_cuda(*a, first_design=True, **k)
+    return out, jumps
+
+
 def f_first(vit, *a, **k):
     """Kernel F's first design (the block instance, its row in shared
     memory), forced on a call's arguments: (the cost row, the jumps),
@@ -5287,16 +5298,31 @@ def sprint_phase(dev, card):
         f"({nf_ms / C_n * 1e3:.3f} us a frame) -> {nw_ms:.4f} ms ({nw_ms / C_n * 1e3:.3f} us a "
         f"frame), bit-equal {same_nf} on {card}")
     for tag, dt in (("f32 pallas", torch.float32), ("f64 mxu", torch.float64)):
+        # kernel E's wide instance, its first design (the block instance,
+        # forced) and the plain version, in turns on the recorded call
         a_e, k_e, _ = runs[tag]["rec"]["E"][0]
-        e_ms, e_plain, _all = in_turns(lambda: vit.align_fwd_chunk_reference(*a_e, **k_e),
-                                       lambda: vit.align_fwd_chunk(*a_e, **k_e), 1, 10)
+        ref_e = flat(vit.align_fwd_chunk_reference(*a_e, **k_e))
+        same_ef, errs[f"E {tag} first"] = bit_equal(flat(e_first(vit, *a_e, **k_e)), ref_e)
+        check(same_ef, f"kernel E's first design ({tag}) is not bit-equal to its plain version")
+        e_ms, ef_ms, e_plain, e_all = designs_in_turns(
+            lambda: vit.align_fwd_chunk_reference(*a_e, **k_e),
+            lambda: vit.align_fwd_chunk(*a_e, **k_e), lambda: e_first(vit, *a_e, **k_e), 1, 10)
         B_e, C_e, A_e = a_e[1].shape
         e_bnd = align_bound(B_e, C_e, A_e, 4 if dt == torch.float32 else 8)
         res[f"E {tag}"] = (e_ms, e_plain, e_bnd)
+        res[f"E {tag} first"] = (ef_ms, e_plain, e_bnd)
+        ty = "f" if dt == torch.float32 else "d"
+        k_wide = _native.load().sr_align_fwd_positions(A_e)
         log(f"[36] kernel E {dt} at B={B_e} C={C_e} A={A_e} "
-            f"({instance('sr_align_fwd_warps', A_e)}): kernel {e_ms:.4f} ms, plain {e_plain:.4f} "
-            f"ms; bound {e_bnd[0]:.4f} ms ({e_bnd[1]}), {e_ms / e_bnd[0]:.1f}x it; "
-            f"{e_ms / C_e * 1e3:.3f} us a frame on {card}")
+            f"({instance('sr_align_fwd_warps', A_e)}), the recorded call in turns (plain, wide, "
+            f"first, first, wide, plain: {', '.join(f'{v:.4f}' for v in e_all)} ms): wide "
+            f"instance {e_ms:.4f} ms ({e_ms / C_e * 1e3:.3f} us a frame, {e_ms / e_bnd[0]:.1f}x "
+            f"the bound), first design (the block instance, its row in shared memory, forced) "
+            f"{ef_ms:.4f} ms ({ef_ms / C_e * 1e3:.3f} us a frame, {ef_ms / e_bnd[0]:.1f}x), plain "
+            f"{e_plain:.4f} ms; bound {e_bnd[0]:.4f} ms ({e_bnd[1]}); both designs bit-equal to "
+            f"the plain version (first design {same_ef}); wide instance "
+            f"{ptxas_usage(f'align_fwd_wide_kernelI{ty}Li{k_wide}E')}, first design "
+            f"{ptxas_usage(f'align_fwd_block_kernelI{ty}E')} on {card}")
     a_a, k_a, _ = runs["f32 pallas"]["rec"]["A"][0]      # a whole AM_CHUNK of frames
     m_ms, m_plain, _all = in_turns(lambda: maha.mahalanobis_min_scores_reference(*a_a, **k_a),
                                    lambda: maha.mahalanobis_min_scores(*a_a, **k_a), 1, 10)
@@ -5341,7 +5367,8 @@ def sprint_phase(dev, card):
                 "G": train_counts["G"] + c32["G"] + c64["G"] + cdf["G"], "H": train_counts["H"],
                 "L f32 pallas": bw_counts["f32 pallas"]["L"], "L f64 mxu": bw_counts["f64 mxu"]["L"],
                 # the first designs, forced beside the new ones: no main path launches them
-                "F first": 0, "L f32 pallas first": 0, "L f64 mxu first": 0}
+                "E f32 pallas first": 0, "E f64 mxu first": 0, "F first": 0,
+                "L f32 pallas first": 0, "L f64 mxu first": 0}
     log(f"[36] launches on the Sprint path: {launches}")
     rep = "speechrecognition_tpu/align/viterbi.py"
     return [entry(name, source, replaces, launches[key], errs[key], *res[key])
@@ -5352,6 +5379,9 @@ def sprint_phase(dev, card):
         ("am_scores_df[sprint]", "am_scores_df.cu", "speechrecognition_tpu/models/gmm.py:568", "C"),
         ("align_fwd[sprint]", "align_scan.cu", f"{rep}:315", "E f32 pallas"),
         ("align_fwd[f64, sprint]", "align_scan.cu", f"{rep}:315", "E f64 mxu"),
+        ("align_fwd[sprint, first design]", "align_scan.cu", f"{rep}:315", "E f32 pallas first"),
+        ("align_fwd[f64, sprint, first design]", "align_scan.cu", f"{rep}:315",
+         "E f64 mxu first"),
         ("align_fwd_df[sprint]", "align_scan_df.cu", f"{rep}:368", "F"),
         ("align_fwd_df[sprint, first design]", "align_scan_df.cu", f"{rep}:368", "F first"),
         ("align_backtrack[sprint]", "align_backtrack.cu", f"{rep}:582", "G"),
@@ -5976,7 +6006,7 @@ def nan_phase(dev, card):
                      ng.decode_scan_bigram_cuda(am, lens, *args, 200.0, first_design=True)[0],
                      ref)
     rng = np.random.default_rng(40)
-    for A in (70, 303, 1025):    # kernel E: warp, block and scratch instances
+    for A in (70, 303, 1025):    # kernel E: warp, wide and scratch instances
         ams = rng.uniform(0.0, 40.0, size=(4, 40, A))
         ams[0, NAN_E_FRAME, A // 2] = np.nan
         tdp = rng.uniform(0.0, 20.0, size=(4, A, 3))

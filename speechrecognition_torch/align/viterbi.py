@@ -149,13 +149,31 @@ def align_fwd_chunk(prev: torch.Tensor, ams: torch.Tensor, tdp: torch.Tensor,
 
     CPU tensors take the plain version; CUDA tensors launch kernel E
     (float32 or float64; counted in ``align_fwd_chunk.LAUNCHES``), whose C
-    entry chooses its instance from A alone (``sr_align_fwd_warps``): any A
-    is taken, as the reference takes it. Launches whose row lives in device
-    scratch (A > 1024) are also counted in ``SCRATCH_LAUNCHES``."""
-    device = ams.device
-    if device.type == "cpu":
+    entry chooses its instance from A alone (``sr_align_fwd_warps``,
+    ``sr_align_fwd_positions``): any A is taken, as the reference takes it.
+    Launches whose row lives in device scratch (A > 1024) are also counted
+    in ``SCRATCH_LAUNCHES``."""
+    if ams.device.type == "cpu":
         return align_fwd_chunk_reference(prev, ams, tdp, pos_valid, feat_len,
                                          pruning_threshold, t0, tie_pruned, use_pruning)
+    out, jumps, in_scratch = align_fwd_chunk_cuda(prev, ams, tdp, pos_valid, feat_len,
+                                                  pruning_threshold, t0, tie_pruned, use_pruning)
+    align_fwd_chunk.LAUNCHES += 1
+    align_fwd_chunk.SCRATCH_LAUNCHES += in_scratch
+    return out, jumps
+
+
+def align_fwd_chunk_cuda(prev: torch.Tensor, ams: torch.Tensor, tdp: torch.Tensor,
+                         pos_valid: torch.Tensor, feat_len: torch.Tensor, pruning_threshold,
+                         t0: int, tie_pruned: bool = True, use_pruning: bool = True,
+                         first_design: bool = False) -> Tuple[torch.Tensor, torch.Tensor, bool]:
+    """Kernel E's launch on CUDA tensors, as ``align_fwd_chunk`` makes it
+    but not counted: returns (the cost row, the jumps, whether the row lived
+    in device scratch). ``first_design`` launches the block instance with
+    its row in shared memory where the wide instance runs (128 < A <=
+    1024), so that the two can be timed in turns; it changes nothing at
+    other A."""
+    device = ams.device
     if device.type != "cuda":
         raise ValueError(f"align_fwd_chunk: unsupported device {device}")
     dtype = ams.dtype
@@ -180,12 +198,10 @@ def align_fwd_chunk(prev: torch.Tensor, ams: torch.Tensor, tdp: torch.Tensor,
     err = getattr(lib, _FWD_ENTRY[dtype])(
         prev.data_ptr(), ams.data_ptr(), tdp.data_ptr(), pv.data_ptr(), lens.data_ptr(),
         out.data_ptr(), jumps.data_ptr(), None if scratch is None else scratch.data_ptr(),
-        B, C, A, int(t0), thr, int(bool(tie_pruned)),
-        int(bool(use_pruning)), device.index, torch.cuda.current_stream(device).cuda_stream)
+        B, C, A, int(t0), thr, int(bool(tie_pruned)), int(bool(use_pruning)),
+        int(bool(first_design)), device.index, torch.cuda.current_stream(device).cuda_stream)
     _native.check(err, "align_fwd_chunk")
-    align_fwd_chunk.LAUNCHES += 1
-    align_fwd_chunk.SCRATCH_LAUNCHES += scratch is not None
-    return out, jumps
+    return out, jumps, scratch is not None
 
 
 align_fwd_chunk.LAUNCHES = align_fwd_chunk.SCRATCH_LAUNCHES = 0

@@ -39,33 +39,46 @@
 // float64 frame is about twice the float32 one (0.62 against 0.30 us at
 // A = 70 on an H100; the first design took 0.82 and 0.58 us). Whether the
 // chain is the whole cost is open: chip_smoke.py's phase 13 times the warp
-// instance at every warp count. Two instances, chosen in the C entry from
-// A alone (sr_align_fwd_warps):
-//   * A <= 128 (every SieTill automaton; the trainers' main path): kernel
-//     F's layout. W = ceil(A/32) warps per utterance, one position a lane,
-//     8 / W utterances a block; the candidates from a-1 and a-2 come from
-//     the lanes below through __shfl_up_sync; the three candidate compares
-//     are independent and the selection has no branch; the warp's row
-//     minimum is redux.sync on an order-preserving key, a NaN's the least
-//     (one for float; for
-//     double two, on the high and then the low halves of the 64-bit key:
-//     exact; five float64 shuffles and minima were no faster on the card);
-//     each warp publishes its minimum and its last two costs
-//     (double-buffered by frame parity) and one named barrier of the
-//     utterance's warps a frame makes them visible; lanes 0 and 1 recompute
-//     the carry of the previous warp's last two positions from the
-//     published costs (a "shadow", bit for bit the owner's), so no second
-//     barrier; each lane keeps the next PREFETCH frames' emissions in
-//     registers, so device-memory latency leaves the chain; jumps are
-//     predicated byte stores.
-//   * A > 128: the block instance, one block of min(ceil(A/32)*32, 1024)
-//     threads per utterance, each looping over ceil(A/1024) positions, two
-//     __syncthreads a frame; the row double-buffered by frame parity in
-//     shared memory up to A = 1024 (sr_align_fwd_warps gives 0), beyond in
-//     device scratch [B, 2, A] that the wrapper allocates (-1; a block's
-//     global writes are visible to the block after __syncthreads). Simple,
-//     not tuned: each position's constants and cost are read from memory
-//     every frame. No SieTill automaton reaches it.
+// instance at every warp count. Three instances, chosen in the C entry from
+// A alone (sr_align_fwd_warps, sr_align_fwd_positions):
+//   * A <= 128 (every SieTill automaton; the trainers' main path): the warp
+//     instance, kernel F's layout. W = ceil(A/32) warps per utterance, one
+//     position a lane, 8 / W utterances a block; the candidates from a-1
+//     and a-2 come from the lanes below through __shfl_up_sync; the three
+//     candidate compares are independent and the selection has no branch;
+//     the warp's row minimum is redux.sync on an order-preserving key with
+//     a NaN vote beside it (one for float; for double two, on the high and
+//     then the low halves of the 64-bit key: exact; five float64 shuffles
+//     and minima were no faster on the card); each warp publishes its
+//     minimum and its last two costs (double-buffered by frame parity) and
+//     one named barrier of the utterance's warps a frame makes them
+//     visible; lanes 0 and 1 recompute the carry of the previous warp's
+//     last two positions from the published costs (a "shadow", bit for bit
+//     the owner's), so no second barrier; each lane keeps the next PREFETCH
+//     frames' emissions in registers, so device-memory latency leaves the
+//     chain; jumps are predicated byte stores.
+//   * 128 < A <= 1024 (the Sprint path's state graphs, A 303): the wide
+//     instance, kernel F's wide layout with one word a score and its own
+//     rule of positions a lane. One block an utterance of wide_warps(A)
+//     warps, wide_k(A) consecutive positions a lane (A 303: 4 warps of 3),
+//     TDPs, validity, carry and the emission ring in registers; lane
+//     0 takes a-1 and a-2 from the shadow of the previous warp's last two
+//     positions; each lane folds its costs with keys::nan_min, the warp
+//     takes warp_minimum_nan, and one __syncthreads a frame publishes the
+//     W minima and the edge costs, which every thread folds in one order.
+//     The row minimum is exact and NaN where any cost is, as jnp.minimum's,
+//     so a NaN row takes the same branch-free frame (kernel F needs its
+//     plain version's fold there; E does not).
+//   * the block instance: one block of min(ceil(A/32)*32, 1024) threads per
+//     utterance, each looping over ceil(A/1024) positions, two
+//     __syncthreads a frame; past A = 1024 its row double-buffered by frame
+//     parity in device scratch [B, 2, A] that the wrapper allocates
+//     (sr_align_fwd_warps gives -1; a block's global writes are visible to
+//     the block after __syncthreads). For 128 < A <= 1024 it is the first
+//     design, its row in shared memory, launched only when the C entry gets
+//     first_design = 1, so that the two can be timed in turns. Simple, not
+//     tuned: each position's constants and cost are read from memory every
+//     frame. No SieTill automaton reaches it.
 
 #include <cuda_runtime.h>
 
@@ -79,7 +92,8 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int MAX_WARPS = 8;          // warps a block of the warp instance holds
 constexpr int PREFETCH = 4;           // frames of emissions in flight
 constexpr int WARP_POSITIONS = 128;   // the warp instance's longest automaton (4 warps)
-constexpr int SHARED_POSITIONS = 1024; // the longest row the block instance keeps in shared memory
+constexpr int SHARED_POSITIONS = 1024; // the wide instance's longest automaton; the longest
+                                       // row the first design keeps in shared memory
 constexpr int BLOCK_THREADS = 1024;   // threads per utterance of the block instance, at most
 
 // the minimum of two costs, NaN where either is (jnp.minimum)
@@ -226,6 +240,151 @@ align_fwd_warp_kernel(const T* __restrict__ prev, const T* __restrict__ ams,
   if (pos) out[row] = h;
 }
 
+// ---- the wide instance (128 < A <= 1024): W warps an utterance, K positions a lane ----
+
+constexpr int WIDE_WARPS = 8;  // warps an utterance, at most
+
+// positions a lane (3 or 4) and warps an utterance (2-8) of the wide
+// instance: 3 a lane up to A = 768, 4 beyond, so that an utterance's warps
+// stay at most 8. Kernel F's rule (2 a lane up to 512) is slower here. On an
+// H100 (B 130, C 320, A 303), in turns: 3 a lane on 4 warps 0.151-0.164 ms
+// in float, 0.197-0.215 ms in double; 2 on 5 0.175-0.180 / 0.241-0.246; 1
+// on 10 0.190-0.191 / 0.211-0.214; with another fold of the minima (3 on 4
+// there 0.185-0.187 / 0.199-0.204), 4 on 3 0.192-0.194 / 0.239-0.246, 5 on 2
+// 0.210 / 0.342-0.348, 10 on 1 0.329-0.332 / 0.455-0.461. E's step is a few
+// adds and compares, so a lane's third position costs less than a fifth
+// warp at the barrier; past 3 the lane's own work lengthens the frame
+__host__ __device__ __forceinline__ int wide_k(int A) {
+  const int k = (A + 8 * 32 - 1) / (8 * 32);
+  return k < 3 ? 3 : k;
+}
+
+__host__ __device__ __forceinline__ int wide_warps(int A) {
+  const int k = wide_k(A);
+  return (A + 32 * k - 1) / (32 * k);
+}
+
+// One utterance a block of W = blockDim.x / 32 warps, K consecutive
+// positions a lane: position a = (w*32 + lane)*K + k. The warp instance's
+// design with K positions a lane: TDPs, validity and the carry in
+// registers, the emissions PREFETCH frames ahead in a register ring,
+// neighbours a-1 and a-2 of a lane's first position from the lane below
+// (shuffles) or, in lane 0, from the shadow of the previous warp's last two
+// positions; each lane folds its K costs, the warp takes their keyed
+// minimum (NaN where any is), and every thread folds the W warps' minima in
+// one order after the one barrier a frame. The row minimum is exact in any
+// order and NaN where any cost is, so a NaN row needs nothing more.
+template <typename T, int K>
+__global__ void __launch_bounds__(WIDE_WARPS * 32)
+align_fwd_wide_kernel(const T* __restrict__ prev, const T* __restrict__ ams,
+                      const T* __restrict__ tdp, const unsigned char* __restrict__ pos_valid,
+                      const int* __restrict__ feat_len, T* __restrict__ out,
+                      signed char* __restrict__ jumps, int B, int C, int A, int t0, T thr,
+                      int tie_pruned, int use_pruning) {
+  static_assert(K >= 2, "a lane's positions hold both neighbours of the next lane's first");
+  // per frame parity and warp: its minimum and the costs of its
+  // second-last and last positions
+  __shared__ T s_pub[2][WIDE_WARPS][3];
+  const int W = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x;
+  const T BIG = big<T>();
+  const int a0 = (warp * 32 + lane) * K;  // this lane's first position
+  const size_t urow = (size_t)b * A;
+  T tw0[K], tw1[K], tw2[K], h[K];
+  bool valid[K], pos[K];
+  int col[K];  // the position's column, the last one standing in past A
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int a = a0 + k;
+    pos[k] = a < A;
+    col[k] = min(a, A - 1);
+    const size_t r = urow + col[k];
+    valid[k] = pos[k] && pos_valid[r] != 0;  // no position past A is valid
+    tw0[k] = tdp[r * 3 + 0];
+    tw1[k] = tdp[r * 3 + 1];
+    tw2[k] = tdp[r * 3 + 2];
+    h[k] = pos[k] ? prev[r] : BIG;
+  }
+  // the shadow: positions w*32*K - 1 and w*32*K - 2, the previous warp's
+  // last two, followed by every lane from the costs that warp publishes
+  const int s1 = warp * 32 * K - 1, s2 = s1 - 1;
+  T sh1 = BIG, sh2 = BIG;
+  if (warp > 0) {
+    sh1 = prev[urow + s1];
+    sh2 = prev[urow + s2];
+  }
+  const int len = feat_len[b];
+  const T* am_u = ams + (size_t)b * C * A;
+
+  // the emissions of frames i .. i+PREFETCH-1, slot i % PREFETCH
+  T ring[PREFETCH][K];
+#pragma unroll
+  for (int p = 0; p < PREFETCH; ++p)
+#pragma unroll
+    for (int k = 0; k < K; ++k) ring[p][k] = p < C ? am_u[(size_t)p * A + col[k]] : T(0);
+
+  for (int i0 = 0; i0 < C; i0 += PREFETCH) {
+#pragma unroll
+    for (int p = 0; p < PREFETCH; ++p) {
+      const int i = i0 + p;
+      if (i < C) {  // the same for the whole block
+        T am[K];
+        const size_t nx = (size_t)min(i + PREFETCH, C - 1) * A;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          am[k] = ring[p][k];
+          ring[p][k] = am_u[nx + col[k]];
+        }
+        // positions a0-1 and a0-2: the lane below, or the shadow
+        const T below1 = __shfl_up_sync(FULL, h[K - 1], 1);
+        const T below2 = __shfl_up_sync(FULL, h[K - 2], 1);
+        const T up1 = lane == 0 ? sh1 : below1;
+        const T up2 = lane == 0 ? sh2 : below2;
+        const int t = t0 + i;
+        T cost[K];
+        T m;  // the lane's minimum
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const T n1 = k >= 1 ? h[k >= 1 ? k - 1 : 0] : up1;
+          const T n2 = k >= 2 ? h[k >= 2 ? k - 2 : 0] : (k == 1 ? up1 : up2);
+          signed char jump;
+          cost[k] = step_cost(h[k], n1, n2, tw0[k], tw1[k], tw2[k], am[k], a0 + k, valid[k],
+                              tie_pruned, jump);
+          store_if(jumps + ((size_t)i * B + b) * A + a0 + k, jump, pos[k]);
+          m = k == 0 ? cost[0] : tmin(m, cost[k]);
+        }
+        // the exact row minimum: the warp's, then the utterance's
+        T row_best = warp_minimum_nan(m);
+        T* pub = s_pub[i & 1][warp];
+        if (lane == 0) pub[0] = row_best;
+        if (lane == 31) {
+          pub[1] = cost[K - 2];
+          pub[2] = cost[K - 1];
+        }
+        __syncthreads();  // the minima and the edge costs are visible
+        row_best = s_pub[i & 1][0][0];
+        for (int v = 1; v < W; ++v) row_best = tmin(row_best, s_pub[i & 1][v][0]);
+        if (row_best >= BIG * T(0.5)) row_best = T(0);
+        if (warp > 0) {
+          sh1 = step_carry(s_pub[i & 1][warp - 1][2], row_best, T(0), sh1, thr, s1, false, t,
+                           len, use_pruning);
+          sh2 = step_carry(s_pub[i & 1][warp - 1][1], row_best, T(0), sh2, thr, s2, false, t,
+                           len, use_pruning);
+        }
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          h[k] = step_carry(cost[k], row_best, am[k], h[k], thr, a0 + k, valid[k], t, len,
+                            use_pruning);
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    if (pos[k]) out[urow + a0 + k] = h[k];
+}
+
 // one block of min(ceil(A/32)*32, 1024) threads per utterance, each thread
 // looping over the positions a = threadIdx.x + k*blockDim.x; the row
 // double-buffered by frame parity in lat [2][A]: shared memory where
@@ -288,17 +447,27 @@ align_fwd_block_kernel(const T* __restrict__ prev, const T* __restrict__ ams,
   for (int a = threadIdx.x; a < A; a += blockDim.x) out[urow + a] = lat[(size_t)buf * A + a];
 }
 
-// warps per utterance of the warp instance for A positions; for the block
-// instance 0 (its row in shared memory) or -1 (in device scratch)
+// warps per utterance of the warp instance (one position a lane) or of the
+// wide instance for A positions; -1 for the block instance (its row in
+// device scratch)
 int warps_for(int A) {
   if (A <= WARP_POSITIONS) return (A + 31) / 32;
-  return A <= SHARED_POSITIONS ? 0 : -1;
+  return A <= SHARED_POSITIONS ? wide_warps(A) : -1;
+}
+
+// positions a lane of that instance: 1 (the warp instance), wide_k(A) (the
+// wide instance), 0 (the block instance, whose threads loop over the
+// positions)
+int positions_for(int A) {
+  if (A <= WARP_POSITIONS) return 1;
+  return A <= SHARED_POSITIONS ? wide_k(A) : 0;
 }
 
 template <typename T>
 int launch(const T* prev, const T* ams, const T* tdp, const unsigned char* pos_valid,
            const int* feat_len, T* out, signed char* jumps, T* scratch, int B, int C, int A,
-           int t0, T thr, int tie_pruned, int use_pruning, int device, void* stream) {
+           int t0, T thr, int tie_pruned, int use_pruning, int first_design, int device,
+           void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B == 0 || A == 0) return (int)cudaSuccess;
@@ -308,47 +477,66 @@ int launch(const T* prev, const T* ams, const T* tdp, const unsigned char* pos_v
                                 MAX_WARPS / W * W * 32, 0, st>>>(                            \
       prev, ams, tdp, pos_valid, feat_len, out, jumps, B, C, A, t0, thr, tie_pruned,         \
       use_pruning)
-  const int inst = warps_for(A);
-  switch (inst) {
-    case 1: SR_WARPS(1); break;
-    case 2: SR_WARPS(2); break;
-    case 3: SR_WARPS(3); break;
-    case 4: SR_WARPS(4); break;
-    default: {
-      // the row in shared memory (0) or in the scratch (-1)
-      if (inst < 0 && scratch == nullptr) return (int)cudaErrorInvalidValue;
-      const int threads = A < BLOCK_THREADS ? (A + 31) / 32 * 32 : BLOCK_THREADS;
-      const size_t smem = inst < 0 ? 0 : 2 * (size_t)A * sizeof(T);
-      align_fwd_block_kernel<T><<<B, threads, smem, st>>>(
-          prev, ams, tdp, pos_valid, feat_len, out, jumps, inst < 0 ? scratch : nullptr, B, C,
-          A, t0, thr, tie_pruned, use_pruning);
+#define SR_WIDE(K)                                                                           \
+  align_fwd_wide_kernel<T, K><<<B, wide_warps(A) * 32, 0, st>>>(                             \
+      prev, ams, tdp, pos_valid, feat_len, out, jumps, B, C, A, t0, thr, tie_pruned,         \
+      use_pruning)
+  const bool wide = A > WARP_POSITIONS && A <= SHARED_POSITIONS;
+  if (wide && !first_design) {
+    if (wide_k(A) == 3) SR_WIDE(3);
+    else SR_WIDE(4);
+  } else if (A <= WARP_POSITIONS) {
+    switch (warps_for(A)) {
+      case 1: SR_WARPS(1); break;
+      case 2: SR_WARPS(2); break;
+      case 3: SR_WARPS(3); break;
+      default: SR_WARPS(4);
     }
+  } else {
+    // the block instance: its row in shared memory (the first design,
+    // forced for 128 < A <= 1024) or in the scratch (past A = 1024)
+    const bool in_scratch = A > SHARED_POSITIONS;
+    if (in_scratch && scratch == nullptr) return (int)cudaErrorInvalidValue;
+    const int threads = A < BLOCK_THREADS ? (A + 31) / 32 * 32 : BLOCK_THREADS;
+    const size_t smem = in_scratch ? 0 : 2 * (size_t)A * sizeof(T);
+    align_fwd_block_kernel<T><<<B, threads, smem, st>>>(
+        prev, ams, tdp, pos_valid, feat_len, out, jumps, in_scratch ? scratch : nullptr, B, C,
+        A, t0, thr, tie_pruned, use_pruning);
   }
 #undef SR_WARPS
+#undef SR_WIDE
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // the instance the entries below launch for A positions: warps per
-// utterance of the warp instance (1-4); the block instance with its row in
-// shared memory (0), or in device scratch of 2*B*A scores (-1)
+// utterance of the warp instance (1-4, one position a lane) or of the wide
+// instance (2-8, sr_align_fwd_positions(A) positions a lane); the block
+// instance with its row in device scratch of 2*B*A scores (-1). The block
+// instance with its row in shared memory runs only as the first design,
+// forced for 128 < A <= 1024.
 extern "C" int sr_align_fwd_warps(int A) { return warps_for(A); }
+
+// positions a lane of that instance: 1 (the warp instance), 3 or 4 (the
+// wide instance), 0 (the block instance, whose threads loop over the
+// positions)
+extern "C" int sr_align_fwd_positions(int A) { return positions_for(A); }
 
 extern "C" int sr_align_fwd(const float* prev, const float* ams, const float* tdp,
                             const unsigned char* pos_valid, const int* feat_len, float* out,
                             signed char* jumps, float* scratch, int B, int C, int A, int t0,
-                            float thr, int tie_pruned, int use_pruning, int device,
-                            void* stream) {
+                            float thr, int tie_pruned, int use_pruning, int first_design,
+                            int device, void* stream) {
   return launch<float>(prev, ams, tdp, pos_valid, feat_len, out, jumps, scratch, B, C, A, t0,
-                       thr, tie_pruned, use_pruning, device, stream);
+                       thr, tie_pruned, use_pruning, first_design, device, stream);
 }
 
 extern "C" int sr_align_fwd_f64(const double* prev, const double* ams, const double* tdp,
                                 const unsigned char* pos_valid, const int* feat_len,
                                 double* out, signed char* jumps, double* scratch, int B, int C,
                                 int A, int t0, double thr, int tie_pruned, int use_pruning,
-                                int device, void* stream) {
+                                int first_design, int device, void* stream) {
   return launch<double>(prev, ams, tdp, pos_valid, feat_len, out, jumps, scratch, B, C, A, t0,
-                        thr, tie_pruned, use_pruning, device, stream);
+                        thr, tie_pruned, use_pruning, first_design, device, stream);
 }

@@ -81,13 +81,16 @@ SIGNATURES = {
     # W, P → blocks per SM of kernel D's launch for that lattice (-1: error)
     "sr_decode_scan_df_residency": ((_I, _I), _I),
     # prev, ams, tdp, pos_valid, feat_len, out, jumps, scratch (or NULL), B,
-    # C, A, t0, thr, tie_pruned, use_pruning, device, stream
-    "sr_align_fwd": ((_P,) * 8 + (_I, _I, _I, _I, _F, _I, _I, _I, _P), _I),
+    # C, A, t0, thr, tie_pruned, use_pruning, first_design (0: the instance
+    # A chooses; 1: the block instance for 128 < A <= 1024), device, stream
+    "sr_align_fwd": ((_P,) * 8 + (_I, _I, _I, _I, _F, _I, _I, _I, _I, _P), _I),
     # the same, in float64 (score arrays and thr)
-    "sr_align_fwd_f64": ((_P,) * 8 + (_I, _I, _I, _I, _D, _I, _I, _I, _P), _I),
-    # A → warps per utterance of kernel E's warp instance (0: block
-    # instance, its row in shared memory; -1: in device scratch)
+    "sr_align_fwd_f64": ((_P,) * 8 + (_I, _I, _I, _I, _D, _I, _I, _I, _I, _P), _I),
+    # A → warps per utterance of kernel E's warp instance (1-4) or wide
+    # instance (3-8; -1: the block instance, its row in device scratch)
     "sr_align_fwd_warps": ((_I,), _I),
+    # A → positions a lane of that instance (1, 2-4; 0: the block instance)
+    "sr_align_fwd_positions": ((_I,), _I),
     # prev_hi, prev_lo, ams_hi, ams_lo, tdp_hi, tdp_lo, pos_valid, feat_len,
     # out_hi, out_lo, jumps, scratch (or NULL), B, C, A, t0, thr_hi, thr_lo,
     # tie_pruned, use_pruning, first_design, device, stream

@@ -80,8 +80,14 @@ def run_chunks(fn, ams, chunks, prev, *args):
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("case", CASES)
-def test_align_fwd_chunk_equals_jax(case, dtype):
-    ams, tdp, pos_valid, aut, thr, tie, prune = dp_inputs(case)
+@pytest.mark.parametrize("A", [9, 303, 1024])
+def test_align_fwd_chunk_equals_jax(A, case, dtype):
+    """At A 9, and at the lengths of kernel E's wide instance on the card
+    (the Sprint path's 303 and its longest, 1,024), whose plain version the
+    card holds it to. The wide lengths run two chunks of 30 frames: one
+    JAX compile a case."""
+    ams, tdp, pos_valid, aut, thr, tie, prune = dp_inputs(case, A=A)
+    chunks = (25, 35) if A == 9 else (30, 30)
     B, T, A = ams.shape
     big = np.full((B, A), 1e30, dtype)
     tt = getattr(torch, dtype)
@@ -98,8 +104,8 @@ def test_align_fwd_chunk_equals_jax(case, dtype):
                                      jnp.asarray(thr, dtype), jnp.asarray(t0, jnp.int32),
                                      tie_pruned=tie, use_pruning=prune)
 
-    got, gj = run_chunks(port, ams, (25, 35), torch.as_tensor(big))
-    want, wj = run_chunks(ref, ams, (25, 35), jnp.asarray(big))
+    got, gj = run_chunks(port, ams, chunks, torch.as_tensor(big))
+    want, wj = run_chunks(ref, ams, chunks, jnp.asarray(big))
     assert got.dtype == tt and gj.dtype == np.int8
     np.testing.assert_array_equal(gj, wj)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))

@@ -602,31 +602,51 @@ def test_kernel_g_layouts(dev):
             assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
-#: kernel E's and F's instance for each automaton length the tests use, as
-#: sr_align_fwd_warps and sr_align_fwd_df_warps must report it: warps per
-#: utterance of the warp instance (1-4); the block instance with its row in
-#: shared memory (0) or in device scratch (-1)
-ALIGN_INSTANCES = {1: 1, 2: 1, 9: 1, 31: 1, 32: 1, 33: 2, 70: 3, 96: 3, 97: 4, 128: 4, 129: 0,
-                   300: 0, 1025: -1, 3000: -1}
+#: kernel E's instance for each automaton length the tests use, as
+#: sr_align_fwd_warps and sr_align_fwd_positions must report it: the warp
+#: instance's warps an utterance, one position a lane (A <= 128); the wide
+#: instance's warps and positions a lane (128 < A <= 1024: 3 up to A = 768,
+#: 4 up to 1024; 2 to 8 warps); -1 and 0, the block instance with its row
+#: in device scratch
+ALIGN_INSTANCES = {1: (1, 1), 2: (1, 1), 9: (1, 1), 31: (1, 1), 32: (1, 1), 33: (2, 1),
+                   70: (3, 1), 96: (3, 1), 97: (4, 1), 128: (4, 1), 129: (2, 3), 160: (2, 3),
+                   300: (4, 3), 303: (4, 3), 512: (6, 3), 700: (8, 3), 768: (8, 3),
+                   769: (7, 4), 1024: (8, 4), 1025: (-1, 0), 3000: (-1, 0)}
 
 
-@pytest.mark.parametrize("A", [1, 2, 31, 32, 33, 70, 97, 128, 129, 300, 1025, 3000])
+def e_instance(A):
+    """Kernel E's (warps, positions a lane) for A, as its C entry reports them."""
+    from speechrecognition_torch.ops import _native
+    lib = _native.load()
+    return lib.sr_align_fwd_warps(A), lib.sr_align_fwd_positions(A)
+
+
+def e_first_design(*args, **kw):
+    """Kernel E's first design for 128 < A <= 1024 (the block instance, its
+    row in shared memory), forced; uncounted."""
+    from speechrecognition_torch.align import viterbi as vit
+    out, jumps, _scratch = vit.align_fwd_chunk_cuda(*args, first_design=True, **kw)
+    return out, jumps
+
+
+@pytest.mark.parametrize("A", list(ALIGN_INSTANCES))
 @pytest.mark.parametrize("case", ALIGN_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_kernel_e_bit_equal(dev, case, A, dtype):
     """Every lane and warp boundary of the warp instance (1-4 warps an
-    utterance), and the block instance past A = 128 with its row in shared
-    memory and past A = 1,024 in device scratch, in both score types."""
+    utterance), the wide instance past A = 128 at 3 and 4 positions a lane
+    on 2 to 8 warps, with the first design (the block instance, its row in shared
+    memory) forced beside it, and the block instance past A = 1,024 in
+    device scratch, in both score types."""
     from speechrecognition_torch.align import viterbi as vit
-    from speechrecognition_torch.ops import _native
-    assert _native.load().sr_align_fwd_warps(A) == ALIGN_INSTANCES[A]
+    assert e_instance(A) == ALIGN_INSTANCES[A]
     ams, tdp, valid, aut, lens, thr, tie, prune = align_inputs(case, A=A)
     B, T, A = ams.shape
     args = (torch.as_tensor(tdp, dtype=dtype, device=dev), torch.as_tensor(valid, device=dev),
             torch.as_tensor(lens, device=dev), thr)
     before = vit.align_fwd_chunk.LAUNCHES
     results = []
-    for fwd in (vit.align_fwd_chunk, vit.align_fwd_chunk_reference):
+    for fwd in (vit.align_fwd_chunk, e_first_design, vit.align_fwd_chunk_reference):
         prev = torch.full((B, A), 1e30, dtype=dtype, device=dev)
         jumps = []
         for t0, n in ((0, 25), (25, 35)):
@@ -636,8 +656,9 @@ def test_kernel_e_bit_equal(dev, case, A, dtype):
         results.append((prev, torch.cat(jumps)))
     torch.cuda.synchronize()
     assert vit.align_fwd_chunk.LAUNCHES == before + 2
-    for name, k, p in zip(("carry", "jumps"), *results):
+    for name, k, f, p in zip(("carry", "jumps"), *results):
         assert k.dtype == p.dtype and torch.equal(k, p), name
+        assert f.dtype == p.dtype and torch.equal(f, p), f"{name} (first design)"
 
 
 #: kernel F's instance for A positions (sr_align_fwd_df_warps,
@@ -701,7 +722,8 @@ def test_kernels_e_f_infinite_skip_bit_equal(dev, case, A, kind):
     kernel F's rows hold NaN costs, and it folds them as its plain version
     does (doublefloat.min_axis). Kernel E sees inf and no NaN. Every
     instance, carry and jumps bit-equal (NaN equal to NaN); kernel F's first
-    design forced beside its wide instance (128 < A <= 1024)."""
+    design forced beside its wide instance (128 < A <= 1024), and kernel E's
+    beside its own."""
     from speechrecognition_torch.align import viterbi as vit
     ams, tdp, valid, aut, lens, thr, tie, prune = align_inputs(case, A=A)
     tdp[:, 2::3, 2] = np.inf
@@ -709,7 +731,7 @@ def test_kernels_e_f_infinite_skip_bit_equal(dev, case, A, kind):
     df = kind == "df32"
     results = []
     for fwd in ((vit.align_fwd_chunk_df, f_first_design, vit.align_fwd_chunk_df_reference) if df
-                else (vit.align_fwd_chunk, vit.align_fwd_chunk_reference)):
+                else (vit.align_fwd_chunk, e_first_design, vit.align_fwd_chunk_reference)):
         if df:
             args = (dfm.from_f64(tdp, dev), torch.as_tensor(valid, device=dev),
                     torch.as_tensor(lens, device=dev), dfm.from_f64(np.float64(thr), dev))
@@ -1810,23 +1832,24 @@ def test_kernel_d_keeps_a_nan(dev, W, P, where, prune):
         assert torch.isnan(kern[5]).any()
 
 
-@pytest.mark.parametrize("A", [9, 70, 129, 1025])
+@pytest.mark.parametrize("A", [9, 70, 129, 303, 1024, 1025])
 @pytest.mark.parametrize("case", ["pruned", "full-dp"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_kernel_e_keeps_a_nan(dev, A, case, dtype):
-    """Kernel E's warp instance at 1 and 3 warps an utterance, its block
-    instance and its scratch instance, three chunks, the second ending at
-    the NaN's frame, every chunk's carry compared."""
+    """Kernel E's warp instance at 1 and 3 warps an utterance, its wide
+    instance at 3 and 4 positions a lane with the first design (the block
+    instance in shared memory) forced beside it, and its scratch instance,
+    three chunks, the second ending at the NaN's frame, every chunk's carry
+    compared."""
     from speechrecognition_torch.align import viterbi as vit
-    from speechrecognition_torch.ops import _native
-    assert _native.load().sr_align_fwd_warps(A) == ALIGN_INSTANCES[A]
+    assert e_instance(A) == ALIGN_INSTANCES[A]
     ams, tdp, valid, aut, lens, thr, tie, prune = align_inputs(case, A=A)
     ams[0, 30, A // 2] = np.nan
     B, T, A = ams.shape
     args = (torch.as_tensor(tdp, dtype=dtype, device=dev), torch.as_tensor(valid, device=dev),
             torch.as_tensor(lens, device=dev), thr)
     results = []
-    for fwd in (vit.align_fwd_chunk, vit.align_fwd_chunk_reference):
+    for fwd in (vit.align_fwd_chunk, e_first_design, vit.align_fwd_chunk_reference):
         prev = torch.full((B, A), 1e30, dtype=dtype, device=dev)
         carries, jumps = [], []
         for t0, n in ((0, 25), (25, 6), (31, 29)):
@@ -1836,8 +1859,9 @@ def test_kernel_e_keeps_a_nan(dev, A, case, dtype):
             jumps.append(j)
         results.append((*carries, torch.cat(jumps)))
     torch.cuda.synchronize()
-    for name, k, p in zip(("carry 25", "carry 31", "carry 60", "jumps"), *results):
+    for name, k, f, p in zip(("carry 25", "carry 31", "carry 60", "jumps"), *results):
         assert same_bits(k, p), name
+        assert same_bits(f, p), f"{name} (first design)"
     assert torch.isnan(results[0][1][0]).any()
 
 

@@ -54,7 +54,8 @@ def test_sources_are_the_eight_kernels_and_the_header():
         "sr_decode_scan_instance", "sr_decode_scan_residency", "sr_am_scores_df",
         "sr_decode_scan_df", "sr_decode_scan_df_instance", "sr_decode_scan_df_threads",
         "sr_decode_scan_df_residency", "sr_decode_scan_df_scratch",
-        "sr_align_fwd", "sr_align_fwd_f64", "sr_align_fwd_warps", "sr_align_fwd_df",
+        "sr_align_fwd", "sr_align_fwd_f64", "sr_align_fwd_warps", "sr_align_fwd_positions",
+        "sr_align_fwd_df",
         "sr_align_fwd_df_warps", "sr_align_fwd_df_positions", "sr_align_fwd_df_scratch",
         "sr_align_backtrack", "sr_align_backtrack_tile",
         "sr_em_pass_df",
