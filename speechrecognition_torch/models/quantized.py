@@ -37,6 +37,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..ops import _native
 from .gmm import VarianceModel, pack_device
 
@@ -423,6 +424,7 @@ def am_scores_q_cuda(pack: QuantPack, feats: torch.Tensor,
     return out
 
 
+@tracing.span("quantized.scores")
 def am_scores_q_chunked(pack: QuantPack, feats: torch.Tensor,
                         chunk: int = 1 << 15) -> torch.Tensor:
     """``am_scores_q`` over chunks of ``chunk`` frames (gmm.am_scores'

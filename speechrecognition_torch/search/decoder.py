@@ -42,6 +42,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..config import (Configuration, Parameter, ParameterBool, ParameterFloat,
                       ParameterInt)
 from ..lexicon import Lexicon
@@ -672,11 +673,13 @@ def decode_batch_df_tables(packdf: gmm_mod.ScorePackDF, feats, feat_len: np.ndar
     carry = _init_carry_df(B, W, P, device)
     outs = []
     for ci in range(n_chunks):
-        fl = feats[:, ci * chunk:(ci + 1) * chunk].reshape(B * chunk, dim)
-        am = gmm_mod.am_scores_df(packdf, fl)
-        am = dfm.DF(am.hi.reshape(B, chunk, S), am.lo.reshape(B, chunk, S))
-        carry, o = decode_scan_df(am, lens, *args, am_threshold,
-                                  prune=prune, carry_in=carry, t0=ci * chunk)
+        with tracing.span("decode.scores"):
+            fl = feats[:, ci * chunk:(ci + 1) * chunk].reshape(B * chunk, dim)
+            am = gmm_mod.am_scores_df(packdf, fl)
+            am = dfm.DF(am.hi.reshape(B, chunk, S), am.lo.reshape(B, chunk, S))
+        with tracing.span("decode.scan"):
+            carry, o = decode_scan_df(am, lens, *args, am_threshold,
+                                      prune=prune, carry_in=carry, t0=ci * chunk)
         outs.append(o)
     return tuple(torch.cat([o[k] for o in outs])[:T] for k in range(3))
 
@@ -690,8 +693,10 @@ def decode_batch_df(packdf: gmm_mod.ScorePackDF, feats, feat_len: np.ndarray,
     by chunk; the traceback tables come to the host once, at the end."""
     _s, words, bkps = decode_batch_df_tables(packdf, feats, feat_len, tables, am_threshold,
                                              prune=prune, chunk=chunk)
-    return _traceback_host(words.cpu().numpy(), bkps.cpu().numpy(), np.asarray(feat_len),
-                           silence_idx)
+    with tracing.span("decode.to_host"):
+        words, bkps = words.cpu().numpy(), bkps.cpu().numpy()
+    with tracing.span("decode.traceback"):
+        return _traceback_host(words, bkps, np.asarray(feat_len), silence_idx)
 
 
 class DeviceCorpus:
@@ -815,6 +820,7 @@ class Recognizer:
         lens = np.full(batch_size, T, np.int32)
         self._decode(feats, lens)
 
+    @tracing.span("decode.corpus")
     def recognize_corpus(self, corpus, batch_size: int = 128,
                          max_segments: Optional[int] = None,
                          deadline_s: Optional[float] = None,
@@ -842,7 +848,6 @@ class Recognizer:
         t0 = time.perf_counter()
         order = np.argsort(corpus.lengths[:n], kind="stable")
         last_batch = 0.0
-        batch_stats: list = []  # (seconds, audio seconds) per decoded batch
         # batches stay length-sorted internally (tight padding), but are
         # visited in golden-ratio-strided order so a deadline-truncated
         # prefix samples all utterance lengths ~uniformly
@@ -862,36 +867,33 @@ class Recognizer:
             while len(ids) < batch_size:     # keep shapes static across batches
                 ids.append(ids[-1])
             T = self._bucket(max(corpus.seq_length(s) for s in ids))
-            feats = device_corpus.batch(ids, T)
+            with tracing.span("decode.gather"):
+                feats = device_corpus.batch(ids, T)
             lens = np.asarray([corpus.seq_length(s) for s in ids], np.int32)
             # padded duplicate slots are masked out (feat_len 0 freezes
             # their lattice immediately)
             lens[n_real:] = 0
-            results = self._decode(feats, lens)
+            if tracing.enabled():
+                tracing.count("decode.frames_real", int(lens.sum()))
+                tracing.count("decode.frames_padded", len(ids) * T)
+            with tracing.span("decode.batch"):
+                results = self._decode(feats, lens)
             for b, s in enumerate(ids[:n_real]):
                 hyps[s] = results[b]
             last_batch = time.perf_counter() - tb
-            batch_stats.append(
-                (last_batch,
-                 float(corpus.lengths[ids[:n_real]].sum())
-                 * corpus.frame_duration))
         elapsed = time.perf_counter() - t0
 
         decoded = sorted(hyps)
-        for s in decoded:
-            ed = edit_distance(corpus.orths[s], hyps[s])
-            acc += ed
-            ref_total += len(corpus.orths[s])
-            if ed.total_count > 0:
-                sentence_errors += 1
+        with tracing.span("decode.wer"):
+            for s in decoded:
+                ed = edit_distance(corpus.orths[s], hyps[s])
+                acc += ed
+                ref_total += len(corpus.orths[s])
+                if ed.total_count > 0:
+                    sentence_errors += 1
 
         audio_seconds = float(
             corpus.lengths[decoded].sum()) * corpus.frame_duration
-        # steady-state RTF: the median per-batch rate filters batches hit
-        # by transient host stalls
-        rates = sorted(a / t for t, a in batch_stats if t > 0 and a > 0)
-        rtf_steady = (1.0 / rates[len(rates) // 2] if rates
-                      else elapsed / max(audio_seconds, 1e-9))
         return {
             "coverage": len(decoded) / n,
             "num_decoded": len(decoded),
@@ -902,7 +904,6 @@ class Recognizer:
             "deletions": acc.delete_count,
             "time": elapsed,
             "rtf": elapsed / audio_seconds,
-            "rtf_steady": rtf_steady,
             "audio_seconds": audio_seconds,
             "hyps": hyps,
         }

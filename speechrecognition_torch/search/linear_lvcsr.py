@@ -35,6 +35,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..models import gmm as gmm_mod
 from ..ops import _native
 from .decoder import BIG, DecoderTables
@@ -472,6 +473,7 @@ class LinearTables:
                 floats(self.lm_ext))
 
 
+@tracing.span("lvcsr.decode")
 def decode_batch_linear_lvcsr(pack, feats, feat_len: np.ndarray, tables: DecoderTables,
                               lm_matrix: np.ndarray, lm_start: np.ndarray,
                               am_threshold: float, silence_idx: int, prune: bool = True,
@@ -490,20 +492,32 @@ def decode_batch_linear_lvcsr(pack, feats, feat_len: np.ndarray, tables: Decoder
     word ids come back."""
     device = pack.device if am is None else am.device
     B, T, dim = feats.shape
-    lt = LinearTables.build(tables, lm_matrix, lm_start, silence_idx)
+    feat_len = np.asarray(feat_len)
+    if tracing.enabled():
+        tracing.count("lvcsr.frames_real", int(feat_len.sum()))
+        tracing.count("lvcsr.frames_padded", B * T)
     if am is None:
         flat = torch.as_tensor(np.asarray(feats), dtype=torch.float32,
                                device=device).reshape(B * T, dim)
         am = gmm_mod.am_scores(pack, flat).reshape(B, T, pack.num_mixtures)
     am = am.to(device=device, dtype=dtype).contiguous()
-    lens = torch.as_tensor(np.asarray(feat_len), dtype=torch.int32, device=device)
-    outs = decode_scan_linear(am, lens, *lt.args(device, dtype, am.shape[2]), am_threshold,
-                              prune=prune)
+    with tracing.span("lvcsr.tables"):
+        lt = LinearTables.build(tables, lm_matrix, lm_start, silence_idx)
+    # the first blocking copy waits for what the stream holds before it
+    with tracing.span("lvcsr.tables_to_device"):
+        args = lt.args(device, dtype, am.shape[2])
+        lens = torch.as_tensor(feat_len, dtype=torch.int32, device=device)
+    with tracing.span("lvcsr.scan"):
+        outs = decode_scan_linear(am, lens, *args, am_threshold, prune=prune)
     book, bkp, pred, _via, origin, silend, silorg, _offset = outs
-    words = traceback_linear(book, bkp, pred, origin, silend, silorg, lens).cpu().numpy()
-    results: List[List[int]] = []
-    for b in range(B):
-        seq = [int(lt.real[w]) for w in words[:, b] if w >= 0]
-        seq.reverse()
-        results.append(seq)
+    with tracing.span("lvcsr.traceback"):
+        words = traceback_linear(book, bkp, pred, origin, silend, silorg, lens)
+    with tracing.span("lvcsr.words_to_host"):
+        words = words.cpu().numpy()
+    with tracing.span("lvcsr.results"):
+        results: List[List[int]] = []
+        for b in range(B):
+            seq = [int(lt.real[w]) for w in words[:, b] if w >= 0]
+            seq.reverse()
+            results.append(seq)
     return results

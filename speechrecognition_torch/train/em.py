@@ -37,6 +37,7 @@ from typing import List
 import numpy as np
 import torch
 
+from .. import tracing
 from ..align.linear_seg import (linear_alignment_mapping,
                                 linear_segmentation_approximation,
                                 linear_segmentation_full_dp,
@@ -126,6 +127,7 @@ class Trainer:
 
     # -- device helpers ------------------------------------------------------
 
+    @tracing.span("em.pack")
     def _pack(self):
         if self.dtype == "df32":
             return self.model.pack_df(device=self.device)
@@ -161,10 +163,12 @@ class Trainer:
                 and self._sorted_cache[0] == self._align_version):
             return self._sorted_cache[1:]
         flat = self._device_corpus(corpus)
-        frame_idx, block_state, _nb = sorted_blocks(alignment, self.model.num_mixtures)
-        mask = torch.as_tensor((frame_idx >= 0).astype(np.float32), device=self.device)
-        frames = flat[torch.as_tensor(np.maximum(frame_idx, 0), device=self.device)]
-        bs = torch.as_tensor(block_state, device=self.device)
+        with tracing.span("em.sorted_blocks"):
+            frame_idx, block_state, _nb = sorted_blocks(alignment, self.model.num_mixtures)
+        with tracing.span("em.gather"):
+            mask = torch.as_tensor((frame_idx >= 0).astype(np.float32), device=self.device)
+            frames = flat[torch.as_tensor(np.maximum(frame_idx, 0), device=self.device)]
+            bs = torch.as_tensor(block_state, device=self.device)
         self._sorted_cache = (self._align_version, frames, mask, bs)
         return frames, mask, bs
 
@@ -185,33 +189,35 @@ class Trainer:
             stats = em_accumulate_corpus(pack, *chunks)
         else:
             frames, mask, bs = self._sorted_corpus(corpus, alignment)
-            total, *stats = em_pass_sorted(pack, frames, mask, bs, first_pass=first_pass)
-        w, xs, x2s = (t.cpu().numpy() for t in stats)
-        return float(total) / corpus.total_frames, (w, xs, x2s)
+            with tracing.span("em.estep"):
+                total, *stats = em_pass_sorted(pack, frames, mask, bs, first_pass=first_pass)
+        with tracing.span("em.stats_to_host"):
+            w, xs, x2s = (t.cpu().numpy() for t in stats)
+            total = float(total)
+        return total / corpus.total_frames, (w, xs, x2s)
 
     def _accumulate(self, corpus: Corpus, alignment: np.ndarray, first_pass: bool) -> None:
         """One E-step over the whole corpus."""
-        t0 = time.perf_counter()
-        _score, stats = self._em_pass(corpus, alignment, first_pass)
-        self.model.apply_statistics(*stats)
-        self.phase_seconds["estimate"] += time.perf_counter() - t0
+        with tracing.span("em.estimate", self.phase_seconds, "estimate"):
+            _score, stats = self._em_pass(corpus, alignment, first_pass)
+            with tracing.span("em.mstep"):
+                self.model.apply_statistics(*stats)
 
     def _score_and_accumulate(self, corpus: Corpus, alignment: np.ndarray) -> float:
         """AM score and E-step under the CURRENT model in one pass (the
         estimate loop's score(M_k)/accumulate(M_k) pair); the statistics
         are applied to the model, the per-frame AM score is returned."""
-        t0 = time.perf_counter()
-        score, stats = self._em_pass(corpus, alignment)
-        self.model.apply_statistics(*stats)
-        self.phase_seconds["estimate"] += time.perf_counter() - t0
+        with tracing.span("em.estimate", self.phase_seconds, "estimate"):
+            score, stats = self._em_pass(corpus, alignment)
+            with tracing.span("em.mstep"):
+                self.model.apply_statistics(*stats)
         return score
 
     def calc_am_score(self, corpus: Corpus, alignment: np.ndarray) -> float:
         """Average per-frame score under the current alignment
         (reference: Training.cpp:585-612)."""
-        t0 = time.perf_counter()
-        score, _stats = self._em_pass(corpus, alignment)
-        self.phase_seconds["score"] += time.perf_counter() - t0
+        with tracing.span("em.score", self.phase_seconds, "score"):
+            score, _stats = self._em_pass(corpus, alignment)
         return score
 
     #: alignment padding buckets (multiples of ALIGN_CHUNK)
@@ -228,25 +234,33 @@ class Trainer:
         """One whole-corpus realignment in length-sorted batches of
         ``batch_size`` utterances, gathered on the device from the resident
         features; each batch's states come back to the host once."""
-        t0 = time.perf_counter()
-        flat = self._device_corpus(corpus)
-        pack = self._pack()
-        thr = self.cfg.pruning_threshold if self.cfg.alignment_pruning else None
-        order = np.argsort(corpus.lengths, kind="stable")
-        for i in range(0, corpus.num_segments, self.cfg.batch_size):
-            ids = order[i: i + self.cfg.batch_size]
-            T = self._align_bucket(int(corpus.lengths[ids].max()))
-            lens = np.minimum(corpus.lengths[ids], T).astype(np.int32)
-            idx = corpus.feature_offsets[ids][:, None] + np.arange(T)[None, :]
-            idx = np.where(np.arange(T)[None, :] < lens[:, None], idx, 0)
-            states = realign_batch(pack, flat, idx, lens, tables_all.rows(ids), thr,
-                                   tie_pruned=self.cfg.alignment_pruning,
-                                   dtype=self.dtype).cpu().numpy()
-            for b, s in enumerate(ids):
-                o = corpus.feature_offsets[s]
-                alignment[o: o + lens[b]] = states[b, : lens[b]]
-        self._align_version += 1
-        self.phase_seconds["align"] += time.perf_counter() - t0
+        with tracing.span("em.realign", self.phase_seconds, "align"):
+            flat = self._device_corpus(corpus)
+            pack = self._pack()
+            thr = self.cfg.pruning_threshold if self.cfg.alignment_pruning else None
+            order = np.argsort(corpus.lengths, kind="stable")
+            for i in range(0, corpus.num_segments, self.cfg.batch_size):
+                with tracing.span("em.realign.index"):
+                    ids = order[i: i + self.cfg.batch_size]
+                    T = self._align_bucket(int(corpus.lengths[ids].max()))
+                    lens = np.minimum(corpus.lengths[ids], T).astype(np.int32)
+                    idx = corpus.feature_offsets[ids][:, None] + np.arange(T)[None, :]
+                    idx = np.where(np.arange(T)[None, :] < lens[:, None], idx, 0)
+                    rows = tables_all.rows(ids)
+                if tracing.enabled():
+                    tracing.count("align.frames_real", int(lens.sum()))
+                    tracing.count("align.frames_padded", len(ids) * T)
+                with tracing.span("em.realign.batch"):
+                    states = realign_batch(pack, flat, idx, lens, rows, thr,
+                                           tie_pruned=self.cfg.alignment_pruning,
+                                           dtype=self.dtype)
+                with tracing.span("em.realign.states_to_host"):
+                    states = states.cpu().numpy()
+                with tracing.span("em.realign.scatter"):
+                    for b, s in enumerate(ids):
+                        o = corpus.feature_offsets[s]
+                        alignment[o: o + lens[b]] = states[b, : lens[b]]
+            self._align_version += 1
 
     # -- the outer loop ------------------------------------------------------
 
@@ -305,6 +319,7 @@ class Trainer:
         self._finish(t_start)
         return alignment
 
+    @tracing.span("em.round")
     def _split_round(self, corpus: Corpus, tables_all: AlignerTables,
                      alignment: np.ndarray, i: int) -> None:
         """One split iteration: split/eliminate, realigns, estimates, and
