@@ -515,9 +515,23 @@ def decode_batch_linear_lvcsr(pack, feats, feat_len: np.ndarray, tables: Decoder
     with tracing.span("lvcsr.words_to_host"):
         words = words.cpu().numpy()
     with tracing.span("lvcsr.results"):
-        results: List[List[int]] = []
-        for b in range(B):
-            seq = [int(lt.real[w]) for w in words[:, b] if w >= 0]
-            seq.reverse()
-            results.append(seq)
+        results = word_lists(words, lt.real)
+        if tracing.enabled():
+            tracing.count("lvcsr.words_out", sum(map(len, results)))
+    return results
+
+
+def word_lists(words: np.ndarray, real: np.ndarray) -> List[List[int]]:
+    """Kernel N's [MAX_TRACE_WORDS, B] word ids (reverse order, −1 empty)
+    → one list of lexicon indices ``real[id]`` an utterance, in spoken
+    order, the −1 slots left out wherever they lie. One numpy pass and one
+    ``tolist()``; the flat list is cut at each utterance's count."""
+    spoken = words.T[:, ::-1]
+    keep = spoken >= 0
+    flat = real[spoken[keep]].tolist()
+    results: List[List[int]] = []
+    start = 0
+    for end in np.cumsum(keep.sum(axis=1)).tolist():
+        results.append(flat[start:end])
+        start = end
     return results

@@ -189,6 +189,52 @@ def test_decode_equals_jax(name, dtype):
         assert got == want
 
 
+def word_lists_by_loop(words, real):
+    """The hand-off as a loop over every utterance and word slot."""
+    results = []
+    for b in range(words.shape[1]):
+        seq = [int(real[w]) for w in words[:, b] if w >= 0]
+        seq.reverse()
+        results.append(seq)
+    return results
+
+
+HANDOFF_CASES = ["tails", "holes", "all-empty", "some-empty", "full", "batch-0"]
+
+
+def handoff_ids(case, rng, W):
+    """[MAX_TRACE_WORDS, B] word ids in kernel N's reverse order."""
+    M = tl.MAX_TRACE_WORDS
+    ids = rng.integers(0, W, (M, 40)).astype(np.int32)
+    if case == "tails":
+        for b, n in enumerate(rng.integers(0, M + 1, 40)):
+            ids[n:, b] = -1
+    elif case == "holes":
+        ids[rng.random(ids.shape) < 0.6] = -1
+        ids[:, :3] = -1
+    elif case == "all-empty":
+        ids[:] = -1
+    elif case == "some-empty":
+        ids[12:, :] = -1
+        ids[:, ::3] = -1
+    elif case == "batch-0":
+        ids = ids[:, :0]
+    return ids
+
+
+@pytest.mark.parametrize("case", HANDOFF_CASES)
+def test_word_lists_equal_the_loop(case):
+    W = 131
+    real = np.asarray([w for w in range(W + 1) if w != 7], np.int32)    # silence 7 left out
+    ids = handoff_ids(case, np.random.default_rng(HANDOFF_CASES.index(case)), W)
+    got = tl.word_lists(ids, real)
+    assert got == word_lists_by_loop(ids, real) and len(got) == ids.shape[1]
+    assert all(type(seq) is list for seq in got)
+    assert all(type(w) is int for seq in got for w in seq)
+    if case == "full":
+        assert all(len(seq) == tl.MAX_TRACE_WORDS for seq in got)
+
+
 # -- the reference's silence-copy oracle (tests/test_linear_lvcsr.py) ----------
 
 

@@ -41,17 +41,19 @@ DECODE_NESTING = {
 }
 
 
-def lvcsr_decode():
+def lvcsr_decode(scores="q8"):
     """A tiny int8-scored linear decode as the AN4 job runs it: scores in
-    chunks (one ``torch.cat``), then the scan, traceback and word lists."""
+    chunks (one ``torch.cat``), then the scan, traceback and word lists.
+    With ``scores="case"`` the case's own scores, which decode to words."""
     lex, tm, lm, lm_start, am, lens, thr = linear_case("silence-1")
     B, T, S = am.shape
     rng = np.random.default_rng(3)
     qp = build_quant_pack(pooled_model(pooled_raw(rng, S, 3, 4)), device="cpu")
     feats = rng.normal(0.0, 2.0, (B, T, 4)).astype(np.float32)
-    scores = am_scores_q_chunked(qp, torch.as_tensor(feats.reshape(B * T, 4)), chunk=16)
+    if scores == "q8":
+        am = am_scores_q_chunked(qp, torch.as_tensor(feats.reshape(B * T, 4)), chunk=16)
     words = tl.decode_batch_linear_lvcsr(None, feats, lens, tm.decoder_tables(lex), lm,
-                                         lm_start, thr, 0, am=scores.reshape(B, T, S))
+                                         lm_start, thr, 0, am=torch.as_tensor(am).reshape(B, T, S))
     return words, int(lens.sum()), B * T
 
 
@@ -230,3 +232,13 @@ def test_corpus_decode_spans_nest_and_count_frames(demo, tmp_path):
 def test_a_collection_inside_a_profile_is_a_span(tmp_path):
     _, spans, counts = traced(gc.collect, tmp_path)
     assert len(spans["host.gc"]) >= 1 and counts["host.gc_collections"] >= 1
+
+
+@pytest.mark.parametrize("scores", ["q8", "case"])
+def test_lvcsr_decode_counts_the_words_it_hands_back(scores, tmp_path):
+    (words, _, _), _, counts = traced(lambda: lvcsr_decode(scores), tmp_path)
+    assert counts["lvcsr.words_out"] == sum(map(len, words))
+    if scores == "case":
+        assert counts["lvcsr.words_out"] > 0
+    tracing.reset()
+    assert lvcsr_decode(scores)[0] == words and "lvcsr.words_out" not in tracing.counters()
