@@ -37,6 +37,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..models import gmm as gmm_mod
 from ..ops import _native
 from ..tdp import TdpModel
@@ -516,6 +517,23 @@ def traceback_wcts(books: np.ndarray, bkps: np.ndarray, preds: np.ndarray,
     return out
 
 
+def host_copies(outs) -> List[torch.Tensor]:
+    """The scan's outputs on the host. From a card, each is copied into
+    page-locked memory (PyTorch's caching host allocator keeps the blocks
+    for the next call) and the stream is waited for once: at AN4's shape
+    (about 205 MB a call of 130 utterances) pageable copies took about 80
+    ms more a call on an H100 machine, and varied by up to 100 ms between
+    processes. CPU tensors come back as they are."""
+    if not outs or outs[0].device.type != "cuda":
+        return [o.cpu() for o in outs]
+    host = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True) for o in outs]
+    for h, o in zip(host, outs):
+        h.copy_(o, non_blocking=True)
+    torch.cuda.current_stream(outs[0].device).synchronize()
+    return host
+
+
+@tracing.span("wcts.decode")
 def decode_batch_wcts(pack, feats, feat_len: np.ndarray, tables: TreeTables,
                       tdp_model: TdpModel, lm_matrix: np.ndarray, lm_start: np.ndarray,
                       am_threshold: float, silence_idx: int, prune: bool = True,
@@ -535,24 +553,46 @@ def decode_batch_wcts(pack, feats, feat_len: np.ndarray, tables: TreeTables,
     silence unchanged (lm_matrix[:, silence] should then hold only the
     silence exit cost). ``am`` may carry precomputed [B, T, S] acoustic
     scores (``pack`` unused). Runs on the pack's device, or with ``am`` on
-    its device."""
+    its device.
+
+    While tracing (``tracing.py``) the call is the span ``wcts.decode``
+    around ``wcts.tables`` (``WctsTables.build``), ``wcts.tables_to_device``
+    (their copies and the lengths'; the first blocking copy waits for what
+    the stream holds), ``wcts.scan`` (kernel K's launch, and on a card the
+    wait for it), ``wcts.to_host`` (every output's copy, ``host_copies``) and
+    ``wcts.traceback``; it counts ``wcts.frames_real`` and
+    ``wcts.frames_padded`` (B × T), with ``emit_stats``
+    ``wcts.active_states`` and ``wcts.word_ends`` (summed over the real
+    frames), and ``wcts.words_out``."""
     device = pack.device if am is None else am.device
     B, T, dim = feats.shape
-    wt = WctsTables.build(tables, tdp_model, lm_matrix, lm_start, lookahead)
+    if tracing.enabled():
+        tracing.count("wcts.frames_real", int(np.asarray(feat_len).sum()))
+        tracing.count("wcts.frames_padded", B * T)
+    with tracing.span("wcts.tables"):
+        wt = WctsTables.build(tables, tdp_model, lm_matrix, lm_start, lookahead)
     C = wt.num_contexts
     if am is None:
         flat = torch.as_tensor(feats, dtype=torch.float32, device=device).reshape(B * T, dim)
         am = gmm_mod.am_scores(pack, flat).reshape(B, T, pack.num_mixtures)
     am = am.to(device=device, dtype=dtype).contiguous()
-    lens = torch.as_tensor(np.asarray(feat_len), dtype=torch.int32, device=device)
-    _carry, outs = wcts_scan(
-        am, lens, *wt.args(device, dtype, am.shape[2]), am_threshold, prune=prune,
-        use_lookahead=wt.use_lookahead, state_limit=state_limit,
-        histogram_bins=histogram_bins, emit_ends=emit_lattice, emit_stats=emit_stats,
-        transparent_silence=silence_idx if transparent_silence else -1)
-    host = [o.cpu().numpy() for o in outs]
-    out = traceback_wcts(host[0], host[1], host[2], np.asarray(feat_len), silence_idx, C,
-                         tuple(host[-4:]) if transparent_silence else None)
+    with tracing.span("wcts.tables_to_device"):
+        args = wt.args(device, dtype, am.shape[2])
+        lens = torch.as_tensor(np.asarray(feat_len), dtype=torch.int32, device=device)
+    with tracing.span("wcts.scan"):
+        _carry, outs = wcts_scan(
+            am, lens, *args, am_threshold, prune=prune, use_lookahead=wt.use_lookahead,
+            state_limit=state_limit, histogram_bins=histogram_bins, emit_ends=emit_lattice,
+            emit_stats=emit_stats, transparent_silence=silence_idx if transparent_silence else -1)
+        if tracing.enabled() and device.type == "cuda":
+            # the first copy would wait for K: the span holds the wait, so
+            # that ``wcts.to_host`` holds the copies alone
+            torch.cuda.synchronize(device)
+    with tracing.span("wcts.to_host"):
+        host = [h.numpy() for h in host_copies(outs)]
+    with tracing.span("wcts.traceback"):
+        out = traceback_wcts(host[0], host[1], host[2], np.asarray(feat_len), silence_idx, C,
+                             tuple(host[-4:]) if transparent_silence else None)
     result = [out]
     if emit_lattice:
         from .context_lattice import ContextLattice
@@ -562,6 +602,13 @@ def decode_batch_wcts(pack, feats, feat_len: np.ndarray, tables: TreeTables,
             int(feat_len[b]), wt.lm_ext, silence_idx) for b in range(B)])
     if emit_stats:
         k = 6 if emit_lattice else 4
-        result.append({"active_states": host[k], "active_trees": host[k + 1],
-                       "word_ends": host[k + 2]})
+        stats = {"active_states": host[k], "active_trees": host[k + 1],
+                 "word_ends": host[k + 2]}
+        result.append(stats)
+    if tracing.enabled():
+        if emit_stats:
+            # the kernel counts nothing past an utterance's last frame
+            tracing.count("wcts.active_states", int(stats["active_states"].sum()))
+            tracing.count("wcts.word_ends", int(stats["word_ends"].sum()))
+        tracing.count("wcts.words_out", sum(map(len, out)))
     return result[0] if len(result) == 1 else tuple(result)

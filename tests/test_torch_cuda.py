@@ -1058,6 +1058,65 @@ def test_kernel_k_bit_equal_prefix_tree(dev, option, size):
     assert wcts.wcts_scan.SCRATCH_LAUNCHES == before + (2 if size == "scratch" else 0)
 
 
+@pytest.mark.parametrize("option", ["pruned", "silence"])
+def test_kernel_k_bit_equal_an4_tree(dev, option):
+    """Kernel K at the AN4 cell's shape (an4_lexicon: 131 words, C 132, its
+    prefix tree under the AN4 TDPs, the block instance in device scratch),
+    the cell's options (lookahead, statistics, transparent silence) or plain
+    pruning, two chunks with carry: bit-equal to its plain version."""
+    from speechrecognition_torch.search import wcts
+    from torch_linear_tables import AN4_TDP, an4_lexicon
+    from torch_search_tables import am_scores, random_lm
+    lex = an4_lexicon()
+    tables = AN4_TDP.tree_tables(lex)
+    lm, lm_start = random_lm(lex.num_words, seed=5)
+    opts = WCTS_OPTIONS[option]
+    la = wcts.LookaheadTables.build(tables) if opts.get("use_lookahead") else None
+    wt = wcts.WctsTables.build(tables, AN4_TDP, lm, lm_start, la)
+    assert wt.num_contexts == 132 and tables.num_nodes > 1024
+    args = wt.args(dev, torch.float32, 501)
+    am = am_scores(3, 30, 501, seed=5, dtype=torch.float32, device=dev)
+    lens = torch.tensor([30, 17, 1], dtype=torch.int32, device=dev)
+    before = wcts.wcts_scan.SCRATCH_LAUNCHES
+    results = []
+    for fn in (wcts.wcts_scan, wcts.wcts_scan_reference):
+        carry, outs = None, []
+        for t0, n in ((0, 13), (13, 17)):
+            carry, o = fn(am[:, t0:t0 + n].contiguous(), lens, *args, 200.0, carry_in=carry,
+                          t0=t0, **opts)
+            outs.append(o)
+        results.append(list(carry) + [torch.cat([o[k] for o in outs])
+                                      for k in range(len(outs[0]))])
+    torch.cuda.synchronize()
+    assert same(*results)
+    assert wcts.wcts_scan.SCRATCH_LAUNCHES == before + 2
+
+
+def test_wcts_decode_copies_to_page_locked_memory(dev):
+    """``decode_batch_wcts`` on the card hands back what it hands back on
+    the CPU, its outputs copied through page-locked host memory."""
+    from speechrecognition_torch.search import wcts
+    from torch_linear_tables import AN4_TDP, random_lm, tied_lexicon
+    outs = [torch.arange(12.0, device=dev).reshape(3, 4),
+            torch.tensor([True, False], device=dev), torch.arange(5, device=dev)]
+    host = wcts.host_copies(outs)
+    for h, o in zip(host, outs):
+        assert h.device.type == "cpu" and h.is_pinned() and torch.equal(h, o.cpu())
+    rng = np.random.default_rng(5)
+    lex = tied_lexicon([3, 6, 9, 3, 6], 3, 12, rng, own_silence=True)
+    lm, lm_start = random_lm(rng, lex.num_words, 0, 2.0)
+    tables = AN4_TDP.tree_tables(lex)
+    lens = np.array([30, 22, 27], np.int32)
+    am = torch.as_tensor(rng.uniform(0.0, 10.0, (3, 30, 12)).astype(np.float32))
+    got = [wcts.decode_batch_wcts(None, np.zeros((3, 30, 1), np.float32), lens, tables, AN4_TDP,
+                                  lm, lm_start, 200.0, 0,
+                                  lookahead=wcts.LookaheadTables.build(tables), emit_stats=True,
+                                  transparent_silence=True, am=a) for a in (am.to(dev), am)]
+    assert got[0][0] == got[1][0] and sum(map(len, got[0][0])) > 0
+    for k in got[1][1]:
+        assert np.array_equal(got[0][1][k], got[1][1][k]), k
+
+
 #: kernel J's instance at each lattice of its tests, in both types
 #: (sr_decode_scan_bigram_instance): positions a lane of the warp instance,
 #: 0 for the block instance with its lattice in shared memory

@@ -1,7 +1,8 @@
 """The port's spans and counters (speechrecognition_torch/tracing.py) on the
 CPU: off unless a ``torch.profiler`` records, then named ranges in the
-exported chrome trace, nested as the LVCSR decode, the EM trainer and the
-corpus decode call their steps, and counters of real and padded frames."""
+exported chrome trace, nested as the LVCSR decode, the WCTS decode, the EM
+trainer and the corpus decode call their steps, and counters of real and
+padded frames."""
 
 import gc
 import json
@@ -14,8 +15,10 @@ import torch
 from speechrecognition_torch import tracing
 from speechrecognition_torch.models.quantized import am_scores_q_chunked, build_quant_pack
 from speechrecognition_torch.search import linear_lvcsr as tl
+from speechrecognition_torch.search import wcts as tw
 
-from torch_linear_tables import linear_case, pooled_model, pooled_raw
+from torch_linear_tables import (AN4_TDP, linear_case, pooled_model, pooled_raw, random_lm,
+                                 tied_lexicon)
 
 torch.set_num_threads(1)
 
@@ -24,6 +27,10 @@ LVCSR_NESTING = {
     "lvcsr.scan": "lvcsr.decode",
     "lvcsr.traceback": "lvcsr.decode", "lvcsr.words_to_host": "lvcsr.decode",
     "lvcsr.results": "lvcsr.decode",
+}
+WCTS_NESTING = {
+    "wcts.tables": "wcts.decode", "wcts.tables_to_device": "wcts.decode",
+    "wcts.scan": "wcts.decode", "wcts.to_host": "wcts.decode", "wcts.traceback": "wcts.decode",
 }
 EM_NESTING = {
     "em.realign": "em.round", "em.estimate": "em.round", "em.score": "em.round",
@@ -55,6 +62,24 @@ def lvcsr_decode(scores="q8"):
     words = tl.decode_batch_linear_lvcsr(None, feats, lens, tm.decoder_tables(lex), lm,
                                          lm_start, thr, 0, am=torch.as_tensor(am).reshape(B, T, S))
     return words, int(lens.sum()), B * T
+
+
+def wcts_decode(stats=True):
+    """A tiny WCTS decode as the AN4 cell runs it (lookahead, transparent
+    silence, the statistics when ``stats``): (words, stats or None, lengths,
+    B × T)."""
+    rng = np.random.default_rng(5)
+    lex = tied_lexicon([3, 6, 9, 3, 6], 3, 12, rng, own_silence=True)
+    lm, lm_start = random_lm(rng, lex.num_words, 0, 2.0)
+    tables = AN4_TDP.tree_tables(lex)
+    lens = np.array([30, 22, 27], np.int32)
+    B, T = len(lens), int(lens.max())
+    am = torch.as_tensor(rng.uniform(0.0, 10.0, (B, T, 12)).astype(np.float32))
+    out = tw.decode_batch_wcts(None, np.zeros((B, T, 1), np.float32), lens, tables, AN4_TDP, lm,
+                               lm_start, 200.0, 0, lookahead=tw.LookaheadTables.build(tables),
+                               emit_stats=stats, transparent_silence=True, am=am)
+    words, st = out if stats else (out, None)
+    return words, st, lens, B * T
 
 
 FIX = Path(__file__).resolve().parent / "fixtures"
@@ -149,6 +174,7 @@ def test_off_the_lvcsr_decode_and_a_round_enter_no_record_function(counted_recor
                                                                    demo_trainer):
     tracing.reset()
     lvcsr_decode()
+    wcts_decode()
     trainer, corpus, tables, alignment = demo_trainer
     trainer._split_round(corpus, tables, alignment.copy(), 0)
     assert counted_record_function == []
@@ -242,3 +268,19 @@ def test_lvcsr_decode_counts_the_words_it_hands_back(scores, tmp_path):
         assert counts["lvcsr.words_out"] > 0
     tracing.reset()
     assert lvcsr_decode(scores)[0] == words and "lvcsr.words_out" not in tracing.counters()
+
+
+@pytest.mark.parametrize("stats", [True, False])
+def test_wcts_spans_nest_and_count(stats, tmp_path):
+    (words, st, lens, padded), spans, counts = traced(lambda: wcts_decode(stats), tmp_path)
+    assert_nested(spans, WCTS_NESTING)
+    assert all(len(spans[n]) == 1 for n in WCTS_NESTING) and len(spans["wcts.decode"]) == 1
+    assert counts["wcts.frames_real"] == int(lens.sum()) < counts["wcts.frames_padded"] == padded
+    assert counts["wcts.words_out"] == sum(map(len, words)) > 0
+    if stats:
+        assert counts["wcts.active_states"] == int(st["active_states"].sum()) > 0
+        assert counts["wcts.word_ends"] == int(st["word_ends"].sum()) > 0
+    else:
+        assert "wcts.active_states" not in counts and "wcts.word_ends" not in counts
+    tracing.reset()
+    assert wcts_decode(stats)[0] == words and tracing.counters() == {}
